@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""On-card smoke test of cyclegan_tpu_torch: one H100, under a minute.
+"""On-card smoke test of cyclegan_tpu_torch: one H100, a few minutes.
 
     python3 chip_smoke.py
 
-Drives the port's serving path at full width (ResNet-9 image->label
-generator, ngf 64, 21 classes, 256x256, bf16 compute over float32 weights
-drawn from a seed) and prints one JSON line per phase:
+Drives the port's two main paths at full width, the serving path
+(ResNet-9 image->label generator, ngf 64, 21 classes, 256x256, bf16 compute
+over float32 weights drawn from a seed) and the semi-supervised CycleGAN
+train step of the ``voc_semisup_256`` preset, and prints one JSON line per
+phase:
 
 1. device: the card, its power limit, and the parallel nvcc build of every
    kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers and
@@ -18,7 +20,19 @@ drawn from a seed) and prints one JSON line per phase:
    must show the path went through them, and the kernel path's argmax must
    agree with the plain path's on one batch;
 4. http: ``http_serve.make_server`` in a thread, /healthz and 8 POST
-   /predict from 4 threads in the three formats, checked against step 3.
+   /predict from 4 threads in the three formats, checked against step 3;
+5. kernels_train: every kernel of the train step, forward and backward,
+   against its plain version at the train step's shapes, with its time, the
+   plain version's, one library call's and the bound, per call and summed
+   over one train step;
+6. train: ``CycleGANTrainer.train_step`` of ``voc_semisup_256`` (two
+   ResNet-9 generators, two 70x70 PatchGANs, pools of 50, Adam + LambdaLR,
+   bf16 over float32) on one synthetic 256x256 batch with injected pool
+   decisions: 3 steps on the kernels and 3 with the seams on the plain
+   versions from the same weights; every parameter's step-1 gradient, the
+   per-step losses of the two paths, every launch counter against the
+   per-step count derived from the modules; then the median step time of
+   each path, in turns.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -28,6 +42,7 @@ imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -80,6 +95,62 @@ TIE_REL = {"bfloat16": 2 ** -5, "float32": 0.0}
 # may pick other algorithms for other batch sizes.
 HTTP_AGREEMENT_MIN = 0.999
 
+# The train step: the voc_semisup_256 preset at its published widths (ndf 64,
+# 3 PatchGAN layers), batch 1. VOC2012 has 1,464 train segmentation images;
+# 1/8 labeled gives 183 steps per epoch at batch 1 (the LambdaLR staircase).
+TRAIN_PRESET = "voc_semisup_256"
+NDF = 64
+VOC_STEPS_PER_EPOCH = 183
+TRAIN_STEPS = 3      # per path, for the loss comparison and the counters
+TIMED_STEPS = 5      # per turn; turns plain, kernel, kernel, plain
+# Backward tolerances, |kernel - plain| <= atol * max|plain| + rtol * |plain|
+# (atol relative to the largest magnitude: a gradient's scale follows the
+# cotangent's, not a fixed unit).
+BWD_TOL = {
+    # float32 sums over up to 8,192 pixels (dw) or 2,304 products (dgrad),
+    # split and merged in another order than the plain version's.
+    ("instance_norm_act_bwd", "float32"): (1e-5, 1e-4),
+    ("residual_block_bwd", "float32"): (1e-5, 1e-4),
+    # A bf16 dx rounds a float32 value that differs in its last bits: one
+    # bf16 ulp is 2^-8 of the value.
+    ("instance_norm_act_bwd", "bfloat16"): (2 ** -8, 2 ** -6),
+    # The residual block recomputes its bf16 activation a = relu(IN(u)); the
+    # kernel's tensor-core convolution and the plain float32 one round it at
+    # other elements (one bf16 ulp, 2^-8, each), and each such flip passes
+    # through the second convolution, two normalisation VJPs and an input
+    # gradient into dx and dw before the final bf16 rounding.
+    ("residual_block_bwd", "bfloat16"): (2 ** -7, 2 ** -5),
+}
+# Per-step losses, kernel path vs plain path from the same weights, batch
+# and pool decisions: {compute type: {loss: [(rtol, atol) of step 1, 2, 3]}}.
+# Step 1 sees the same parameters: float32 sums in another order (~1e-6
+# relative per op); bf16 activations rounded at other elements. Steps 2-3:
+# Adam's first updates move every weight by about +-lr whatever its
+# gradient's size, so gradients whose sign differs between the two paths
+# move weights 2 lr = 4e-4 apart (2% of an N(0, 0.02) weight), and the
+# early GAN dynamics amplify what differs (d_total goes 5 -> 14 -> 12 over
+# these steps). On an H100 this script measured float32 agreeing to 1e-5 at
+# step 2 and to 1.0e-3 / 3.2e-3 (g / d) at step 3, and bf16 d_total at step
+# 3 differing by 2.7% and 4.2% in two runs (the plain path's own
+# summation order changes from run to run). The float32 step-1 gradients
+# below are the check of the kernels' gradients.
+TRAIN_TOL = {
+    "float32": {"g_total": [(1e-4, 0.0), (1e-2, 0.0), (1e-2, 0.0)],
+                "d_total": [(1e-4, 1e-5), (1e-2, 1e-4), (1e-2, 1e-4)]},
+    "bfloat16": {"g_total": [(1e-3, 0.0), (1e-1, 0.0), (1e-1, 0.0)],
+                 "d_total": [(2e-3, 1e-3), (1e-1, 1e-3), (1e-1, 1e-3)]},
+}
+# float32 step-1 gradient of every weight (and of every bias no instance
+# norm follows), kernel path vs plain path: |g_kernel - g_plain| /
+# |g_plain| (norms per tensor) within this. The step's gradient is
+# ill-conditioned: on an H100 the plain path run twice on the same inputs
+# differed by up to 1e-3 of a tensor's norm (cuDNN's and the label
+# gather's backward sum in an order that changes from run to run), and
+# the kernel path, which rounds differently at every op, by up to 2.7e-3.
+# The script measures that floor again in every run
+# (float32_step1_grad_plain_vs_plain_*). A wrong gradient gives O(1).
+GRAD_TOL_F32 = 1e-2
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -109,10 +180,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float | dict, dtype: str | None = None) -> tuple[float, str]:
     """Least time in ms for moving ``nbytes`` and doing ``flops`` of
-    ``dtype`` work on an H100, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    ``dtype`` work (or ``{dtype: flops}`` for work of several types, each at
+    its own peak) on an H100, and which of the two bounds it."""
+    work = flops if isinstance(flops, dict) else {dtype: flops}
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in work.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -150,8 +224,9 @@ def phase_device():
     return smi
 
 
-def phase_kernels() -> dict:
-    """Every kernel against its plain version at the main path's shapes."""
+def phase_kernels() -> None:
+    """The forwards against their plain versions at the serving path's
+    shapes (batch 8)."""
     import torch
     import torch.nn.functional as F
 
@@ -162,7 +237,6 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    summary = {"instance_norm_act": {}, "residual_block_fused": {}}
 
     def lib_in(x, skip, act):
         y = F.instance_norm(x.permute(0, 3, 1, 2), eps=1e-5)
@@ -194,7 +268,6 @@ def phase_kernels() -> dict:
             emit(rec)
             if not res["ok"]:
                 raise AssertionError(f"instance_norm_act disagrees with its plain version: {rec}")
-            summary["instance_norm_act"].setdefault(dname, []).append(rec)
             del x, skip, out, ref
 
     c = NGF * 4
@@ -234,10 +307,8 @@ def phase_kernels() -> dict:
         emit(rec)
         if not res["ok"]:
             raise AssertionError(f"residual_block_fused disagrees with its plain version: {rec}")
-        summary["residual_block_fused"].setdefault(dname, []).append(rec)
         del x, out, ref
     torch.cuda.empty_cache()
-    return summary
 
 
 def _write_inputs(root: str) -> tuple[str, str]:
@@ -455,31 +526,498 @@ def phase_http(served: dict) -> dict:
     return rec
 
 
-def kernels_line(summary: dict, launches: dict) -> dict:
-    """One entry per kernel: bf16 (the path's type) totals over one forward
-    of the main path at batch 8."""
-    entries = []
+def compare_bwd(kernel: str, out, ref, dtype: str) -> dict:
+    import torch
+
+    atol, rtol = BWD_TOL[(kernel, dtype)]
+    d = (out.float() - ref.float()).abs()
+    allowed = atol * ref.float().abs().max() + rtol * ref.float().abs()
+    worst = float((d / allowed).max())
+    return {"max_abs_err": float(d.max()), "max_abs_ref": float(ref.float().abs().max()),
+            "atol_of_max": atol, "rtol": rtol, "worst_err_over_tol": worst,
+            "ok": bool(worst <= 1.0 and torch.isfinite(out).all())}
+
+
+def train_in_cases() -> list:
+    """(shape, act, calls per train step) of the standalone instance norm,
+    by reading train/cyclegan.py: per generator apply two norms at 256^2x64,
+    two at 128^2x128 and one at 64^2x256 (relu); G_i2l and G_l2i run at
+    batch 2 (the fused concatenations), G_i2l again at batch 1 (rec_lab).
+    Per PatchGAN apply one norm at 64^2x128, 32^2x256 and 31^2x512 (leaky);
+    D_lab and D_img run at batch 1 in the G phase and batch 2 in the D phase."""
+    cases = []
+    for b, applies in ((2, 2), (1, 1)):
+        cases += [((b, CROP, CROP, NGF), "relu", 2 * applies),
+                  ((b, CROP // 2, CROP // 2, NGF * 2), "relu", 2 * applies),
+                  ((b, CROP // 4, CROP // 4, NGF * 4), "relu", applies)]
+    for b in (1, 2):
+        cases += [((b, CROP // 4, CROP // 4, NDF * 2), "leaky", 2),
+                  ((b, CROP // 8, CROP // 8, NDF * 4), "leaky", 2),
+                  ((b, CROP // 8 - 1, CROP // 8 - 1, NDF * 8), "leaky", 2)]
+    return cases
+
+
+def _lib_act(y, act: str):
+    import torch
+    import torch.nn.functional as F
+
+    return torch.relu(y) if act == "relu" else F.leaky_relu(y, 0.2) if act == "leaky" else y
+
+
+def phase_kernels_train() -> dict:
+    """The train step's kernels against their plain versions: the VJPs
+    through the autograd Functions (dtypes x acts x skip), then every shape
+    of one train step in bf16, timed, for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+
+    def randn(shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale + shift).to(dtype)
+
+    def fail_if(bad: bool, what: str, rec: dict):
+        emit(rec)
+        if bad:
+            raise AssertionError(f"{what} disagrees with its plain version: {rec}")
+
+    # The instance-norm VJP through the Function, every act, skip on/off.
+    shape = (2, CROP // 4, CROP // 4, NGF * 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for act in ("none", "relu", "leaky"):
+            for has_skip in (False, True):
+                x = randn(shape, dtype, 2.0, 0.5).requires_grad_()
+                skip = randn(shape, dtype).requires_grad_() if has_skip else None
+                dy = randn(shape, dtype)
+                y = IN.instance_norm_act(x, skip, 1e-5, act)
+                grads = torch.autograd.grad(y, [x] + ([skip] if has_skip else []), dy)
+                mean, rstd = IN.instance_norm_stats_plain(x.detach())
+                ref = IN.instance_norm_act_bwd_plain(x.detach(), dy, mean, rstd, act)
+                res = compare_bwd("instance_norm_act_bwd", grads[0], ref, dname)
+                dskip_exact = (not has_skip) or torch.equal(grads[1], dy)
+                fail_if(not (res["ok"] and dskip_exact and y.grad_fn is not None),
+                        "instance_norm_act VJP",
+                        {"phase": "kernels_train", "kernel": "instance_norm_act_bwd",
+                         "via": "autograd.Function", "shape": list(shape), "dtype": dname,
+                         "act": act, "skip": has_skip, "dskip_equals_dy": dskip_exact, **res})
+
+    recs = {k: [] for k in ("instance_norm_act", "instance_norm_act_bwd",
+                            "residual_block_fused", "residual_block_bwd_dx",
+                            "residual_block_bwd_dw")}
+    for shape, act, calls in train_in_cases():
+        x, dy = randn(shape, torch.bfloat16, 2.0, 0.5), randn(shape, torch.bfloat16)
+        with torch.no_grad():
+            y = IN.instance_norm_act(x, None, 1e-5, act)
+        mean, rstd = IN.launch(x, None, None, 1e-5, act)
+        dx = torch.empty_like(x)
+        IN.launch_bwd(x, dy, mean, rstd, dx, act)
+        pm, pr = IN.instance_norm_stats_plain(x)
+        res_f = compare("instance_norm_act", y, IN.instance_norm_act_plain(x, None, 1e-5, act),
+                        "bfloat16")
+        res_b = compare_bwd("instance_norm_act_bwd", dx,
+                            IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), "bfloat16")
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        yl = _lib_act(F.instance_norm(xl, eps=1e-5), act)
+        dyl = dy.permute(0, 3, 1, 2)
+        nbytes = x.numel() * x.element_size()
+        with torch.no_grad():
+            fwd = {"ms": time_ms(lambda: IN.instance_norm_act(x, None, 1e-5, act), 20),
+                   "plain_ms": time_ms(lambda: IN.instance_norm_act_plain(x, None, 1e-5, act), 5),
+                   "library_ms": time_ms(lambda: _lib_act(F.instance_norm(
+                       x.permute(0, 3, 1, 2), eps=1e-5), act), 20)}
+        bwd = {"ms": time_ms(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act), 20),
+               "plain_ms": time_ms(lambda: IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), 5),
+               "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True),
+                                     20)}
+        for name, res, t, nb, fl in (
+                ("instance_norm_act", res_f, fwd, 2 * nbytes, 8.0 * x.numel()),
+                ("instance_norm_act_bwd", res_b, bwd, 3 * nbytes, 12.0 * x.numel())):
+            b_ms, b_by = bound(nb, fl, "float32")
+            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
+                   "dtype": "bfloat16", "act": act, **res, **t, "bound_ms": b_ms,
+                   "bound_by": b_by, "calls_per_step": calls}
+            fail_if(not res["ok"], name, rec)
+            recs[name].append(rec)
+        del x, dy, y, dx, xl, yl
+
+    c = NGF * 4
+    for dtype, b, calls in ((torch.float32, 2, 0), (torch.bfloat16, 2, 18),
+                            (torch.bfloat16, 1, 9)):
+        dname = str(dtype).split(".")[1]
+        shape = (b, CROP // 4, CROP // 4, c)
+        x, dy = randn(shape, dtype), randn(shape, dtype)
+        w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
+        b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        y = RB.residual_block_fused(*leaves)
+        got = torch.autograd.grad(y, leaves, dy)
+        ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+        bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
+        checks = {n: compare_bwd("residual_block_bwd", o, r, dname)
+                  for n, o, r in zip(("dx", "dw1", "dw2"), (got[0], got[1], got[3]), ref)}
+        dw_check = {"max_abs_err": max(checks["dw1"]["max_abs_err"], checks["dw2"]["max_abs_err"]),
+                    "worst_err_over_tol": max(checks["dw1"]["worst_err_over_tol"],
+                                              checks["dw2"]["worst_err_over_tol"]),
+                    "ok": checks["dw1"]["ok"] and checks["dw2"]["ok"]}
+        ok = all(v["ok"] for v in checks.values()) and bias_zero and y.grad_fn is not None
+        fail_if(not ok, "residual_block_fused VJP",
+                {"phase": "kernels_train", "kernel": "residual_block_bwd", "via":
+                 "autograd.Function", "shape": list(shape), "dtype": dname,
+                 "bias_grads_exactly_zero": bias_zero,
+                 **{f"{n}_{k}": r[k] for n, r in checks.items()
+                    for k in ("max_abs_err", "worst_err_over_tol")}})
+        if not calls:
+            continue
+        res_f = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
+                        RB.residual_block_plain(x, w1, b1, w2, b2), dname)
+        dxk, a, ds, du = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
+        # Library yardstick: reflect pad + cuDNN conv + F.instance_norm, NCHW
+        # over channels_last, autograd for dx alone and for (dw1, dw2) alone.
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        W1, W2 = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                  .requires_grad_() for w in (w1, w2)]
+
+        def lib_rb(xn=xl):
+            h = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), W1, b1)
+            h = torch.relu(F.instance_norm(h, eps=1e-5))
+            h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), W2, b2)
+            return xn + F.instance_norm(h, eps=1e-5)
+
+        yl, dyl = lib_rb(), dy.permute(0, 3, 1, 2)
+        m = b * shape[1] * shape[2]
+        conv = 2.0 * m * 9 * c * c   # flops of one 3x3 convolution
+        elt = x.element_size()
+        act_b, w_b = x.numel() * elt, 2 * (w1.numel() + c) * elt
+        with torch.no_grad():
+            t_fwd = {"ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 10),
+                     "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 5),
+                     "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
+        t_dx = {"ms": time_ms(lambda: RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5), 10),
+                "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
+                "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
+                                                                  retain_graph=True), 10)}
+        t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype), 10),
+                "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, a, ds, du), 3),
+                "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
+                                                                  retain_graph=True), 10)}
+        f32_b = ds.numel() * 4
+        for name, res, t, nb, work in (
+                ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
+                 {"bfloat16": 2 * conv}),
+                ("residual_block_bwd_dx", checks["dx"], t_dx, 3 * act_b + w_b,
+                 {"bfloat16": 2 * conv, "float32": 2 * conv}),
+                ("residual_block_bwd_dw", dw_check, t_dw,
+                 2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"float32": 2 * conv})):
+            b_ms, b_by = bound(nb, work)
+            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
+                   "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
+                   "gflop": sum(work.values()) / 1e9, "calls_per_step": calls}
+            fail_if(not res["ok"], name, rec)
+            recs[name].append(rec)
+        del x, dy, leaves, y, got, ref, dxk, a, ds, du, xl, yl
+    torch.cuda.empty_cache()
+    return recs
+
+
+@contextlib.contextmanager
+def plain_seams():
+    """Point the blocks' kernel seams at the autograd Functions over the
+    plain versions (forward and backward), as _paths_agree does for the
+    forward."""
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.ops import blocks
+
+    seams = (blocks.instance_norm_act, blocks.residual_block_fused)
+    blocks.instance_norm_act = IN.instance_norm_act_reference
+    blocks.residual_block_fused = RB.residual_block_reference
+    try:
+        yield
+    finally:
+        blocks.instance_norm_act, blocks.residual_block_fused = seams
+
+
+def _pre_norm_biases(trainer) -> tuple[set, set]:
+    """ids of the trunk's conv biases, and of every conv bias that an
+    instance norm follows (the trunk's included)."""
+    from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
+
+    trunk, pre_norm = set(), set()
+    for net in trainer.nets():
+        for m in net.modules():
+            if isinstance(m, ResidualBlock) and m.fused:
+                trunk |= {id(m.conv0.conv.bias), id(m.conv1.conv.bias)}
+            if isinstance(getattr(m, "norm", None), InstanceNorm) and m.conv.bias is not None:
+                pre_norm.add(id(m.conv.bias))
+    return trunk, pre_norm
+
+
+def _grads(trainer) -> dict:
+    """Clones of the gradients of every weight and of every bias that no
+    instance norm follows, by ``net.parameter`` name."""
+    _, pre_norm = _pre_norm_biases(trainer)
+    return {f"{net_name}.{name}": p.grad.detach().clone()
+            for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), trainer.nets())
+            for name, p in net.named_parameters() if id(p) not in pre_norm}
+
+
+def _check_grads(trainer) -> dict:
+    """Every parameter's gradient after step 1: finite everywhere; non-zero
+    for every weight and for every bias that no instance norm follows; the
+    trunk's biases exactly zero (the residual block's VJP returns zeros: a
+    bias before an instance norm cancels). Other biases before an instance
+    norm have a gradient that is zero in exact arithmetic and rounding noise
+    in float: only finiteness is checked there."""
+    import torch
+
+    trunk, pre_norm = _pre_norm_biases(trainer)
+    bad, n = [], {"params": 0, "nonzero_checked": 0, "trunk_bias_zero": 0}
+    for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), trainer.nets()):
+        for name, p in net.named_parameters():
+            n["params"] += 1
+            grad = p.grad
+            if grad is None or not torch.isfinite(grad).all():
+                bad.append(f"{net_name}.{name}: missing or not finite")
+            elif id(p) in trunk:
+                n["trunk_bias_zero"] += 1
+                if torch.count_nonzero(grad):
+                    bad.append(f"{net_name}.{name}: trunk bias gradient not exactly zero")
+            elif id(p) not in pre_norm:
+                n["nonzero_checked"] += 1
+                if not torch.count_nonzero(grad):
+                    bad.append(f"{net_name}.{name}: zero gradient")
+    if bad:
+        raise AssertionError(f"step-1 gradients: {bad[:20]}")
+    return n
+
+
+def expected_launches(trainer, steps: int) -> dict:
+    """Launch counts of ``steps`` train steps, from the modules and
+    train/cyclegan.py: three generator applies (G_i2l on [unlab; lab], G_l2i
+    on [onehot; fake_lab], G_i2l on fake_img) and four discriminator applies
+    (D_lab, D_img in the G phase; D_img, D_lab in the D phase), each with
+    its backward (the G-phase gradient flows through D into the fakes)."""
+    from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
+
+    def per_net(net):
+        blocks_ = sum(isinstance(m, ResidualBlock) and m.fused for m in net.modules())
+        norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
+        return norms - 2 * blocks_, blocks_   # the trunk's norms are inside its kernel
+
+    g_in, g_rb = per_net(trainer.G_i2l)
+    d_in, _ = per_net(trainer.D_img)
+    in_calls, rb_calls = 3 * g_in + 4 * d_in, 3 * g_rb
+    per = {"instance_norm_act": in_calls, "instance_norm_act_bwd": in_calls,
+           "residual_block_fused": rb_calls, "residual_block_bwd_dx": rb_calls,
+           "residual_block_bwd_dw": rb_calls,
+           # C entries: the residual block's forward makes 2 convolutions and
+           # 2 norms, its backward recomputes both and their statistics and
+           # makes 2 norm VJPs, 2 input and 2 weight gradients.
+           "cg_instance_norm_act": in_calls + 2 * rb_calls + 2 * rb_calls,
+           "cg_instance_norm_act_bwd": in_calls + 2 * rb_calls,
+           "cg_conv3x3_reflect": 4 * rb_calls,
+           "cg_conv3x3_reflect_dgrad": 2 * rb_calls,
+           "cg_conv3x3_reflect_wgrad": 2 * rb_calls}
+    return {k: v * steps for k, v in per.items()}
+
+
+def phase_train(smi: str) -> dict:
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
+    from cyclegan_tpu_torch.data.transforms import normalize
+    from cyclegan_tpu_torch.kernels import _build
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(TRAIN_PRESET)
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    hw = cfg.crop_hw
+    lab_img, lab = _synthetic_sample(0, hw, n_cls, in_ch)
+    unlab_img, _ = _synthetic_sample(1, hw, n_cls, in_ch)
+    lab = lab.astype(np.int64)
+    lab[:2], lab[:, :2] = 255, 255  # a void border, as VOC's masks have
+    base = {"lab_image": torch.from_numpy(normalize(lab_img)[None]).cuda(),
+            "unlab_image": torch.from_numpy(normalize(unlab_img)[None]).cuda(),
+            "lab_label": torch.from_numpy(lab[None]).cuda()}
+    n_steps = TRAIN_STEPS + 4 * TIMED_STEPS + 1
+    rng = np.random.default_rng(0)
+    use_new = rng.random((n_steps, 2, cfg.batch_size)) > 0.5
+    swap = rng.integers(0, cfg.pool_size, (n_steps, 2, cfg.batch_size))
+
+    def batch(s: int) -> dict:
+        return {**base, "pool_use_new_img": use_new[s, 0], "pool_idx_img": swap[s, 0],
+                "pool_use_new_lab": use_new[s, 1], "pool_idx_lab": swap[s, 1]}
+
+    def trainer(c=cfg):
+        t = CycleGANTrainer(c, n_cls, in_ch, VOC_STEPS_PER_EPOCH, device="cuda")
+        return t, t.init_state(torch.Generator().manual_seed(0))
+
+    def losses(m):
+        return {k: float(v) for k, v in m.items()}
+
+    def run(t, st, plain=False, after_step1=None) -> list:
+        out = []
+        with plain_seams() if plain else contextlib.nullcontext():
+            for s in range(TRAIN_STEPS):
+                st, m = t.train_step(st, batch(s))
+                if s == 0 and after_step1 is not None:
+                    after_step1(t)
+                out.append(losses(m))
+        return out
+
+    def agree(dtype: str, k_losses: list, p_losses: list) -> dict:
+        worst = {}
+        for key, tols in TRAIN_TOL[dtype].items():
+            errs = [abs(k[key] - p[key]) / (atol + rtol * abs(p[key]))
+                    for k, p, (rtol, atol) in zip(k_losses, p_losses, tols)]
+            worst[key] = errs
+            if not all(np.isfinite([k[key] for k in k_losses])) or max(errs) > 1.0:
+                raise AssertionError(f"{dtype} {key}: kernel path {k_losses} vs plain "
+                                     f"path {p_losses}")
+        return worst
+
+    # float32 first: the kernels' gradients through three full updates,
+    # where rounding cannot hide a wrong gradient.
+    f32 = cfg.replace(bf16=False)
+    g_kernel, g_plain, g_plain2 = {}, {}, {}
+    k32 = run(*trainer(f32), after_step1=lambda t: g_kernel.update(_grads(t)))
+    p32 = run(*trainer(f32), plain=True, after_step1=lambda t: g_plain.update(_grads(t)))
+    run(*trainer(f32), plain=True, after_step1=lambda t: g_plain2.update(_grads(t)))
+    worst32 = agree("float32", k32, p32)
+
+    def rel_err(g):
+        return {k: float((g[k] - g_plain[k]).norm() / g_plain[k].norm()) for k in g_plain}
+
+    grad_err, grad_floor = rel_err(g_kernel), rel_err(g_plain2)
+    worst_grad = max(grad_err, key=grad_err.get)
+    if not max(grad_err.values()) <= GRAD_TOL_F32:
+        raise AssertionError(f"float32 step-1 gradients, kernel vs plain path: worst "
+                             f"{worst_grad} {grad_err[worst_grad]} > {GRAD_TOL_F32}")
+    del g_kernel, g_plain, g_plain2
+    torch.cuda.empty_cache()
+
+    kt, ks = trainer()
+    n_params = sum(p.numel() for net in kt.nets() for p in net.parameters())
+    # The main path: counts set to 0 just before, read just after.
+    IN.launches = IN.bwd_launches = RB.launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
+    _build.launches.clear()
+    grads = {}
+    k_losses = run(kt, ks, after_step1=lambda t: grads.update(_check_grads(t)))
+    torch.cuda.synchronize()
+    launches = {"instance_norm_act": IN.launches, "instance_norm_act_bwd": IN.bwd_launches,
+                "residual_block_fused": RB.launches, "residual_block_bwd_dx": RB.bwd_dx_launches,
+                "residual_block_bwd_dw": RB.bwd_dw_launches,
+                **{k: _build.launches[k] for k in _build.launches}}
+    want = expected_launches(kt, TRAIN_STEPS)
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"launch counters {launches} != derived {want}")
+
+    pt, ps = trainer()
+    p_losses = run(pt, ps, plain=True)
+    worst = agree("bfloat16", k_losses, p_losses)
+
+    # Step times in turns (plain, kernel, kernel, plain), host clock around
+    # steps that end in a synchronize.
+    def timed(t, st, first: int) -> list:
+        out = []
+        for i in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(st, batch(first + i))
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    s0 = TRAIN_STEPS
+    with plain_seams():
+        plain_ms = timed(pt, ps, s0)
+    kernel_ms = timed(kt, ks, s0) + timed(kt, ks, s0 + TIMED_STEPS)
+    with plain_seams():
+        plain_ms += timed(pt, ps, s0 + TIMED_STEPS)
+    del pt, ps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))
+        torch.cuda.synchronize()
+        prof_step_ms = (time.perf_counter() - t0) * 1e3
+    # Device kernels only (CPU ops that launched them carry the same time).
+    device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages() if e.self_device_time_total > 0
+                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    device_ms.sort(key=lambda r: -r[1])
+    med_k, med_p = statistics.median(kernel_ms), statistics.median(plain_ms)
+    rec = {"phase": "train", "preset": TRAIN_PRESET, "crop": list(hw),
+           "batch": cfg.batch_size, "pool_size": cfg.pool_size, "n_params": n_params,
+           "nvidia_smi": smi, "losses_kernel_path": k_losses, "losses_plain_path": p_losses,
+           "loss_err_over_tol": worst, "float32_losses_kernel_path": k32,
+           "float32_losses_plain_path": p32, "float32_loss_err_over_tol": worst32,
+           "float32_step1_grad_rel_err_worst": [worst_grad, grad_err[worst_grad]],
+           "float32_step1_grad_rel_err_median": statistics.median(grad_err.values()),
+           "float32_step1_grad_plain_vs_plain_worst": max(grad_floor.values()),
+           "float32_step1_grad_plain_vs_plain_median": statistics.median(grad_floor.values()),
+           "float32_step1_grads_compared": len(grad_err),
+           "tol": TRAIN_TOL, "step1_grads": grads,
+           "launches_over_3_steps": launches, "expected_launches": want,
+           "step_ms_kernel": kernel_ms, "step_ms_plain": plain_ms,
+           "median_step_ms_kernel": med_k, "steps_per_s_kernel": 1e3 / med_k,
+           "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p,
+           "profiled_step_ms": prof_step_ms,
+           "profiled_step_device_ms_total": sum(r[1] for r in device_ms),
+           "profiled_step_device_busy_share": sum(r[1] for r in device_ms) / prof_step_ms,
+           "profiled_step_device_ms_by_kernel": [
+               {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
+           "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    print(f"train step, {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
+          f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
+          f"versions; {smi}", flush=True)
+    return {"launches": launches, "record": rec}
+
+
+def kernels_line(recs: dict, launches: dict) -> dict:
+    """One entry per kernel of the train step: bf16 (the path's type), per
+    call times summed over the calls of one train step at 256x256, batch 1;
+    ``launches`` from the train run (3 steps)."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
+        "instance_norm_act_bwd": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
+                                  "cyclegan_tpu/kernels/instance_norm.py:146"),
         "residual_block_fused": ("cyclegan_tpu_torch/csrc/resblock.cu",
                                  "cyclegan_tpu/kernels/resblock.py:79"),
+        "residual_block_bwd_dx": ("cyclegan_tpu_torch/csrc/resblock.cu",
+                                  "cyclegan_tpu/kernels/resblock.py:219"),
+        "residual_block_bwd_dw": ("cyclegan_tpu_torch/csrc/resblock.cu",
+                                  "cyclegan_tpu/kernels/resblock.py:227"),
     }
+    entries = []
     for name, (source, replaces) in meta.items():
-        recs = summary[name]["bfloat16"]
-        fwd = [r for r in recs if r["calls_per_forward"]]
+        rs = recs[name]
 
         def total(key):
-            return sum(r[key] * r["calls_per_forward"] for r in fwd)
+            return sum(r[key] * r["calls_per_step"] for r in rs)
 
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": fwd[0]["bound_by"], "library_ms": total("library_ms"),
-            "per": f"one forward at batch {BATCH}, {CROP}x{CROP}, bf16: "
-                   f"{sum(r['calls_per_forward'] for r in fwd)} calls"})
+            "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
+            "library_ms": total("library_ms"),
+            "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
+                   f"{sum(r['calls_per_step'] for r in rs)} calls",
+            "launches_over": f"{TRAIN_STEPS} train steps"})
     return {"kernels": entries}
 
 
@@ -496,13 +1034,15 @@ def main() -> int:
     sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     smi = phase_device()
-    summary = phase_kernels()
+    phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)
         phase_http(served)
+    recs = phase_kernels_train()
+    trained = phase_train(smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
-    emit(kernels_line(summary, served["launches"]))
+    emit(kernels_line(recs, trained["launches"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,17 +3,20 @@
 Module names mirror ``cyclegan_tpu`` so each counterpart is easy to find.
 This package imports torch and never jax, flax, optax, orbax or
 ``cyclegan_tpu`` itself; the JAX package is the reference the tests hold it
-against. What is ported so far is the serving path of the image->label
-generator:
+against. Ported so far, the serving path of the image->label generator
+and the semi-supervised CycleGAN train step:
 
-- ``ops`` (functional ops, init, blocks) and ``models.generators``
-  (ResNet generator);
-- ``kernels``: hand-written CUDA kernels for the two TPU kernels on that
-  path (``instance_norm_act``, ``residual_block_fused``), each beside its
-  plain PyTorch version;
-- ``weights`` (Flax param tree -> module), ``export`` (the port's artifact),
-  ``serve`` / ``http_serve`` (directory and HTTP serving) and ``main``
-  (the serving CLI).
+- ``ops`` (functional ops, init, blocks), ``models.generators`` (ResNet
+  generator) and ``models.discriminators`` (PatchGAN, PixelGAN);
+- ``kernels``: hand-written CUDA kernels for the TPU kernels on those
+  paths (``instance_norm_act`` and ``residual_block_fused``, forward and
+  VJP, as ``torch.autograd.Function``s), each beside its plain PyTorch
+  version;
+- ``train`` (``cyclegan.CycleGANTrainer``, losses, LR schedule, replay
+  pool, metrics) and ``utils.config`` (``Config`` and the presets);
+- ``weights`` (Flax param trees -> modules), ``export`` (the port's
+  artifact), ``serve`` / ``http_serve`` (directory and HTTP serving) and
+  ``main`` (the serving CLI).
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

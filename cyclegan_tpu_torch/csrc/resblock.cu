@@ -27,6 +27,34 @@
 // accumulator in the epilogue, which writes the f32 result the instance
 // norm reads. wgmma, TMA and fusing the statistics into this epilogue are
 // later work.
+//
+// The backward replaces the two VJP Pallas kernels behind
+// residual_block_fused: _bwd_dx_kernel (dx) and _bwd_dw_kernel (dw1, dw2).
+// kernels/resblock.py recomputes the forward with the kernels above and
+// chains the instance-norm VJP of instance_norm.cu with the two kernels
+// here, as _rb_bwd does:
+//   cg_conv3x3_reflect_dgrad: the input gradient of conv3x3(rpad1(.), w)
+//     for a float32 output gradient g, with the reflect fold. A full
+//     correlation writes the gradient of the padded input (N, H+2, W+2, Cin)
+//     into float32 scratch (implicit GEMM, M = padded pixels, N = Cin,
+//     K = 9 * Cout, B = w[tap] transposed, cast to float32 as the Pallas
+//     kernel does); a second pass folds pad rows and columns 0 and H+1 back
+//     onto rows and columns 1 and H-2 (_fold_pad1), adds an optional
+//     residual (dy, for dx = dy + dgrad) and writes the output type.
+//   cg_conv3x3_reflect_wgrad: dw[s,t] = sum_n sum_pixels
+//     rpad1(inp)[n, i+s, j+t, :]^T g[n, i, j, :] as (3, 3, Cin, Cout),
+//     summed over the batch inside the kernel (as _bwd_dw_kernel
+//     accumulates across its grid): an implicit GEMM with M = 9 * Cin,
+//     N = Cout and K = N*H*W pixels, split along K into a number of chunks
+//     fixed by the shapes; the float32 partials are added in chunk order by
+//     a second pass (no atomics: two runs give bitwise-equal dw).
+// What bounds them: operations. The cotangents are float32, as in the
+// Pallas kernels, so both are float32 FFMA GEMMs (the SIMT tiling of the
+// float32 forward below): four 2*M*9*C*C convolutions per block backward,
+// at the 67 TFLOP/s float32 rate. Rounding the cotangent to bf16 for the
+// tensor cores is a later decision that must keep the parity bars.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -256,6 +284,223 @@ conv3x3_reflect_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+
+// ---------------------------------------------------------------- backward
+// Grid (ceil(N*(H+2)*(W+2) / 64), ceil(Cin / 64)), 256 threads, 4 x 4 each.
+// dpad[n, i, j, ci] = sum_{ky, kx, co} g[n, i-ky, j-kx, co] * w[ky, kx, ci, co]
+// for i in [0, H+2), j in [0, W+2), with g zero outside [0, H) x [0, W).
+// Needs Cout % 16 == 0 (a 16-deep K step stays inside one tap).
+template <typename TW>
+__global__ void __launch_bounds__(256)
+conv3x3_dgrad_full(const float* __restrict__ g, const TW* __restrict__ w,
+                   float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
+  __shared__ float As[FBK][FBM + 4];
+  __shared__ float Bs[FBK][FBN + 4];
+  const int tid = threadIdx.x;
+  const int Hp = H + 2, Wp = W + 2;
+  const int M = N * Hp * Wp, HWp = Hp * Wp;
+  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN;
+
+  // A loads: padded pixel m0 + (tid >> 2), output channels (tid & 3) * 4 .. +3.
+  const int a_row = tid >> 2, a_k = (tid & 3) * 4;
+  const int am = m0 + a_row;
+  const bool a_ok = am < M;
+  const int amm = a_ok ? am : 0;
+  const int an = amm / HWp, arem = amm - an * HWp;
+  const int ai = arem / Wp, aj = arem - ai * Wp;
+  // B loads: input channel n0 + (tid >> 2), output channels (tid & 3) * 4 .. +3.
+  const int b_n = tid >> 2, b_k = (tid & 3) * 4;
+  const int b_ci = n0 + b_n;
+  const int ty = tid >> 4, tx = tid & 15;
+
+  float acc[4][4] = {};
+  const int KT = 9 * Cout / FBK;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int k0 = kt * FBK;
+    const int tap = k0 / Cout, co0 = k0 - tap * Cout;
+    const int h = ai - tap / 3, ww = aj - tap % 3;
+    const bool ok = a_ok && h >= 0 && h < H && ww >= 0 && ww < W;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok)
+      av = *reinterpret_cast<const float4*>(g + (((size_t)an * H + h) * W + ww) * Cout + co0 + a_k);
+    As[a_k + 0][a_row] = av.x;
+    As[a_k + 1][a_row] = av.y;
+    As[a_k + 2][a_row] = av.z;
+    As[a_k + 3][a_row] = av.w;
+    const TW* bsrc = w + ((size_t)tap * Cin + b_ci) * Cout + co0 + b_k;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Bs[b_k + j][b_n] = b_ci < Cin ? cg_to_f(bsrc[j]) : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < Cin) dpad[(size_t)row * Cin + col] = acc[i][j];
+    }
+  }
+}
+
+// out[n, p, q, c] = sum of dpad over the padded positions that reflect onto
+// (p, q) (+ add[n, p, q, c]): padded row p + 1, and row 0 when p == 1, and
+// row H + 1 when p == H - 2; the same for columns. A fixed order per element.
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+fold_pad1(const float* __restrict__ dpad, const TOut* __restrict__ add,
+          TOut* __restrict__ out, int N, int H, int W, int C) {
+  const size_t total = (size_t)N * H * W * C;
+  const int Hp = H + 2, Wp = W + 2;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(idx % C);
+    size_t rest = idx / C;
+    const int q = (int)(rest % W);
+    rest /= W;
+    const int p = (int)(rest % H);
+    const int n = (int)(rest / H);
+    int rows[3] = {p + 1, 0, 0}, cols[3] = {q + 1, 0, 0};
+    int nr = 1, nc = 1;
+    if (p == 1) rows[nr++] = 0;
+    if (p == H - 2) rows[nr++] = H + 1;
+    if (q == 1) cols[nc++] = 0;
+    if (q == W - 2) cols[nc++] = W + 1;
+    float s = 0.f;
+    for (int a = 0; a < nr; ++a)
+      for (int b = 0; b < nc; ++b)
+        s += dpad[(((size_t)n * Hp + rows[a]) * Wp + cols[b]) * C + c];
+    if (add != nullptr) s += cg_to_f(add[idx]);
+    out[idx] = cg_from_f<TOut>(s);
+  }
+}
+
+// Grid (ceil(9*Cin / 64), ceil(Cout / 64), splits), 256 threads, 4 x 4 each.
+// part[s, m, co] = sum over the pixels k of chunk s of
+//   rpad1(inp)[pixel k shifted by tap(m), ci(m)] * g[k, co],  m = tap*Cin + ci.
+// Needs Cin % 4 == 0 (a thread's 4 rows share one tap).
+template <typename TIn>
+__global__ void __launch_bounds__(256)
+conv3x3_wgrad_partial(const TIn* __restrict__ inp, const float* __restrict__ g,
+                      float* __restrict__ part, int N, int H, int W, int Cin, int Cout,
+                      int kchunk) {
+  __shared__ float As[FBK][FBM + 4];  // [pixel][m]
+  __shared__ float Bs[FBK][FBN + 4];  // [pixel][co]
+  const int tid = threadIdx.x;
+  const int M = 9 * Cin, K = N * H * W, HWp = H * W;
+  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN, sp = blockIdx.z;
+  const int kbeg = sp * kchunk, kend = min(K, kbeg + kchunk);
+
+  // A and B loads: pixel k0 + (tid >> 4); rows (tid & 15) * 4 .. +3 of m
+  // (A) and of co (B).
+  const int l_k = tid >> 4, l_c = (tid & 15) * 4;
+  const int am = m0 + l_c;
+  const bool m_ok = am < M;
+  const int tap = m_ok ? am / Cin : 0, ci = m_ok ? am - tap * Cin : 0;
+  const int ky = tap / 3 - 1, kx = tap % 3 - 1;
+  const int bco = n0 + l_c;
+  const int ty = tid >> 4, tx = tid & 15;
+
+  float acc[4][4] = {};
+  for (int k0 = kbeg; k0 < kend; k0 += FBK) {
+    const int k = k0 + l_k;
+    const bool k_ok = k < kend;
+    const bool a_ok = k_ok && m_ok;
+    const int kk = a_ok ? k : kbeg;
+    const int n = kk / HWp, rem = kk - n * HWp;
+    const int h = rem / W, ww = rem - h * W;
+    const TIn* asrc = inp + (((size_t)n * H + cg_reflect1(h + ky, H)) * W +
+                             cg_reflect1(ww + kx, W)) * Cin + ci;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) As[l_k][l_c + j] = a_ok ? cg_to_f(asrc[j]) : 0.f;
+    const float* bsrc = g + (size_t)(k_ok ? k : kbeg) * Cout + bco;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Bs[l_k][l_c + j] = (k_ok && bco + j < Cout) ? bsrc[j] : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < FBK; ++q) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[q][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[q][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* dst = part + (size_t)sp * M * Cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < Cout) dst[(size_t)row * Cout + col] = acc[i][j];
+    }
+  }
+}
+
+// dw[i] = sum_s part[s, i] in chunk order, written as TOut.
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+wgrad_reduce(const float* __restrict__ part, TOut* __restrict__ dw, int splits, size_t MN) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * MN + i];
+    dw[i] = cg_from_f<TOut>(s);
+  }
+}
+
+int grid_1d(size_t total) {
+  return (int)std::min<size_t>((total + 255) / 256, 132 * 16);
+}
+
+template <typename TW, typename TOut>
+cudaError_t launch_dgrad(const float* g, const void* w, const void* add, void* out, float* dpad,
+                         int N, int H, int W, int Cin, int Cout, cudaStream_t s) {
+  const int M = N * (H + 2) * (W + 2);
+  dim3 grid((M + FBM - 1) / FBM, (Cin + FBN - 1) / FBN);
+  conv3x3_dgrad_full<TW><<<grid, 256, 0, s>>>(g, static_cast<const TW*>(w), dpad, N, H, W,
+                                              Cin, Cout);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  fold_pad1<TOut><<<grid_1d((size_t)N * H * W * Cin), 256, 0, s>>>(
+      dpad, static_cast<const TOut*>(add), static_cast<TOut*>(out), N, H, W, Cin);
+  return cudaGetLastError();
+}
+
+template <typename TIn, typename TOut>
+cudaError_t launch_wgrad(const void* inp, const float* g, void* dw, float* part, int N, int H,
+                         int W, int Cin, int Cout, int splits, int kchunk, cudaStream_t s) {
+  dim3 grid((9 * Cin + FBM - 1) / FBM, (Cout + FBN - 1) / FBN, splits);
+  conv3x3_wgrad_partial<TIn><<<grid, 256, 0, s>>>(static_cast<const TIn*>(inp), g, part, N, H,
+                                                  W, Cin, Cout, kchunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t MN = (size_t)9 * Cin * Cout;
+  wgrad_reduce<TOut><<<grid_1d(MN), 256, 0, s>>>(part, static_cast<TOut*>(dw), splits, MN);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (N, H, W, Cin) and w: (3, 3, Cin, Cout) HWIO and bias: (Cout,), all of
@@ -286,5 +531,53 @@ extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias
         static_cast<const float*>(bias), static_cast<float*>(out), N, H, W, Cin, Cout);
     return (int)cudaGetLastError();
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Input gradient of conv3x3(rpad1(x), w) with the reflect fold.
+// g: (N, H, W, Cout) float32 output gradient; w: (3, 3, Cin, Cout) of
+// w_dtype; add (or NULL) and out: (N, H, W, Cin) of out_dtype;
+// out = fold(full correlation of g with w) [+ add]. dpad: (N, H+2, W+2, Cin)
+// float32 scratch. Needs H, W >= 2, Cout % 16 == 0 and a 16-byte aligned g.
+extern "C" int cg_conv3x3_reflect_dgrad(const void* g, const void* w, const void* add, void* out,
+                                        void* dpad, int N, int H, int W, int Cin, int Cout,
+                                        int w_dtype, int out_dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto gp = static_cast<const float*>(g);
+  auto dp = static_cast<float*>(dpad);
+  if (N <= 0 || H < 2 || W < 2 || Cin <= 0 || Cout % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (w_dtype == CG_BF16 && out_dtype == CG_BF16)
+    return (int)launch_dgrad<bf16, bf16>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
+  if (w_dtype == CG_BF16 && out_dtype == CG_F32)
+    return (int)launch_dgrad<bf16, float>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
+  if (w_dtype == CG_F32 && out_dtype == CG_F32)
+    return (int)launch_dgrad<float, float>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
+  if (w_dtype == CG_F32 && out_dtype == CG_BF16)
+    return (int)launch_dgrad<float, bf16>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Weight gradient of conv3x3(rpad1(inp), w) for the float32 output gradient
+// g: (N, H, W, Cout); inp: (N, H, W, Cin) of in_dtype; dw: (3, 3, Cin, Cout)
+// of out_dtype, summed over the batch. part: (splits, 9*Cin, Cout) float32
+// scratch; chunk s covers pixels [s*kchunk, (s+1)*kchunk) of N*H*W. Needs
+// H, W >= 2 and Cin % 4 == 0.
+extern "C" int cg_conv3x3_reflect_wgrad(const void* inp, const void* g, void* dw, void* part,
+                                        int N, int H, int W, int Cin, int Cout, int splits,
+                                        int kchunk, int in_dtype, int out_dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto gp = static_cast<const float*>(g);
+  auto pp = static_cast<float*>(part);
+  if (N <= 0 || H < 2 || W < 2 || Cin % 4 != 0 || Cout <= 0 || splits <= 0 || kchunk <= 0 ||
+      (long long)splits * kchunk < (long long)N * H * W)
+    return (int)cudaErrorInvalidValue;
+  if (in_dtype == CG_BF16 && out_dtype == CG_BF16)
+    return (int)launch_wgrad<bf16, bf16>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
+  if (in_dtype == CG_BF16 && out_dtype == CG_F32)
+    return (int)launch_wgrad<bf16, float>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
+  if (in_dtype == CG_F32 && out_dtype == CG_F32)
+    return (int)launch_wgrad<float, float>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
+  if (in_dtype == CG_F32 && out_dtype == CG_BF16)
+    return (int)launch_wgrad<float, bf16>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
   return (int)cudaErrorInvalidValue;
 }

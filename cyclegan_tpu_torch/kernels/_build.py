@@ -7,12 +7,14 @@ one is reused. Building happens at first use (or all at once, in parallel,
 through :func:`build_all`), never at import. The toolkit is found through
 ``CUDA_HOME`` (default ``/usr/local/cuda``) or ``nvcc`` on ``PATH``.
 
-Every C entry returns the ``cudaError_t`` of its launches; :func:`check`
-raises on anything but 0.
+Every C entry returns the ``cudaError_t`` of its launches; :func:`call`
+runs one entry, raises on anything but 0 and counts the call in
+:data:`launches` (by entry name).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -40,11 +42,18 @@ SIGNATURES = {
     "instance_norm": {
         "cg_instance_norm_act": [_VOIDP] * 7 + [_INT] * 4 + [_FLOAT] + [_INT] * 3
         + [_VOIDP],
+        "cg_instance_norm_act_bwd": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
     },
     "resblock": {
         "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
+        "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP],
+        "cg_conv3x3_reflect_wgrad": [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP],
     },
 }
+
+# Successful calls of each C entry (the wrappers' own counters count calls
+# of the Python functions; one of those may make several entry calls).
+launches: collections.Counter = collections.Counter()
 
 
 class KernelBuildError(RuntimeError):
@@ -134,6 +143,13 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise KernelLaunchError(f"{what}: CUDA error {err}")
+
+
+def call(name: str, fn: str, *args) -> None:
+    """Run C entry ``fn`` of ``csrc/<name>.cu`` (built first if needed),
+    raise if it returns a CUDA error, and count it in :data:`launches`."""
+    check(getattr(load(name), fn)(*args), fn)
+    launches[fn] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

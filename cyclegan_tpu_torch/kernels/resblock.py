@@ -1,16 +1,30 @@
-"""Whole ResidualBlock forward.
+"""Whole ResidualBlock, forward and VJP.
 
-The counterpart of ``cyclegan_tpu/kernels/resblock.py::residual_block_fused``
-(forward)::
+The counterpart of ``cyclegan_tpu/kernels/resblock.py::residual_block_fused``::
 
     y = x + IN(conv3x3(rpad(relu(IN(conv3x3(rpad(x)) + b1)))) + b2)
 
 on NHWC ``x`` with HWIO weights. As in the Pallas kernel, the convolution
 outputs u and s stay float32 and ``relu(IN(u))`` is cast to x's type before
-the second convolution. On a CUDA tensor :func:`residual_block_fused` runs
-the hand-written implicit-GEMM convolution of ``csrc/resblock.cu`` and the
-instance-norm kernel of ``csrc/instance_norm.cu``, or raises; on a CPU
-tensor it runs :func:`residual_block_plain`.
+the second convolution.
+
+The VJP keeps the JAX design: only ``(x, w1, b1, w2, b2)`` are saved; the
+backward recomputes u, a and s and their statistics, then chains::
+
+    ds = IN_bwd(s, dy; none)         da = dgrad(ds, w2)
+    du = IN_bwd(u, da; relu)         dx = dy + dgrad(du, w1)
+    dw2 = wgrad(a, ds)               dw1 = wgrad(x, du)
+
+with float32 cotangents and accumulation (the Pallas kernels cast the
+weights to float32 for the input gradient). ``dw`` is summed over the batch
+and cast to the weights' type; the bias gradients are exactly zero (a
+per-channel constant before an instance norm cancels).
+
+:func:`residual_block_fused` is a ``torch.autograd.Function``. On a CUDA
+tensor it launches the hand-written kernels of ``csrc/resblock.cu`` (the
+convolution, its input and weight gradients) and ``csrc/instance_norm.cu``,
+or raises; on a CPU tensor it runs the plain versions through the same
+Function.
 """
 
 from __future__ import annotations
@@ -21,8 +35,12 @@ import torch.nn.functional as F
 from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import instance_norm as _in
 
-# Calls of residual_block_fused that launched the CUDA kernels.
+# Calls of residual_block_fused that launched the CUDA forward, and calls of
+# the two halves of its CUDA VJP: the dx chain (TPU kernel #4) and the
+# weight gradients (#5), once each per backward pass.
 launches = 0
+bwd_dx_launches = 0
+bwd_dw_launches = 0
 
 
 def _conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,6 +60,89 @@ def residual_block_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return _in.instance_norm_act_plain(s, x, eps, "none", out_dtype=x.dtype)
 
 
+def _fold_pad1_plain(gp: torch.Tensor) -> torch.Tensor:
+    """VJP of the reflect pad of 1: (N, H+2, W+2, C) -> (N, H, W, C), pad
+    columns folded first (they were padded last), then pad rows."""
+    w_ = gp.shape[2] - 2
+    g = gp[:, :, 1:-1].clone()
+    g[:, :, 1] += gp[:, :, 0]
+    g[:, :, w_ - 2] += gp[:, :, -1]
+    h = gp.shape[1] - 2
+    out = g[:, 1:-1].clone()
+    out[:, 1] += g[:, 0]
+    out[:, h - 2] += g[:, -1]
+    return out
+
+
+def conv3x3_reflect_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of conv3x3(rpad1(x), w) for the output gradient ``g``
+    (N, H, W, Cout), as the Pallas kernel computes it: nine float32 dots
+    with w[dy, dx]^T placed into the padded gradient, then the fold.
+    Returns (N, H, W, Cin) float32."""
+    n, h, w_, _ = g.shape
+    g32, w32 = g.float(), w.float()
+    dpad = g32.new_zeros((n, h + 2, w_ + 2, w.shape[2]))
+    for dy in range(3):
+        for dx in range(3):
+            dpad[:, dy:dy + h, dx:dx + w_] += g32 @ w32[dy, dx].T
+    return _fold_pad1_plain(dpad)
+
+
+def conv3x3_reflect_wgrad_plain(inp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of conv3x3(rpad1(inp), w) for the output gradient
+    ``g``: dw[s, t] = sum over batch and pixels of rpad1(inp)[.., i+s, j+t, :]^T
+    g[.., i, j, :]. Returns (3, 3, Cin, Cout) float32."""
+    n, h, w_, cin = inp.shape
+    xp = F.pad(inp.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = xp.permute(0, 2, 3, 1)
+    g2 = g.float().reshape(-1, g.shape[-1])
+    rows = []
+    for dy in range(3):
+        rows.append(torch.stack([xp[:, dy:dy + h, dx:dx + w_].reshape(-1, cin).T @ g2
+                                 for dx in range(3)]))
+    return torch.stack(rows)
+
+
+def bwd_dx_plain(x, dy, w1, b1, w2, b2, eps=1e-5):
+    """Plain version of :func:`bwd_dx_cuda`: the recompute, then ds, du and
+    dx = dy + dgrad(du, w1) in x's type. Returns ``(dx, a, ds, du)``."""
+    u = _conv3x3_plain(x, w1, b1)
+    mean1, rstd1 = _in.instance_norm_stats_plain(u, eps)
+    a = _in.instance_norm_act_plain(u, None, eps, "relu", out_dtype=x.dtype)
+    s = _conv3x3_plain(a, w2, b2)
+    mean2, rstd2 = _in.instance_norm_stats_plain(s, eps)
+    ds = _in.instance_norm_act_bwd_plain(s, dy, mean2, rstd2, "none")
+    da = conv3x3_reflect_dgrad_plain(ds, w2)
+    du = _in.instance_norm_act_bwd_plain(u, da, mean1, rstd1, "relu")
+    dx = (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
+    return dx, a, ds, du
+
+
+def bwd_dw_plain(x, a, ds, du):
+    """Plain version of :func:`bwd_dw_cuda`: float32 ``(dw1, dw2)``."""
+    return conv3x3_reflect_wgrad_plain(x, du), conv3x3_reflect_wgrad_plain(a, ds)
+
+
+def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
+                             b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                             eps: float = 1e-5
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch VJP: ``(dx (x's type), dw1, dw2 (float32))``, the
+    recompute and the chain of the module docstring, step by step."""
+    dx, a, ds, du = bwd_dx_plain(x, dy, w1, b1, w2, b2, eps)
+    return (dx, *bwd_dw_plain(x, a, ds, du))
+
+
+def _check_same_device(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if not t.is_contiguous() or t.device != tensors[0].device:
+            raise ValueError(f"{name}: tensors must be contiguous on one device")
+        if t.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
 def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     out: torch.Tensor) -> None:
     """CUDA kernel: ``out`` (NHWC f32) = conv3x3(rpad1(x), w) + b."""
@@ -57,34 +158,83 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"fit Cin={cin}, Cout={cout}")
     if out.shape != (n, h, w_, cout) or out.dtype != torch.float32:
         raise ValueError("conv3x3_reflect: out must be (N, H, W, Cout) float32")
-    for t in (x, w, b, out):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError("conv3x3_reflect: tensors must be contiguous on one device")
-        if t is not out and t.dtype != x.dtype:
-            raise TypeError("conv3x3_reflect: x, w and b must share one dtype")
-        if t.data_ptr() % 16:
-            raise ValueError("conv3x3_reflect: tensors must be 16-byte aligned")
-    if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"conv3x3_reflect: unsupported dtype {x.dtype}")
-    err = _build.load("resblock").cg_conv3x3_reflect(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        n, h, w_, cin, cout, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
-    _build.check(err, "cg_conv3x3_reflect")
+    _check_same_device("conv3x3_reflect", x, w, b, out)
+    if w.dtype != x.dtype or b.dtype != x.dtype:
+        raise TypeError("conv3x3_reflect: x, w and b must share one dtype")
+    _build.call("resblock", "cg_conv3x3_reflect",
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n, h, w_, cin, cout, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
 
 
-def residual_block_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                         w2: torch.Tensor, b2: torch.Tensor,
-                         eps: float = 1e-5) -> torch.Tensor:
-    """Fused ResidualBlock forward; x (N, H, W, C), w (3, 3, C, C), b (C,),
-    all of one dtype. CUDA tensors launch the kernels; CPU tensors run
-    :func:`residual_block_plain`; any other device raises."""
+def _check_grad_shapes(name: str, h: int, w_: int, cin: int, cout: int) -> None:
+    if h < 2 or w_ < 2:
+        raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
+    if cin % 32 or cout % 32:
+        raise ValueError(f"{name} needs Cin % 32 == 0 and Cout % 32 == 0, "
+                         f"got Cin={cin}, Cout={cout}")
+
+
+def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                          add: torch.Tensor | None = None) -> None:
+    """CUDA kernel: ``out`` (N, H, W, Cin; float32 or bf16) = the input
+    gradient of conv3x3(rpad1(.), w) for the float32 output gradient ``g``
+    (N, H, W, Cout), reflect fold included, plus ``add`` (out's type)."""
+    n, h, w_, cout = g.shape
+    cin = w.shape[2]
+    _check_grad_shapes("conv3x3_reflect_dgrad", h, w_, cin, cout)
+    if g.dtype != torch.float32:
+        raise TypeError("conv3x3_reflect_dgrad: g must be float32")
+    if w.shape != (3, 3, cin, cout) or out.shape != (n, h, w_, cin):
+        raise ValueError(f"conv3x3_reflect_dgrad: w {tuple(w.shape)} / out "
+                         f"{tuple(out.shape)} do not fit g {tuple(g.shape)}")
+    if add is not None and (add.shape != out.shape or add.dtype != out.dtype):
+        raise ValueError("conv3x3_reflect_dgrad: add must match out")
+    _check_same_device("conv3x3_reflect_dgrad", g, w, out,
+                       *([add] if add is not None else []))
+    dpad = torch.empty((n, h + 2, w_ + 2, cin), dtype=torch.float32, device=g.device)
+    _build.call("resblock", "cg_conv3x3_reflect_dgrad",
+                g.data_ptr(), w.data_ptr(), None if add is None else add.data_ptr(),
+                out.data_ptr(), dpad.data_ptr(), n, h, w_, cin, cout,
+                _build.DTYPE_CODES[w.dtype], _build.DTYPE_CODES[out.dtype],
+                _build.stream_ptr(g))
+
+
+def _wgrad_split(tiles: int, k: int) -> tuple[int, int]:
+    """K (pixel) chunks of the weight gradient: enough blocks for about
+    eight per SM of an H100 (132 SMs), at least 256 pixels a chunk, a chunk
+    a multiple of 16 pixels. From the shapes only, so dw's summation order
+    is fixed."""
+    splits = max(1, min(-(-8 * 132 // tiles), k // 256))
+    kchunk = -(-k // splits)
+    kchunk = -(-kchunk // 16) * 16
+    return -(-k // kchunk), kchunk
+
+
+def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """CUDA kernel: the weight gradient (3, 3, Cin, Cout) of ``out_dtype``
+    of conv3x3(rpad1(inp), w) for the float32 output gradient ``g``, summed
+    over the batch (split-K partials added in a fixed order)."""
+    n, h, w_, cin = inp.shape
+    cout = g.shape[-1]
+    _check_grad_shapes("conv3x3_reflect_wgrad", h, w_, cin, cout)
+    if g.dtype != torch.float32 or g.shape != (n, h, w_, cout):
+        raise ValueError(f"conv3x3_reflect_wgrad: g must be float32 (N, H, W, Cout), "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    out = torch.empty((3, 3, cin, cout), dtype=out_dtype, device=inp.device)
+    _check_same_device("conv3x3_reflect_wgrad", inp, g, out)
+    tiles = -(-9 * cin // 64) * -(-cout // 64)
+    splits, kchunk = _wgrad_split(tiles, n * h * w_)
+    part = torch.empty((splits, 9 * cin, cout), dtype=torch.float32, device=inp.device)
+    _build.call("resblock", "cg_conv3x3_reflect_wgrad",
+                inp.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
+                n, h, w_, cin, cout, splits, kchunk, _build.DTYPE_CODES[inp.dtype],
+                _build.DTYPE_CODES[out_dtype], _build.stream_ptr(inp))
+    return out
+
+
+def _fwd_cuda(x, w1, b1, w2, b2, eps):
     global launches
-    if x.dim() != 4:
-        raise ValueError(f"residual_block_fused wants NHWC, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return residual_block_plain(x, w1, b1, w2, b2, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"residual_block_fused: no kernel for device {x.device}")
     n, h, w_, c = x.shape
     if w1.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}, got {w1.shape[-1]}")
@@ -97,3 +247,84 @@ def residual_block_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _in.launch(u, x, y, eps, "none")
     launches += 1
     return y
+
+
+def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
+    """TPU kernel #4 (``_bwd_dx_kernel``) on the card: recompute u, a, s and
+    their statistics, then ds, du and dx = dy + dgrad(du, w1). Returns
+    ``(dx, a, ds, du)``; the last three feed :func:`bwd_dw_cuda`."""
+    global bwd_dx_launches
+    f32 = dict(dtype=torch.float32, device=x.device)
+    u = torch.empty(x.shape, **f32)
+    conv3x3_reflect(x, w1, b1, u)
+    a = torch.empty_like(x, memory_format=torch.contiguous_format)
+    mean1, rstd1 = _in.launch(u, None, a, eps, "relu")
+    s = torch.empty(x.shape, **f32)
+    conv3x3_reflect(a, w2, b2, s)
+    mean2, rstd2 = _in.launch(s, None, None, eps, "none")
+    ds = torch.empty(x.shape, **f32)
+    _in.launch_bwd(s, dy, mean2, rstd2, ds, "none")
+    da = s  # s is dead once ds exists
+    conv3x3_reflect_dgrad(ds, w2, da)
+    du = torch.empty(x.shape, **f32)
+    _in.launch_bwd(u, da, mean1, rstd1, du, "relu")
+    dx = torch.empty_like(a)
+    conv3x3_reflect_dgrad(du, w1, dx, add=dy)
+    bwd_dx_launches += 1
+    return dx, a, ds, du
+
+
+def bwd_dw_cuda(x, a, ds, du, w_dtype):
+    """TPU kernel #5 (``_bwd_dw_kernel``) on the card: dw1 = wgrad(x, du)
+    and dw2 = wgrad(a, ds), summed over the batch, in the weights' type."""
+    global bwd_dw_launches
+    dw = conv3x3_reflect_wgrad(x, du, w_dtype), conv3x3_reflect_wgrad(a, ds, w_dtype)
+    bwd_dw_launches += 1
+    return dw
+
+
+def _bwd_cuda(x, dy, w1, b1, w2, b2, eps):
+    dx, a, ds, du = bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps)
+    return (dx, *bwd_dw_cuda(x, a, ds, du, w1.dtype))
+
+
+class ResidualBlockFused(torch.autograd.Function):
+    """The differentiable seam; ``plain`` picks the plain versions. Saves
+    ``(x, w1, b1, w2, b2)`` only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, eps, plain):
+        y = (residual_block_plain if plain else _fwd_cuda)(x, w1, b1, w2, b2, eps)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, w1, b1, w2, b2)
+            ctx.eps, ctx.plain = eps, plain
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        bwd = residual_block_bwd_plain if ctx.plain else _bwd_cuda
+        dx, dw1, dw2 = bwd(x, dy.contiguous(), w1, b1, w2, b2, ctx.eps)
+        return (dx, dw1.to(w1.dtype), torch.zeros_like(b1), dw2.to(w2.dtype),
+                torch.zeros_like(b2), None, None)
+
+
+def residual_block_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """Fused ResidualBlock, differentiable; x (N, H, W, C), w (3, 3, C, C),
+    b (C,), all of one dtype. CUDA tensors launch the kernels, forward and
+    backward; CPU tensors run the plain versions; any other device raises."""
+    if x.dim() != 4:
+        raise ValueError(f"residual_block_fused wants NHWC, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"residual_block_fused: no kernel for device {x.device}")
+    return ResidualBlockFused.apply(x, w1, b1, w2, b2, eps, x.device.type == "cpu")
+
+
+def residual_block_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """The same Function over the plain versions on any device (the on-card
+    checks' yardstick; the port's modules never call it)."""
+    return ResidualBlockFused.apply(x, w1, b1, w2, b2, eps, True)

@@ -62,12 +62,12 @@ def get_args(argv=None) -> argparse.Namespace:
 def _export(args) -> None:
     from cyclegan_tpu_torch.export import export_generator
     from cyclegan_tpu_torch.models.generators import define_Gen
-    from cyclegan_tpu_torch.weights import load_flax_generator, load_npz
+    from cyclegan_tpu_torch.weights import load_flax_module, load_npz
 
     G = define_Gen(args.in_channels, args.num_classes, args.ngf, args.gen_net,
                    head="none", generator=torch.Generator().manual_seed(args.seed))
     if args.weights_npz:
-        load_flax_generator(G, load_npz(args.weights_npz))
+        load_flax_module(G, load_npz(args.weights_npz))
     path = export_generator(
         G, args.export, gen_net=args.gen_net, ngf=args.ngf,
         num_classes=args.num_classes, in_channels=args.in_channels,

@@ -27,7 +27,8 @@ class ResnetGenerator(nn.Module):
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 64, n_blocks: int = 9,
                  norm: str = "instance", head: str = "tanh",
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 use_dropout: bool = False) -> None:
         super().__init__()
         if head not in ("tanh", "none"):
             raise ValueError(f"unknown head {head!r} (tanh|none)")
@@ -37,7 +38,8 @@ class ResnetGenerator(nn.Module):
                                norm=norm, act="relu", dtype=dtype)
         self.down2 = ConvBlock(ngf * 2, ngf * 4, 3, stride=2, pad=1, pad_mode="zero",
                                norm=norm, act="relu", dtype=dtype)
-        self.trunk = nn.ModuleList(ResidualBlock(ngf * 4, norm=norm, dtype=dtype)
+        self.trunk = nn.ModuleList(ResidualBlock(ngf * 4, norm=norm, dtype=dtype,
+                                                 use_dropout=use_dropout)
                                    for _ in range(n_blocks))
         self.up1 = DeconvBlock(ngf * 4, ngf * 2, norm=norm, dtype=dtype)
         self.up2 = DeconvBlock(ngf * 2, ngf, norm=norm, dtype=dtype)
@@ -56,7 +58,8 @@ class ResnetGenerator(nn.Module):
 def define_Gen(input_nc: int, output_nc: int, ngf: int = 64,
                netG: str = "resnet_9blocks", norm: str = "instance",
                head: str = "tanh", dtype: torch.dtype = torch.float32,
-               generator: torch.Generator | None = None) -> nn.Module:
+               generator: torch.Generator | None = None,
+               use_dropout: bool = False) -> nn.Module:
     """Generator factory (reference ``define_Gen``), initialised N(0, 0.02)
     from ``generator``. Unlike the Flax module, a torch module needs
     ``input_nc`` up front. ``resnet_<n>blocks`` takes any trunk depth n (the
@@ -64,7 +67,8 @@ def define_Gen(input_nc: int, output_nc: int, ngf: int = 64,
     m = re.fullmatch(r"resnet_(\d+)blocks", netG)
     if m:
         return ResnetGenerator(input_nc, output_nc, ngf, n_blocks=int(m.group(1)),
-                               norm=norm, head=head, dtype=dtype, generator=generator)
+                               norm=norm, head=head, dtype=dtype, generator=generator,
+                               use_dropout=use_dropout)
     if netG in ("unet_128", "unet_256"):
         raise NotImplementedError(f"{netG}: the U-Net generators arrive in a later "
                                   f"slice of the port")

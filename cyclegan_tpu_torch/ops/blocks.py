@@ -11,8 +11,10 @@ the kernels take, at no cost.
 The kernel seams sit where the JAX package has them: instance norm (+ act,
 + skip) goes to ``kernels.instance_norm_act`` through :class:`InstanceNorm`,
 and an instance-norm :class:`ResidualBlock` goes whole to
-``kernels.residual_block_fused``. On the card both always run their CUDA
-kernels; on the CPU their plain PyTorch versions.
+``kernels.residual_block_fused``. Both are ``autograd.Function``s: on the
+card they run their CUDA kernels forward and backward; on the CPU their
+plain PyTorch versions. Gradients reach the float32 parameters through the
+casts and the differentiable OIHW -> HWIO permute of :func:`hwio`.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def get_norm(norm: str) -> Callable[[], nn.Module | None]:
         return lambda: None
     if norm == "batch":
         raise NotImplementedError(
-            "norm='batch' arrives with the training slice of the port "
+            "norm='batch' arrives with a later training slice of the port "
             "(BatchNorm with the biased-variance running EMA)")
     raise ValueError(f"unknown norm: {norm!r} (expected instance|batch|none)")
 
@@ -138,12 +140,16 @@ class DeconvBlock(nn.Module):
 class ResidualBlock(nn.Module):
     """[refpad1, conv3x3, IN, ReLU, refpad1, conv3x3, IN] + x (reference
     ``ResidualBlock``). With instance norm the whole block is one call of
-    ``kernels.residual_block_fused``; the two ConvBlocks then only hold the
-    weights. Dropout is a training option and arrives with that slice."""
+    ``kernels.residual_block_fused``, forward and backward; the two
+    ConvBlocks then only hold the weights."""
 
     def __init__(self, features: int, norm: str = "instance",
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, use_dropout: bool = False) -> None:
         super().__init__()
+        if use_dropout:
+            raise NotImplementedError(
+                "use_dropout arrives with the next slice of the port (the dropout "
+                "trunk and its weight-gradient kernel, TPU kernel #8 conv_dw)")
         self.conv0 = ConvBlock(features, features, 3, pad=1, norm=norm, act="relu",
                                dtype=dtype)
         self.conv1 = ConvBlock(features, features, 3, pad=1, norm=norm, act="none",

@@ -16,8 +16,13 @@ from torch import nn
 @torch.no_grad()
 def conv_kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None,
                       std: float = 0.02) -> torch.Tensor:
-    """Fill ``w`` in place from N(0, ``std``)."""
-    return w.normal_(0.0, std, generator=generator)
+    """Fill ``w`` in place from N(0, ``std``). The draws are made on the
+    generator's device, so a CPU generator gives the same weights to a
+    module on the CPU and on the card."""
+    if generator is None or generator.device.type == w.device.type:
+        return w.normal_(0.0, std, generator=generator)
+    draws = torch.empty(w.shape, dtype=w.dtype, device=generator.device)
+    return w.copy_(draws.normal_(0.0, std, generator=generator))
 
 
 @torch.no_grad()

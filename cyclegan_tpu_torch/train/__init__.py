@@ -1,2 +1,2 @@
-"""Training-side modules (the metrics so far; the train step arrives with
-the training slice)."""
+"""Training: the semi-supervised CycleGAN step (``cyclegan``), its losses,
+LR schedule and replay pools, and the segmentation metrics."""

@@ -1,0 +1,40 @@
+"""Losses (reference ``nn.MSELoss`` / ``nn.L1Loss`` / ``nn.CrossEntropyLoss``).
+
+Counterpart of ``cyclegan_tpu/train/losses.py``: LSGAN adversarial = MSE
+against constant 0/1 targets; cycle consistency = L1; supervised
+segmentation = pixel cross-entropy masking the ignore index (VOC's 255
+border). All in float32, all means. Logits are channels-last ``(..., K)``,
+the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def lsgan_loss(scores: torch.Tensor, target_is_real: bool) -> torch.Tensor:
+    """MSE against an all-ones (real) or all-zeros (fake) target map."""
+    scores = scores.float()
+    return torch.square(scores - (1.0 if target_is_real else 0.0)).mean()
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.float() - b.float()).abs().mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_index: int | None = 255) -> torch.Tensor:
+    """Pixel cross-entropy of channels-last logits (N, H, W, K) against
+    (N, H, W) integer labels: the mean over the pixels that are not
+    ``ignore_index``, with a count of at least 1 (an all-void batch gives 0)."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long()
+    if ignore_index is not None:
+        valid = labels != ignore_index
+        safe = torch.where(valid, labels, 0)
+    else:
+        valid = torch.ones_like(labels, dtype=torch.bool)
+        safe = labels
+    picked = log_probs.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    picked = torch.where(valid, picked, 0.0)
+    return -picked.sum() / valid.sum().clamp_min(1)

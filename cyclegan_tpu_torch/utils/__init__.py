@@ -1,1 +1,2 @@
-"""Host-side utilities (the inference pipeline)."""
+"""Host-side utilities (the config and its presets, the inference
+pipeline)."""

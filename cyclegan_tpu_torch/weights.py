@@ -1,9 +1,11 @@
-"""Carry a Flax generator's parameters into the port's modules.
+"""Carry Flax parameters into the port's modules.
 
 The Flax ``ResnetGenerator`` tree (what ``jax.device_get(params)["params"]``
 gives, as nested dicts of numpy arrays) names its layers ConvBlock_0..3,
-ResidualBlock_i/ConvBlock_{0,1} and DeconvBlock_{0,1}, each with a
-``kernel`` (HWIO) and a ``bias``. Conv kernels go HWIO -> OIHW, transposed
+ResidualBlock_i/ConvBlock_{0,1} and DeconvBlock_{0,1}; the PatchGAN and the
+PixelDiscriminator name theirs ConvBlock_0..k in forward order (the mapping
+of ``tests/parity_utils.py::inject_patchgan`` / ``inject_pixeld``). Each
+layer has a ``kernel`` (HWIO) and a ``bias``. Conv kernels go HWIO -> OIHW, transposed
 conv kernels HWIO -> (I, O, kH, kW) (the mapping of
 ``tools/export_torch_checkpoint.py``); biases are copied as they are. Any
 missing, extra or misshapen entry raises.
@@ -17,11 +19,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclegan_tpu_torch.models.discriminators import (NLayerDiscriminator,
+                                                      PixelDiscriminator)
 from cyclegan_tpu_torch.models.generators import ResnetGenerator
 
 
-def _flax_layers(module: ResnetGenerator) -> dict[str, Any]:
+def _flax_layers(module: nn.Module) -> dict[str, Any]:
     """Flax name -> torch conv layer (or nested dict for a residual block)."""
+    if isinstance(module, (NLayerDiscriminator, PixelDiscriminator)):
+        return {f"ConvBlock_{k}": b.conv for k, b in enumerate(module.blocks)}
+    if not isinstance(module, ResnetGenerator):
+        raise TypeError(f"no Flax mapping for {type(module).__name__}")
     layers: dict[str, Any] = {"ConvBlock_0": module.stem.conv,
                               "ConvBlock_1": module.down1.conv,
                               "ConvBlock_2": module.down2.conv}
@@ -63,9 +71,9 @@ def _load_layer(conv: nn.Module, leaf: Mapping, where: str) -> None:
         _copy(conv.bias, np.asarray(leaf["bias"]), f"{where}/bias")
 
 
-def load_flax_generator(module: ResnetGenerator, params: Mapping) -> ResnetGenerator:
-    """Copy a Flax ResnetGenerator param tree into ``module`` (in place);
-    returns ``module``."""
+def load_flax_module(module: nn.Module, params: Mapping) -> nn.Module:
+    """Copy a Flax param tree of a ResnetGenerator, NLayerDiscriminator or
+    PixelDiscriminator into ``module`` (in place); returns ``module``."""
 
     def walk(layers: Mapping, tree: Mapping, where: str) -> None:
         _check_names(tree, layers, where)
@@ -78,6 +86,23 @@ def load_flax_generator(module: ResnetGenerator, params: Mapping) -> ResnetGener
 
     walk(_flax_layers(module), params, "")
     return module
+
+
+CYCLEGAN_NETS = (("g_i2l", "G_i2l"), ("g_l2i", "G_l2i"), ("d_img", "D_img"),
+                 ("d_lab", "D_lab"))
+
+
+def load_flax_cyclegan(trainer: Any, state: Any) -> Any:
+    """Copy the four nets of a JAX ``CycleGANState`` (or a mapping with the
+    keys g_i2l, g_l2i, d_img, d_lab; each a Flax variables dict or its
+    ``params``) into ``trainer``'s modules, in place; returns ``trainer``.
+    Build the optimizers before or after: they hold the same parameters."""
+    for key, attr in CYCLEGAN_NETS:
+        tree = state[key] if isinstance(state, Mapping) else getattr(state, key)
+        if isinstance(tree, Mapping) and set(tree) == {"params"}:
+            tree = tree["params"]
+        load_flax_module(getattr(trainer, attr), tree)
+    return trainer
 
 
 def load_npz(path: str) -> dict:

@@ -12,6 +12,8 @@ multiple of 128); ``chip_smoke.py`` covers the main path's shapes.
 Tolerances are those of ``chip_smoke.py``, with the same reasons.
 """
 
+import numpy as np
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -20,6 +22,8 @@ from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
 from cyclegan_tpu_torch.models.generators import define_Gen
 from cyclegan_tpu_torch.ops import blocks
+from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+from cyclegan_tpu_torch.utils.config import Config
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +123,126 @@ def test_generator_kernel_path_matches_plain_path(card, monkeypatch):
     with torch.inference_mode():
         ref = G(x)
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+
+
+# Backward tolerances, |kernel - plain| <= atol * max|plain| + rtol * |plain|:
+# float32 sums of up to a few thousand products in another order; bf16
+# outputs (dx of a bf16 input, dw cast to bf16) within about one bf16 ulp.
+BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+           torch.bfloat16: dict(atol=2 ** -8, rtol=2 ** -6)}
+
+
+def _close(got, ref, tol):
+    ref, got = ref.float(), got.float()
+    allowed = tol["atol"] * ref.abs().max() + tol["rtol"] * ref.abs()
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= allowed).all()), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("x_dtype,dy_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky"])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 5, 7, 40), (3, 33, 31, 96)])
+def test_instance_norm_bwd_matches_plain(card, shape, act, x_dtype, dy_dtype):
+    x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(x_dtype)
+    dy = torch.randn(shape, device="cuda", generator=card).to(dy_dtype)
+    mean, rstd = IN.instance_norm_stats_plain(x)
+    dx = torch.empty_like(x)
+    IN.launch_bwd(x, dy, mean, rstd, dx, act)
+    torch.cuda.synchronize()
+    _close(dx, IN.instance_norm_act_bwd_plain(x, dy, mean, rstd, act), BWD_TOL[x_dtype])
+
+
+def test_instance_norm_forward_returns_its_statistics(card):
+    x = torch.randn((2, 9, 7, 64), device="cuda", generator=card) * 2 + 3
+    mean, rstd = IN.launch(x, None, None, 1e-5, "none")
+    ref_mean, ref_rstd = IN.instance_norm_stats_plain(x)
+    torch.testing.assert_close(mean, ref_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((2, 8, 9, 64), 64), ((1, 17, 5, 32), 96),
+                                        ((2, 2, 3, 32), 32)])
+def test_conv3x3_grads_match_plain(card, shape, cout, dtype):
+    cin = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    w = (0.05 * torch.randn((3, 3, cin, cout), device="cuda", generator=card)).to(dtype)
+    g = torch.randn(shape[:3] + (cout,), device="cuda", generator=card)
+    add = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    dx = torch.empty(shape, device="cuda", dtype=dtype)
+    RB.conv3x3_reflect_dgrad(g, w, dx, add=add)
+    dw = RB.conv3x3_reflect_wgrad(x, g, dtype)
+    torch.cuda.synchronize()
+    _close(dx, add.float() + RB.conv3x3_reflect_dgrad_plain(g, w), BWD_TOL[dtype])
+    _close(dw, RB.conv3x3_reflect_wgrad_plain(x, g), BWD_TOL[dtype])
+    assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, g, dtype))  # fixed order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 9, 13, 32)])
+def test_residual_block_bwd_matches_plain(card, shape, dtype):
+    c = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    w1, w2 = [(0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    before = (RB.bwd_dx_launches, RB.bwd_dw_launches)
+    y = RB.residual_block_fused(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (RB.bwd_dx_launches, RB.bwd_dw_launches) == (before[0] + 1, before[1] + 1)
+    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+    for g_, r_ in zip((got[0], got[1], got[3]), ref):
+        _close(g_, r_, BWD_TOL[dtype])
+    assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[4]) == 0
+
+
+def test_kernel_outputs_carry_grad_fn(card):
+    """The slice-1 fault: kernel outputs were detached. Now every seam's
+    output has a grad_fn when an input requires grad, and the gradient
+    reaches the float32 parameters of a small generator."""
+    x = torch.randn((1, 8, 8, 32), device="cuda", generator=card, requires_grad=True)
+    assert IN.instance_norm_act(x, None, 1e-5, "relu").grad_fn is not None
+    G = define_Gen(3, 5, 8, "resnet_2blocks", head="none",
+                   generator=torch.Generator().manual_seed(0))
+    G = G.to("cuda", memory_format=torch.channels_last)
+    img = torch.rand((1, 3, 32, 32), device="cuda", generator=card)
+    G(img.contiguous(memory_format=torch.channels_last)).square().mean().backward()
+    for name, p in G.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        if name.endswith("weight"):
+            assert torch.count_nonzero(p.grad) > 0, name
+
+
+def test_small_train_step_kernel_path_matches_plain_path(card, monkeypatch):
+    """Two float32 steps of a small trainer, the seams on the kernels and
+    on the Function over the plain versions, from the same weights."""
+    cfg = Config(gen_net="resnet_2blocks", ngf=8, ndf=8, crop_height=32, crop_width=32,
+                 bf16=False, pool_size=0)
+    r = np.random.default_rng(0)
+    batch = {"lab_image": r.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
+             "unlab_image": r.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
+             "lab_label": r.integers(0, 5, (1, 32, 32))}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def run():
+        t = CycleGANTrainer(cfg, 5, 3, 1000, device="cuda")
+        st = t.init_state(torch.Generator().manual_seed(0))
+        return [{k: float(v) for k, v in t.train_step(st, batch)[1].items()}
+                for _ in range(2)]
+
+    n_in, n_rb = IN.bwd_launches, RB.bwd_dw_launches
+    got = run()
+    assert IN.bwd_launches - n_in == 2 * 27 and RB.bwd_dw_launches - n_rb == 2 * 6
+    monkeypatch.setattr(blocks, "instance_norm_act", IN.instance_norm_act_reference)
+    monkeypatch.setattr(blocks, "residual_block_fused", RB.residual_block_reference)
+    ref = run()
+    for g_, r_ in zip(got, ref):
+        for k in g_:
+            np.testing.assert_allclose(g_[k], r_[k], rtol=1e-4, atol=1e-5, err_msg=k)

@@ -1,6 +1,6 @@
 """The port's ResnetGenerator against the Flax ResnetGenerator.
 
-Flax init params are carried across with ``weights.load_flax_generator``;
+Flax init params are carried across with ``weights.load_flax_module``;
 both models see the same seeded numpy batch (ngf 8, 2 trunk blocks, 32x32,
 batch 2, float32). Bar: 5e-5 on the outputs (ROADMAP's generator bar), and
 equal argmax wherever JAX's top-2 logit gap is above 1e-4.
@@ -27,7 +27,7 @@ def make_pair(head="none", norm="instance", seed=0):
     params = jax.device_get(jg.init(jax.random.PRNGKey(seed),
                                     jnp.zeros((1, SIZE, SIZE, 3))))["params"]
     tg = ResnetGenerator(3, N_CLASSES, NGF, N_BLOCKS, norm=norm, head=head)
-    weights.load_flax_generator(tg, params)
+    weights.load_flax_module(tg, params)
     return jg, params, tg
 
 
@@ -88,14 +88,14 @@ def test_bridge_rejects_mismatches():
     bad = dict(params)
     bad.pop("DeconvBlock_1")
     with pytest.raises(KeyError, match="DeconvBlock_1"):
-        weights.load_flax_generator(tg, bad)
+        weights.load_flax_module(tg, bad)
     bad = dict(params, Extra_0={"kernel": np.zeros((1, 1, 1, 1))})
     with pytest.raises(KeyError, match="Extra_0"):
-        weights.load_flax_generator(tg, bad)
+        weights.load_flax_module(tg, bad)
     bad = dict(params, ConvBlock_3={"kernel": np.zeros((7, 7, 8, 6)),
                                     "bias": np.zeros(6)})
     with pytest.raises(ValueError, match="ConvBlock_3/kernel"):
-        weights.load_flax_generator(tg, bad)
+        weights.load_flax_module(tg, bad)
 
 
 def test_load_npz_roundtrip(tmp_path):
@@ -104,6 +104,6 @@ def test_load_npz_roundtrip(tmp_path):
             for path, v in jax.tree_util.tree_leaves_with_path(params)}
     np.savez(tmp_path / "g.npz", **flat)
     tg2 = ResnetGenerator(3, N_CLASSES, NGF, N_BLOCKS, head="none")
-    weights.load_flax_generator(tg2, weights.load_npz(str(tmp_path / "g.npz")))
+    weights.load_flax_module(tg2, weights.load_npz(str(tmp_path / "g.npz")))
     for p1, p2 in zip(tg.parameters(), tg2.parameters()):
         assert torch.equal(p1, p2)

@@ -1,7 +1,7 @@
 """The port's serving path against the JAX package, on the CPU.
 
 A Flax G_i2l (ngf 8, 2 trunk blocks, 5 classes, 32x32) is carried into the
-port with ``weights.load_flax_generator`` and exported as the port's
+port with ``weights.load_flax_module`` and exported as the port's
 artifact. Served predictions must equal ``argmax(G.apply(...))`` wherever
 JAX's top-2 logit gap is above 1e-4; ``scores.json`` must match JAX
 ``metrics.scores`` to 1e-6; a uint8-input artifact, a logits-head artifact
@@ -42,7 +42,7 @@ def setup(tmp_path_factory):
     params = jax.device_get(jg.init(jax.random.PRNGKey(0),
                                     jnp.zeros((1, SIZE, SIZE, 3))))["params"]
     tg = ResnetGenerator(3, N_CLASSES, NGF, N_BLOCKS, head="none")
-    weights.load_flax_generator(tg, params)
+    weights.load_flax_module(tg, params)
 
     rng = np.random.default_rng(0)
     imgs, gt = root / "imgs", root / "gt"
