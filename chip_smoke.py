@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width, the serving path
-(ResNet-9 image->label generator, ngf 64, 21 classes, 256x256, bf16 compute
-over float32 weights drawn from a seed) and the semi-supervised CycleGAN
-train step of the ``voc_semisup_256`` preset, and prints one JSON line per
-phase:
+Drives the port's main paths at full width, the serving path (ResNet-9
+image->label generator, ngf 64, 21 classes, 256x256, bf16 compute over
+float32 weights drawn from a seed) and the semi-supervised CycleGAN train
+step of the ``voc_semisup_256`` preset on three routes through the trunk
+(the default fused residual block; path A, ``CYCLEGAN_TPU_RESBLOCK=chunked``;
+path B, ``use_dropout``), and prints one JSON line per phase:
 
 1. device: the card, its power limit, and the parallel nvcc build of every
    kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers and
@@ -21,10 +22,11 @@ phase:
    agree with the plain path's on one batch;
 4. http: ``http_serve.make_server`` in a thread, /healthz and 8 POST
    /predict from 4 threads in the three formats, checked against step 3;
-5. kernels_train: every kernel of the train step, forward and backward,
+5. kernels_train: every kernel of the train step, forward and backward
+   (the chunked block and the dropout trunk's weight gradient included),
    against its plain version at the train step's shapes, with its time, the
    plain version's, one library call's and the bound, per call and summed
-   over one train step;
+   over one train step; two calls of each weight gradient are bitwise equal;
 6. train: ``CycleGANTrainer.train_step`` of ``voc_semisup_256`` (two
    ResNet-9 generators, two 70x70 PatchGANs, pools of 50, Adam + LambdaLR,
    bf16 over float32) on one synthetic 256x256 batch with injected pool
@@ -32,7 +34,10 @@ phase:
    versions from the same weights; every parameter's step-1 gradient, the
    per-step losses of the two paths, every launch counter against the
    per-step count derived from the modules; then the median step time of
-   each path, in turns.
+   each path, in turns;
+7. train_chunked, train_dropout: the same for paths A and B; path A launches the chunked block 27 times a step
+   forward and backward and no fused block, path B launches conv_dw 54
+   times a step and no residual-block kernel.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -84,6 +89,20 @@ TOL = {
     # The bf16 activation between the convolutions may round the other way
     # on a last-bit f32 difference, which moves the output by an ulp or two.
     ("residual_block_fused", "bfloat16"): (2 ** -6, 2 ** -6),
+    # The chunked block (y, vhat, s): the same convolutions, statistics by
+    # sum and sum of squares (var = E[v^2] - E[v]^2: the trunk's conv
+    # outputs have |mean| well under their std, so the cancellation is
+    # mild; the card test holds it at 1e-4 too). In bf16 the stored s (and
+    # u) is itself rounded: a last-bit f32 difference flips it by one bf16
+    # ulp (2^-6 at |s| < 4), which the normalisation multiplies by r2 (~1.5
+    # at these weights) before y is rounded again, so y moves by up to
+    # ~2^-5 + one ulp of y wherever |y| is small. On an H100 this script
+    # measured 2^-5 against the fused block's bar of 2^-6 + 2^-6 |y|.
+    ("residual_block_chunked", "float32"): (1e-4, 1e-4),
+    ("residual_block_chunked", "bfloat16"): (2 ** -4, 2 ** -6),
+    # Its float32 statistics [mu1, r1, mu2, r2] in either type.
+    ("residual_block_chunked_stats", "float32"): (1e-4, 1e-4),
+    ("residual_block_chunked_stats", "bfloat16"): (1e-4, 1e-4),
 }
 ARGMAX_AGREEMENT_MIN = 0.99   # kernel path vs plain path, same batch
 # A top-2 logit gap under this share of the top logit is a tie that another
@@ -120,7 +139,18 @@ BWD_TOL = {
     # through the second convolution, two normalisation VJPs and an input
     # gradient into dx and dw before the final bf16 rounding.
     ("residual_block_bwd", "bfloat16"): (2 ** -7, 2 ** -5),
+    # The chunked VJP from the same saved residuals: float32 sums in another
+    # order; in bf16 the stored dv and the final dx round a float32 value
+    # that differs in its last bits, as in the fused block's VJP.
+    ("residual_block_chunked_bwd", "float32"): (1e-5, 1e-4),
+    ("residual_block_chunked_bwd", "bfloat16"): (2 ** -7, 2 ** -5),
+    # conv_dw: float32 products of the same inputs (bf16 operands are exact
+    # in float32), summed in another order; float32 output in both types.
+    ("conv_dw", "float32"): (1e-5, 1e-4),
+    ("conv_dw", "bfloat16"): (1e-5, 1e-4),
 }
+# The chunked route's rows a chunk (the JAX package's default).
+HC = 8
 # Per-step losses, kernel path vs plain path from the same weights, batch
 # and pool decisions: {compute type: {loss: [(rtol, atol) of step 1, 2, 3]}}.
 # Step 1 sees the same parameters: float32 sums in another order (~1e-6
@@ -721,6 +751,129 @@ def phase_kernels_train() -> dict:
             recs[name].append(rec)
         del x, dy, leaves, y, got, ref, dxk, a, ds, du, xl, yl
     torch.cuda.empty_cache()
+    recs.update(kernels_train_chunked_dw(randn, fail_if))
+    return recs
+
+
+def _max_check(checks: dict) -> dict:
+    return {"max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+            "worst_err_over_tol": max(r["worst_err_over_tol"] for r in checks.values()),
+            "ok": all(r["ok"] for r in checks.values())}
+
+
+def kernels_train_chunked_dw(randn, fail_if) -> dict:
+    """TPU kernels #6 and #7 (the chunked block, path A) and #8 (conv_dw,
+    path B) against their plain versions at the train step's trunk shapes,
+    float32 and bf16, timed, with bitwise repeatability of their dw."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    recs = {"residual_block_chunked": [], "residual_block_chunked_bwd": [], "conv_dw": []}
+    c = NGF * 4
+    # (dtype, batch, chunked calls per step, conv_dw calls per step): the
+    # generator applies at batch 2 and 1 (see train_in_cases).
+    for dtype, b, rc_calls, dw_calls in ((torch.float32, 2, 0, 0), (torch.bfloat16, 2, 18, 36),
+                                         (torch.bfloat16, 1, 9, 18)):
+        dname = str(dtype).split(".")[1]
+        shape = (b, CROP // 4, CROP // 4, c)
+        x, dy = randn(shape, dtype), randn(shape, dtype)
+        w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
+        b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
+
+        # #6: y, vhat, s and the statistics against the plain forward.
+        y, vhat, s, stats = RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, HC)
+        ref = RC.residual_block_chunked_plain(x, w1, b1, w2, b2, 1e-5, HC)
+        torch.cuda.synchronize()
+        fwd = {n: compare("residual_block_chunked", o, r, dname)
+               for n, o, r in zip(("y", "vhat", "s"), (y, vhat, s), ref)}
+        fwd["stats"] = compare("residual_block_chunked_stats", stats, ref[3], dname)
+        # #7 through the Function (its own saved residuals), against the plain
+        # VJP from the same residuals; exactly zero bias gradients; a second
+        # backward bitwise equal.
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        out = RC.residual_block_chunked(*leaves, 1e-5, HC)
+        got = torch.autograd.grad(out, leaves, dy)
+        ref_b = RC.residual_block_chunked_bwd_plain(x, dy, vhat, s, stats, w1, w2, HC)
+        again = RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, HC)
+        torch.cuda.synchronize()
+        bwd = {n: compare_bwd("residual_block_chunked_bwd", o, r, dname)
+               for n, o, r in zip(("dx", "dw1", "dw2"), (got[0], got[1], got[3]), ref_b)}
+        bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
+        bitwise = all(torch.equal(a_, g_) for a_, g_ in zip(again, (got[0], got[1], got[3])))
+        # #8 on the padded input of the trunk convolution and its gradient.
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+        xp = xp.contiguous()
+        dw = CD.conv_dw(xp, dy)
+        dw_ref = CD.conv_dw_plain(xp, dy)
+        dw_bitwise = torch.equal(dw, CD.conv_dw(xp, dy))
+        torch.cuda.synchronize()
+        dwc = compare_bwd("conv_dw", dw, dw_ref, dname)
+
+        # Library yardsticks: reflect pad + cuDNN conv + F.instance_norm,
+        # forward, and autograd for (dx, dw1, dw2); conv2d_weight for #8.
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        W1, W2 = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                  .requires_grad_() for w in (w1, w2)]
+
+        def lib_rb(xn=xl):
+            h = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), W1, b1)
+            h = torch.relu(F.instance_norm(h, eps=1e-5))
+            h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), W2, b2)
+            return xn + F.instance_norm(h, eps=1e-5)
+
+        yl, dyl = lib_rb(), dy.permute(0, 3, 1, 2)
+        xpl, dyn = xp.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            t_fwd = {"ms": time_ms(lambda: RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, HC), 10),
+                     "plain_ms": time_ms(lambda: RC.residual_block_chunked_plain(
+                         x, w1, b1, w2, b2, 1e-5, HC), 5),
+                     "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
+            t_dw = {"ms": time_ms(lambda: CD.conv_dw(xp, dy), 10),
+                    "plain_ms": time_ms(lambda: CD.conv_dw_plain(xp, dy), 5),
+                    "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(
+                        xpl, (c, c, 3, 3), dyn), 10)}
+        t_bwd = {"ms": time_ms(lambda: RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, HC), 10),
+                 "plain_ms": time_ms(lambda: RC.residual_block_chunked_bwd_plain(
+                     x, dy, vhat, s, stats, w1, w2, HC), 3),
+                 "library_ms": time_ms(lambda: torch.autograd.grad(
+                     yl, [xl, W1, W2], dyl, retain_graph=True), 10)}
+        m = b * shape[1] * shape[2]
+        conv = 2.0 * m * 9 * c * c
+        elt = x.element_size()
+        act_b, w_b = x.numel() * elt, 2 * (w1.numel() + c) * elt
+        stats_b = stats.numel() * 4
+        for name, res, t, nb, work, calls in (
+                # reads x and the weights; writes y, vhat, s and the stats.
+                ("residual_block_chunked", _max_check(fwd), t_fwd,
+                 4 * act_b + w_b + stats_b, {dname: 2 * conv}, rc_calls),
+                # reads x, dy, vhat, s, the stats, w1, w2; writes dx, dw1, dw2;
+                # two input and two weight gradients on float32 cotangents.
+                ("residual_block_chunked_bwd", _max_check(bwd), t_bwd,
+                 5 * act_b + stats_b + 4 * w1.numel() * elt, {"float32": 4 * conv}, rc_calls),
+                # reads xp and dy; writes the float32 dw.
+                ("conv_dw", dwc, t_dw, xp.numel() * elt + act_b + w1.numel() * 4,
+                 {dname: conv}, dw_calls)):
+            b_ms, b_by = bound(nb, work)
+            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
+                   "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
+                   "gflop": sum(work.values()) / 1e9, "calls_per_step": calls, "hc": HC}
+            if name == "residual_block_chunked":
+                rec["checks"] = fwd
+            elif name == "residual_block_chunked_bwd":
+                rec.update(checks=bwd, bias_grads_exactly_zero=bias_zero,
+                           second_call_bitwise_equal=bitwise)
+            else:
+                rec["second_call_bitwise_equal"] = dw_bitwise
+            ok = res["ok"] and (name == "residual_block_chunked" or
+                                (bias_zero and bitwise if name.endswith("bwd") else dw_bitwise))
+            fail_if(not ok, name, rec)
+            if calls:
+                recs[name].append(rec)
+        del x, dy, leaves, out, got, ref, ref_b, again, y, vhat, s, xp, xl, yl
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -728,29 +881,54 @@ def phase_kernels_train() -> dict:
 def plain_seams():
     """Point the blocks' kernel seams at the autograd Functions over the
     plain versions (forward and backward), as _paths_agree does for the
-    forward."""
+    forward: instance norm, both residual blocks and the trunk
+    convolution's weight gradient."""
     from cyclegan_tpu_torch.kernels import instance_norm as IN
     from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
     from cyclegan_tpu_torch.ops import blocks
+    from cyclegan_tpu_torch.ops import functional as OF
 
-    seams = (blocks.instance_norm_act, blocks.residual_block_fused)
+    seams = (blocks.instance_norm_act, blocks.residual_block_fused,
+             blocks.residual_block_chunked, OF.conv2d_valid_dw_fused)
     blocks.instance_norm_act = IN.instance_norm_act_reference
     blocks.residual_block_fused = RB.residual_block_reference
+    blocks.residual_block_chunked = RC.residual_block_chunked_reference
+    OF.conv2d_valid_dw_fused = OF.conv2d_valid_dw_fused_reference
     try:
         yield
     finally:
-        blocks.instance_norm_act, blocks.residual_block_fused = seams
+        (blocks.instance_norm_act, blocks.residual_block_fused,
+         blocks.residual_block_chunked, OF.conv2d_valid_dw_fused) = seams
+
+
+@contextlib.contextmanager
+def resblock_env(route: str):
+    """The JAX package's route variables while a trainer is built (the
+    blocks read them once, then): chunked with HC rows a chunk, or unset."""
+    keys = ("CYCLEGAN_TPU_RESBLOCK", "CYCLEGAN_TPU_RESBLOCK_HC")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    if route == "chunked":
+        os.environ.update(dict(zip(keys, ("chunked", str(HC)))))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def _pre_norm_biases(trainer) -> tuple[set, set]:
-    """ids of the trunk's conv biases, and of every conv bias that an
-    instance norm follows (the trunk's included)."""
+    """ids of the biases of the trunk blocks that run whole (fused or
+    chunked), and of every conv bias that an instance norm follows (those
+    included)."""
     from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
 
     trunk, pre_norm = set(), set()
     for net in trainer.nets():
         for m in net.modules():
-            if isinstance(m, ResidualBlock) and m.fused:
+            if isinstance(m, ResidualBlock) and m.route != "unfused":
                 trunk |= {id(m.conv0.conv.bias), id(m.conv1.conv.bias)}
             if isinstance(getattr(m, "norm", None), InstanceNorm) and m.conv.bias is not None:
                 pre_norm.add(id(m.conv.bias))
@@ -769,7 +947,7 @@ def _grads(trainer) -> dict:
 def _check_grads(trainer) -> dict:
     """Every parameter's gradient after step 1: finite everywhere; non-zero
     for every weight and for every bias that no instance norm follows; the
-    trunk's biases exactly zero (the residual block's VJP returns zeros: a
+    biases of whole trunk blocks exactly zero (their VJPs return zeros: a
     bias before an instance norm cancels). Other biases before an instance
     norm have a gradient that is zero in exact arithmetic and rounding noise
     in float: only finiteness is checked there."""
@@ -802,43 +980,93 @@ def expected_launches(trainer, steps: int) -> dict:
     on [onehot; fake_lab], G_i2l on fake_img) and four discriminator applies
     (D_lab, D_img in the G phase; D_img, D_lab in the D phase), each with
     its backward (the G-phase gradient flows through D into the fakes)."""
-    from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
+    from cyclegan_tpu_torch.ops.blocks import ConvBlock, InstanceNorm, ResidualBlock
 
     def per_net(net):
-        blocks_ = sum(isinstance(m, ResidualBlock) and m.fused for m in net.modules())
+        whole = [m for m in net.modules()
+                 if isinstance(m, ResidualBlock) and m.route != "unfused"]
+        routes = [m.route for m in whole]
+        fused, chunked = routes.count("fused"), routes.count("chunked")
         norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
-        return norms - 2 * blocks_, blocks_   # the trunk's norms are inside its kernel
+        # The ConvBlocks of whole blocks only hold their weights.
+        idle = {id(c) for m in whole for c in (m.conv0, m.conv1)}
+        dw = sum(isinstance(m, ConvBlock) and m.dw_fused and id(m) not in idle
+                 for m in net.modules())
+        # The norms of whole trunk blocks are inside their kernels.
+        return norms - 2 * (fused + chunked), fused, chunked, dw
 
-    g_in, g_rb = per_net(trainer.G_i2l)
-    d_in, _ = per_net(trainer.D_img)
-    in_calls, rb_calls = 3 * g_in + 4 * d_in, 3 * g_rb
+    g_in, g_rb, g_rc, g_dw = per_net(trainer.G_i2l)
+    d_in = per_net(trainer.D_img)[0]
+    in_calls, rb, rc, dw = 3 * g_in + 4 * d_in, 3 * g_rb, 3 * g_rc, 3 * g_dw
     per = {"instance_norm_act": in_calls, "instance_norm_act_bwd": in_calls,
-           "residual_block_fused": rb_calls, "residual_block_bwd_dx": rb_calls,
-           "residual_block_bwd_dw": rb_calls,
-           # C entries: the residual block's forward makes 2 convolutions and
-           # 2 norms, its backward recomputes both and their statistics and
-           # makes 2 norm VJPs, 2 input and 2 weight gradients.
-           "cg_instance_norm_act": in_calls + 2 * rb_calls + 2 * rb_calls,
-           "cg_instance_norm_act_bwd": in_calls + 2 * rb_calls,
-           "cg_conv3x3_reflect": 4 * rb_calls,
-           "cg_conv3x3_reflect_dgrad": 2 * rb_calls,
-           "cg_conv3x3_reflect_wgrad": 2 * rb_calls}
+           "residual_block_fused": rb, "residual_block_bwd_dx": rb,
+           "residual_block_bwd_dw": rb,
+           "residual_block_chunked": rc, "residual_block_chunked_bwd": rc, "conv_dw": dw,
+           # C entries: the fused block's forward makes 2 convolutions and 2
+           # norms, its backward recomputes both and their statistics and
+           # makes 2 norm VJPs, 2 input and 2 weight gradients. The chunked
+           # forward makes 2 convolutions and 2 norms; its backward reads the
+           # saved residuals: 2 norm VJPs, 2 input and 2 weight gradients,
+           # and no convolution.
+           "cg_instance_norm_act": in_calls + 4 * rb,
+           "cg_instance_norm_act_bwd": in_calls + 2 * rb,
+           "cg_conv3x3_reflect": 4 * rb + 2 * rc,
+           "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
+           "cg_conv3x3_reflect_wgrad": 2 * rb + 2 * rc,
+           "cg_chunked_in_fwd": 2 * rc, "cg_chunked_in_vjp": 2 * rc, "cg_conv_dw": dw}
     return {k: v * steps for k, v in per.items()}
 
 
-def phase_train(smi: str) -> dict:
+def _zero_counters() -> None:
+    from cyclegan_tpu_torch.kernels import _build
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    IN.launches = IN.bwd_launches = RB.launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
+    RC.launches = RC.bwd_launches = CD.launches = 0
+    _build.launches.clear()
+
+
+def _read_counters() -> dict:
+    from cyclegan_tpu_torch.kernels import _build
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    return {"instance_norm_act": IN.launches, "instance_norm_act_bwd": IN.bwd_launches,
+            "residual_block_fused": RB.launches, "residual_block_bwd_dx": RB.bwd_dx_launches,
+            "residual_block_bwd_dw": RB.bwd_dw_launches, "residual_block_chunked": RC.launches,
+            "residual_block_chunked_bwd": RC.bwd_launches, "conv_dw": CD.launches,
+            **dict(_build.launches)}
+
+
+# The paths of the train step: (route of the residual blocks, use_dropout).
+TRAIN_PATHS = {"default": ("fused", False), "chunked": ("chunked", False),
+               "dropout": ("fused", True)}
+# What each path must show in its launch counters per step, beside the
+# derived counts: path A runs the chunked block in every trunk block and no
+# fused one; path B runs conv_dw for both trunk convolutions and no
+# residual-block kernel.
+PATH_COUNTS = {"chunked": {"residual_block_chunked": 27, "residual_block_chunked_bwd": 27,
+                           "residual_block_fused": 0, "residual_block_bwd_dx": 0},
+               "dropout": {"conv_dw": 54, "residual_block_fused": 0,
+                           "residual_block_chunked": 0}}
+
+
+def phase_train(smi: str, path: str = "default") -> dict:
     import numpy as np
     import torch
 
     from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
     from cyclegan_tpu_torch.data.transforms import normalize
-    from cyclegan_tpu_torch.kernels import _build
-    from cyclegan_tpu_torch.kernels import instance_norm as IN
-    from cyclegan_tpu_torch.kernels import resblock as RB
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
     from cyclegan_tpu_torch.utils.config import preset
 
-    cfg = preset(TRAIN_PRESET)
+    route, use_dropout = TRAIN_PATHS[path]
+    cfg = preset(TRAIN_PRESET).replace(use_dropout=use_dropout)
     n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
     hw = cfg.crop_hw
     lab_img, lab = _synthetic_sample(0, hw, n_cls, in_ch)
@@ -858,7 +1086,11 @@ def phase_train(smi: str) -> dict:
                 "pool_use_new_lab": use_new[s, 1], "pool_idx_lab": swap[s, 1]}
 
     def trainer(c=cfg):
-        t = CycleGANTrainer(c, n_cls, in_ch, VOC_STEPS_PER_EPOCH, device="cuda")
+        # Same weights, pool decisions and dropout seed on every trainer.
+        with resblock_env(route):
+            t = CycleGANTrainer(c, n_cls, in_ch, VOC_STEPS_PER_EPOCH, device="cuda")
+        if {b.route for b in t.G_i2l.trunk} != {"unfused" if use_dropout else route}:
+            raise AssertionError(f"{path}: trunk routes {[b.route for b in t.G_i2l.trunk]}")
         return t, t.init_state(torch.Generator().manual_seed(0))
 
     def losses(m):
@@ -881,8 +1113,8 @@ def phase_train(smi: str) -> dict:
                     for k, p, (rtol, atol) in zip(k_losses, p_losses, tols)]
             worst[key] = errs
             if not all(np.isfinite([k[key] for k in k_losses])) or max(errs) > 1.0:
-                raise AssertionError(f"{dtype} {key}: kernel path {k_losses} vs plain "
-                                     f"path {p_losses}")
+                raise AssertionError(f"{path} {dtype} {key}: kernel path {k_losses} vs "
+                                     f"plain path {p_losses}")
         return worst
 
     # float32 first: the kernels' gradients through three full updates,
@@ -900,7 +1132,7 @@ def phase_train(smi: str) -> dict:
     grad_err, grad_floor = rel_err(g_kernel), rel_err(g_plain2)
     worst_grad = max(grad_err, key=grad_err.get)
     if not max(grad_err.values()) <= GRAD_TOL_F32:
-        raise AssertionError(f"float32 step-1 gradients, kernel vs plain path: worst "
+        raise AssertionError(f"{path} float32 step-1 gradients, kernel vs plain path: worst "
                              f"{worst_grad} {grad_err[worst_grad]} > {GRAD_TOL_F32}")
     del g_kernel, g_plain, g_plain2
     torch.cuda.empty_cache()
@@ -908,18 +1140,18 @@ def phase_train(smi: str) -> dict:
     kt, ks = trainer()
     n_params = sum(p.numel() for net in kt.nets() for p in net.parameters())
     # The main path: counts set to 0 just before, read just after.
-    IN.launches = IN.bwd_launches = RB.launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
-    _build.launches.clear()
+    _zero_counters()
     grads = {}
     k_losses = run(kt, ks, after_step1=lambda t: grads.update(_check_grads(t)))
     torch.cuda.synchronize()
-    launches = {"instance_norm_act": IN.launches, "instance_norm_act_bwd": IN.bwd_launches,
-                "residual_block_fused": RB.launches, "residual_block_bwd_dx": RB.bwd_dx_launches,
-                "residual_block_bwd_dw": RB.bwd_dw_launches,
-                **{k: _build.launches[k] for k in _build.launches}}
+    launches = _read_counters()
     want = expected_launches(kt, TRAIN_STEPS)
     if {k: launches.get(k, 0) for k in want} != want:
-        raise AssertionError(f"launch counters {launches} != derived {want}")
+        raise AssertionError(f"{path}: launch counters {launches} != derived {want}")
+    for k, per_step in PATH_COUNTS.get(path, {}).items():
+        if launches.get(k, 0) != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{path}: {k} launched {launches.get(k, 0)} times in "
+                                 f"{TRAIN_STEPS} steps, not {per_step} a step")
 
     pt, ps = trainer()
     p_losses = run(pt, ps, plain=True)
@@ -945,20 +1177,10 @@ def phase_train(smi: str) -> dict:
         plain_ms += timed(pt, ps, s0 + TIMED_STEPS)
     del pt, ps
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))
-        torch.cuda.synchronize()
-        prof_step_ms = (time.perf_counter() - t0) * 1e3
-    # Device kernels only (CPU ops that launched them carry the same time).
-    device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
-                 for e in prof.key_averages() if e.self_device_time_total > 0
-                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    device_ms.sort(key=lambda r: -r[1])
     med_k, med_p = statistics.median(kernel_ms), statistics.median(plain_ms)
-    rec = {"phase": "train", "preset": TRAIN_PRESET, "crop": list(hw),
+    rec = {"phase": "train" if path == "default" else f"train_{path}", "path": path,
+           "preset": TRAIN_PRESET, "resblock_route": route, "use_dropout": use_dropout,
+           "hc": HC if route == "chunked" else None, "crop": list(hw),
            "batch": cfg.batch_size, "pool_size": cfg.pool_size, "n_params": n_params,
            "nvidia_smi": smi, "losses_kernel_path": k_losses, "losses_plain_path": p_losses,
            "loss_err_over_tol": worst, "float32_losses_kernel_path": k32,
@@ -972,24 +1194,40 @@ def phase_train(smi: str) -> dict:
            "launches_over_3_steps": launches, "expected_launches": want,
            "step_ms_kernel": kernel_ms, "step_ms_plain": plain_ms,
            "median_step_ms_kernel": med_k, "steps_per_s_kernel": 1e3 / med_k,
-           "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p,
-           "profiled_step_ms": prof_step_ms,
-           "profiled_step_device_ms_total": sum(r[1] for r in device_ms),
-           "profiled_step_device_busy_share": sum(r[1] for r in device_ms) / prof_step_ms,
-           "profiled_step_device_ms_by_kernel": [
-               {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
-           "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9}
+           "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))
+        torch.cuda.synchronize()
+        prof_step_ms = (time.perf_counter() - t0) * 1e3
+    # Device kernels only (CPU ops that launched them carry the same time).
+    device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages() if e.self_device_time_total > 0
+                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    device_ms.sort(key=lambda r: -r[1])
+    rec.update({
+        "profiled_step_ms": prof_step_ms,
+        "profiled_step_device_ms_total": sum(r[1] for r in device_ms),
+        "profiled_step_device_busy_share": sum(r[1] for r in device_ms) / prof_step_ms,
+        "profiled_step_device_ms_by_kernel": [
+            {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
+        "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9})
     emit(rec)
-    print(f"train step, {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
+    print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
           f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
           f"versions; {smi}", flush=True)
+    del kt, ks
+    torch.cuda.empty_cache()
     return {"launches": launches, "record": rec}
 
 
-def kernels_line(recs: dict, launches: dict) -> dict:
+def kernels_line(recs: dict, runs: dict) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
-    ``launches`` from the train run (3 steps)."""
+    ``launches`` from the run (3 steps) of the path that runs the kernel
+    (``runs``: path -> phase_train's result)."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -1001,9 +1239,17 @@ def kernels_line(recs: dict, launches: dict) -> dict:
                                   "cyclegan_tpu/kernels/resblock.py:219"),
         "residual_block_bwd_dw": ("cyclegan_tpu_torch/csrc/resblock.cu",
                                   "cyclegan_tpu/kernels/resblock.py:227"),
+        "residual_block_chunked": ("cyclegan_tpu_torch/csrc/resblock_chunked.cu",
+                                   "cyclegan_tpu/kernels/resblock_chunked.py:156"),
+        "residual_block_chunked_bwd": ("cyclegan_tpu_torch/csrc/resblock_chunked.cu",
+                                       "cyclegan_tpu/kernels/resblock_chunked.py:406"),
+        "conv_dw": ("cyclegan_tpu_torch/csrc/conv_dw.cu", "cyclegan_tpu/kernels/conv_dw.py:58"),
     }
+    path_of = {"residual_block_chunked": "chunked", "residual_block_chunked_bwd": "chunked",
+               "conv_dw": "dropout"}
     entries = []
     for name, (source, replaces) in meta.items():
+        path = path_of.get(name, "default")
         rs = recs[name]
 
         def total(key):
@@ -1011,13 +1257,14 @@ def kernels_line(recs: dict, launches: dict) -> dict:
 
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "launches": runs[path]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
             "library_ms": total("library_ms"),
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
-            "launches_over": f"{TRAIN_STEPS} train steps"})
+            "launches_over": f"{TRAIN_STEPS} train steps, path {path}"})
     return {"kernels": entries}
 
 
@@ -1039,10 +1286,10 @@ def main() -> int:
         served = phase_serve(tmp)
         phase_http(served)
     recs = phase_kernels_train()
-    trained = phase_train(smi)
+    runs = {path: phase_train(smi, path) for path in TRAIN_PATHS}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
-    emit(kernels_line(recs, trained["launches"]))
+    emit(kernels_line(recs, runs))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -8,9 +8,11 @@ and the semi-supervised CycleGAN train step:
 
 - ``ops`` (functional ops, init, blocks), ``models.generators`` (ResNet
   generator) and ``models.discriminators`` (PatchGAN, PixelGAN);
-- ``kernels``: hand-written CUDA kernels for the TPU kernels on those
-  paths (``instance_norm_act`` and ``residual_block_fused``, forward and
-  VJP, as ``torch.autograd.Function``s), each beside its plain PyTorch
+- ``kernels``: hand-written CUDA kernels for every TPU kernel of the JAX
+  package (``instance_norm_act``, ``residual_block_fused`` and
+  ``residual_block_chunked``, forward and VJP, as
+  ``torch.autograd.Function``s, and ``conv_dw``, the weight gradient of
+  ``ops.functional.conv2d_valid_dw_fused``), each beside its plain PyTorch
   version;
 - ``train`` (``cyclegan.CycleGANTrainer``, losses, LR schedule, replay
   pool, metrics) and ``utils.config`` (``Config`` and the presets);

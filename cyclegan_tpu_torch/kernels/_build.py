@@ -29,7 +29,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("instance_norm", "resblock")
+SOURCES = ("instance_norm", "resblock", "resblock_chunked", "conv_dw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,13 @@ SIGNATURES = {
         "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
         "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP],
         "cg_conv3x3_reflect_wgrad": [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP],
+    },
+    "resblock_chunked": {
+        "cg_chunked_in_fwd": [_VOIDP] * 6 + [_INT] * 5 + [_FLOAT] + [_INT] * 2 + [_VOIDP],
+        "cg_chunked_in_vjp": [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP],
+    },
+    "conv_dw": {
+        "cg_conv_dw": [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP],
     },
 }
 

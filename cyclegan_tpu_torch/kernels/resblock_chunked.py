@@ -1,0 +1,265 @@
+"""Row-chunked ResidualBlock, forward and VJP from saved residuals.
+
+The counterpart of ``cyclegan_tpu/kernels/resblock_chunked.py``: the same
+block as :mod:`cyclegan_tpu_torch.kernels.resblock`,
+``y = x + IN(conv3x3(rpad(relu(IN(conv3x3(rpad(x)) + b1)))) + b2)`` on NHWC
+``x`` with HWIO weights, with the chunked route's numerics:
+
+- the statistics are float32 sum and sum of squares of the convolution
+  outputs before any rounding, taken per row chunk of ``hc`` rows and added
+  in chunk order; ``var = E[v^2] - E[v]^2``;
+- u and s are rounded to x's type before they are normalised, and s is
+  stored in x's type; ``vhat = IN(u)`` is stored in x's type and
+  ``a = relu(vhat)`` feeds the second convolution;
+- the forward returns ``y`` and the residuals ``vhat``, ``s`` and
+  ``stats`` (N, 4, C) float32 = ``[mu1, r1, mu2, r2]``.
+
+The VJP reads ``(x, vhat, s, stats, w1, w2)`` and runs no forward
+convolution again::
+
+    shat = (s - mu2) r2     ds = r2 (dy - E[dy] - shat E[dy shat])
+    da = dgrad(ds, w2)      dv = da (vhat > 0), stored in x's type
+    du = r1 (dv - E[dv] - vhat E[dv vhat])       (E[.] from the float32 dv)
+    dx = dy + dgrad(du, w1)
+    dw2 = wgrad(relu(vhat), ds)                  dw1 = wgrad(x, du)
+
+with float32 cotangents; dw is summed over chunks and batch in float32 and
+cast to the weights' type; the bias gradients are exactly zero.
+
+:func:`residual_block_chunked` is a ``torch.autograd.Function``. On a CUDA
+tensor it launches the convolutions of ``csrc/resblock.cu`` and the
+normalisation kernels of ``csrc/resblock_chunked.cu`` (TPU kernels #6 and
+#7), or raises; on a CPU tensor it runs the plain versions through the same
+Function. ``H % hc != 0`` raises: the chunk is the statistics kernels' row
+tile.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cyclegan_tpu_torch.kernels import _build
+from cyclegan_tpu_torch.kernels import resblock as RB
+
+# Calls of the chunked forward (TPU kernel #6) and of its VJP (#7) that
+# launched the CUDA kernels.
+launches = 0
+bwd_launches = 0
+
+
+def _check_hc(h: int, hc: int) -> None:
+    if hc <= 0 or h % hc:
+        raise ValueError(f"residual_block_chunked needs H % hc == 0, got H={h}, hc={hc}")
+
+
+def _chunk_means(v: torch.Tensor, hc: int) -> torch.Tensor:
+    """Per-channel float32 mean of NHWC ``v`` over H*W: sums per row chunk
+    of ``hc`` rows, added in chunk order. Returns (N, C)."""
+    n, h, w, c = v.shape
+    part = v.float().reshape(n, h // hc, hc * w, c).sum(2)
+    total = part[:, 0].clone()
+    for k in range(1, h // hc):
+        total += part[:, k]
+    return total / (h * w)
+
+
+def _stats_plain(v: torch.Tensor, hc: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    mean = _chunk_means(v, hc)
+    var = _chunk_means(v * v, hc) - mean * mean
+    return mean, torch.rsqrt(var + eps)
+
+
+def _bc(t: torch.Tensor) -> torch.Tensor:
+    """(N, C) -> (N, 1, 1, C), to broadcast over NHWC."""
+    return t[:, None, None]
+
+
+def residual_block_chunked_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                                 w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+                                 hc: int = 8):
+    """Plain PyTorch forward: ``(y, vhat, s, stats)``, the roundings of the
+    module docstring at the places the Pallas kernel makes them."""
+    _check_hc(x.shape[1], hc)
+    t = x.dtype
+    u = RB._conv3x3_plain(x, w1, b1)
+    mu1, r1 = _stats_plain(u, hc, eps)
+    vh = (u.to(t).float() - _bc(mu1)) * _bc(r1)
+    a = vh.clamp_min(0).to(t)
+    s32 = RB._conv3x3_plain(a, w2, b2)
+    mu2, r2 = _stats_plain(s32, hc, eps)
+    s = s32.to(t)
+    y = ((s.float() - _bc(mu2)) * _bc(r2) + x.float()).to(t)
+    return y, vh.to(t), s, torch.stack([mu1, r1, mu2, r2], 1)
+
+
+def residual_block_chunked_bwd_plain(x: torch.Tensor, dy: torch.Tensor, vhat: torch.Tensor,
+                                     s: torch.Tensor, stats: torch.Tensor, w1: torch.Tensor,
+                                     w2: torch.Tensor, hc: int = 8):
+    """Plain PyTorch VJP from the saved residuals: ``(dx (x's type), dw1,
+    dw2 (float32))``, the chain of the module docstring step by step."""
+    mu1, r1, mu2, r2 = (_bc(t) for t in stats.unbind(1))
+    dyf = dy.float()
+    shat = (s.float() - mu2) * r2
+    ds = r2 * (dyf - _bc(_chunk_means(dyf, hc)) - shat * _bc(_chunk_means(dyf * shat, hc)))
+    da = RB.conv3x3_reflect_dgrad_plain(ds, w2)
+    vh = vhat.float()
+    dv = da * (vh > 0)
+    m_dv, m_dvv = _chunk_means(dv, hc), _chunk_means(dv * vh, hc)
+    du = r1 * (dv.to(x.dtype).float() - _bc(m_dv) - vh * _bc(m_dvv))
+    dx = (dyf + RB.conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
+    a = vh.clamp_min(0).to(x.dtype)
+    return dx, RB.conv3x3_reflect_wgrad_plain(x, du), RB.conv3x3_reflect_wgrad_plain(a, ds)
+
+
+def _check(name: str, planes: list, same_type: list, f32: list, hc: int,
+           part: torch.Tensor, stats: torch.Tensor,
+           means: torch.Tensor | None = None) -> None:
+    """Device, contiguity and alignment of every tensor; ``planes`` share
+    one NHWC shape, ``same_type`` the first plane's dtype, ``f32`` are
+    float32; the scratch and statistics fit the shape and ``hc``."""
+    RB._check_same_device(name, *planes, part, stats, *([means] if means is not None else []))
+    n, h, w_, c = planes[0].shape
+    if any(p.shape != planes[0].shape for p in planes):
+        raise ValueError(f"{name}: planes {[tuple(p.shape) for p in planes]} differ")
+    if any(t.dtype != planes[0].dtype for t in same_type) or \
+            any(t.dtype != torch.float32 for t in f32 + [part, stats]):
+        raise TypeError(f"{name}: wrong dtypes")
+    if h < 2 or w_ < 2:
+        raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
+    _check_hc(h, hc)
+    if part.shape != (2, n, h // hc, c) or stats.shape != (n, 4, c) or \
+            (means is not None and means.shape != (n, 2, c)):
+        raise ValueError(f"{name}: scratch or statistics do not fit {tuple(planes[0].shape)}")
+
+
+def in_fwd(v32: torch.Tensor, stats: torch.Tensor, x: torch.Tensor, out0: torch.Tensor,
+           out1: torch.Tensor, part: torch.Tensor, hc: int, eps: float, which: int) -> None:
+    """CUDA kernels: the forward instance norm after convolution ``which``
+    (1: stats slots 0-1, out0 = vhat, out1 = a; 2: slots 2-3, out0 = s,
+    out1 = y = IN(s) + x) from its float32 output ``v32``."""
+    n, h, w_, c = x.shape
+    _check("chunked_in_fwd", [x, v32, out0, out1], [out0, out1], [v32], hc, part, stats)
+    _build.call("resblock_chunked", "cg_chunked_in_fwd",
+                v32.data_ptr(), stats.data_ptr(), x.data_ptr(), out0.data_ptr(),
+                out1.data_ptr(), part.data_ptr(), n, h, w_, c, hc, float(eps), which,
+                _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+
+
+def in_vjp(g: torch.Tensor, src: torch.Tensor, stats: torch.Tensor, out: torch.Tensor,
+           part: torch.Tensor, means: torch.Tensor, hc: int, which: int,
+           dv: torch.Tensor | None = None, a: torch.Tensor | None = None) -> None:
+    """CUDA kernels: the VJP of instance norm ``which`` from saved values
+    (2: g = dy, src = s, out = ds; 1: g = da (float32), src = vhat, writes
+    dv and a = relu(vhat) in src's type, out = du). ``out`` is float32."""
+    n, h, w_, c = src.shape
+    side = [dv, a] if which == 1 else []
+    if which == 1 and (dv is None or a is None):
+        raise ValueError("chunked_in_vjp: which=1 writes dv and a")
+    _check("chunked_in_vjp", [src, g, out, *side], side + ([g] if which == 2 else []),
+           [out] + ([g] if which == 1 else []), hc, part, stats, means)
+    _build.call("resblock_chunked", "cg_chunked_in_vjp",
+                g.data_ptr(), src.data_ptr(), stats.data_ptr(),
+                None if dv is None else dv.data_ptr(), None if a is None else a.data_ptr(),
+                out.data_ptr(), part.data_ptr(), means.data_ptr(), n, h, w_, c, hc, which,
+                _build.DTYPE_CODES[src.dtype], _build.stream_ptr(src))
+
+
+def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
+    """TPU kernel #6 on the card: ``(y, vhat, s, stats)``."""
+    global launches
+    n, h, w_, c = x.shape
+    if w1.shape[-1] != c or w2.shape[-1] != c:
+        raise ValueError(f"residual block needs Cout == Cin == {c}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    v32 = torch.empty(x.shape, **f32)
+    stats = torch.empty((n, 4, c), **f32)
+    part = torch.empty((2, n, h // hc, c), **f32)
+    vhat, a, s, y = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                     for _ in range(4))
+    RB.conv3x3_reflect(x, w1, b1, v32)                 # u, float32
+    in_fwd(v32, stats, x, vhat, a, part, hc, eps, 1)
+    RB.conv3x3_reflect(a, w2, b2, v32)                 # s overwrites u
+    in_fwd(v32, stats, x, s, y, part, hc, eps, 2)
+    launches += 1
+    return y, vhat, s, stats
+
+
+def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
+    """TPU kernel #7 on the card: ``(dx, dw1, dw2)``, dw in the weights'
+    type; two normalisation VJPs, two input and two weight gradients."""
+    global bwd_launches
+    n, h, w_, c = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((2, n, h // hc, c), **f32)
+    means = torch.empty((n, 2, c), **f32)
+    ds, da, du = (torch.empty(x.shape, **f32) for _ in range(3))
+    dv, a, dx = (torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(3))
+    in_vjp(dy, s, stats, ds, part, means, hc, 2)
+    RB.conv3x3_reflect_dgrad(ds, w2, da)
+    in_vjp(da, vhat, stats, du, part, means, hc, 1, dv=dv, a=a)
+    RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy)
+    dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype)
+    dw2 = RB.conv3x3_reflect_wgrad(a, ds, w2.dtype)
+    bwd_launches += 1
+    return dx, dw1, dw2
+
+
+class ResidualBlockChunked(torch.autograd.Function):
+    """The differentiable seam; ``plain`` picks the plain versions. Saves
+    ``(x, vhat, s, stats, w1, w2)`` only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, eps, hc, plain):
+        fwd = residual_block_chunked_plain if plain else _fwd_cuda
+        y, vhat, s, stats = fwd(x, w1, b1, w2, b2, eps, hc)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, vhat, s, stats, w1, w2)
+            ctx.hc, ctx.plain = hc, plain
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, vhat, s, stats, w1, w2 = ctx.saved_tensors
+        bwd = residual_block_chunked_bwd_plain if ctx.plain else _bwd_cuda
+        dx, dw1, dw2 = bwd(x, dy.to(x.dtype).contiguous(), vhat, s, stats, w1, w2, ctx.hc)
+        zeros = torch.zeros(w1.shape[-1], dtype=w1.dtype, device=w1.device)
+        return dx, dw1.to(w1.dtype), zeros, dw2.to(w2.dtype), zeros.clone(), None, None, None
+
+
+def _check_args(x: torch.Tensor, hc: int, name: str) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"{name} wants NHWC, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    _check_hc(x.shape[1], hc)
+
+
+def residual_block_chunked(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                           w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+                           hc: int = 8) -> torch.Tensor:
+    """Chunked ResidualBlock, differentiable; x (N, H, W, C) with H % hc ==
+    0, w (3, 3, C, C), b (C,), all of one dtype. CUDA tensors launch the
+    kernels, forward and backward; CPU tensors run the plain versions."""
+    _check_args(x, hc, "residual_block_chunked")
+    return ResidualBlockChunked.apply(x, w1, b1, w2, b2, eps, hc, x.device.type == "cpu")
+
+
+def residual_block_chunked_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                               w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+                               hc: int = 8):
+    """The forward alone, as the JAX function returns it: ``(y, vhat,
+    stats)`` (no gradient)."""
+    _check_args(x, hc, "residual_block_chunked_fwd")
+    fwd = residual_block_chunked_plain if x.device.type == "cpu" else _fwd_cuda
+    with torch.no_grad():
+        y, vhat, _, stats = fwd(x, w1, b1, w2, b2, eps, hc)
+    return y, vhat, stats
+
+
+def residual_block_chunked_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                                     w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+                                     hc: int = 8) -> torch.Tensor:
+    """The same Function over the plain versions on any device (the on-card
+    checks' yardstick; the port's modules never call it)."""
+    _check_args(x, hc, "residual_block_chunked")
+    return ResidualBlockChunked.apply(x, w1, b1, w2, b2, eps, hc, True)

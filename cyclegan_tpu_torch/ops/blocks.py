@@ -9,22 +9,32 @@ precision (bf16 on the card). Activations are NCHW tensors that live in
 the kernels take, at no cost.
 
 The kernel seams sit where the JAX package has them: instance norm (+ act,
-+ skip) goes to ``kernels.instance_norm_act`` through :class:`InstanceNorm`,
-and an instance-norm :class:`ResidualBlock` goes whole to
-``kernels.residual_block_fused``. Both are ``autograd.Function``s: on the
-card they run their CUDA kernels forward and backward; on the CPU their
-plain PyTorch versions. Gradients reach the float32 parameters through the
-casts and the differentiable OIHW -> HWIO permute of :func:`hwio`.
++ skip) goes to ``kernels.instance_norm_act`` through :class:`InstanceNorm`;
+an instance-norm :class:`ResidualBlock` without dropout goes whole to
+``kernels.residual_block_fused`` or, on the chunked route, to
+``kernels.residual_block_chunked``; a reflect-padded 3x3 stride-1
+:class:`ConvBlock` of at least 128 channels in and out takes its weight
+gradient from ``F.conv2d_valid_dw_fused``. All are ``autograd.Function``s:
+on the card they run their CUDA kernels forward and backward; on the CPU
+their plain PyTorch versions. Gradients reach the float32 parameters through
+the casts and the differentiable OIHW -> HWIO permute of :func:`hwio`.
+
+The residual block's route follows the JAX package's variables, read once
+when the module is built: ``CYCLEGAN_TPU_RESBLOCK=chunked`` selects the
+chunked block with ``CYCLEGAN_TPU_RESBLOCK_HC`` rows a chunk (default 8);
+any other value keeps the port's default, the fused block.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 from torch import nn
 
-from cyclegan_tpu_torch.kernels import instance_norm_act, residual_block_fused
+from cyclegan_tpu_torch.kernels import (instance_norm_act, residual_block_chunked,
+                                        residual_block_fused)
 from cyclegan_tpu_torch.ops import functional as F
 
 
@@ -97,10 +107,18 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride, bias=use_bias)
         self.pad, self.pad_mode, self.act, self.dtype = pad, pad_mode, act, dtype
         self.norm = get_norm(norm)()
+        # The trunk's 3x3 convolutions: weight gradient from TPU kernel #8.
+        self.dw_fused = pad_mode == "reflect" and F.use_dw_fused(in_ch, features, kernel,
+                                                                 stride)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
         stride = self.conv.stride[0]
-        if self.pad_mode == "reflect":
+        if self.dw_fused:
+            d, b = self.dtype, self.conv.bias
+            x = F.conv2d_valid_dw_fused(F.reflect_pad(x, self.pad).to(d),
+                                        self.conv.weight.to(d))
+            x = x if b is None else x + b.to(d).view(1, -1, 1, 1)
+        elif self.pad_mode == "reflect":
             x = F.conv2d(F.reflect_pad(x, self.pad), self.conv.weight, self.conv.bias,
                          stride=stride, compute_dtype=self.dtype)
         else:
@@ -137,31 +155,80 @@ class DeconvBlock(nn.Module):
         return _act(x, self.act)
 
 
+def dropout_keep(shape: tuple[int, ...], p: float, generator: torch.Generator) -> torch.Tensor:
+    """Keep-mask of inverted dropout: True with probability 1 - p, of NHWC
+    ``shape`` (the JAX package's layout), drawn from ``generator`` on its
+    device."""
+    return torch.rand(shape, generator=generator, device=generator.device) >= p
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (``nn.Dropout`` semantics: kept values scaled by
+    1 / (1 - p)). It drops only in train mode and only when the caller
+    passes a generator, as a Flax apply drops only when it is given a
+    dropout key and ``deterministic=False``."""
+
+    def __init__(self, p: float = 0.5) -> None:
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or generator is None:
+            return x
+        n, c, h, w = x.shape
+        keep = dropout_keep((n, h, w, c), self.p, generator).permute(0, 3, 1, 2)
+        return torch.where(keep, x / (1 - self.p), torch.zeros((), dtype=x.dtype,
+                                                               device=x.device))
+
+
+def resblock_route_from_env() -> tuple[str, int]:
+    """``(route, hc)`` of the JAX package's ``CYCLEGAN_TPU_RESBLOCK`` and
+    ``CYCLEGAN_TPU_RESBLOCK_HC``: ``("chunked", hc)`` or ``("fused", hc)``."""
+    route = "chunked" if os.environ.get("CYCLEGAN_TPU_RESBLOCK") == "chunked" else "fused"
+    return route, int(os.environ.get("CYCLEGAN_TPU_RESBLOCK_HC", "8"))
+
+
 class ResidualBlock(nn.Module):
-    """[refpad1, conv3x3, IN, ReLU, refpad1, conv3x3, IN] + x (reference
-    ``ResidualBlock``). With instance norm the whole block is one call of
-    ``kernels.residual_block_fused``, forward and backward; the two
-    ConvBlocks then only hold the weights."""
+    """[refpad1, conv3x3, IN, ReLU, (dropout), refpad1, conv3x3, IN] + x
+    (reference ``ResidualBlock``). ``route``: ``fused`` (the whole block is
+    one call of ``kernels.residual_block_fused``, forward and backward),
+    ``chunked`` (``kernels.residual_block_chunked`` with ``hc`` rows a
+    chunk), or None for the environment's choice at build time. The two
+    ConvBlocks then only hold the weights. Without instance norm, or with
+    dropout, the block runs its ConvBlocks (route ``unfused``), as the JAX
+    block does."""
 
     def __init__(self, features: int, norm: str = "instance",
-                 dtype: torch.dtype = torch.float32, use_dropout: bool = False) -> None:
+                 dtype: torch.dtype = torch.float32, use_dropout: bool = False,
+                 route: str | None = None, hc: int | None = None) -> None:
         super().__init__()
-        if use_dropout:
-            raise NotImplementedError(
-                "use_dropout arrives with the next slice of the port (the dropout "
-                "trunk and its weight-gradient kernel, TPU kernel #8 conv_dw)")
         self.conv0 = ConvBlock(features, features, 3, pad=1, norm=norm, act="relu",
                                dtype=dtype)
         self.conv1 = ConvBlock(features, features, 3, pad=1, norm=norm, act="none",
                                dtype=dtype)
-        self.fused = norm == "instance"
+        self.dropout = Dropout() if use_dropout else None
+        env_route, env_hc = resblock_route_from_env()
+        route = env_route if route is None else route
+        if route not in ("fused", "chunked"):
+            raise ValueError(f"unknown residual-block route {route!r} (fused|chunked)")
+        self.route = "unfused" if norm != "instance" or use_dropout else route
+        self.hc = env_hc if hc is None else hc
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.fused:
-            return self.conv1(self.conv0(x), skip=x)
+    def forward(self, x: torch.Tensor,
+                dropout: torch.Generator | None = None) -> torch.Tensor:
+        """``dropout``: the generator of the dropout masks (train mode only;
+        None or eval mode never drops)."""
+        if self.route == "unfused":
+            h = self.conv0(x)
+            if self.dropout is not None:
+                h = self.dropout(h, dropout)
+            return self.conv1(h, skip=x)
         d = self.dtype
         c0, c1 = self.conv0.conv, self.conv1.conv
-        y = residual_block_fused(to_nhwc(x.to(d)), hwio(c0.weight, d), c0.bias.to(d),
-                                 hwio(c1.weight, d), c1.bias.to(d), 1e-5)
-        return to_nchw(y)
+        args = (to_nhwc(x.to(d)), hwio(c0.weight, d), c0.bias.to(d),
+                hwio(c1.weight, d), c1.bias.to(d), 1e-5)
+        if self.route == "chunked":
+            return to_nchw(residual_block_chunked(*args, self.hc))
+        return to_nchw(residual_block_fused(*args))

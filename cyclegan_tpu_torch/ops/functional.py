@@ -3,14 +3,17 @@
 Counterpart of ``cyclegan_tpu/ops/functional.py``. There these are XLA ops
 in NHWC/HWIO; here they are plain ``torch.nn.functional`` calls in torch's
 own NCHW/OIHW layout (activations may sit in ``channels_last`` memory). The
-JAX package's XLA-only routes (``conv2d_reflect_gemm``, ``_conv_gemm_core``,
-``conv2d_valid_dw_fused``) have no counterpart yet.
+JAX package's XLA-only routes (``conv2d_reflect_gemm``, ``_conv_gemm_core``)
+have no counterpart yet; ``conv2d_valid_dw_fused`` takes its weight gradient
+from the hand-written kernel of ``kernels.conv_dw``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from cyclegan_tpu_torch.kernels import conv_dw as _dw
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -33,6 +36,61 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         x, w = x.to(compute_dtype), w.to(compute_dtype)
         b = b.to(compute_dtype) if b is not None else None
     return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+class _ConvValidDwFused(torch.autograd.Function):
+    """Stride-1 VALID convolution whose weight gradient is TPU kernel #8
+    (``kernels.conv_dw``); ``plain`` picks its plain version. The forward
+    and the input gradient are library calls, as the JAX package leaves
+    them to XLA."""
+
+    @staticmethod
+    def forward(ctx, xp, w, plain):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(xp, w)
+            ctx.plain = plain
+        return F.conv2d(xp, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xp, w = ctx.saved_tensors
+        dxp = dw = None
+        if ctx.needs_input_grad[0]:
+            dxp = torch.nn.grad.conv2d_input(xp.shape, w, dy)
+        if ctx.needs_input_grad[1]:
+            # Contiguous NHWC for the kernel (a view of channels_last memory).
+            xh = xp.permute(0, 2, 3, 1).contiguous()
+            dyh = dy.permute(0, 2, 3, 1).contiguous()
+            fn = _dw.conv_dw_plain if ctx.plain else _dw.conv_dw
+            # float32 (k, k, Cin, Cout) -> w's type (as the JAX VJP casts) -> OIHW.
+            dw = fn(xh, dyh, w.shape[-1]).to(w.dtype).permute(3, 2, 0, 1)
+        return dxp, dw, None
+
+
+def conv2d_valid_dw_fused(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 VALID convolution of the padded NCHW ``xp`` with the OIHW
+    ``w`` (one dtype), differentiable; the weight gradient comes from the
+    CUDA kernel for CUDA tensors and from its plain version for CPU
+    tensors. No bias: the caller adds it after, as the JAX ConvBlock does."""
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv2d_valid_dw_fused: no kernel for device {xp.device}")
+    return _ConvValidDwFused.apply(xp, w, xp.device.type == "cpu")
+
+
+def conv2d_valid_dw_fused_reference(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The same Function with the plain weight gradient on any device (the
+    on-card checks' yardstick; the port's modules never call it)."""
+    return _ConvValidDwFused.apply(xp, w, True)
+
+
+def use_dw_fused(in_ch: int, out_ch: int, kernel: int, stride: int) -> bool:
+    """Routing predicate for :func:`conv2d_valid_dw_fused`: a 3x3 stride-1
+    convolution whose channel dims the kernel takes (``conv_dw.supported``).
+    The JAX package asks it with the padded input's shape; here the module
+    asks once, when it is built."""
+    if kernel != 3 or stride != 1:
+        return False
+    return _dw.supported((1, 1, 1, in_ch), (1, 1, 1, out_ch))
 
 
 def conv2d_transpose(x: torch.Tensor, w: torch.Tensor,

@@ -12,6 +12,10 @@ constants of ``torch.autograd.grad`` and get no ``.grad``)::
   cycle_lab = CE(G_i2l(fake_img), real_lab) * lamda_lab
   sup       = CE(G_i2l(lab_img), lab_gt)
 
+With ``use_dropout`` every generator forward of the G phase draws fresh
+dropout masks from the state's dropout generator (the JAX step's ``dkeys``);
+``logits``, ``predict``, ``eval_step`` and ``generate_image`` never drop.
+
 Pool phase: the detached fakes go through the replay pools.
 
 D phase::
@@ -49,7 +53,8 @@ POOL_KEYS = ("pool_use_new_img", "pool_idx_img", "pool_use_new_lab", "pool_idx_l
 class CycleGANState:
     """What a step carries besides the trainer's modules (which hold the
     parameters): the two Adams and their LambdaLRs, the replay pools, the
-    generator of the pool decisions, and the step count."""
+    generator of the pool decisions, the generator of the dropout masks (on
+    the trainer's device), and the step count."""
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
     g_sched: torch.optim.lr_scheduler.LambdaLR
@@ -57,6 +62,7 @@ class CycleGANState:
     pool_img: PoolState
     pool_lab: PoolState
     generator: torch.Generator
+    dropout: torch.Generator
     step: int = 0
 
 
@@ -111,8 +117,9 @@ class CycleGANTrainer:
     def init_state(self, generator: torch.Generator) -> CycleGANState:
         """Draw all four networks' weights from ``generator`` (N(0, 0.02),
         in the order G_i2l, G_l2i, D_img, D_lab), then build the optimizers,
-        the empty pools (compute type, on the device) and a pool-decision
-        generator seeded from ``generator``."""
+        the empty pools (compute type, on the device), a pool-decision
+        generator and a dropout generator on the device, both seeded from
+        ``generator``."""
         cfg = self.cfg
         for net in self.nets():
             init_weights(net, generator)
@@ -123,13 +130,15 @@ class CycleGANTrainer:
         h, w = cfg.crop_height, cfg.crop_width
         pool = dict(dtype=self.dtype, device=self.device)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         return CycleGANState(
             g_opt=g_opt, d_opt=d_opt,
             g_sched=schedule.make_scheduler(g_opt, **sched),
             d_sched=schedule.make_scheduler(d_opt, **sched),
             pool_img=init_pool(cfg.pool_size, (h, w, self.in_channels), **pool),
             pool_lab=init_pool(cfg.pool_size, (h, w, self.num_classes), **pool),
-            generator=torch.Generator().manual_seed(seed))
+            generator=torch.Generator().manual_seed(seed),
+            dropout=torch.Generator(device=self.device).manual_seed(drop_seed))
 
     def _onehot(self, labels: torch.Tensor) -> torch.Tensor:
         """(B, H, W) labels -> (B, H, W, K) float32 one-hot, all-zero on void."""
@@ -137,17 +146,19 @@ class CycleGANTrainer:
         oh = nn.functional.one_hot(torch.where(valid, labels, 0).long(), self.num_classes)
         return oh.float() * valid.unsqueeze(-1)
 
-    def _g_loss(self, batch: dict, real_lab_oh: torch.Tensor):
+    def _g_loss(self, batch: dict, real_lab_oh: torch.Tensor,
+                drop: torch.Generator | None):
         b = batch["unlab_image"].shape[0]
-        seg_out = self.G_i2l(_nchw(torch.cat([batch["unlab_image"], batch["lab_image"]])))
+        seg_out = self.G_i2l(_nchw(torch.cat([batch["unlab_image"], batch["lab_image"]])),
+                             drop)
         fake_lab = torch.softmax(seg_out[:b], dim=1)
         sup_logits = seg_out[b:]
-        l2i_out = self.G_l2i(_nchw(torch.cat([real_lab_oh, _nhwc(fake_lab).float()])))
+        l2i_out = self.G_l2i(_nchw(torch.cat([real_lab_oh, _nhwc(fake_lab).float()])), drop)
         fake_img, rec_img = l2i_out[:b], l2i_out[b:]
         adv_lab = losses.lsgan_loss(self.D_lab(fake_lab), True)
         adv_img = losses.lsgan_loss(self.D_img(fake_img), True)
         cyc_img = losses.l1_loss(_nhwc(rec_img), batch["unlab_image"]) * self.lamda
-        rec_lab_logits = self.G_i2l(fake_img)
+        rec_lab_logits = self.G_i2l(fake_img, drop)
         cyc_lab = losses.cross_entropy_loss(_nhwc(rec_lab_logits), batch["lab_label"],
                                             ignore_index=self.ignore_index) * self.lamda_lab
         sup = losses.cross_entropy_loss(_nhwc(sup_logits), batch["lab_label"],
@@ -203,7 +214,8 @@ class CycleGANTrainer:
         the modules, optimizers and pools in place; returns ``(state,
         metrics)``."""
         real_lab_oh = self._onehot(batch["lab_label"])
-        g_total, aux, fake_img, fake_lab = self._g_loss(batch, real_lab_oh)
+        drop = state.dropout if self.cfg.use_dropout else None
+        g_total, aux, fake_img, fake_lab = self._g_loss(batch, real_lab_oh, drop)
         g_params = self.g_params()
         self._update(g_params, torch.autograd.grad(g_total, g_params),
                      state.g_opt, state.g_sched)

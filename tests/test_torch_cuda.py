@@ -18,10 +18,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
+from cyclegan_tpu_torch.kernels import resblock_chunked as RC
 from cyclegan_tpu_torch.models.generators import define_Gen
 from cyclegan_tpu_torch.ops import blocks
+from cyclegan_tpu_torch.ops import functional as OF
 from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
 from cyclegan_tpu_torch.utils.config import Config
 
@@ -246,3 +249,112 @@ def test_small_train_step_kernel_path_matches_plain_path(card, monkeypatch):
     for g_, r_ in zip(got, ref):
         for k in g_:
             np.testing.assert_allclose(g_[k], r_[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+# The chunked block (TPU kernels #6, #7) and the dropout trunk's weight
+# gradient (#8). Chunked forward tolerances are those of the fused block
+# (the same convolutions; statistics by sum and sum of squares); the VJP
+# runs the slice-2 gradient kernels on float32 cotangents.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,hc", [((2, 16, 16, 64), 4), ((1, 12, 9, 32), 12),
+                                      ((1, 8, 8, 32), 1)])
+def test_chunked_block_matches_plain(card, shape, hc, dtype):
+    c = shape[-1]
+    x = (torch.randn(shape, device="cuda", generator=card) + 0.5).to(dtype)
+    w1, w2 = [(0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    before = (RC.launches, RC.bwd_launches, RB.launches)
+    y, vhat, s, stats = RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, hc)
+    out = RC.residual_block_chunked(*leaves, 1e-5, hc)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    assert (RC.launches, RC.bwd_launches, RB.launches) == \
+        (before[0] + 2, before[1] + 1, before[2])
+    ry, rvhat, rs, rstats = RC.residual_block_chunked_plain(x, w1, b1, w2, b2, 1e-5, hc)
+    for g_, r_ in ((y, ry), (out, ry), (vhat, rvhat), (s, rs)):
+        torch.testing.assert_close(g_.float(), r_.float(), **RB_TOL[dtype])
+    torch.testing.assert_close(stats, rstats, atol=1e-4, rtol=1e-4)
+    ref = RC.residual_block_chunked_bwd_plain(x, dy, vhat, s, stats, w1, w2, hc)
+    for g_, r_ in zip((got[0], got[1], got[3]), ref):
+        _close(g_, r_, BWD_TOL[dtype] if dtype == torch.float32 else
+               dict(atol=2 ** -7, rtol=2 ** -5))
+    assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[4]) == 0
+    # Fixed summation orders: a second backward is bitwise equal.
+    again = RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc)
+    assert all(torch.equal(a, b) for a, b in zip(again, (got[0], got[1], got[3])))
+
+
+def test_chunked_refuses_h_not_divisible_by_hc(card):
+    x = torch.zeros((1, 12, 8, 32), device="cuda")
+    w = torch.zeros((3, 3, 32, 32), device="cuda")
+    b = torch.zeros((32,), device="cuda")
+    with pytest.raises(ValueError, match="H % hc"):
+        RC.residual_block_chunked(x, w, b, w, b, 1e-5, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,cout,k", [((2, 10, 9, 128), 128, 3), ((3, 7, 6, 36), 20, 3),
+                                           ((1, 5, 5, 8), 12, 1)])
+def test_conv_dw_matches_plain_and_repeats_bitwise(card, xshape, cout, k, dtype):
+    n, hp, wp, _ = xshape
+    xp = torch.randn(xshape, device="cuda", generator=card).to(dtype)
+    dy = torch.randn((n, hp - k + 1, wp - k + 1, cout), device="cuda", generator=card).to(dtype)
+    before = CD.launches
+    dw = CD.conv_dw(xp, dy, k)
+    torch.cuda.synchronize()
+    assert CD.launches == before + 1 and dw.dtype == torch.float32
+    _close(dw, CD.conv_dw_plain(xp, dy, k), BWD_TOL[torch.float32])
+    assert torch.equal(dw, CD.conv_dw(xp, dy, k))
+
+
+def test_conv2d_valid_dw_fused_matches_reference(card):
+    xp = torch.randn((2, 128, 10, 10), device="cuda", generator=card).to(torch.bfloat16)
+    xp = xp.contiguous(memory_format=torch.channels_last).requires_grad_()
+    w = (0.05 * torch.randn((128, 128, 3, 3), device="cuda", generator=card)).to(torch.bfloat16)
+    w.requires_grad_()
+    dy = torch.randn((2, 128, 8, 8), device="cuda", generator=card).to(torch.bfloat16)
+    got = torch.autograd.grad(OF.conv2d_valid_dw_fused(xp, w), [xp, w], dy)
+    ref = torch.autograd.grad(OF.conv2d_valid_dw_fused_reference(xp, w), [xp, w], dy)
+    assert torch.equal(got[0], ref[0])
+    _close(got[1], ref[1], BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("path", ["chunked", "dropout"])
+def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
+    """Two float32 steps of a small trainer (ngf 32, so the trunk has 128
+    channels and its convolutions route through conv_dw on the dropout
+    path), the seams on the kernels and on the plain versions, from the
+    same weights and dropout seed."""
+    if path == "chunked":
+        monkeypatch.setenv("CYCLEGAN_TPU_RESBLOCK", "chunked")
+        monkeypatch.setenv("CYCLEGAN_TPU_RESBLOCK_HC", "4")
+    cfg = Config(gen_net="resnet_2blocks", ngf=32, ndf=8, crop_height=32, crop_width=32,
+                 bf16=False, pool_size=0, use_dropout=path == "dropout")
+    r = np.random.default_rng(0)
+    batch = {"lab_image": r.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
+             "unlab_image": r.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
+             "lab_label": r.integers(0, 5, (1, 32, 32))}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def run():
+        t = CycleGANTrainer(cfg, 5, 3, 1000, device="cuda")
+        st = t.init_state(torch.Generator().manual_seed(0))
+        return [{k: float(v) for k, v in t.train_step(st, batch)[1].items()}
+                for _ in range(2)]
+
+    counts = (RC.launches, RC.bwd_launches, CD.launches, RB.launches)
+    got = run()
+    want = (12, 12, 0, 0) if path == "chunked" else (0, 0, 24, 0)  # 3 G applies x 2 blocks
+    assert tuple(a - b for a, b in zip((RC.launches, RC.bwd_launches, CD.launches,
+                                        RB.launches), counts)) == want
+    monkeypatch.setattr(blocks, "instance_norm_act", IN.instance_norm_act_reference)
+    monkeypatch.setattr(blocks, "residual_block_chunked", RC.residual_block_chunked_reference)
+    monkeypatch.setattr(OF, "conv2d_valid_dw_fused", OF.conv2d_valid_dw_fused_reference)
+    ref = run()
+    for g_, r_ in zip(got, ref):
+        for k in g_:
+            np.testing.assert_allclose(g_[k], r_[k], rtol=1e-3, atol=1e-4, err_msg=k)

@@ -271,8 +271,9 @@ def test_bridge_rejects_a_missing_net_layer():
 
 
 def test_trainer_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="use_dropout"):
-        CycleGANTrainer(tconfig.Config(use_dropout=True, **CFG_KW), N_CLASSES, 3, 1,
+    """use_dropout is ported (tests/test_torch_dropout.py); these are not."""
+    with pytest.raises(NotImplementedError, match="remat"):
+        CycleGANTrainer(tconfig.Config(remat=True, **CFG_KW), N_CLASSES, 3, 1,
                         device="cpu")
     with pytest.raises(NotImplementedError, match="norm='batch'"):
         CycleGANTrainer(tconfig.Config(norm="batch", **CFG_KW), N_CLASSES, 3, 1,
