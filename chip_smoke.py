@@ -27,6 +27,9 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    against its plain version at the train step's shapes, with its time, the
    plain version's, one library call's and the bound, per call and summed
    over one train step; two calls of each weight gradient are bitwise equal;
+   then the tensor-core gradient convolutions alone (input gradient, weight
+   gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
+   cotangent, at the float32 bars;
 6. train: ``CycleGANTrainer.train_step`` of ``voc_semisup_256`` (two
    ResNet-9 generators, two 70x70 PatchGANs, pools of 50, Adam + LambdaLR,
    bf16 over float32) on one synthetic 256x256 batch with injected pool
@@ -146,9 +149,20 @@ BWD_TOL = {
     ("residual_block_chunked_bwd", "bfloat16"): (2 ** -7, 2 ** -5),
     # conv_dw: float32 products of the same inputs (bf16 operands are exact
     # in float32), summed in another order; float32 output in both types.
+    # The tensor cores see float32 operands as three bf16 parts each (their
+    # sum is the value to within 2^-24 of it), products (a, b) with a + b < 3.
     ("conv_dw", "float32"): (1e-5, 1e-4),
     ("conv_dw", "bfloat16"): (1e-5, 1e-4),
+    # The gradient convolutions alone on the main path's mix: bf16
+    # activations and weights, a float32 cotangent split into two bf16
+    # parts, a float32 result. The float32 bar, as above.
+    ("conv3x3_reflect_dgrad", "bfloat16"): (1e-5, 1e-4),
+    ("conv3x3_reflect_wgrad", "bfloat16"): (1e-5, 1e-4),
 }
+# bf16 tensor-core passes of a gradient convolution: its products over the
+# bf16 parts of the operands: a float32 cotangent against bf16 values in
+# two parts is 2; float32 on both sides, three parts each, 6.
+GRAD_PASSES = {"bfloat16": 2, "float32": 6}
 # The chunked route's rows a chunk (the JAX package's default).
 HC = 8
 # Per-step losses, kernel path vs plain path from the same weights, batch
@@ -736,22 +750,32 @@ def phase_kernels_train() -> dict:
                 "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
                                                                   retain_graph=True), 10)}
         f32_b = ds.numel() * 4
-        for name, res, t, nb, work in (
+        # Work at the rate of the products the kernels issue: the bf16
+        # recompute convolutions, and the gradient convolutions' passes over
+        # the bf16 parts (old_work: the same gradients at the float32 rate,
+        # the bound of their float32 FFMA predecessors).
+        passes = GRAD_PASSES[dname]
+        for name, res, t, nb, work, old_work in (
                 ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
-                 {"bfloat16": 2 * conv}),
+                 {"bfloat16": 2 * conv}, None),
                 ("residual_block_bwd_dx", checks["dx"], t_dx, 3 * act_b + w_b,
+                 {"bfloat16": 2 * conv + passes * 2 * conv},
                  {"bfloat16": 2 * conv, "float32": 2 * conv}),
                 ("residual_block_bwd_dw", dw_check, t_dw,
-                 2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"float32": 2 * conv})):
+                 2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"bfloat16": passes * 2 * conv},
+                 {"float32": 2 * conv})):
             b_ms, b_by = bound(nb, work)
             rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
                    "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
                    "gflop": sum(work.values()) / 1e9, "calls_per_step": calls}
+            if old_work is not None:
+                rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
             fail_if(not res["ok"], name, rec)
             recs[name].append(rec)
         del x, dy, leaves, y, got, ref, dxk, a, ds, du, xl, yl
     torch.cuda.empty_cache()
     recs.update(kernels_train_chunked_dw(randn, fail_if))
+    recs["grad_convs"] = kernels_grad_convs(randn, fail_if)
     return recs
 
 
@@ -845,21 +869,28 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
         elt = x.element_size()
         act_b, w_b = x.numel() * elt, 2 * (w1.numel() + c) * elt
         stats_b = stats.numel() * 4
-        for name, res, t, nb, work, calls in (
+        # Passes over the bf16 parts: the chunked VJP's gradients on float32
+        # cotangents; conv_dw's operands share x's type (one pass in bf16).
+        passes, dw_passes = GRAD_PASSES[dname], 1 if dname == "bfloat16" else 6
+        for name, res, t, nb, work, old_work, calls in (
                 # reads x and the weights; writes y, vhat, s and the stats.
                 ("residual_block_chunked", _max_check(fwd), t_fwd,
-                 4 * act_b + w_b + stats_b, {dname: 2 * conv}, rc_calls),
+                 4 * act_b + w_b + stats_b, {dname: 2 * conv}, None, rc_calls),
                 # reads x, dy, vhat, s, the stats, w1, w2; writes dx, dw1, dw2;
                 # two input and two weight gradients on float32 cotangents.
                 ("residual_block_chunked_bwd", _max_check(bwd), t_bwd,
-                 5 * act_b + stats_b + 4 * w1.numel() * elt, {"float32": 4 * conv}, rc_calls),
+                 5 * act_b + stats_b + 4 * w1.numel() * elt, {"bfloat16": passes * 4 * conv},
+                 {"float32": 4 * conv}, rc_calls),
                 # reads xp and dy; writes the float32 dw.
                 ("conv_dw", dwc, t_dw, xp.numel() * elt + act_b + w1.numel() * 4,
-                 {dname: conv}, dw_calls)):
+                 {"bfloat16": dw_passes * conv}, {dname: conv}, dw_calls)):
             b_ms, b_by = bound(nb, work)
             rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
                    "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
                    "gflop": sum(work.values()) / 1e9, "calls_per_step": calls, "hc": HC}
+            if old_work is not None:
+                rec.update(bf16_passes=passes if name.endswith("bwd") else dw_passes,
+                           bound_ms_f32_rate=bound(nb, old_work)[0])
             if name == "residual_block_chunked":
                 rec["checks"] = fwd
             elif name == "residual_block_chunked_bwd":
@@ -873,6 +904,72 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
             if calls:
                 recs[name].append(rec)
         del x, dy, leaves, out, got, ref, ref_b, again, y, vhat, s, xp, xl, yl
+    torch.cuda.empty_cache()
+    return recs
+
+
+def kernels_grad_convs(randn, fail_if) -> list:
+    """The gradient convolutions alone at the trunk shapes (batch 2 and 1,
+    64x64x256) on the main path's mix: bf16 activations and weights with a
+    float32 cotangent (conv_dw: bf16 input and output gradient, as path B
+    calls it), against their plain versions on the same values at the
+    float32 bars of BWD_TOL; each weight gradient twice, bitwise equal. The
+    whole-block VJPs above are held at the looser bf16 bars, which absorb
+    the recompute's rounding flips; these are not."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    c, recs = NGF * 4, []
+    for b in (2, 1):
+        shape = (b, CROP // 4, CROP // 4, c)
+        x, w = randn(shape, torch.bfloat16), randn((3, 3, c, c), torch.bfloat16, 0.02)
+        g, dy = randn(shape), randn(shape, torch.bfloat16)
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        xpl, wl = xp, w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        xp = xp.permute(0, 2, 3, 1).contiguous()
+        gl, dyl = g.to(torch.bfloat16).permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        da = torch.empty(shape, device="cuda")
+        RB.conv3x3_reflect_dgrad(g, w, da)
+        dw, dw_again = RB.conv3x3_reflect_wgrad(x, g), RB.conv3x3_reflect_wgrad(x, g)
+        cd, cd_again = CD.conv_dw(xp, dy), CD.conv_dw(xp, dy)
+        torch.cuda.synchronize()
+        conv = 2.0 * b * shape[1] * shape[2] * 9 * c * c
+        act_b = x.numel() * 2
+        # (name, result, bitwise, kernel, plain, library, bytes, bf16 passes)
+        cases = (
+            ("conv3x3_reflect_dgrad", compare_bwd(
+                "conv3x3_reflect_dgrad", da, RB.conv3x3_reflect_dgrad_plain(g, w), "bfloat16"),
+             True, lambda: RB.conv3x3_reflect_dgrad(g, w, da),
+             lambda: RB.conv3x3_reflect_dgrad_plain(g, w),
+             lambda: torch.nn.grad.conv2d_input(xpl.shape, wl, gl),
+             2 * g.numel() * 4 + w.numel() * 2, GRAD_PASSES["bfloat16"]),
+            ("conv3x3_reflect_wgrad", compare_bwd(
+                "conv3x3_reflect_wgrad", dw, RB.conv3x3_reflect_wgrad_plain(x, g), "bfloat16"),
+             torch.equal(dw, dw_again), lambda: RB.conv3x3_reflect_wgrad(x, g),
+             lambda: RB.conv3x3_reflect_wgrad_plain(x, g),
+             lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), gl),
+             act_b + g.numel() * 4 + w.numel() * 4, GRAD_PASSES["bfloat16"]),
+            ("conv_dw", compare_bwd("conv_dw", cd, CD.conv_dw_plain(xp, dy), "bfloat16"),
+             torch.equal(cd, cd_again), lambda: CD.conv_dw(xp, dy),
+             lambda: CD.conv_dw_plain(xp, dy),
+             lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), dyl),
+             xp.numel() * 2 + act_b + w.numel() * 4, 1))
+        for name, res, bitwise, fn, plain, lib, nb, passes in cases:
+            b_ms, b_by = bound(nb, {"bfloat16": passes * conv})
+            ms = time_ms(fn, 20)
+            rec = {"phase": "kernels_train", "kernel": name, "via": "isolated",
+                   "shape": list(shape), "dtype": "bfloat16",
+                   "cotangent": "bfloat16" if name == "conv_dw" else "float32", **res,
+                   "second_call_bitwise_equal": bitwise, "bf16_passes": passes, "ms": ms,
+                   "plain_ms": time_ms(plain, 5), "library_ms": time_ms(lib, 20),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "tflops_issued": passes * conv / 1e9 / ms}
+            fail_if(not (res["ok"] and bitwise), name, rec)
+            recs.append(rec)
+        del x, w, g, dy, xp, xpl, da, dw, dw_again, cd, cd_again
     torch.cuda.empty_cache()
     return recs
 
@@ -1007,13 +1104,17 @@ def expected_launches(trainer, steps: int) -> dict:
            # makes 2 norm VJPs, 2 input and 2 weight gradients. The chunked
            # forward makes 2 convolutions and 2 norms; its backward reads the
            # saved residuals: 2 norm VJPs, 2 input and 2 weight gradients,
-           # and no convolution.
+           # and no convolution. The weight gradients are cg_conv_dw, as
+           # path B's conv_dw is. cg_bf16_parts: the fused backward splits
+           # its float32 cotangent for each of its 4 gradients and
+           # reflect-pads the input of each weight gradient (6); the chunked
+           # one splits ds and du once each (4); bf16 conv_dw needs none.
            "cg_instance_norm_act": in_calls + 4 * rb,
            "cg_instance_norm_act_bwd": in_calls + 2 * rb,
            "cg_conv3x3_reflect": 4 * rb + 2 * rc,
            "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
-           "cg_conv3x3_reflect_wgrad": 2 * rb + 2 * rc,
-           "cg_chunked_in_fwd": 2 * rc, "cg_chunked_in_vjp": 2 * rc, "cg_conv_dw": dw}
+           "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 6 * rb + 4 * rc,
+           "cg_chunked_in_fwd": 2 * rc, "cg_chunked_in_vjp": 2 * rc}
     return {k: v * steps for k, v in per.items()}
 
 
@@ -1237,7 +1338,7 @@ def kernels_line(recs: dict, runs: dict) -> dict:
                                  "cyclegan_tpu/kernels/resblock.py:79"),
         "residual_block_bwd_dx": ("cyclegan_tpu_torch/csrc/resblock.cu",
                                   "cyclegan_tpu/kernels/resblock.py:219"),
-        "residual_block_bwd_dw": ("cyclegan_tpu_torch/csrc/resblock.cu",
+        "residual_block_bwd_dw": ("cyclegan_tpu_torch/csrc/conv_dw.cu",
                                   "cyclegan_tpu/kernels/resblock.py:227"),
         "residual_block_chunked": ("cyclegan_tpu_torch/csrc/resblock_chunked.cu",
                                    "cyclegan_tpu/kernels/resblock_chunked.py:156"),

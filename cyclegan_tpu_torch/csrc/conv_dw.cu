@@ -1,5 +1,5 @@
 // Weight gradient of a VALID stride-1 k x k convolution over an input that
-// is already padded, for Hopper (sm_90a).
+// is already padded, on the bf16 tensor cores of Hopper (sm_90a).
 //
 // Replaces: cyclegan_tpu/kernels/conv_dw.py, the Pallas kernel conv_dw
 // (_dw_kernel), which keeps one batch cell's padded input and output
@@ -8,144 +8,377 @@
 // over its sequential batch grid in float32. The JAX package routes the
 // weight gradient of the trunk's reflect-padded 3x3 convolutions through it
 // (ops/functional.py::conv2d_valid_dw_fused); the port does the same for the
-// --use_dropout trunk, whose blocks are not fused.
+// --use_dropout trunk. The same kernel is the weight half of the residual
+// blocks' VJPs (cyclegan_tpu/kernels/resblock.py::_bwd_dw_kernel and the
+// chunked _backward_chunked): kernels/resblock.py reflect-pads their input
+// once (cg_bf16_parts) and calls it with k = 3.
 //
-// The design is that of cg_conv3x3_reflect_wgrad in resblock.cu without the
-// reflect logic: an implicit GEMM with M = k*k*Cin rows (tap, cin) like the
-// HWIO weight, N = Cout, K = N*H*W pixels, split along K into chunks fixed
-// by the shapes; each block writes float32 partials of its chunk and a
-// second pass adds them in chunk order (no atomics: two runs give
-// bitwise-equal dw). Operands are read in their own type (bf16 on the main
-// path) and multiplied in float32 FFMA.
+// The GEMM: dw[(tap, ci), co] = sum over pixels q of
+//   xp[pixel q shifted by tap, ci] * dy[q, co],
+// M = k*k*Cin rows ordered like the HWIO weight, N = Cout, K = N*H*W
+// pixels. Operands are bf16 "parts": a bf16 tensor is one part; cg_bf16_parts
+// splits a float32 tensor t into hi = bf16(t), mid = bf16(t - hi) and, where
+// asked, lo = bf16(t - hi - mid) (|t - hi - mid| <= 2^-16 |t|, |t - hi - mid
+// - lo| <= 2^-24 |t|). The products (a, b) of the parts with a + b < max(na,
+// nb) go into one float32 accumulator. A bf16 x with a float32 cotangent of
+// two parts costs two passes and errs by ~2^-16 of the product's terms,
+// well inside the float32 bars; float32 on both sides uses three parts
+// each and six passes, products exact to float32 rounding like the FFMA it
+// replaces, which the float32 train step's loss check needs (two parts
+// there moved d_total by 1.04% at step 3 on path A, past its 1% bar). The
+// bf16 operands of conv_dw's main path cost one pass. No TF32. All passes
+// share one accumulator (its 128 registers a thread leave no room for a
+// second); the tensor cores' truncating float32 accumulation then costs the
+// six-pass float32 case under 0.75 of its bar (resblock.cu's input
+// gradient keeps its correction passes apart).
 //
 // What bounds it on the H100: operations. 2 * 9 * 256 * 256 * 8192 = 9.7
-// GFLOP per batch-2 trunk call against ~11 MB moved, ~900 flop/byte; at the
-// bf16 tensor-core rate the least time is ~10 us, at the 67 TFLOP/s rate of
-// the float32 FFMA products used here ~145 us. Moving the products onto
-// bf16 mma (the operands are already bf16) is later work.
-
-#include <algorithm>
+// GFLOP per pass at the batch-2 trunk shape against ~11 MB moved, ~900
+// flop/byte, far above the ~295 where HBM would bind: ~10 us a pass at the
+// 989 TFLOP/s bf16 rate.
+//
+// What the design does about that: wgmma, Hopper's warpgroup product, which
+// reads both operands from shared memory, so no register round trip bounds
+// it. A 128 x 256 output tile per block, two warpgroups of 64 x 256, one
+// m64n256k16 per 16 pixels and pass. Both operands are pixel-major in
+// memory, so the tiles are stored MN-major ([pixel][64 channels] rows of
+// 128 B) with the 128-byte swizzle that wgmma's descriptors name; cp.async
+// writes each 16-byte chunk to its swizzled place, a 4-stage ring runs the
+// copies two stages ahead and keeps one wgmma group in flight (an mma.sync
+// version with ldmatrix, bitwise equal, was slower at every pass count on
+// an H100). 2304 x 256 has only 18 output tiles, so the
+// pixels are split into a number of chunks fixed by the shapes
+// (kernels/conv_dw.py::_wgrad_split, one block an SM); each block writes
+// float32 partials of its chunk and dw_reduce adds them in chunk order (no
+// atomics: two runs give bitwise-equal dw). TMA loads and a persistent,
+// warp-specialised schedule are the next steps.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int FBM = 64, FBN = 64, FBK = 16;
+constexpr int BM = 128, BN = 256, BK = 32, THREADS = 256;
+constexpr int BLOCK_BYTES = BK * 128;  // a 64-wide block: BK rows of 128 B
+constexpr int A_TILE = BM / 64 * BLOCK_BYTES;
+constexpr int B_TILE = BN / 64 * BLOCK_BYTES;
 
-// Grid (ceil(k*k*Cin / 64), ceil(Cout / 64), splits), 256 threads, 4 x 4
-// outputs each. part[s, m, co] = sum over the pixels q of chunk s of
-//   xp[n, i + ky, j + kx, ci] * dy[n, i, j, co],
-// m = (ky * k + kx) * Cin + ci, q = (n * H + i) * W + j.
-// Needs Cin % 4 == 0 (a thread's 4 rows share one tap).
-template <typename T>
-__global__ void __launch_bounds__(256)
-conv_dw_partial(const T* __restrict__ xp, const T* __restrict__ dy, float* __restrict__ part,
-                int N, int H, int W, int Cin, int Cout, int k, int kchunk) {
-  __shared__ float As[FBK][FBM + 4];  // [pixel][m]
-  __shared__ float Bs[FBK][FBN + 4];  // [pixel][co]
-  const int tid = threadIdx.x;
+// Ring depth: 4 tiles, 3 when six parts of 24 KB a stage would not fit.
+__host__ __device__ constexpr int stages(int na, int nb) { return na + nb > 4 ? 3 : 4; }
+constexpr int smem_bytes(int na, int nb) {
+  return stages(na, nb) * (na * A_TILE + nb * B_TILE) + 1024;  // + room to align to 1 KB
+}
+
+// Shared-memory descriptor of a canonical MN-major operand with the 128-byte
+// swizzle: 64 elements (128 B) a row along M or N, one row a k, 8 rows an
+// atom (stride 1024 B), 64-wide blocks BLOCK_BYTES apart.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (uint64_t)(BLOCK_BYTES >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// d (64 x 256 float32, the m64nNk16 accumulator layout) += A (64 x 16) B
+// (16 x 256), both bf16 from shared memory, MN-major (imm-trans 1).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Byte offset of 16-byte chunk c of row k in a tile of 64-wide blocks with
+// the 128-byte swizzle (chunk index XOR row index within the 8-row atom).
+__device__ __forceinline__ uint32_t swz(int k, int c) {
+  return (uint32_t)((c >> 3) * BLOCK_BYTES + k * 128 + (((c & 7) ^ (k & 7)) << 4));
+}
+
+// Grid (ceil(k*k*Cin / BM), ceil(Cout / BN), splits); two warpgroups, each
+// owning 64 rows x 256 columns of the tile (one m64n256k16 per 16 pixels and
+// pass). part[s, m, co] = sum over the pixels q of chunk s (q = (n*H + i)*W
+// + j) of sum_{(a, b) in passes} xp_a[n, i + ky, j + kx, ci] * dy_b[n, i, j,
+// co], m = (ky*k + kx)*Cin + ci. xp_a = xp + a * xp_part, dy_b = dy + b *
+// dy_part; the passes are the (a, b) with a + b < max(NA, NB). Needs
+// Cin % 8 == 0, Cout % 8 == 0 and 16-byte aligned planes.
+template <int NA, int NB>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict__ dy,
+            size_t dy_part, float* __restrict__ part, int N, int H, int W, int Cin, int Cout,
+            int k, int kchunk) {
+  constexpr int STAGES = stages(NA, NB), PASSES = NA > NB ? NA : NB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t As = (raw + 1023) & ~1023u, Bs = As + STAGES * NA * A_TILE;
+  unsigned char* a_smem = smem_raw + (As - raw);
+  unsigned char* b_smem = a_smem + STAGES * NA * A_TILE;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int Hp = H + k - 1, Wp = W + k - 1;
-  const int M = k * k * Cin, K = N * H * W, HWp = H * W;
-  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN, sp = blockIdx.z;
+  const int M = k * k * Cin, K = N * H * W, HW = H * W;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, sp = blockIdx.z;
   const int kbeg = sp * kchunk, kend = min(K, kbeg + kchunk);
 
-  // A and B loads: pixel k0 + (tid >> 4); rows (tid & 15) * 4 .. +3 of m
-  // (A) and of co (B).
-  const int l_k = tid >> 4, l_c = (tid & 15) * 4;
-  const int am = m0 + l_c;
-  const bool m_ok = am < M;
-  const int tap = m_ok ? am / Cin : 0, ci = m_ok ? am - tap * Cin : 0;
-  const int ky = tap / k, kx = tap % k;
-  const int bco = n0 + l_c;
-  const int ty = tid >> 4, tx = tid & 15;
+  // Loads: A's 16-byte chunk (tid & 15) of pixel rows (tid >> 4) and
+  // (tid >> 4) + 16; B's chunk (tid & 31) of rows (tid >> 5) + 8 i.
+  const int a_c = tid & 15;
+  const int am = m0 + a_c * 8;
+  const bool a_col_ok = am < M;
+  const int tap = a_col_ok ? am / Cin : 0;
+  const size_t a_col_off =
+      ((size_t)(tap / k) * Wp + tap % k) * Cin + (a_col_ok ? am - tap * Cin : 0);
+  const int b_c = tid & 31;
+  const bool b_col_ok = n0 + b_c * 8 < Cout;
 
-  float acc[4][4] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += FBK) {
-    const int q = k0 + l_k;
-    const bool q_ok = q < kend;
-    const bool a_ok = q_ok && m_ok;
-    const int qq = q_ok ? q : kbeg;
-    const int n = qq / HWp, rem = qq - n * HWp;
-    const int i = rem / W, j = rem - i * W;
-    const T* asrc = xp + (((size_t)n * Hp + i + ky) * Wp + j + kx) * Cin + ci;
+  auto load_stage = [&](int stage, int kt) {
+    const int q0 = kbeg + kt * BK;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) As[l_k][l_c + e] = a_ok ? cg_to_f(asrc[e]) : 0.f;
-    const T* bsrc = dy + (size_t)qq * Cout + bco;
+    for (int i = 0; i < 2; ++i) {
+      const int row = (tid >> 4) + i * 16;
+      const int q = q0 + row;
+      const bool ok = q < kend && a_col_ok;
+      const int qq = ok ? q : 0;
+      const int n = qq / HW, rem = qq - n * HW;
+      const int pi = rem / W, pj = rem - pi * W;
+      const size_t off = (((size_t)n * Hp + pi) * Wp + pj) * Cin + a_col_off;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      Bs[l_k][l_c + e] = (q_ok && bco + e < Cout) ? cg_to_f(bsrc[e]) : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < FBK; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[e] = As[r][ty * 4 + e];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) b[e] = Bs[r][tx * 4 + e];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) acc[e][f] = fmaf(a[e], b[f], acc[e][f]);
+      for (int p = 0; p < NA; ++p)
+        cp_async16(a_smem + (stage * NA + p) * A_TILE + swz(row, a_c),
+                   ok ? xp + p * xp_part + off : xp, ok ? 16 : 0);
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (tid >> 5) + i * 8;
+      const int q = q0 + row;
+      const bool ok = q < kend && b_col_ok;
+      const size_t off = (size_t)(ok ? q : 0) * Cout + n0 + b_c * 8;
+#pragma unroll
+      for (int p = 0; p < NB; ++p)
+        cp_async16(b_smem + (stage * NB + p) * B_TILE + swz(row, b_c),
+                   ok ? dy + p * dy_part + off : dy, ok ? 16 : 0);
+    }
+  };
+
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+
+  // A ring of STAGES tiles: copies run STAGES - 2 stages ahead, and one
+  // stage's wgmma group stays in flight while the next is issued; a stage
+  // is refilled only after the group that read it has completed.
+  const int KT = (kend - kbeg + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
   }
-  float* dst = part + (size_t)sp * M * Cout;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 3>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // copies -> wgmma
+    __syncthreads();
+    const int nk = kt + STAGES - 2;
+    if (nk < KT) load_stage(nk % STAGES, nk);
+    cp_async_commit();
+
+    const int st = kt % STAGES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int row = m0 + ty * 4 + e;
-    if (row >= M) continue;
+    for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int col = n0 + tx * 4 + f;
-      if (col < Cout) dst[(size_t)row * Cout + col] = acc[e][f];
+      for (int pa = 0; pa < NA; ++pa) {
+        const uint64_t da =
+            desc_mn_sw128(As + (st * NA + pa) * A_TILE + wg * BLOCK_BYTES + kk * 128);
+#pragma unroll
+        for (int pb = 0; pb < NB && pa + pb < PASSES; ++pb)
+          wgmma_m64n256k16(d, da, desc_mn_sw128(Bs + (st * NB + pb) * B_TILE + kk * 128));
+      }
     }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  cp_async_wait<0>();
+
+  // The accumulator layout of m64nNk16: warp w of the warpgroup owns rows
+  // 16 w .. 16 w + 15; d[4 j .. 4 j + 3] is the m16n8 fragment of columns
+  // 8 j .. 8 j + 7 (rows lane / 4 and lane / 4 + 8).
+  const int lane = tid & 31;
+  float* dst = part + (size_t)sp * M * Cout;
+  const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + j * 8 + (lane & 3) * 2;
+    if (c >= Cout) continue;
+    if (row < M)
+      *reinterpret_cast<float2*>(dst + (size_t)row * Cout + c) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(dst + (size_t)(row + 8) * Cout + c) =
+          make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
-// dw[i] = sum_s part[s, i] in chunk order.
+// dw[i] = sum_s part[s, i] in chunk order, written as TOut.
+template <typename TOut>
 __global__ void __launch_bounds__(256)
-dw_reduce(const float* __restrict__ part, float* __restrict__ dw, int splits, size_t MN) {
+dw_reduce(const float* __restrict__ part, TOut* __restrict__ dw, int splits, size_t MN) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * MN + i];
-    dw[i] = s;
+    dw[i] = cg_from_f<TOut>(s);
   }
 }
 
+// dst[p, n, i, j, c8..c8+7] = part p of src[n, reflect(i - pad), reflect(j -
+// pad), c8..] for the padded plane (H + 2 pad, W + 2 pad); part 0 = bf16(v),
+// part 1 = bf16(v - part 0), part 2 = bf16(v - part 0 - part 1). One thread
+// per 8 channels.
 template <typename T>
-cudaError_t launch(const void* xp, const void* dy, float* dw, float* part, int N, int H, int W,
-                   int Cin, int Cout, int k, int splits, int kchunk, cudaStream_t s) {
-  dim3 grid((k * k * Cin + FBM - 1) / FBM, (Cout + FBN - 1) / FBN, splits);
-  conv_dw_partial<T><<<grid, 256, 0, s>>>(static_cast<const T*>(xp), static_cast<const T*>(dy),
-                                          part, N, H, W, Cin, Cout, k, kchunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const size_t MN = (size_t)k * k * Cin * Cout;
-  const int blocks = (int)std::min<size_t>((MN + 255) / 256, 132 * 16);
-  dw_reduce<<<blocks, 256, 0, s>>>(part, dw, splits, MN);
+__global__ void __launch_bounds__(256)
+bf16_parts(const T* __restrict__ src, bf16* __restrict__ dst, int N, int H, int W, int C,
+           int pad, int parts) {
+  const int Hp = H + 2 * pad, Wp = W + 2 * pad, C8 = C / 8;
+  const int total = N * Hp * Wp * C8;
+  const size_t plane = (size_t)total * 8;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const int c8 = idx % C8;
+    int rest = idx / C8;
+    const int j = rest % Wp;
+    rest /= Wp;
+    const int i = rest % Hp;
+    const int n = rest / Hp;
+    const int si = pad ? cg_reflect1(i - pad, H) : i, sj = pad ? cg_reflect1(j - pad, W) : j;
+    const T* s = src + ((size_t)(n * H + si) * W + sj) * C + c8 * 8;
+    __align__(16) bf16 part_of[3][8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float v = cg_to_f(s[e]);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {  // each part rounds what the ones before left
+        part_of[p][e] = __float2bfloat16_rn(v);
+        v -= __bfloat162float(part_of[p][e]);
+      }
+    }
+    for (int p = 0; p < parts; ++p)
+      *reinterpret_cast<uint4*>(dst + p * plane + (size_t)idx * 8) =
+          *reinterpret_cast<const uint4*>(part_of[p]);
+  }
+}
+
+template <int NA, int NB>
+cudaError_t launch_wgrad(const bf16* xp, const bf16* dy, float* part, int N, int H, int W,
+                         int Cin, int Cout, int k, int splits, int kchunk, cudaStream_t s) {
+  constexpr int smem = smem_bytes(NA, NB);
+  static bool sized = false;  // the attribute holds for the process's device
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(wgrad_wgmma<NA, NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const size_t xp_part = (size_t)N * (H + k - 1) * (W + k - 1) * Cin;
+  const size_t dy_part = (size_t)N * H * W * Cout;
+  dim3 grid((k * k * Cin + BM - 1) / BM, (Cout + BN - 1) / BN, splits);
+  wgrad_wgmma<NA, NB><<<grid, THREADS, smem, s>>>(xp, xp_part, dy, dy_part, part, N, H, W,
+                                                  Cin, Cout, k, kchunk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xp: (N, H+k-1, W+k-1, Cin) and dy: (N, H, W, Cout), both of dtype (0 f32,
-// 1 bf16); dw: (k, k, Cin, Cout) float32, summed over the batch. part:
-// (splits, k*k*Cin, Cout) float32 scratch; chunk s covers pixels
-// [s*kchunk, (s+1)*kchunk) of N*H*W. Needs Cin % 4 == 0. Returns the CUDA
-// error code (0 on success).
-extern "C" int cg_conv_dw(const void* xp, const void* dy, void* dw, void* part, int N, int H,
-                          int W, int Cin, int Cout, int k, int splits, int kchunk, int dtype,
-                          void* stream) {
+// The bf16 parts of src (N, H, W, C) of src_dtype (0 f32, 1 bf16), reflect
+// padded by pad (0 or 1): dst (parts, N, H + 2 pad, W + 2 pad, C) bf16.
+// parts is 1, 2 or 3 (2 and 3 only for a float32 src). Needs C % 8 == 0, H, W >= 2
+// when pad is 1, a padded plane under 2^31 elements and 16-byte aligned src
+// and dst.
+extern "C" int cg_bf16_parts(const void* src, void* dst, int N, int H, int W, int C, int pad,
+                             int parts, int src_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto d = static_cast<float*>(dw);
-  auto p = static_cast<float*>(part);
-  if (N <= 0 || H <= 0 || W <= 0 || k <= 0 || Cin % 4 != 0 || Cout <= 0 || splits <= 0 ||
-      kchunk <= 0 || (long long)splits * kchunk < (long long)N * H * W)
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0 || pad < 0 || pad > 1 ||
+      (pad && (H < 2 || W < 2)) || parts < 1 || parts > 3 ||
+      (parts > 1 && src_dtype != CG_F32) ||
+      (long long)N * (H + 2 * pad) * (W + 2 * pad) * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if (dtype == CG_BF16)
-    return (int)launch<bf16>(xp, dy, d, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
-  if (dtype == CG_F32)
-    return (int)launch<float>(xp, dy, d, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
-  return (int)cudaErrorInvalidValue;
+  const int grid = cg_grid_1d((size_t)N * (H + 2 * pad) * (W + 2 * pad) * (C / 8));
+  auto d = static_cast<bf16*>(dst);
+  if (src_dtype == CG_F32)
+    bf16_parts<float><<<grid, 256, 0, s>>>(static_cast<const float*>(src), d, N, H, W, C, pad,
+                                           parts);
+  else if (src_dtype == CG_BF16)
+    bf16_parts<bf16><<<grid, 256, 0, s>>>(static_cast<const bf16*>(src), d, N, H, W, C, pad,
+                                          parts);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// xp: (na, N, H+k-1, W+k-1, Cin) and dy: (nb, N, H, W, Cout), the bf16
+// parts of the padded input and of the output gradient ((na, nb) is (1, 1),
+// (1, 2) or (3, 3));
+// dw: (k, k, Cin, Cout) of out_dtype (0 f32, 1 bf16), summed over the batch.
+// part: (splits, k*k*Cin, Cout) float32 scratch; chunk s covers pixels
+// [s*kchunk, (s+1)*kchunk) of N*H*W. Needs Cin % 8 == 0, Cout % 8 == 0 and
+// 16-byte aligned xp and dy. Returns the CUDA error code (0 on success).
+extern "C" int cg_conv_dw(const void* xp, const void* dy, void* dw, void* part, int N, int H,
+                          int W, int Cin, int Cout, int k, int splits, int kchunk, int na,
+                          int nb, int out_dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const bf16*>(xp);
+  auto g = static_cast<const bf16*>(dy);
+  auto p = static_cast<float*>(part);
+  if (N <= 0 || H <= 0 || W <= 0 || k <= 0 || Cin % 8 != 0 || Cout % 8 != 0 || Cin <= 0 ||
+      Cout <= 0 || splits <= 0 || kchunk <= 0 ||
+      (long long)splits * kchunk < (long long)N * H * W)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (na == 1 && nb == 1)
+    e = launch_wgrad<1, 1>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (na == 1 && nb == 2)
+    e = launch_wgrad<1, 2>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (na == 3 && nb == 3)
+    e = launch_wgrad<3, 3>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  const size_t MN = (size_t)k * k * Cin * Cout;
+  if (out_dtype == CG_F32)
+    dw_reduce<float><<<cg_grid_1d(MN), 256, 0, s>>>(p, static_cast<float*>(dw), splits, MN);
+  else if (out_dtype == CG_BF16)
+    dw_reduce<bf16><<<cg_grid_1d(MN), 256, 0, s>>>(p, static_cast<bf16*>(dw), splits, MN);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

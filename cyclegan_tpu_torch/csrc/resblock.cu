@@ -31,30 +31,37 @@
 // The backward replaces the two VJP Pallas kernels behind
 // residual_block_fused: _bwd_dx_kernel (dx) and _bwd_dw_kernel (dw1, dw2).
 // kernels/resblock.py recomputes the forward with the kernels above and
-// chains the instance-norm VJP of instance_norm.cu with the two kernels
-// here, as _rb_bwd does:
-//   cg_conv3x3_reflect_dgrad: the input gradient of conv3x3(rpad1(.), w)
-//     for a float32 output gradient g, with the reflect fold. A full
-//     correlation writes the gradient of the padded input (N, H+2, W+2, Cin)
-//     into float32 scratch (implicit GEMM, M = padded pixels, N = Cin,
-//     K = 9 * Cout, B = w[tap] transposed, cast to float32 as the Pallas
-//     kernel does); a second pass folds pad rows and columns 0 and H+1 back
-//     onto rows and columns 1 and H-2 (_fold_pad1), adds an optional
-//     residual (dy, for dx = dy + dgrad) and writes the output type.
-//   cg_conv3x3_reflect_wgrad: dw[s,t] = sum_n sum_pixels
-//     rpad1(inp)[n, i+s, j+t, :]^T g[n, i, j, :] as (3, 3, Cin, Cout),
-//     summed over the batch inside the kernel (as _bwd_dw_kernel
-//     accumulates across its grid): an implicit GEMM with M = 9 * Cin,
-//     N = Cout and K = N*H*W pixels, split along K into a number of chunks
-//     fixed by the shapes; the float32 partials are added in chunk order by
-//     a second pass (no atomics: two runs give bitwise-equal dw).
-// What bounds them: operations. The cotangents are float32, as in the
-// Pallas kernels, so both are float32 FFMA GEMMs (the SIMT tiling of the
-// float32 forward below): four 2*M*9*C*C convolutions per block backward,
-// at the 67 TFLOP/s float32 rate. Rounding the cotangent to bf16 for the
-// tensor cores is a later decision that must keep the parity bars.
-
-#include <algorithm>
+// chains the instance-norm VJP of instance_norm.cu with two gradient
+// convolutions, as _rb_bwd does:
+//   cg_conv3x3_reflect_dgrad (here): the input gradient of
+//     conv3x3(rpad1(.), w) for a float32 output gradient g, with the
+//     reflect fold. A full correlation writes the gradient of the padded
+//     input (N, H+2, W+2, Cin) into float32 scratch (implicit GEMM, M =
+//     padded pixels, N = Cin, K = 9 * Cout, A = g zero outside the plane,
+//     B = w[tap] transposed); a second pass folds pad rows and columns 0 and
+//     H+1 back onto rows and columns 1 and H-2 (_fold_pad1), adds an
+//     optional residual (dy, for dx = dy + dgrad) and writes the output type.
+//   the weight gradient: conv_dw.cu's cg_conv_dw on the reflect-padded input
+//     (the VALID case on rpad1(inp)), split-K, bitwise repeatable.
+// What bounds them: operations, 2 * M * 9 * C * C per convolution, four per
+// block backward. The cotangents are float32, as in the Pallas kernels, so
+// the tensor cores see them as two bf16 parts, hi = bf16(g) and lo =
+// bf16(g - hi) (cg_bf16_parts; |g - hi - lo| <= 2^-16 |g|): a bf16 weight
+// costs two bf16 passes (g_hi w + g_lo w), within the float32 bars of
+// chip_smoke.py. A float32 weight (the float32 train step) takes three
+// parts of both operands and six passes, products exact to float32
+// rounding as the FFMA kernel's were (conv_dw.cu says why). No TF32.
+// What the design does about that: dgrad_mma is the forward's mma.sync
+// m16n8k16 loop with zero instead of reflect padding, on a 64 x 128 tile
+// (8 warps of 32 x 32) so that batch 1 (4,356 padded pixels x 256) gives
+// 138 blocks for the 132 SMs where 128 x 128 gave 70; A is stored [m][k]
+// and B [ci][k], both read by plain ldmatrix, from a 3-stage cp.async ring.
+// The output is too small for wider warp tiles: 4 warps of 32 x 64 (fewer
+// ldmatrix per mma) and a wgmma version with one warpgroup a 64 x 128 tile
+// were both slower at batch 2 on an H100, with too few warps an SM to hide
+// their loads. A wgmma tiling that fills the card at batch 1 is the next
+// step for this loop and the forward's. The fold reads dpad as float4 with 32-bit
+// index arithmetic.
 
 #include "common.cuh"
 
@@ -67,39 +74,6 @@ constexpr int B_LD = BN + 8;
 constexpr int A_STAGE = BM * A_LD;
 constexpr int B_STAGE = BK * B_LD;
 constexpr int SMEM_BF16 = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Grid (ceil(M / BM), ceil(Cout / BN)); 8 warps as 2 (M) x 4 (N), each
 // warp owning a 64 x 32 piece of the tile (4 x 4 mma tiles of 16 x 8).
@@ -286,73 +260,151 @@ conv3x3_reflect_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 
 // ---------------------------------------------------------------- backward
-// Grid (ceil(N*(H+2)*(W+2) / 64), ceil(Cin / 64)), 256 threads, 4 x 4 each.
-// dpad[n, i, j, ci] = sum_{ky, kx, co} g[n, i-ky, j-kx, co] * w[ky, kx, ci, co]
-// for i in [0, H+2), j in [0, W+2), with g zero outside [0, H) x [0, W).
-// Needs Cout % 16 == 0 (a 16-deep K step stays inside one tap).
-template <typename TW>
-__global__ void __launch_bounds__(256)
-conv3x3_dgrad_full(const float* __restrict__ g, const TW* __restrict__ w,
-                   float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
-  __shared__ float As[FBK][FBM + 4];
-  __shared__ float Bs[FBK][FBN + 4];
-  const int tid = threadIdx.x;
+// The input gradient on the tensor cores: a full correlation of the
+// cotangent's bf16 parts with w[tap] transposed, written to padded float32
+// scratch, then the reflect fold.
+constexpr int DBM = 64, DBN = 128, DBK = 32, DSTAGES = 3;
+constexpr int D_LD = DBK + 8;  // [row][k] rows of 80 B: conflict-free ldmatrix
+constexpr int DA_TILE = DBM * D_LD;
+constexpr int DB_TILE = DBN * D_LD;
+
+constexpr int dgrad_smem(int ng, int nw) {
+  return DSTAGES * (ng * DA_TILE + nw * DB_TILE) * (int)sizeof(bf16);
+}
+
+// Grid (ceil(N*(H+2)*(W+2) / DBM), ceil(Cin / DBN)); 8 warps as 2 (M) x 4
+// (N), each owning 32 x 32 of the tile (2 x 4 mma tiles of 16 x 8).
+// dpad[n, i, j, ci] = sum_{ky, kx, co} sum_{(a, b) in passes}
+//   g_a[n, i-ky, j-kx, co] * w_b[ky, kx, ci, co]
+// for i in [0, H+2), j in [0, W+2), with g zero outside [0, H) x [0, W);
+// g_a = g + a * g_part, w_b = w + b * w_part; the passes are the (a, b)
+// with a + b < max(NG, NW). Needs Cout % 32 == 0 (a 32-deep K step stays
+// inside one tap), Cin % 8 == 0 and 16-byte aligned planes.
+template <int NG, int NW>
+__global__ void __launch_bounds__(THREADS, 2)
+dgrad_mma(const bf16* __restrict__ g, size_t g_part, const bf16* __restrict__ w,
+          size_t w_part, float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
+  constexpr int PASSES = NG > NW ? NG : NW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Bs = As + DSTAGES * NG * DA_TILE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Hp = H + 2, Wp = W + 2;
   const int M = N * Hp * Wp, HWp = Hp * Wp;
-  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN;
+  const int m0 = blockIdx.x * DBM, n0 = blockIdx.y * DBN;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
 
-  // A loads: padded pixel m0 + (tid >> 2), output channels (tid & 3) * 4 .. +3.
-  const int a_row = tid >> 2, a_k = (tid & 3) * 4;
+  // A: padded pixel row (tid >> 2), 16-byte chunk (tid & 3) of the 32 co.
+  // B: input channels (tid >> 2) and (tid >> 2) + 64, the same chunk.
+  const int chunk = (tid & 3) * 8;
+  const int a_row = tid >> 2;
   const int am = m0 + a_row;
   const bool a_ok = am < M;
   const int amm = a_ok ? am : 0;
   const int an = amm / HWp, arem = amm - an * HWp;
   const int ai = arem / Wp, aj = arem - ai * Wp;
-  // B loads: input channel n0 + (tid >> 2), output channels (tid & 3) * 4 .. +3.
-  const int b_n = tid >> 2, b_k = (tid & 3) * 4;
-  const int b_ci = n0 + b_n;
-  const int ty = tid >> 4, tx = tid & 15;
 
-  float acc[4][4] = {};
-  const int KT = 9 * Cout / FBK;
-  for (int kt = 0; kt < KT; ++kt) {
-    const int k0 = kt * FBK;
+  const int KT = 9 * Cout / DBK;
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kt * DBK;
     const int tap = k0 / Cout, co0 = k0 - tap * Cout;
     const int h = ai - tap / 3, ww = aj - tap % 3;
     const bool ok = a_ok && h >= 0 && h < H && ww >= 0 && ww < W;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok)
-      av = *reinterpret_cast<const float4*>(g + (((size_t)an * H + h) * W + ww) * Cout + co0 + a_k);
-    As[a_k + 0][a_row] = av.x;
-    As[a_k + 1][a_row] = av.y;
-    As[a_k + 2][a_row] = av.z;
-    As[a_k + 3][a_row] = av.w;
-    const TW* bsrc = w + ((size_t)tap * Cin + b_ci) * Cout + co0 + b_k;
+    const size_t a_off = (((size_t)an * H + h) * W + ww) * Cout + co0 + chunk;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Bs[b_k + j][b_n] = b_ci < Cin ? cg_to_f(bsrc[j]) : 0.f;
-    __syncthreads();
+    for (int p = 0; p < NG; ++p)
+      cp_async16(As + (stage * NG + p) * DA_TILE + a_row * D_LD + chunk,
+                 ok ? g + p * g_part + a_off : g, ok ? 16 : 0);
 #pragma unroll
-    for (int k = 0; k < FBK; ++k) {
-      float a[4], b[4];
+    for (int i = 0; i < 2; ++i) {
+      const int row = a_row + i * 64, ci = n0 + row;
+      const bool b_ok = ci < Cin;
+      const size_t b_off = ((size_t)tap * Cin + ci) * Cout + co0 + chunk;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int p = 0; p < NW; ++p)
+        cp_async16(Bs + (stage * NW + p) * DB_TILE + row * D_LD + chunk,
+                   b_ok ? w + p * w_part + b_off : w, b_ok ? 16 : 0);
     }
-    __syncthreads();
+  };
+
+  // acc[0] takes the main pass (0, 0), acc[1] the correction passes: the
+  // tensor cores' float32 accumulation truncates, with an error that grows
+  // with the steps into one accumulator, and the corrections (~2^-8 of the
+  // main terms) add theirs ~2^8 times smaller when kept apart.
+  float acc[2][2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < DSTAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
   }
+  // ldmatrix lane addresses: A stored [m][k] (row fragments as stored), B
+  // stored [ci][k] (col fragments as stored).
+  const int a_lm = lane & 15, a_lk = (lane >> 4) * 8;
+  const int b_ln = ((lane >> 4) << 3) + (lane & 7), b_lk = ((lane >> 3) & 1) * 8;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<DSTAGES - 2>();
+    __syncthreads();
+    const int nk = kt + DSTAGES - 1;
+    if (nk < KT) load_stage(nk % DSTAGES, nk);
+    cp_async_commit();
+
+    const int st = kt % DSTAGES;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
+    for (int kk = 0; kk < DBK; kk += 16) {
+      uint32_t bfr[NW][2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < Cin) dpad[(size_t)row * Cin + col] = acc[i][j];
+      for (int p = 0; p < NW; ++p) {
+        const bf16* bs = Bs + (st * NW + p) * DB_TILE;
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4(bfr[p][np], bs + (wn + np * 16 + b_ln) * D_LD + kk + b_lk);
+      }
+#pragma unroll
+      for (int pa = 0; pa < NG; ++pa) {
+        const bf16* as = As + (st * NG + pa) * DA_TILE;
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(af[mt], as + (wm + mt * 16 + a_lm) * D_LD + kk + a_lk);
+#pragma unroll
+        for (int pb = 0; pb < NW && pa + pb < PASSES; ++pb)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_bf16(acc[pa + pb > 0][mt][nt], af[mt], bfr[pb][nt >> 1][(nt & 1) * 2],
+                       bfr[pb][nt >> 1][(nt & 1) * 2 + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gq = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = n0 + wn + nt * 8 + tig * 2;
+    if (c >= Cin) continue;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int row = m0 + wm + mt * 16 + gq;
+      if (row < M)
+        *reinterpret_cast<float2*>(dpad + (size_t)row * Cin + c) =
+            make_float2(acc[0][mt][nt][0] + acc[1][mt][nt][0],
+                        acc[0][mt][nt][1] + acc[1][mt][nt][1]);
+      if (row + 8 < M)
+        *reinterpret_cast<float2*>(dpad + (size_t)(row + 8) * Cin + c) =
+            make_float2(acc[0][mt][nt][2] + acc[1][mt][nt][2],
+                        acc[0][mt][nt][3] + acc[1][mt][nt][3]);
     }
   }
 }
@@ -360,144 +412,71 @@ conv3x3_dgrad_full(const float* __restrict__ g, const TW* __restrict__ w,
 // out[n, p, q, c] = sum of dpad over the padded positions that reflect onto
 // (p, q) (+ add[n, p, q, c]): padded row p + 1, and row 0 when p == 1, and
 // row H + 1 when p == H - 2; the same for columns. A fixed order per element.
+// One thread per 4 channels, 32-bit index arithmetic (the caller keeps
+// N*H*W*C under 2^31); needs C % 4 == 0.
 template <typename TOut>
 __global__ void __launch_bounds__(256)
 fold_pad1(const float* __restrict__ dpad, const TOut* __restrict__ add,
           TOut* __restrict__ out, int N, int H, int W, int C) {
-  const size_t total = (size_t)N * H * W * C;
+  const int C4 = C / 4, total = N * H * W * C4;
   const int Hp = H + 2, Wp = W + 2;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % C);
-    size_t rest = idx / C;
-    const int q = (int)(rest % W);
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const int c = (idx % C4) * 4;
+    int rest = idx / C4;
+    const int q = rest % W;
     rest /= W;
-    const int p = (int)(rest % H);
-    const int n = (int)(rest / H);
+    const int p = rest % H;
+    const int n = rest / H;
     int rows[3] = {p + 1, 0, 0}, cols[3] = {q + 1, 0, 0};
     int nr = 1, nc = 1;
     if (p == 1) rows[nr++] = 0;
     if (p == H - 2) rows[nr++] = H + 1;
     if (q == 1) cols[nc++] = 0;
     if (q == W - 2) cols[nc++] = W + 1;
-    float s = 0.f;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
     for (int a = 0; a < nr; ++a)
-      for (int b = 0; b < nc; ++b)
-        s += dpad[(((size_t)n * Hp + rows[a]) * Wp + cols[b]) * C + c];
-    if (add != nullptr) s += cg_to_f(add[idx]);
-    out[idx] = cg_from_f<TOut>(s);
-  }
-}
-
-// Grid (ceil(9*Cin / 64), ceil(Cout / 64), splits), 256 threads, 4 x 4 each.
-// part[s, m, co] = sum over the pixels k of chunk s of
-//   rpad1(inp)[pixel k shifted by tap(m), ci(m)] * g[k, co],  m = tap*Cin + ci.
-// Needs Cin % 4 == 0 (a thread's 4 rows share one tap).
-template <typename TIn>
-__global__ void __launch_bounds__(256)
-conv3x3_wgrad_partial(const TIn* __restrict__ inp, const float* __restrict__ g,
-                      float* __restrict__ part, int N, int H, int W, int Cin, int Cout,
-                      int kchunk) {
-  __shared__ float As[FBK][FBM + 4];  // [pixel][m]
-  __shared__ float Bs[FBK][FBN + 4];  // [pixel][co]
-  const int tid = threadIdx.x;
-  const int M = 9 * Cin, K = N * H * W, HWp = H * W;
-  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN, sp = blockIdx.z;
-  const int kbeg = sp * kchunk, kend = min(K, kbeg + kchunk);
-
-  // A and B loads: pixel k0 + (tid >> 4); rows (tid & 15) * 4 .. +3 of m
-  // (A) and of co (B).
-  const int l_k = tid >> 4, l_c = (tid & 15) * 4;
-  const int am = m0 + l_c;
-  const bool m_ok = am < M;
-  const int tap = m_ok ? am / Cin : 0, ci = m_ok ? am - tap * Cin : 0;
-  const int ky = tap / 3 - 1, kx = tap % 3 - 1;
-  const int bco = n0 + l_c;
-  const int ty = tid >> 4, tx = tid & 15;
-
-  float acc[4][4] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += FBK) {
-    const int k = k0 + l_k;
-    const bool k_ok = k < kend;
-    const bool a_ok = k_ok && m_ok;
-    const int kk = a_ok ? k : kbeg;
-    const int n = kk / HWp, rem = kk - n * HWp;
-    const int h = rem / W, ww = rem - h * W;
-    const TIn* asrc = inp + (((size_t)n * H + cg_reflect1(h + ky, H)) * W +
-                             cg_reflect1(ww + kx, W)) * Cin + ci;
+      for (int b = 0; b < nc; ++b) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            dpad + ((size_t)(n * Hp + rows[a]) * Wp + cols[b]) * C + c);
+        s[0] += v.x;
+        s[1] += v.y;
+        s[2] += v.z;
+        s[3] += v.w;
+      }
+    const size_t o = (size_t)idx * 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) As[l_k][l_c + j] = a_ok ? cg_to_f(asrc[j]) : 0.f;
-    const float* bsrc = g + (size_t)(k_ok ? k : kbeg) * Cout + bco;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Bs[l_k][l_c + j] = (k_ok && bco + j < Cout) ? bsrc[j] : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < FBK; ++q) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[q][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[q][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* dst = part + (size_t)sp * M * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < Cout) dst[(size_t)row * Cout + col] = acc[i][j];
+    for (int e = 0; e < 4; ++e) {
+      if (add != nullptr) s[e] += cg_to_f(add[o + e]);
+      out[o + e] = cg_from_f<TOut>(s[e]);
     }
   }
 }
 
-// dw[i] = sum_s part[s, i] in chunk order, written as TOut.
-template <typename TOut>
-__global__ void __launch_bounds__(256)
-wgrad_reduce(const float* __restrict__ part, TOut* __restrict__ dw, int splits, size_t MN) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * MN + i];
-    dw[i] = cg_from_f<TOut>(s);
+template <int NG, int NW>
+cudaError_t launch_dgrad_mma(const bf16* g, const bf16* w, float* dpad, int N, int H, int W,
+                             int Cin, int Cout, cudaStream_t s) {
+  constexpr int smem = dgrad_smem(NG, NW);
+  static bool sized = false;  // the attribute holds for the process's device
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(dgrad_mma<NG, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
   }
-}
-
-int grid_1d(size_t total) {
-  return (int)std::min<size_t>((total + 255) / 256, 132 * 16);
-}
-
-template <typename TW, typename TOut>
-cudaError_t launch_dgrad(const float* g, const void* w, const void* add, void* out, float* dpad,
-                         int N, int H, int W, int Cin, int Cout, cudaStream_t s) {
   const int M = N * (H + 2) * (W + 2);
-  dim3 grid((M + FBM - 1) / FBM, (Cin + FBN - 1) / FBN);
-  conv3x3_dgrad_full<TW><<<grid, 256, 0, s>>>(g, static_cast<const TW*>(w), dpad, N, H, W,
-                                              Cin, Cout);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  fold_pad1<TOut><<<grid_1d((size_t)N * H * W * Cin), 256, 0, s>>>(
-      dpad, static_cast<const TOut*>(add), static_cast<TOut*>(out), N, H, W, Cin);
+  dim3 grid((M + DBM - 1) / DBM, (Cin + DBN - 1) / DBN);
+  dgrad_mma<NG, NW><<<grid, THREADS, smem, s>>>(g, (size_t)N * H * W * Cout, w,
+                                                (size_t)9 * Cin * Cout, dpad, N, H, W, Cin,
+                                                Cout);
   return cudaGetLastError();
 }
 
-template <typename TIn, typename TOut>
-cudaError_t launch_wgrad(const void* inp, const float* g, void* dw, float* part, int N, int H,
-                         int W, int Cin, int Cout, int splits, int kchunk, cudaStream_t s) {
-  dim3 grid((9 * Cin + FBM - 1) / FBM, (Cout + FBN - 1) / FBN, splits);
-  conv3x3_wgrad_partial<TIn><<<grid, 256, 0, s>>>(static_cast<const TIn*>(inp), g, part, N, H,
-                                                  W, Cin, Cout, kchunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const size_t MN = (size_t)9 * Cin * Cout;
-  wgrad_reduce<TOut><<<grid_1d(MN), 256, 0, s>>>(part, static_cast<TOut*>(dw), splits, MN);
+template <typename TOut>
+cudaError_t launch_fold(const float* dpad, const void* add, void* out, int N, int H, int W,
+                        int C, cudaStream_t s) {
+  fold_pad1<TOut><<<cg_grid_1d((size_t)N * H * W * C / 4), 256, 0, s>>>(
+      dpad, static_cast<const TOut*>(add), static_cast<TOut*>(out), N, H, W, C);
   return cudaGetLastError();
 }
 
@@ -535,49 +514,31 @@ extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias
 }
 
 // Input gradient of conv3x3(rpad1(x), w) with the reflect fold.
-// g: (N, H, W, Cout) float32 output gradient; w: (3, 3, Cin, Cout) of
-// w_dtype; add (or NULL) and out: (N, H, W, Cin) of out_dtype;
-// out = fold(full correlation of g with w) [+ add]. dpad: (N, H+2, W+2, Cin)
-// float32 scratch. Needs H, W >= 2, Cout % 16 == 0 and a 16-byte aligned g.
+// g: (ng, N, H, W, Cout), the bf16 parts of the float32 output gradient
+// (cg_bf16_parts of conv_dw.cu); w: (nw, 3, 3, Cin, Cout), the bf16 parts of
+// the weight; (ng, nw) is (2, 1) for bf16 weights, (3, 3) for float32 ones;
+// add (or NULL) and out:
+// (N, H, W, Cin) of out_dtype; out = fold(full correlation of g with w)
+// [+ add]. dpad: (N, H+2, W+2, Cin) float32 scratch. Needs H, W >= 2,
+// Cout % 32 == 0, Cin % 8 == 0 and 16-byte aligned g and w.
 extern "C" int cg_conv3x3_reflect_dgrad(const void* g, const void* w, const void* add, void* out,
                                         void* dpad, int N, int H, int W, int Cin, int Cout,
-                                        int w_dtype, int out_dtype, void* stream) {
+                                        int ng, int nw, int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto gp = static_cast<const float*>(g);
+  auto gp = static_cast<const bf16*>(g);
+  auto wp = static_cast<const bf16*>(w);
   auto dp = static_cast<float*>(dpad);
-  if (N <= 0 || H < 2 || W < 2 || Cin <= 0 || Cout % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (w_dtype == CG_BF16 && out_dtype == CG_BF16)
-    return (int)launch_dgrad<bf16, bf16>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
-  if (w_dtype == CG_BF16 && out_dtype == CG_F32)
-    return (int)launch_dgrad<bf16, float>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
-  if (w_dtype == CG_F32 && out_dtype == CG_F32)
-    return (int)launch_dgrad<float, float>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
-  if (w_dtype == CG_F32 && out_dtype == CG_BF16)
-    return (int)launch_dgrad<float, bf16>(gp, w, add, out, dp, N, H, W, Cin, Cout, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Weight gradient of conv3x3(rpad1(inp), w) for the float32 output gradient
-// g: (N, H, W, Cout); inp: (N, H, W, Cin) of in_dtype; dw: (3, 3, Cin, Cout)
-// of out_dtype, summed over the batch. part: (splits, 9*Cin, Cout) float32
-// scratch; chunk s covers pixels [s*kchunk, (s+1)*kchunk) of N*H*W. Needs
-// H, W >= 2 and Cin % 4 == 0.
-extern "C" int cg_conv3x3_reflect_wgrad(const void* inp, const void* g, void* dw, void* part,
-                                        int N, int H, int W, int Cin, int Cout, int splits,
-                                        int kchunk, int in_dtype, int out_dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto gp = static_cast<const float*>(g);
-  auto pp = static_cast<float*>(part);
-  if (N <= 0 || H < 2 || W < 2 || Cin % 4 != 0 || Cout <= 0 || splits <= 0 || kchunk <= 0 ||
-      (long long)splits * kchunk < (long long)N * H * W)
+  if (N <= 0 || H < 2 || W < 2 || Cin <= 0 || Cin % 8 != 0 || Cout <= 0 || Cout % 32 != 0 ||
+      (long long)N * H * W * Cin >= (1LL << 31) || (out_dtype != CG_F32 && out_dtype != CG_BF16))
     return (int)cudaErrorInvalidValue;
-  if (in_dtype == CG_BF16 && out_dtype == CG_BF16)
-    return (int)launch_wgrad<bf16, bf16>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
-  if (in_dtype == CG_BF16 && out_dtype == CG_F32)
-    return (int)launch_wgrad<bf16, float>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
-  if (in_dtype == CG_F32 && out_dtype == CG_F32)
-    return (int)launch_wgrad<float, float>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
-  if (in_dtype == CG_F32 && out_dtype == CG_BF16)
-    return (int)launch_wgrad<float, bf16>(inp, gp, dw, pp, N, H, W, Cin, Cout, splits, kchunk, s);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (ng == 2 && nw == 1)
+    e = launch_dgrad_mma<2, 1>(gp, wp, dp, N, H, W, Cin, Cout, s);
+  else if (ng == 3 && nw == 3)
+    e = launch_dgrad_mma<3, 3>(gp, wp, dp, N, H, W, Cin, Cout, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  if (out_dtype == CG_BF16) return (int)launch_fold<bf16>(dp, add, out, N, H, W, Cin, s);
+  return (int)launch_fold<float>(dp, add, out, N, H, W, Cin, s);
 }

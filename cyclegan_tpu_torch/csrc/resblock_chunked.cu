@@ -37,8 +37,6 @@
 // channels of a warp on neighbouring addresses; fusing the statistics into
 // the convolution's epilogue is later work.
 
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace {
@@ -220,10 +218,6 @@ vjp_apply_v(const T* __restrict__ dv, const T* __restrict__ vhat, const float* _
   }
 }
 
-int grid_1d(size_t total) {
-  return (int)std::min<size_t>((total + 255) / 256, 132 * 16);
-}
-
 bool bad_shape(int N, int H, int W, int C, int hc) {
   return N <= 0 || H < 2 || W < 2 || C <= 0 || hc <= 0 || H % hc != 0;
 }
@@ -237,15 +231,15 @@ cudaError_t launch_fwd(const float* v32, float* stats, const void* x, void* out0
   fwd_partials<<<grid, block, 0, s>>>(v32, part, N, HW, C, chunk_px, K);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  merge_partials<<<grid_1d((size_t)N * C), 256, 0, s>>>(part, stats, N, K, C, HW, 4,
+  merge_partials<<<cg_grid_1d((size_t)N * C), 256, 0, s>>>(part, stats, N, K, C, HW, 4,
                                                          which == 1 ? 0 : 2, eps, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t total = (size_t)N * HW * C;
   if (which == 1)
-    fwd_apply_in1<T><<<grid_1d(total), 256, 0, s>>>(v32, stats, static_cast<T*>(out0),
+    fwd_apply_in1<T><<<cg_grid_1d(total), 256, 0, s>>>(v32, stats, static_cast<T*>(out0),
                                                     static_cast<T*>(out1), total, HW, C);
   else
-    fwd_apply_in2<T><<<grid_1d(total), 256, 0, s>>>(v32, stats, static_cast<const T*>(x),
+    fwd_apply_in2<T><<<cg_grid_1d(total), 256, 0, s>>>(v32, stats, static_cast<const T*>(x),
                                                     static_cast<T*>(out0), static_cast<T*>(out1),
                                                     total, HW, C);
   return cudaGetLastError();
@@ -266,15 +260,16 @@ cudaError_t launch_vjp(const void* g, const void* src, const float* stats, void*
                                              static_cast<T*>(a), part, N, HW, C, chunk_px, K);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  merge_partials<<<grid_1d((size_t)N * C), 256, 0, s>>>(part, means, N, K, C, HW, 2, 0, 0.f, 0);
+  merge_partials<<<cg_grid_1d((size_t)N * C), 256, 0, s>>>(part, means, N, K, C, HW, 2, 0,
+                                                           0.f, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t total = (size_t)N * HW * C;
   if (which == 2)
-    vjp_apply_s<T><<<grid_1d(total), 256, 0, s>>>(static_cast<const T*>(g),
+    vjp_apply_s<T><<<cg_grid_1d(total), 256, 0, s>>>(static_cast<const T*>(g),
                                                   static_cast<const T*>(src), stats, means, out,
                                                   total, HW, C);
   else
-    vjp_apply_v<T><<<grid_1d(total), 256, 0, s>>>(static_cast<const T*>(dv),
+    vjp_apply_v<T><<<cg_grid_1d(total), 256, 0, s>>>(static_cast<const T*>(dv),
                                                   static_cast<const T*>(src), stats, means, out,
                                                   total, HW, C);
   return cudaGetLastError();

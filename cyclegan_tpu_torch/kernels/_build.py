@@ -46,15 +46,15 @@ SIGNATURES = {
     },
     "resblock": {
         "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
-        "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP],
-        "cg_conv3x3_reflect_wgrad": [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP],
+        "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP],
     },
     "resblock_chunked": {
         "cg_chunked_in_fwd": [_VOIDP] * 6 + [_INT] * 5 + [_FLOAT] + [_INT] * 2 + [_VOIDP],
         "cg_chunked_in_vjp": [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP],
     },
     "conv_dw": {
-        "cg_conv_dw": [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP],
+        "cg_bf16_parts": [_VOIDP] * 2 + [_INT] * 7 + [_VOIDP],
+        "cg_conv_dw": [_VOIDP] * 4 + [_INT] * 11 + [_VOIDP],
     },
 }
 
@@ -152,13 +152,48 @@ def check(err: int, what: str) -> None:
         raise KernelLaunchError(f"{what}: CUDA error {err}")
 
 
+@functools.cache
+def _entry(name: str, fn: str):
+    return getattr(load(name), fn)
+
+
 def call(name: str, fn: str, *args) -> None:
     """Run C entry ``fn`` of ``csrc/<name>.cu`` (built first if needed),
     raise if it returns a CUDA error, and count it in :data:`launches`."""
-    check(getattr(load(name), fn)(*args), fn)
+    check(_entry(name, fn)(*args), fn)
     launches[fn] += 1
 
 
+def check_same_device(name: str, *tensors: torch.Tensor) -> None:
+    """What every C entry assumes of its tensors: contiguous, on one
+    device, of a type it takes, 16-byte aligned."""
+    for t in tensors:
+        if not t.is_contiguous() or t.device != tensors[0].device:
+            raise ValueError(f"{name}: tensors must be contiguous on one device")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+# Scratch memory of the kernels (split-K partials, padded gradients), one
+# buffer per (device, stream), grown on demand and reused by every call on
+# that stream: the stream orders each use after the previous one.
+_scratch: dict = {}
+
+
+def scratch_ptr(nbytes: int, t: torch.Tensor, stream: int) -> int:
+    """Device address of at least ``nbytes`` of scratch on ``t``'s device
+    for kernels launched on ``stream``; valid until the next call."""
+    key = (t.device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _scratch[key] = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
+    return buf.data_ptr()
+
+
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as an integer handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as an integer handle (the
+    raw handle PyTorch's own code generators read: no Stream object is
+    built, which costs microseconds of host time per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

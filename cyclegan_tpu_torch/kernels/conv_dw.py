@@ -11,17 +11,37 @@ returned as float32. :func:`conv_dw` launches the hand-written kernel of
 tensor it runs :func:`conv_dw_plain`. ``ops.functional.conv2d_valid_dw_fused``
 routes the weight gradient of the trunk's reflect-padded 3x3 convolutions
 through it.
+
+The kernel multiplies bf16 "parts" on the tensor cores: a bf16 tensor is
+one part; a float32 tensor ``t`` is ``hi = bf16(t)``, ``mid = bf16(t -
+hi)`` and ``lo = bf16(t - hi - mid)``, cut to the first two or all three
+(:func:`bf16_parts`, :func:`bf16_parts_plain`), and the products (a, b) of
+the parts with ``a + b < max(na, nb)`` are summed in float32. A float32
+cotangent against bf16 values takes two parts (:func:`grad_parts`), float32
+against float32 three each, which keeps the products exact to float32
+rounding. The residual blocks' weight gradients
+(``kernels.resblock.conv3x3_reflect_wgrad``) run the same kernel on their
+reflect-padded input through :func:`launch_wgrad`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from cyclegan_tpu_torch.kernels import _build
-from cyclegan_tpu_torch.kernels import resblock as RB
 
 # Calls of conv_dw that launched the CUDA kernel.
 launches = 0
+
+# The kernel's output tile (rows of k*k*Cin, columns of Cout) and its
+# pipeline step in pixels (csrc/conv_dw.cu BM, BN, BK).
+TILE_M, TILE_N = 128, 256
+STEP = 32
+# Blocks of the weight gradient resident at once on an H100: 132 SMs, one
+# block each (up to 222 KB of shared memory a block).
+RESIDENT_BLOCKS = 132
 
 
 def _shapes(xp: torch.Tensor, dy: torch.Tensor, k: int) -> tuple[int, ...]:
@@ -45,29 +65,109 @@ def conv_dw_plain(xp: torch.Tensor, dy: torch.Tensor, k: int = 3) -> torch.Tenso
                                      for t in range(k)]) for s in range(k)])
 
 
+def bf16_parts_plain(t: torch.Tensor, parts: int) -> torch.Tensor:
+    """Plain version of :func:`bf16_parts` without padding: ``(parts,
+    *t.shape)`` bf16, each part the bf16 rounding of what the parts before
+    it left of ``t``; their sum is ``t`` to within 2^-16 of ``|t|`` for two
+    parts and 2^-24 for three."""
+    out, rest = [], t.float()
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return torch.stack(out)
+
+
+def grad_parts(other: torch.dtype) -> int:
+    """bf16 parts of a float32 gradient whose product partner has dtype
+    ``other``: two against bf16 values, three against float32 ones."""
+    return 2 if other == torch.bfloat16 else 3
+
+
 def supported(xp_shape: tuple[int, ...], dy_shape: tuple[int, ...]) -> bool:
     """Which convolutions route their weight gradient through the kernel:
     both channel dims >= 128 (the JAX package's rule; its VMEM budget has no
-    counterpart on the card)."""
+    counterpart on the card) and multiples of 8 (the kernel's 16-byte rows)."""
     return len(xp_shape) == 4 and len(dy_shape) == 4 and \
-        xp_shape[-1] >= 128 and dy_shape[-1] >= 128
+        all(c >= 128 and c % 8 == 0 for c in (xp_shape[-1], dy_shape[-1]))
+
+
+def _check_channels(name: str, cin: int, cout: int) -> None:
+    if cin % 8 or cout % 8:
+        raise ValueError(f"{name} needs Cin % 8 == 0 and Cout % 8 == 0 (16-byte rows of "
+                         f"the tensor-core tiles), got Cin={cin}, Cout={cout}")
+
+
+def _wgrad_tiles(m: int, n: int) -> int:
+    """Output tiles of the weight gradient (m = k*k*Cin rows, n = Cout)."""
+    return -(-m // TILE_M) * -(-n // TILE_N)
+
+
+@functools.cache
+def _wgrad_split(tiles: int, k: int) -> tuple[int, int]:
+    """K (pixel) chunks of the weight gradient: enough blocks to keep the
+    resident blocks of an H100 busy (at most one wave of them), at least
+    256 pixels a chunk, a chunk a multiple of the kernel's 32-pixel step.
+    From the shapes only, so dw's summation order is fixed."""
+    splits = max(1, min(RESIDENT_BLOCKS // tiles, k // 256))
+    kchunk = -(-k // splits)
+    kchunk = -(-kchunk // STEP) * STEP
+    return -(-k // kchunk), kchunk
+
+
+def bf16_parts(t: torch.Tensor, parts: int, pad: int = 0) -> torch.Tensor:
+    """CUDA kernel: the bf16 parts of NHWC ``t`` (one for bf16, one to three
+    for float32), reflect-padded by ``pad`` (0 or 1): ``(parts, N, H +
+    2 pad, W + 2 pad, C)`` bf16."""
+    n, h, w_, c = t.shape
+    if c % 8:
+        raise ValueError(f"bf16_parts needs C % 8 == 0, got {c}")
+    if parts not in (1, 2, 3) or (parts > 1 and t.dtype != torch.float32):
+        raise ValueError(f"bf16_parts: {parts} parts of a {t.dtype} tensor")
+    if pad not in (0, 1) or (pad and (h < 2 or w_ < 2)):
+        raise ValueError(f"bf16_parts: reflect pad {pad} of {h}x{w_}")
+    _build.check_same_device("bf16_parts", t)
+    out = torch.empty((parts, n, h + 2 * pad, w_ + 2 * pad, c), dtype=torch.bfloat16,
+                      device=t.device)
+    _build.call("conv_dw", "cg_bf16_parts", t.data_ptr(), out.data_ptr(), n, h, w_, c, pad,
+                parts, _build.DTYPE_CODES[t.dtype], _build.stream_ptr(t))
+    return out
+
+
+def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
+                 dims: tuple[int, ...], k: int,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """CUDA kernel: dw (k, k, Cin, Cout) of ``out_dtype`` from ``na`` bf16
+    parts of the padded input ``xp`` ((N, H+k-1, W+k-1, Cin) each) and
+    ``nb`` of the output gradient ``dy`` ((N, H, W, Cout) each), stored part
+    after part; (na, nb) is (1, 1), (1, 2) or (3, 3); ``dims`` = (N, H, W,
+    Cin, Cout). Split-K partials in scratch, added in a fixed order. The
+    caller has checked the tensors and that Cin and Cout are multiples of
+    8."""
+    n, h, w_, cin, cout = dims
+    if (na, nb) not in ((1, 1), (1, 2), (3, 3)) or \
+            xp.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise ValueError(f"conv_dw: ({na}, {nb}) parts of {xp.dtype}, {dy.dtype}")
+    out = torch.empty((k, k, cin, cout), dtype=out_dtype, device=xp.device)
+    splits, kchunk = _wgrad_split(_wgrad_tiles(k * k * cin, cout), n * h * w_)
+    stream = _build.stream_ptr(xp)
+    part = _build.scratch_ptr(4 * splits * k * k * cin * cout, xp, stream)
+    _build.call("conv_dw", "cg_conv_dw", xp.data_ptr(), dy.data_ptr(), out.data_ptr(), part,
+                n, h, w_, cin, cout, k, splits, kchunk, na, nb,
+                _build.DTYPE_CODES[out_dtype], stream)
+    return out
 
 
 def _dw_cuda(xp: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     global launches
-    n, h, w_, cin, cout = _shapes(xp, dy, k)
-    if cin % 4:
-        raise ValueError(f"conv_dw needs Cin % 4 == 0, got {cin}")
+    dims = _shapes(xp, dy, k)
+    _check_channels("conv_dw", dims[3], dims[4])
     if dy.dtype != xp.dtype:
         raise TypeError(f"conv_dw: xp and dy must share one dtype, got {xp.dtype}, {dy.dtype}")
-    out = torch.empty((k, k, cin, cout), dtype=torch.float32, device=xp.device)
-    RB._check_same_device("conv_dw", xp, dy, out)
-    tiles = -(-k * k * cin // 64) * -(-cout // 64)
-    splits, kchunk = RB._wgrad_split(tiles, n * h * w_)
-    part = torch.empty((splits, k * k * cin, cout), dtype=torch.float32, device=xp.device)
-    _build.call("conv_dw", "cg_conv_dw", xp.data_ptr(), dy.data_ptr(), out.data_ptr(),
-                part.data_ptr(), n, h, w_, cin, cout, k, splits, kchunk,
-                _build.DTYPE_CODES[xp.dtype], _build.stream_ptr(xp))
+    _build.check_same_device("conv_dw", xp, dy)
+    if xp.dtype == torch.bfloat16:
+        out = launch_wgrad(xp, 1, dy, 1, dims, k)
+    else:
+        out = launch_wgrad(bf16_parts(xp, 3), 3, bf16_parts(dy, 3), 3, dims, k)
     launches += 1
     return out
 
@@ -75,8 +175,8 @@ def _dw_cuda(xp: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
 def conv_dw(xp: torch.Tensor, dy: torch.Tensor, k: int = 3) -> torch.Tensor:
     """dw (k, k, Cin, Cout) float32 of a VALID stride-1 convolution: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if xp.device.type == "cpu":
-        return conv_dw_plain(xp, dy, k)
-    if xp.device.type != "cuda":
+    if xp.is_cuda:
+        return _dw_cuda(xp, dy, k)
+    if xp.device.type != "cpu":
         raise ValueError(f"conv_dw: no kernel for device {xp.device}")
-    return _dw_cuda(xp, dy, k)
+    return conv_dw_plain(xp, dy, k)

@@ -22,9 +22,10 @@ per-channel constant before an instance norm cancels).
 
 :func:`residual_block_fused` is a ``torch.autograd.Function``. On a CUDA
 tensor it launches the hand-written kernels of ``csrc/resblock.cu`` (the
-convolution, its input and weight gradients) and ``csrc/instance_norm.cu``,
-or raises; on a CPU tensor it runs the plain versions through the same
-Function.
+convolution and its input gradient), ``csrc/conv_dw.cu`` (the weight
+gradient, and the split of each float32 cotangent into the bf16 parts that
+the tensor cores multiply) and ``csrc/instance_norm.cu``, or raises;
+on a CPU tensor it runs the plain versions through the same Function.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from cyclegan_tpu_torch.kernels import _build
+from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as _in
 
 # Calls of residual_block_fused that launched the CUDA forward, and calls of
@@ -133,16 +135,6 @@ def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor
     return (dx, *bwd_dw_plain(x, a, ds, du))
 
 
-def _check_same_device(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if not t.is_contiguous() or t.device != tensors[0].device:
-            raise ValueError(f"{name}: tensors must be contiguous on one device")
-        if t.dtype not in _build.DTYPE_CODES:
-            raise TypeError(f"{name}: unsupported dtype {t.dtype}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be 16-byte aligned")
-
-
 def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     out: torch.Tensor) -> None:
     """CUDA kernel: ``out`` (NHWC f32) = conv3x3(rpad1(x), w) + b."""
@@ -158,7 +150,7 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"fit Cin={cin}, Cout={cout}")
     if out.shape != (n, h, w_, cout) or out.dtype != torch.float32:
         raise ValueError("conv3x3_reflect: out must be (N, H, W, Cout) float32")
-    _check_same_device("conv3x3_reflect", x, w, b, out)
+    _build.check_same_device("conv3x3_reflect", x, w, b, out)
     if w.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError("conv3x3_reflect: x, w and b must share one dtype")
     _build.call("resblock", "cg_conv3x3_reflect",
@@ -174,11 +166,29 @@ def _check_grad_shapes(name: str, h: int, w_: int, cin: int, cout: int) -> None:
                          f"got Cin={cin}, Cout={cout}")
 
 
+def _check_g_parts(name: str, g: torch.Tensor, g_parts: torch.Tensor | None,
+                   parts: int) -> torch.Tensor:
+    """The ``parts`` bf16 parts of the float32 cotangent ``g``: ``g_parts``
+    when the caller split it already (one split serves a cotangent's input
+    and weight gradient), else split now."""
+    if g_parts is None:
+        return CD.bf16_parts(g, parts)
+    if g_parts.shape != (parts, *g.shape) or g_parts.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: g_parts {tuple(g_parts.shape)} {g_parts.dtype} are not "
+                         f"the {parts} bf16 parts of g {tuple(g.shape)}")
+    _build.check_same_device(name, g, g_parts)
+    return g_parts
+
+
 def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
-                          add: torch.Tensor | None = None) -> None:
+                          add: torch.Tensor | None = None,
+                          g_parts: torch.Tensor | None = None) -> None:
     """CUDA kernel: ``out`` (N, H, W, Cin; float32 or bf16) = the input
     gradient of conv3x3(rpad1(.), w) for the float32 output gradient ``g``
-    (N, H, W, Cout), reflect fold included, plus ``add`` (out's type)."""
+    (N, H, W, Cout), reflect fold included, plus ``add`` (out's type). The
+    tensor cores multiply the bf16 parts of ``g`` (``g_parts``, if the
+    caller has them: ``CD.grad_parts(w.dtype)`` of them) with those of
+    ``w``."""
     n, h, w_, cout = g.shape
     cin = w.shape[2]
     _check_grad_shapes("conv3x3_reflect_dgrad", h, w_, cin, cout)
@@ -189,48 +199,40 @@ def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
                          f"{tuple(out.shape)} do not fit g {tuple(g.shape)}")
     if add is not None and (add.shape != out.shape or add.dtype != out.dtype):
         raise ValueError("conv3x3_reflect_dgrad: add must match out")
-    _check_same_device("conv3x3_reflect_dgrad", g, w, out,
-                       *([add] if add is not None else []))
-    dpad = torch.empty((n, h + 2, w_ + 2, cin), dtype=torch.float32, device=g.device)
+    _build.check_same_device("conv3x3_reflect_dgrad", g, w, out,
+                             *([add] if add is not None else []))
+    ng = CD.grad_parts(w.dtype)
+    gp = _check_g_parts("conv3x3_reflect_dgrad", g, g_parts, ng)
+    nw = 1 if w.dtype == torch.bfloat16 else 3
+    wp = w if nw == 1 else CD.bf16_parts(w.reshape(1, 9, cin, cout), nw)
+    stream = _build.stream_ptr(g)
+    dpad = _build.scratch_ptr(4 * n * (h + 2) * (w_ + 2) * cin, g, stream)
     _build.call("resblock", "cg_conv3x3_reflect_dgrad",
-                g.data_ptr(), w.data_ptr(), None if add is None else add.data_ptr(),
-                out.data_ptr(), dpad.data_ptr(), n, h, w_, cin, cout,
-                _build.DTYPE_CODES[w.dtype], _build.DTYPE_CODES[out.dtype],
-                _build.stream_ptr(g))
-
-
-def _wgrad_split(tiles: int, k: int) -> tuple[int, int]:
-    """K (pixel) chunks of the weight gradient: enough blocks for about
-    eight per SM of an H100 (132 SMs), at least 256 pixels a chunk, a chunk
-    a multiple of 16 pixels. From the shapes only, so dw's summation order
-    is fixed."""
-    splits = max(1, min(-(-8 * 132 // tiles), k // 256))
-    kchunk = -(-k // splits)
-    kchunk = -(-kchunk // 16) * 16
-    return -(-k // kchunk), kchunk
+                gp.data_ptr(), wp.data_ptr(), None if add is None else add.data_ptr(),
+                out.data_ptr(), dpad, n, h, w_, cin, cout, ng, nw,
+                _build.DTYPE_CODES[out.dtype], stream)
 
 
 def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
-                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          out_dtype: torch.dtype = torch.float32,
+                          g_parts: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA kernel: the weight gradient (3, 3, Cin, Cout) of ``out_dtype``
     of conv3x3(rpad1(inp), w) for the float32 output gradient ``g``, summed
-    over the batch (split-K partials added in a fixed order)."""
+    over the batch: ``inp`` reflect-padded once into its bf16 part(s), then
+    the VALID weight gradient of ``kernels.conv_dw`` (split-K partials added
+    in a fixed order)."""
     n, h, w_, cin = inp.shape
     cout = g.shape[-1]
     _check_grad_shapes("conv3x3_reflect_wgrad", h, w_, cin, cout)
     if g.dtype != torch.float32 or g.shape != (n, h, w_, cout):
         raise ValueError(f"conv3x3_reflect_wgrad: g must be float32 (N, H, W, Cout), "
                          f"got {g.dtype} {tuple(g.shape)}")
-    out = torch.empty((3, 3, cin, cout), dtype=out_dtype, device=inp.device)
-    _check_same_device("conv3x3_reflect_wgrad", inp, g, out)
-    tiles = -(-9 * cin // 64) * -(-cout // 64)
-    splits, kchunk = _wgrad_split(tiles, n * h * w_)
-    part = torch.empty((splits, 9 * cin, cout), dtype=torch.float32, device=inp.device)
-    _build.call("resblock", "cg_conv3x3_reflect_wgrad",
-                inp.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
-                n, h, w_, cin, cout, splits, kchunk, _build.DTYPE_CODES[inp.dtype],
-                _build.DTYPE_CODES[out_dtype], _build.stream_ptr(inp))
-    return out
+    _build.check_same_device("conv3x3_reflect_wgrad", inp, g)
+    ng = CD.grad_parts(inp.dtype)
+    gp = _check_g_parts("conv3x3_reflect_wgrad", g, g_parts, ng)
+    na = 1 if inp.dtype == torch.bfloat16 else 3
+    return CD.launch_wgrad(CD.bf16_parts(inp, na, pad=1), na, gp, ng, (n, h, w_, cin, cout), 3,
+                           out_dtype)
 
 
 def _fwd_cuda(x, w1, b1, w2, b2, eps):

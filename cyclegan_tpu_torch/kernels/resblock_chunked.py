@@ -29,9 +29,11 @@ cast to the weights' type; the bias gradients are exactly zero.
 :func:`residual_block_chunked` is a ``torch.autograd.Function``. On a CUDA
 tensor it launches the convolutions of ``csrc/resblock.cu`` and the
 normalisation kernels of ``csrc/resblock_chunked.cu`` (TPU kernels #6 and
-#7), or raises; on a CPU tensor it runs the plain versions through the same
-Function. ``H % hc != 0`` raises: the chunk is the statistics kernels' row
-tile.
+#7) with the tensor-core gradient convolutions of ``csrc/resblock.cu`` and
+``csrc/conv_dw.cu`` (each float32 cotangent split into bf16 parts once for
+its input and weight gradient), or raises; on a CPU tensor it runs the
+plain versions through the same Function. ``H % hc != 0`` raises: the chunk
+is the statistics kernels' row tile.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from cyclegan_tpu_torch.kernels import _build
+from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import resblock as RB
 
 # Calls of the chunked forward (TPU kernel #6) and of its VJP (#7) that
@@ -117,7 +120,7 @@ def _check(name: str, planes: list, same_type: list, f32: list, hc: int,
     """Device, contiguity and alignment of every tensor; ``planes`` share
     one NHWC shape, ``same_type`` the first plane's dtype, ``f32`` are
     float32; the scratch and statistics fit the shape and ``hc``."""
-    RB._check_same_device(name, *planes, part, stats, *([means] if means is not None else []))
+    _build.check_same_device(name, *planes, part, stats, *([means] if means is not None else []))
     n, h, w_, c = planes[0].shape
     if any(p.shape != planes[0].shape for p in planes):
         raise ValueError(f"{name}: planes {[tuple(p.shape) for p in planes]} differ")
@@ -195,11 +198,14 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     ds, da, du = (torch.empty(x.shape, **f32) for _ in range(3))
     dv, a, dx = (torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(3))
     in_vjp(dy, s, stats, ds, part, means, hc, 2)
-    RB.conv3x3_reflect_dgrad(ds, w2, da)
+    parts = CD.grad_parts(x.dtype)
+    ds_parts = CD.bf16_parts(ds, parts)   # one split feeds both gradients of ds
+    RB.conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
     in_vjp(da, vhat, stats, du, part, means, hc, 1, dv=dv, a=a)
-    RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy)
-    dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype)
-    dw2 = RB.conv3x3_reflect_wgrad(a, ds, w2.dtype)
+    du_parts = CD.bf16_parts(du, parts)
+    RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
+    dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype, g_parts=du_parts)
+    dw2 = RB.conv3x3_reflect_wgrad(a, ds, w2.dtype, g_parts=ds_parts)
     bwd_launches += 1
     return dx, dw1, dw2
 

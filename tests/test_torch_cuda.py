@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
@@ -165,22 +166,50 @@ def test_instance_norm_forward_returns_its_statistics(card):
     torch.testing.assert_close(rstd, ref_rstd, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (operand type, output type): float32 throughout (three bf16 passes), bf16
+# throughout, and the main path's mix, bf16 activations and weights with a
+# float32 result, held at the float32 bar (two passes over the float32
+# cotangent's bf16 parts).
+GRAD_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("dtype,out_dtype", GRAD_TYPES)
 @pytest.mark.parametrize("shape,cout", [((2, 8, 9, 64), 64), ((1, 17, 5, 32), 96),
-                                        ((2, 2, 3, 32), 32)])
-def test_conv3x3_grads_match_plain(card, shape, cout, dtype):
+                                        ((2, 2, 3, 32), 32), ((2, 7, 9, 32), 96),
+                                        ((1, 64, 64, 256), 256), ((2, 64, 64, 256), 256)])
+def test_conv3x3_grads_match_plain(card, shape, cout, dtype, out_dtype):
+    """Ragged tile edges (Cin 32, Cout 96, odd H and W), the trunk shape at
+    batch 1 and 2; dw twice, bitwise equal."""
     cin = shape[-1]
     x = torch.randn(shape, device="cuda", generator=card).to(dtype)
     w = (0.05 * torch.randn((3, 3, cin, cout), device="cuda", generator=card)).to(dtype)
     g = torch.randn(shape[:3] + (cout,), device="cuda", generator=card)
-    add = torch.randn(shape, device="cuda", generator=card).to(dtype)
-    dx = torch.empty(shape, device="cuda", dtype=dtype)
+    add = torch.randn(shape, device="cuda", generator=card).to(out_dtype)
+    dx = torch.empty(shape, device="cuda", dtype=out_dtype)
     RB.conv3x3_reflect_dgrad(g, w, dx, add=add)
-    dw = RB.conv3x3_reflect_wgrad(x, g, dtype)
+    dw = RB.conv3x3_reflect_wgrad(x, g, out_dtype)
     torch.cuda.synchronize()
-    _close(dx, add.float() + RB.conv3x3_reflect_dgrad_plain(g, w), BWD_TOL[dtype])
-    _close(dw, RB.conv3x3_reflect_wgrad_plain(x, g), BWD_TOL[dtype])
-    assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, g, dtype))  # fixed order
+    _close(dx, add.float() + RB.conv3x3_reflect_dgrad_plain(g, w), BWD_TOL[out_dtype])
+    _close(dw, RB.conv3x3_reflect_wgrad_plain(x, g), BWD_TOL[out_dtype])
+    assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, g, out_dtype))  # fixed order
+
+
+def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
+    """Shapes the tensor-core tiles do not take raise before any launch, on
+    the card too: no fallback to another route."""
+    before = (CD.launches, dict(_build.launches))
+    with pytest.raises(ValueError, match="Cin % 8"):
+        CD.conv_dw(torch.zeros((1, 6, 6, 36), device="cuda"),
+                   torch.zeros((1, 4, 4, 24), device="cuda"))
+    with pytest.raises(ValueError, match="Cout % 8"):
+        CD.conv_dw(torch.zeros((1, 6, 6, 32), device="cuda", dtype=torch.bfloat16),
+                   torch.zeros((1, 4, 4, 12), device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="Cout % 32"):
+        RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48), device="cuda"),
+                                 torch.zeros((3, 3, 32, 48), device="cuda"),
+                                 torch.zeros((1, 4, 4, 32), device="cuda"))
+    assert (CD.launches, dict(_build.launches)) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -297,9 +326,12 @@ def test_chunked_refuses_h_not_divisible_by_hc(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("xshape,cout,k", [((2, 10, 9, 128), 128, 3), ((3, 7, 6, 36), 20, 3),
-                                           ((1, 5, 5, 8), 12, 1)])
+@pytest.mark.parametrize("xshape,cout,k", [((2, 10, 9, 128), 128, 3), ((3, 7, 6, 40), 24, 3),
+                                           ((1, 5, 5, 8), 16, 1), ((1, 66, 66, 256), 256, 3),
+                                           ((2, 66, 66, 256), 256, 3)])
 def test_conv_dw_matches_plain_and_repeats_bitwise(card, xshape, cout, k, dtype):
+    """Ragged tiles (Cin 40, Cout 24; a 1x1), the trunk shape at batch 1 and
+    2; one bf16 pass, or three over the bf16 parts of float32 operands."""
     n, hp, wp, _ = xshape
     xp = torch.randn(xshape, device="cuda", generator=card).to(dtype)
     dy = torch.randn((n, hp - k + 1, wp - k + 1, cout), device="cuda", generator=card).to(dtype)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from cyclegan_tpu.kernels.instance_norm import instance_norm_act as jax_in_act
 from cyclegan_tpu.kernels.resblock import residual_block_fused as jax_rb_fused
+from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
 
@@ -169,10 +170,92 @@ def test_backward_kernels_reject_shapes_they_do_not_take():
         RB.conv3x3_reflect_wgrad(torch.zeros((1, 1, 4, 32)), torch.zeros((1, 1, 4, 32)))
 
 
-@pytest.mark.parametrize("tiles,k", [(144, 8192), (144, 4096), (1, 100), (4, 1 << 20)])
+# (tiles, pixels): the trunk's 2304 x 256 weight gradient at batch 2 and 1
+# (18 tiles of 128 x 256), other tile counts, a tiny and a huge K.
+@pytest.mark.parametrize("tiles,k", [(18, 8192), (18, 4096), (144, 8192), (144, 4096),
+                                     (1, 100), (4, 1 << 20), (300, 8192), (36, 96)])
 def test_wgrad_split_covers_every_pixel_once(tiles, k):
-    splits, kchunk = RB._wgrad_split(tiles, k)
-    assert kchunk % 16 == 0 and splits * kchunk >= k > (splits - 1) * kchunk
+    splits, kchunk = CD._wgrad_split(tiles, k)
+    assert kchunk % CD.STEP == 0 and splits * kchunk >= k > (splits - 1) * kchunk
+    # At most one wave of the resident blocks, and no chunk under 256 pixels
+    # unless there is only one.
+    assert splits == 1 or (splits * tiles <= CD.RESIDENT_BLOCKS and kchunk >= 256)
+
+
+@pytest.mark.parametrize("k", [4096, 8192])
+def test_wgrad_split_fills_the_card_at_the_trunk_shape(k):
+    """The trunk's 2304 x 256 weight gradient at batch 1 and 2: 18 output
+    tiles in 7 chunks, 126 blocks for the 132 SMs."""
+    tiles = CD._wgrad_tiles(9 * 256, 256)
+    assert tiles == 18 and CD._wgrad_split(tiles, k)[0] == 7
+
+
+@pytest.mark.parametrize("call,match", [
+    # conv_dw: the tensor-core tiles take 16-byte rows only.
+    (lambda: CD._dw_cuda(torch.zeros((1, 6, 6, 36)), torch.zeros((1, 4, 4, 24)), 3), "Cin % 8"),
+    (lambda: CD._dw_cuda(torch.zeros((1, 6, 6, 32)), torch.zeros((1, 4, 4, 20)), 3), "Cout % 8"),
+    # the split into bf16 parts: C % 8, two parts of a float32 tensor only.
+    (lambda: CD.bf16_parts(torch.zeros((1, 4, 4, 12)), 2), "C % 8"),
+    (lambda: CD.bf16_parts(torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 2), "parts"),
+    (lambda: CD.bf16_parts(torch.zeros((1, 1, 4, 8)), 2, pad=1), "reflect pad"),
+    # the weight-gradient kernel instantiates (1, 1), (1, 2) and (2, 2) parts.
+    (lambda: CD.launch_wgrad(torch.zeros((2, 1, 6, 6, 8), dtype=torch.bfloat16), 2,
+                             torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 1,
+                             (1, 4, 4, 8, 8), 3), "parts"),
+    # the input gradient: a 32-deep step inside one tap, parts of g.
+    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48)), torch.zeros((3, 3, 32, 48)),
+                                      torch.zeros((1, 4, 4, 32))), "Cout % 32"),
+    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 32)), torch.zeros((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 4, 32)),
+                                      g_parts=torch.zeros((1, 1, 4, 4, 32))), "g_parts"),
+])
+def test_gradient_wrappers_refuse_shapes_the_tiles_do_not_take(call, match):
+    """The CUDA gradient wrappers raise on what the tensor-core kernels do
+    not take, before any build or launch: no fallback."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+# bf16 parts of each float32 operand, the products (a, b) with a + b <
+# max(na, nb) summed in float32: the kernels' arithmetic, in plain
+# PyTorch, against float64.
+def passes(na: int, nb: int) -> list:
+    return [(a, b) for a in range(na) for b in range(nb) if a + b < max(na, nb)]
+
+
+@pytest.mark.parametrize("parts,bound", [(2, 2 ** -16), (3, 2 ** -24)])
+def test_bf16_parts_reconstruct_float32(parts, bound):
+    t = torch.from_numpy(_x((4, 5, 6, 8), 50, 3.0)) * torch.logspace(-20, 20, 8)
+    p = CD.bf16_parts_plain(t, parts).double()
+    assert torch.equal(p[0], t.to(torch.bfloat16).double())
+    assert bool(((t.double() - p.sum(0)).abs() <= bound * t.double().abs()).all())
+    assert CD.bf16_parts_plain(t, 1).shape == (1, *t.shape)
+    assert passes(1, 2) == [(0, 0), (0, 1)] and len(passes(3, 3)) == 6
+
+
+@pytest.mark.parametrize("x_dtype,parts", [(torch.bfloat16, (1, 2)), (torch.float32, (3, 3))])
+def test_bf16_parts_hold_the_float32_bar(x_dtype, parts):
+    """The weight gradient as the kernel computes it (bf16 input with the
+    float32 cotangent's two parts; float32 on both sides in three parts
+    each) within chip_smoke.py's float32 bar of the float64 truth; the
+    cotangent rounded to one bf16 part misses it."""
+    xp = torch.from_numpy(_x((2, 10, 9, 16), 51)).to(x_dtype)
+    g = torch.from_numpy(_x((2, 8, 7, 24), 52))
+    x64, g64 = xp.double(), g.double().reshape(-1, 24)
+    truth = torch.stack([torch.stack([x64[:, s:s + 8, t:t + 7].reshape(-1, 16).T @ g64
+                                      for t in range(3)]) for s in range(3)])
+    xs = CD.bf16_parts_plain(xp, parts[0]) if x_dtype == torch.float32 else xp[None]
+    gs = CD.bf16_parts_plain(g, parts[1])
+
+    def err_over_bar(dw):
+        allowed = 1e-5 * truth.abs().max() + 1e-4 * truth.abs()
+        return float(((dw.double() - truth).abs() / allowed).max())
+
+    dw = sum(CD.conv_dw_plain(xs[a], gs[b]) for a, b in passes(*parts))
+    # 0.15 of the bar for bf16 x here; float32 x in three parts is as exact
+    # as a float32 product.
+    assert err_over_bar(dw) <= (0.5 if x_dtype == torch.bfloat16 else 0.05)
+    assert err_over_bar(CD.conv_dw_plain(xs[0], gs[0])) > 1.0
 
 
 def test_cpu_backward_leaves_launch_counters_at_zero():
