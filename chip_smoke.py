@@ -159,10 +159,6 @@ BWD_TOL = {
     ("conv3x3_reflect_dgrad", "bfloat16"): (1e-5, 1e-4),
     ("conv3x3_reflect_wgrad", "bfloat16"): (1e-5, 1e-4),
 }
-# bf16 tensor-core passes of a gradient convolution: its products over the
-# bf16 parts of the operands: a float32 cotangent against bf16 values in
-# two parts is 2; float32 on both sides, three parts each, 6.
-GRAD_PASSES = {"bfloat16": 2, "float32": 6}
 # The chunked route's rows a chunk (the JAX package's default).
 HC = 8
 # Per-step losses, kernel path vs plain path from the same weights, batch
@@ -194,6 +190,15 @@ TRAIN_TOL = {
 # The script measures that floor again in every run
 # (float32_step1_grad_plain_vs_plain_*). A wrong gradient gives O(1).
 GRAD_TOL_F32 = 1e-2
+
+
+def grad_passes(a_dtype, b_dtype) -> int:
+    """bf16 tensor-core passes of a gradient convolution on operands of
+    these types: the products over their bf16 parts, as the kernels issue
+    them (kernels/conv_dw.py::parts and ::passes)."""
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+
+    return CD.passes(CD.parts(a_dtype, b_dtype), CD.parts(b_dtype, a_dtype))
 
 
 def emit(obj) -> None:
@@ -719,7 +724,7 @@ def phase_kernels_train() -> dict:
             continue
         res_f = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
                         RB.residual_block_plain(x, w1, b1, w2, b2), dname)
-        dxk, a, ds, du = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
+        dxk, a, ds, du, g_parts = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
         # Library yardstick: reflect pad + cuDNN conv + F.instance_norm, NCHW
         # over channels_last, autograd for dx alone and for (dw1, dw2) alone.
         xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
@@ -745,7 +750,7 @@ def phase_kernels_train() -> dict:
                 "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
                 "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
                                                                   retain_graph=True), 10)}
-        t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype), 10),
+        t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts), 10),
                 "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, a, ds, du), 3),
                 "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
                                                                   retain_graph=True), 10)}
@@ -754,7 +759,7 @@ def phase_kernels_train() -> dict:
         # recompute convolutions, and the gradient convolutions' passes over
         # the bf16 parts (old_work: the same gradients at the float32 rate,
         # the bound of their float32 FFMA predecessors).
-        passes = GRAD_PASSES[dname]
+        passes = grad_passes(dtype, torch.float32)
         for name, res, t, nb, work, old_work in (
                 ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
                  {"bfloat16": 2 * conv}, None),
@@ -772,7 +777,7 @@ def phase_kernels_train() -> dict:
                 rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
             fail_if(not res["ok"], name, rec)
             recs[name].append(rec)
-        del x, dy, leaves, y, got, ref, dxk, a, ds, du, xl, yl
+        del x, dy, leaves, y, got, ref, dxk, a, ds, du, g_parts, xl, yl
     torch.cuda.empty_cache()
     recs.update(kernels_train_chunked_dw(randn, fail_if))
     recs["grad_convs"] = kernels_grad_convs(randn, fail_if)
@@ -871,7 +876,7 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
         stats_b = stats.numel() * 4
         # Passes over the bf16 parts: the chunked VJP's gradients on float32
         # cotangents; conv_dw's operands share x's type (one pass in bf16).
-        passes, dw_passes = GRAD_PASSES[dname], 1 if dname == "bfloat16" else 6
+        passes, dw_passes = grad_passes(dtype, torch.float32), grad_passes(dtype, dtype)
         for name, res, t, nb, work, old_work, calls in (
                 # reads x and the weights; writes y, vhat, s and the stats.
                 ("residual_block_chunked", _max_check(fwd), t_fwd,
@@ -945,18 +950,18 @@ def kernels_grad_convs(randn, fail_if) -> list:
              True, lambda: RB.conv3x3_reflect_dgrad(g, w, da),
              lambda: RB.conv3x3_reflect_dgrad_plain(g, w),
              lambda: torch.nn.grad.conv2d_input(xpl.shape, wl, gl),
-             2 * g.numel() * 4 + w.numel() * 2, GRAD_PASSES["bfloat16"]),
+             2 * g.numel() * 4 + w.numel() * 2, grad_passes(w.dtype, g.dtype)),
             ("conv3x3_reflect_wgrad", compare_bwd(
                 "conv3x3_reflect_wgrad", dw, RB.conv3x3_reflect_wgrad_plain(x, g), "bfloat16"),
              torch.equal(dw, dw_again), lambda: RB.conv3x3_reflect_wgrad(x, g),
              lambda: RB.conv3x3_reflect_wgrad_plain(x, g),
              lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), gl),
-             act_b + g.numel() * 4 + w.numel() * 4, GRAD_PASSES["bfloat16"]),
+             act_b + g.numel() * 4 + w.numel() * 4, grad_passes(x.dtype, g.dtype)),
             ("conv_dw", compare_bwd("conv_dw", cd, CD.conv_dw_plain(xp, dy), "bfloat16"),
              torch.equal(cd, cd_again), lambda: CD.conv_dw(xp, dy),
              lambda: CD.conv_dw_plain(xp, dy),
              lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), dyl),
-             xp.numel() * 2 + act_b + w.numel() * 4, 1))
+             xp.numel() * 2 + act_b + w.numel() * 4, grad_passes(xp.dtype, dy.dtype)))
         for name, res, bitwise, fn, plain, lib, nb, passes in cases:
             b_ms, b_by = bound(nb, {"bfloat16": passes * conv})
             ms = time_ms(fn, 20)
@@ -1105,15 +1110,15 @@ def expected_launches(trainer, steps: int) -> dict:
            # forward makes 2 convolutions and 2 norms; its backward reads the
            # saved residuals: 2 norm VJPs, 2 input and 2 weight gradients,
            # and no convolution. The weight gradients are cg_conv_dw, as
-           # path B's conv_dw is. cg_bf16_parts: the fused backward splits
-           # its float32 cotangent for each of its 4 gradients and
-           # reflect-pads the input of each weight gradient (6); the chunked
-           # one splits ds and du once each (4); bf16 conv_dw needs none.
+           # path B's conv_dw is. cg_bf16_parts: both backwards split ds and
+           # du once each, for an input and a weight gradient, and
+           # reflect-pad the input of each weight gradient (4); bf16 conv_dw
+           # on channels that are multiples of 8 needs none.
            "cg_instance_norm_act": in_calls + 4 * rb,
            "cg_instance_norm_act_bwd": in_calls + 2 * rb,
            "cg_conv3x3_reflect": 4 * rb + 2 * rc,
            "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
-           "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 6 * rb + 4 * rc,
+           "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 4 * rb + 4 * rc,
            "cg_chunked_in_fwd": 2 * rc, "cg_chunked_in_vjp": 2 * rc}
     return {k: v * steps for k, v in per.items()}
 

@@ -65,6 +65,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `smem` bytes on the
+// current device, once a device: the attribute belongs to a device, and one
+// process may launch on several (`done` holds a flag per device ordinal).
+constexpr int CG_MAX_DEVICES = 64;
+template <typename Kernel>
+inline cudaError_t cg_smem_limit(Kernel kernel, int smem, bool (&done)[CG_MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < CG_MAX_DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < CG_MAX_DEVICES) done[dev] = true;
+  return e;
+}
+
 // Threads of a grid-stride loop over `total` items, 256 a block, at most
 // 16 blocks an SM of an H100.
 inline int cg_grid_1d(size_t total) {

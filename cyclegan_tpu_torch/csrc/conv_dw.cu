@@ -26,7 +26,10 @@
 // each and six passes, products exact to float32 rounding like the FFMA it
 // replaces, which the float32 train step's loss check needs (two parts
 // there moved d_total by 1.04% at step 3 on path A, past its 1% bar). The
-// bf16 operands of conv_dw's main path cost one pass. No TF32. All passes
+// bf16 operands of conv_dw's main path cost one pass; a channel count that
+// is not a multiple of 8 (the tiles' 16-byte rows) goes through
+// cg_bf16_parts, which zero-fills it up to one, and kernels/conv_dw.py cuts
+// dw back to the real channels, so any count runs here. No TF32. All passes
 // share one accumulator (its 128 registers a thread leave no room for a
 // second); the tensor cores' truncating float32 accumulation then costs the
 // six-pass float32 case under 0.75 of its bar (resblock.cu's input
@@ -262,14 +265,15 @@ dw_reduce(const float* __restrict__ part, TOut* __restrict__ dw, int splits, siz
 }
 
 // dst[p, n, i, j, c8..c8+7] = part p of src[n, reflect(i - pad), reflect(j -
-// pad), c8..] for the padded plane (H + 2 pad, W + 2 pad); part 0 = bf16(v),
+// pad), c8..] for the padded plane (H + 2 pad, W + 2 pad), with C rounded
+// up to a multiple of 8 and the channels past C zero; part 0 = bf16(v),
 // part 1 = bf16(v - part 0), part 2 = bf16(v - part 0 - part 1). One thread
 // per 8 channels.
 template <typename T>
 __global__ void __launch_bounds__(256)
 bf16_parts(const T* __restrict__ src, bf16* __restrict__ dst, int N, int H, int W, int C,
            int pad, int parts) {
-  const int Hp = H + 2 * pad, Wp = W + 2 * pad, C8 = C / 8;
+  const int Hp = H + 2 * pad, Wp = W + 2 * pad, C8 = (C + 7) / 8;
   const int total = N * Hp * Wp * C8;
   const size_t plane = (size_t)total * 8;
   for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
@@ -285,7 +289,7 @@ bf16_parts(const T* __restrict__ src, bf16* __restrict__ dst, int N, int H, int 
     __align__(16) bf16 part_of[3][8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      float v = cg_to_f(s[e]);
+      float v = c8 * 8 + e < C ? cg_to_f(s[e]) : 0.f;
 #pragma unroll
       for (int p = 0; p < 3; ++p) {  // each part rounds what the ones before left
         part_of[p][e] = __float2bfloat16_rn(v);
@@ -302,13 +306,9 @@ template <int NA, int NB>
 cudaError_t launch_wgrad(const bf16* xp, const bf16* dy, float* part, int N, int H, int W,
                          int Cin, int Cout, int k, int splits, int kchunk, cudaStream_t s) {
   constexpr int smem = smem_bytes(NA, NB);
-  static bool sized = false;  // the attribute holds for the process's device
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(wgrad_wgmma<NA, NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+  static bool sized[CG_MAX_DEVICES] = {};
+  const cudaError_t e = cg_smem_limit(wgrad_wgmma<NA, NB>, smem, sized);
+  if (e != cudaSuccess) return e;
   const size_t xp_part = (size_t)N * (H + k - 1) * (W + k - 1) * Cin;
   const size_t dy_part = (size_t)N * H * W * Cout;
   dim3 grid((k * k * Cin + BM - 1) / BM, (Cout + BN - 1) / BN, splits);
@@ -320,19 +320,19 @@ cudaError_t launch_wgrad(const bf16* xp, const bf16* dy, float* part, int N, int
 }  // namespace
 
 // The bf16 parts of src (N, H, W, C) of src_dtype (0 f32, 1 bf16), reflect
-// padded by pad (0 or 1): dst (parts, N, H + 2 pad, W + 2 pad, C) bf16.
-// parts is 1, 2 or 3 (2 and 3 only for a float32 src). Needs C % 8 == 0, H, W >= 2
-// when pad is 1, a padded plane under 2^31 elements and 16-byte aligned src
-// and dst.
+// padded by pad (0 or 1): dst (parts, N, H + 2 pad, W + 2 pad, C8) bf16,
+// C8 = C rounded up to a multiple of 8, zero past C. parts is 1, 2 or 3 (2
+// and 3 only for a float32 src). Needs H, W >= 2 when pad is 1, a padded
+// plane under 2^31 elements and a 16-byte aligned dst.
 extern "C" int cg_bf16_parts(const void* src, void* dst, int N, int H, int W, int C, int pad,
                              int parts, int src_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0 || pad < 0 || pad > 1 ||
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || pad < 0 || pad > 1 ||
       (pad && (H < 2 || W < 2)) || parts < 1 || parts > 3 ||
       (parts > 1 && src_dtype != CG_F32) ||
-      (long long)N * (H + 2 * pad) * (W + 2 * pad) * C >= (1LL << 31))
+      (long long)N * (H + 2 * pad) * (W + 2 * pad) * ((C + 7) / 8 * 8) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int grid = cg_grid_1d((size_t)N * (H + 2 * pad) * (W + 2 * pad) * (C / 8));
+  const int grid = cg_grid_1d((size_t)N * (H + 2 * pad) * (W + 2 * pad) * ((C + 7) / 8));
   auto d = static_cast<bf16*>(dst);
   if (src_dtype == CG_F32)
     bf16_parts<float><<<grid, 256, 0, s>>>(static_cast<const float*>(src), d, N, H, W, C, pad,

@@ -457,13 +457,9 @@ template <int NG, int NW>
 cudaError_t launch_dgrad_mma(const bf16* g, const bf16* w, float* dpad, int N, int H, int W,
                              int Cin, int Cout, cudaStream_t s) {
   constexpr int smem = dgrad_smem(NG, NW);
-  static bool sized = false;  // the attribute holds for the process's device
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(dgrad_mma<NG, NW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+  static bool sized[CG_MAX_DEVICES] = {};
+  const cudaError_t e = cg_smem_limit(dgrad_mma<NG, NW>, smem, sized);
+  if (e != cudaSuccess) return e;
   const int M = N * (H + 2) * (W + 2);
   dim3 grid((M + DBM - 1) / DBM, (Cin + DBN - 1) / DBN);
   dgrad_mma<NG, NW><<<grid, THREADS, smem, s>>>(g, (size_t)N * H * W * Cout, w,

@@ -195,5 +195,9 @@ def scratch_ptr(nbytes: int, t: torch.Tensor, stream: int) -> int:
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an integer handle (the
     raw handle PyTorch's own code generators read: no Stream object is
-    built, which costs microseconds of host time per launch)."""
+    built, which costs microseconds of host time per launch).
+    ``torch._C._cuda_getCurrentRawStream`` is private: PyTorch 2.11 has it,
+    and every card test that launches a kernel goes through this call, so a
+    version without it fails them; ``torch.cuda.current_stream(dev)
+    .cuda_stream`` is the public, slower equivalent."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())

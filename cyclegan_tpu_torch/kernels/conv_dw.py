@@ -16,10 +16,10 @@ The kernel multiplies bf16 "parts" on the tensor cores: a bf16 tensor is
 one part; a float32 tensor ``t`` is ``hi = bf16(t)``, ``mid = bf16(t -
 hi)`` and ``lo = bf16(t - hi - mid)``, cut to the first two or all three
 (:func:`bf16_parts`, :func:`bf16_parts_plain`), and the products (a, b) of
-the parts with ``a + b < max(na, nb)`` are summed in float32. A float32
-cotangent against bf16 values takes two parts (:func:`grad_parts`), float32
-against float32 three each, which keeps the products exact to float32
-rounding. The residual blocks' weight gradients
+the parts with ``a + b < max(na, nb)`` are summed in float32
+(:func:`passes`). A float32 cotangent against bf16 values takes two parts,
+float32 against float32 three each, which keeps the products exact to
+float32 rounding (:func:`parts`). The residual blocks' weight gradients
 (``kernels.resblock.conv3x3_reflect_wgrad``) run the same kernel on their
 reflect-padded input through :func:`launch_wgrad`.
 """
@@ -77,24 +77,27 @@ def bf16_parts_plain(t: torch.Tensor, parts: int) -> torch.Tensor:
     return torch.stack(out)
 
 
-def grad_parts(other: torch.dtype) -> int:
-    """bf16 parts of a float32 gradient whose product partner has dtype
-    ``other``: two against bf16 values, three against float32 ones."""
-    return 2 if other == torch.bfloat16 else 3
+def parts(dtype: torch.dtype, partner: torch.dtype) -> int:
+    """bf16 parts of an operand of ``dtype`` whose product partner has
+    dtype ``partner``: one for bf16; float32 takes two against bf16, three
+    against float32."""
+    if dtype == torch.bfloat16:
+        return 1
+    return 2 if partner == torch.bfloat16 else 3
+
+
+def passes(na: int, nb: int) -> int:
+    """Tensor-core products of ``na`` by ``nb`` parts: the (a, b) with
+    ``a + b < max(na, nb)``, as the kernels issue them."""
+    return sum(a + b < max(na, nb) for a in range(na) for b in range(nb))
 
 
 def supported(xp_shape: tuple[int, ...], dy_shape: tuple[int, ...]) -> bool:
     """Which convolutions route their weight gradient through the kernel:
     both channel dims >= 128 (the JAX package's rule; its VMEM budget has no
-    counterpart on the card) and multiples of 8 (the kernel's 16-byte rows)."""
+    counterpart on the card). The kernel takes any channel count."""
     return len(xp_shape) == 4 and len(dy_shape) == 4 and \
-        all(c >= 128 and c % 8 == 0 for c in (xp_shape[-1], dy_shape[-1]))
-
-
-def _check_channels(name: str, cin: int, cout: int) -> None:
-    if cin % 8 or cout % 8:
-        raise ValueError(f"{name} needs Cin % 8 == 0 and Cout % 8 == 0 (16-byte rows of "
-                         f"the tensor-core tiles), got Cin={cin}, Cout={cout}")
+        xp_shape[-1] >= 128 and dy_shape[-1] >= 128
 
 
 def _wgrad_tiles(m: int, n: int) -> int:
@@ -114,19 +117,24 @@ def _wgrad_split(tiles: int, k: int) -> tuple[int, int]:
     return -(-k // kchunk), kchunk
 
 
+def _round8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
 def bf16_parts(t: torch.Tensor, parts: int, pad: int = 0) -> torch.Tensor:
-    """CUDA kernel: the bf16 parts of NHWC ``t`` (one for bf16, one to three
-    for float32), reflect-padded by ``pad`` (0 or 1): ``(parts, N, H +
-    2 pad, W + 2 pad, C)`` bf16."""
+    """CUDA kernel: the bf16 parts of contiguous NHWC ``t`` (one for bf16,
+    one to three for float32), reflect-padded by ``pad`` (0 or 1): ``(parts,
+    N, H + 2 pad, W + 2 pad, C8)`` bf16, C rounded up to a multiple of 8
+    (the tensor-core tiles' 16-byte rows) with zeros past C."""
     n, h, w_, c = t.shape
-    if c % 8:
-        raise ValueError(f"bf16_parts needs C % 8 == 0, got {c}")
     if parts not in (1, 2, 3) or (parts > 1 and t.dtype != torch.float32):
         raise ValueError(f"bf16_parts: {parts} parts of a {t.dtype} tensor")
     if pad not in (0, 1) or (pad and (h < 2 or w_ < 2)):
         raise ValueError(f"bf16_parts: reflect pad {pad} of {h}x{w_}")
+    if not t.is_contiguous():
+        raise ValueError("bf16_parts needs a contiguous tensor")
     _build.check_same_device("bf16_parts", t)
-    out = torch.empty((parts, n, h + 2 * pad, w_ + 2 * pad, c), dtype=torch.bfloat16,
+    out = torch.empty((parts, n, h + 2 * pad, w_ + 2 * pad, _round8(c)), dtype=torch.bfloat16,
                       device=t.device)
     _build.call("conv_dw", "cg_bf16_parts", t.data_ptr(), out.data_ptr(), n, h, w_, c, pad,
                 parts, _build.DTYPE_CODES[t.dtype], _build.stream_ptr(t))
@@ -142,7 +150,7 @@ def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
     after part; (na, nb) is (1, 1), (1, 2) or (3, 3); ``dims`` = (N, H, W,
     Cin, Cout). Split-K partials in scratch, added in a fixed order. The
     caller has checked the tensors and that Cin and Cout are multiples of
-    8."""
+    8 (:func:`bf16_parts` pads them to that)."""
     n, h, w_, cin, cout = dims
     if (na, nb) not in ((1, 1), (1, 2), (3, 3)) or \
             xp.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
@@ -159,15 +167,23 @@ def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
 
 def _dw_cuda(xp: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     global launches
-    dims = _shapes(xp, dy, k)
-    _check_channels("conv_dw", dims[3], dims[4])
+    n, h, w_, cin, cout = _shapes(xp, dy, k)
     if dy.dtype != xp.dtype:
         raise TypeError(f"conv_dw: xp and dy must share one dtype, got {xp.dtype}, {dy.dtype}")
+    if not (xp.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("conv_dw needs contiguous xp and dy")
     _build.check_same_device("conv_dw", xp, dy)
-    if xp.dtype == torch.bfloat16:
-        out = launch_wgrad(xp, 1, dy, 1, dims, k)
+    nparts = parts(xp.dtype, dy.dtype)
+    cin8, cout8 = _round8(cin), _round8(cout)
+    if nparts == 1 and (cin8, cout8) == (cin, cout):
+        out = launch_wgrad(xp, 1, dy, 1, (n, h, w_, cin, cout), k)
     else:
-        out = launch_wgrad(bf16_parts(xp, 3), 3, bf16_parts(dy, 3), 3, dims, k)
+        # float32 operands in their bf16 parts; channels zero-filled up to
+        # a multiple of 8, and dw cut back to the real ones.
+        out = launch_wgrad(bf16_parts(xp, nparts), nparts, bf16_parts(dy, nparts), nparts,
+                           (n, h, w_, cin8, cout8), k)
+        if (cin8, cout8) != (cin, cout):
+            out = out[:, :, :cin, :cout].contiguous()
     launches += 1
     return out
 

@@ -187,7 +187,7 @@ def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     gradient of conv3x3(rpad1(.), w) for the float32 output gradient ``g``
     (N, H, W, Cout), reflect fold included, plus ``add`` (out's type). The
     tensor cores multiply the bf16 parts of ``g`` (``g_parts``, if the
-    caller has them: ``CD.grad_parts(w.dtype)`` of them) with those of
+    caller has them: ``CD.parts(g.dtype, w.dtype)`` of them) with those of
     ``w``."""
     n, h, w_, cout = g.shape
     cin = w.shape[2]
@@ -201,9 +201,8 @@ def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
         raise ValueError("conv3x3_reflect_dgrad: add must match out")
     _build.check_same_device("conv3x3_reflect_dgrad", g, w, out,
                              *([add] if add is not None else []))
-    ng = CD.grad_parts(w.dtype)
+    ng, nw = CD.parts(g.dtype, w.dtype), CD.parts(w.dtype, g.dtype)
     gp = _check_g_parts("conv3x3_reflect_dgrad", g, g_parts, ng)
-    nw = 1 if w.dtype == torch.bfloat16 else 3
     wp = w if nw == 1 else CD.bf16_parts(w.reshape(1, 9, cin, cout), nw)
     stream = _build.stream_ptr(g)
     dpad = _build.scratch_ptr(4 * n * (h + 2) * (w_ + 2) * cin, g, stream)
@@ -220,7 +219,8 @@ def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
     of conv3x3(rpad1(inp), w) for the float32 output gradient ``g``, summed
     over the batch: ``inp`` reflect-padded once into its bf16 part(s), then
     the VALID weight gradient of ``kernels.conv_dw`` (split-K partials added
-    in a fixed order)."""
+    in a fixed order). ``g_parts``: the ``CD.parts(g.dtype, inp.dtype)``
+    bf16 parts of ``g``, if the caller has them."""
     n, h, w_, cin = inp.shape
     cout = g.shape[-1]
     _check_grad_shapes("conv3x3_reflect_wgrad", h, w_, cin, cout)
@@ -228,9 +228,8 @@ def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"conv3x3_reflect_wgrad: g must be float32 (N, H, W, Cout), "
                          f"got {g.dtype} {tuple(g.shape)}")
     _build.check_same_device("conv3x3_reflect_wgrad", inp, g)
-    ng = CD.grad_parts(inp.dtype)
+    ng, na = CD.parts(g.dtype, inp.dtype), CD.parts(inp.dtype, g.dtype)
     gp = _check_g_parts("conv3x3_reflect_wgrad", g, g_parts, ng)
-    na = 1 if inp.dtype == torch.bfloat16 else 3
     return CD.launch_wgrad(CD.bf16_parts(inp, na, pad=1), na, gp, ng, (n, h, w_, cin, cout), 3,
                            out_dtype)
 
@@ -254,7 +253,9 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps):
 def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
     """TPU kernel #4 (``_bwd_dx_kernel``) on the card: recompute u, a, s and
     their statistics, then ds, du and dx = dy + dgrad(du, w1). Returns
-    ``(dx, a, ds, du)``; the last three feed :func:`bwd_dw_cuda`."""
+    ``(dx, a, ds, du, g_parts)``, ``g_parts`` the bf16 parts of ds and du
+    (one split serves a cotangent's input and weight gradient); all but dx
+    feed :func:`bwd_dw_cuda`."""
     global bwd_dx_launches
     f32 = dict(dtype=torch.float32, device=x.device)
     u = torch.empty(x.shape, **f32)
@@ -266,28 +267,34 @@ def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
     mean2, rstd2 = _in.launch(s, None, None, eps, "none")
     ds = torch.empty(x.shape, **f32)
     _in.launch_bwd(s, dy, mean2, rstd2, ds, "none")
+    ng = CD.parts(torch.float32, x.dtype)
+    ds_parts = CD.bf16_parts(ds, ng)
     da = s  # s is dead once ds exists
-    conv3x3_reflect_dgrad(ds, w2, da)
+    conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
     du = torch.empty(x.shape, **f32)
     _in.launch_bwd(u, da, mean1, rstd1, du, "relu")
+    du_parts = CD.bf16_parts(du, ng)
     dx = torch.empty_like(a)
-    conv3x3_reflect_dgrad(du, w1, dx, add=dy)
+    conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
     bwd_dx_launches += 1
-    return dx, a, ds, du
+    return dx, a, ds, du, (ds_parts, du_parts)
 
 
-def bwd_dw_cuda(x, a, ds, du, w_dtype):
+def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):
     """TPU kernel #5 (``_bwd_dw_kernel``) on the card: dw1 = wgrad(x, du)
-    and dw2 = wgrad(a, ds), summed over the batch, in the weights' type."""
+    and dw2 = wgrad(a, ds), summed over the batch, in the weights' type;
+    ``g_parts`` = (ds, du) in bf16 parts, from :func:`bwd_dx_cuda`."""
     global bwd_dw_launches
-    dw = conv3x3_reflect_wgrad(x, du, w_dtype), conv3x3_reflect_wgrad(a, ds, w_dtype)
+    ds_parts, du_parts = g_parts
+    dw = (conv3x3_reflect_wgrad(x, du, w_dtype, g_parts=du_parts),
+          conv3x3_reflect_wgrad(a, ds, w_dtype, g_parts=ds_parts))
     bwd_dw_launches += 1
     return dw
 
 
 def _bwd_cuda(x, dy, w1, b1, w2, b2, eps):
-    dx, a, ds, du = bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps)
-    return (dx, *bwd_dw_cuda(x, a, ds, du, w1.dtype))
+    dx, a, ds, du, g_parts = bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps)
+    return (dx, *bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts))
 
 
 class ResidualBlockFused(torch.autograd.Function):

@@ -198,7 +198,7 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     ds, da, du = (torch.empty(x.shape, **f32) for _ in range(3))
     dv, a, dx = (torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(3))
     in_vjp(dy, s, stats, ds, part, means, hc, 2)
-    parts = CD.grad_parts(x.dtype)
+    parts = CD.parts(torch.float32, x.dtype)
     ds_parts = CD.bf16_parts(ds, parts)   # one split feeds both gradients of ds
     RB.conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
     in_vjp(da, vhat, stats, du, part, means, hc, 1, dv=dv, a=a)

@@ -199,12 +199,12 @@ def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
     """Shapes the tensor-core tiles do not take raise before any launch, on
     the card too: no fallback to another route."""
     before = (CD.launches, dict(_build.launches))
-    with pytest.raises(ValueError, match="Cin % 8"):
+    with pytest.raises(ValueError, match="contiguous"):
         CD.conv_dw(torch.zeros((1, 6, 6, 36), device="cuda"),
-                   torch.zeros((1, 4, 4, 24), device="cuda"))
-    with pytest.raises(ValueError, match="Cout % 8"):
-        CD.conv_dw(torch.zeros((1, 6, 6, 32), device="cuda", dtype=torch.bfloat16),
-                   torch.zeros((1, 4, 4, 12), device="cuda", dtype=torch.bfloat16))
+                   torch.zeros((1, 4, 24, 4), device="cuda").transpose(2, 3))
+    with pytest.raises(ValueError, match="Cin % 32"):
+        RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 36), device="cuda"),
+                                 torch.zeros((1, 4, 4, 32), device="cuda"))
     with pytest.raises(ValueError, match="Cout % 32"):
         RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48), device="cuda"),
                                  torch.zeros((3, 3, 32, 48), device="cuda"),
@@ -328,10 +328,13 @@ def test_chunked_refuses_h_not_divisible_by_hc(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("xshape,cout,k", [((2, 10, 9, 128), 128, 3), ((3, 7, 6, 40), 24, 3),
                                            ((1, 5, 5, 8), 16, 1), ((1, 66, 66, 256), 256, 3),
-                                           ((2, 66, 66, 256), 256, 3)])
+                                           ((2, 66, 66, 256), 256, 3), ((1, 6, 7, 36), 20, 3),
+                                           ((2, 10, 9, 132), 132, 3)])
 def test_conv_dw_matches_plain_and_repeats_bitwise(card, xshape, cout, k, dtype):
-    """Ragged tiles (Cin 40, Cout 24; a 1x1), the trunk shape at batch 1 and
-    2; one bf16 pass, or three over the bf16 parts of float32 operands."""
+    """Ragged tiles (Cin 40, Cout 24; a 1x1), channels zero-filled up to a
+    multiple of 8 (36 and 20; 132, a trunk width the JAX rule routes here),
+    the trunk shape at batch 1 and 2; one bf16 pass, or three over the bf16
+    parts of float32 operands."""
     n, hp, wp, _ = xshape
     xp = torch.randn(xshape, device="cuda", generator=card).to(dtype)
     dy = torch.randn((n, hp - k + 1, wp - k + 1, cout), device="cuda", generator=card).to(dtype)

@@ -15,6 +15,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cyclegan_tpu.kernels.conv_dw import supported as jax_dw_supported
 from cyclegan_tpu.kernels.instance_norm import instance_norm_act as jax_in_act
 from cyclegan_tpu.kernels.resblock import residual_block_fused as jax_rb_fused
 from cyclegan_tpu_torch.kernels import conv_dw as CD
@@ -191,14 +192,16 @@ def test_wgrad_split_fills_the_card_at_the_trunk_shape(k):
 
 
 @pytest.mark.parametrize("call,match", [
-    # conv_dw: the tensor-core tiles take 16-byte rows only.
-    (lambda: CD._dw_cuda(torch.zeros((1, 6, 6, 36)), torch.zeros((1, 4, 4, 24)), 3), "Cin % 8"),
-    (lambda: CD._dw_cuda(torch.zeros((1, 6, 6, 32)), torch.zeros((1, 4, 4, 20)), 3), "Cout % 8"),
-    # the split into bf16 parts: C % 8, two parts of a float32 tensor only.
-    (lambda: CD.bf16_parts(torch.zeros((1, 4, 4, 12)), 2), "C % 8"),
+    # conv_dw takes any channel count (zero-filled up to a multiple of 8),
+    # but reads rows of contiguous NHWC tensors.
+    (lambda: CD._dw_cuda(torch.zeros((1, 6, 6, 36)),
+                         torch.zeros((1, 4, 24, 4)).transpose(2, 3), 3), "contiguous"),
+    (lambda: CD._dw_cuda(torch.zeros((1, 6, 5, 32)), torch.zeros((1, 4, 4, 20)), 3), "padded"),
+    # the split into bf16 parts: contiguous input, two parts of float32 only.
+    (lambda: CD.bf16_parts(torch.zeros((1, 4, 12, 4)).transpose(2, 3), 2), "contiguous"),
     (lambda: CD.bf16_parts(torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 2), "parts"),
     (lambda: CD.bf16_parts(torch.zeros((1, 1, 4, 8)), 2, pad=1), "reflect pad"),
-    # the weight-gradient kernel instantiates (1, 1), (1, 2) and (2, 2) parts.
+    # the weight-gradient kernel instantiates (1, 1), (1, 2) and (3, 3) parts.
     (lambda: CD.launch_wgrad(torch.zeros((2, 1, 6, 6, 8), dtype=torch.bfloat16), 2,
                              torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 1,
                              (1, 4, 4, 8, 8), 3), "parts"),
@@ -208,6 +211,9 @@ def test_wgrad_split_fills_the_card_at_the_trunk_shape(k):
     (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 32)), torch.zeros((3, 3, 32, 32)),
                                       torch.zeros((1, 4, 4, 32)),
                                       g_parts=torch.zeros((1, 1, 4, 4, 32))), "g_parts"),
+    # the weight gradient of the blocks: Cin % 32, as their other kernels.
+    (lambda: RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 36)), torch.zeros((1, 4, 4, 32))),
+     "Cin % 32"),
 ])
 def test_gradient_wrappers_refuse_shapes_the_tiles_do_not_take(call, match):
     """The CUDA gradient wrappers raise on what the tensor-core kernels do
@@ -221,6 +227,30 @@ def test_gradient_wrappers_refuse_shapes_the_tiles_do_not_take(call, match):
 # PyTorch, against float64.
 def passes(na: int, nb: int) -> list:
     return [(a, b) for a in range(na) for b in range(nb) if a + b < max(na, nb)]
+
+
+@pytest.mark.parametrize("a,b,parts_ab,n_passes", [
+    (torch.bfloat16, torch.bfloat16, (1, 1), 1),   # conv_dw on path B
+    (torch.bfloat16, torch.float32, (1, 2), 2),    # bf16 values, float32 cotangent
+    (torch.float32, torch.float32, (3, 3), 6),     # the float32 train step
+])
+def test_parts_and_passes_of_each_type_mix(a, b, parts_ab, n_passes):
+    """The one rule that the kernels' wrappers and chip_smoke.py's bounds
+    read: bf16 parts per operand and the tensor-core products over them."""
+    assert (CD.parts(a, b), CD.parts(b, a)) == parts_ab
+    assert CD.passes(*parts_ab) == CD.passes(*parts_ab[::-1]) == n_passes
+    assert CD.passes(*parts_ab) == len(passes(*parts_ab))
+
+
+@pytest.mark.parametrize("cin,cout,routed", [(128, 128, True), (132, 132, True),
+                                             (256, 130, True), (64, 256, False),
+                                             (256, 120, False)])
+def test_conv_dw_routes_the_jax_packages_convolutions(cin, cout, routed):
+    """The trunk convolutions whose weight gradient takes the kernel are
+    the JAX package's (both channel dims >= 128, a plane that fits its
+    VMEM budget), multiples of 8 or not: the kernel takes any count."""
+    xp, dy = (1, 10, 10, cin), (1, 8, 8, cout)
+    assert CD.supported(xp, dy) == jax_dw_supported(xp, dy, 2) == routed
 
 
 @pytest.mark.parametrize("parts,bound", [(2, 2 ** -16), (3, 2 ** -24)])
