@@ -11,8 +11,9 @@ step of the ``voc_semisup_256`` preset on three routes through the trunk
 path B, ``use_dropout``), and prints one JSON line per phase:
 
 1. device: the card, its power limit, and the parallel nvcc build of every
-   kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers and
-   spills);
+   kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers,
+   spills and warnings); the forward convolution's wgmma kernel must build
+   with no spill and no wgmma serialisation (ptxas C7515);
 2. kernels: each CUDA kernel against its plain PyTorch version at the main
    path's shapes (batch 8), float32 and bf16, with the stated tolerance and
    its time beside the plain version, one library call and the bound;
@@ -29,7 +30,10 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    over one train step; two calls of each weight gradient are bitwise equal;
    then the tensor-core gradient convolutions alone (input gradient, weight
    gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
-   cotangent, at the float32 bars;
+   cotangent, at the float32 bars, and the forward convolution alone at the
+   trunk shapes of training (batch 1 and 2) and serving (batch 8), on its
+   plan and on every candidate tile plan, each call bitwise equal to a
+   second one;
 6. train: ``CycleGANTrainer.train_step`` of ``voc_semisup_256`` (two
    ResNet-9 generators, two 70x70 PatchGANs, pools of 50, Adam + LambdaLR,
    bf16 over float32) on one synthetic 256x256 batch with injected pool
@@ -55,6 +59,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +111,10 @@ TOL = {
     # Its float32 statistics [mu1, r1, mu2, r2] in either type.
     ("residual_block_chunked_stats", "float32"): (1e-4, 1e-4),
     ("residual_block_chunked_stats", "bfloat16"): (1e-4, 1e-4),
+    # The forward convolution alone, bf16 operands: the products are exact
+    # in float32, and the 2,304-term float32 sums run in another order (the
+    # tensor cores' accumulation truncates); the card test's bar.
+    ("conv3x3_reflect", "bfloat16"): (1e-4, 1e-4),
 }
 ARGMAX_AGREEMENT_MIN = 0.99   # kernel path vs plain path, same batch
 # A top-2 logit gap under this share of the top logit is a tie that another
@@ -265,12 +274,35 @@ def phase_device():
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln] for n, log in logs.items()}
+                 if "registers" in ln or "spill" in ln or "warning" in ln
+                 or re.search(r"\(C\d{4}\)", ln)]
+             for n, log in logs.items()}
+    faults = ptxas_faults(logs["resblock"], "conv3x3_wgmma")
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas, "conv3x3_wgmma_ptxas_faults": faults})
+    if faults:
+        raise AssertionError(f"conv3x3_wgmma: ptxas reports {faults}")
     return smi
+
+
+def ptxas_faults(log: str, kernel: str) -> list:
+    """What ptxas -v says against ``kernel`` (a substring of its mangled
+    name) in one source's build log: a wgmma serialisation warning (C7515:
+    every wgmma of that source is this kernel's) or spill stores or loads
+    in the properties of one of its instances."""
+    faults, fn = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", ln)
+        if m:
+            fn = m.group(1)
+        if "C7515" in ln:
+            faults.append(ln.strip())
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spill and kernel in fn and (int(spill.group(1)) or int(spill.group(2))):
+            faults.append(f"{fn}: {ln.strip()}")
+    return faults
 
 
 def phase_kernels() -> None:
@@ -499,6 +531,7 @@ def phase_serve(tmp: str) -> dict:
            "forward_ms_batch8": fwd_ms, "device_img_per_s": BATCH / fwd_ms * 1e3,
            "profiled_forward_device_ms_by_kernel": [
                {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:14]],
+           "profiled_forward_conv3x3_fwd": conv_fwd_device_ms(device_ms),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
     decisive = dict(zip(names, masks["bfloat16"].cpu().numpy()))
@@ -781,6 +814,7 @@ def phase_kernels_train() -> dict:
     torch.cuda.empty_cache()
     recs.update(kernels_train_chunked_dw(randn, fail_if))
     recs["grad_convs"] = kernels_grad_convs(randn, fail_if)
+    recs["conv3x3_reflect"] = kernels_conv_fwd(randn, fail_if)
     return recs
 
 
@@ -977,6 +1011,82 @@ def kernels_grad_convs(randn, fail_if) -> list:
         del x, w, g, dy, xp, xpl, da, dw, dw_again, cd, cd_again
     torch.cuda.empty_cache()
     return recs
+
+
+def kernels_conv_fwd(randn, fail_if) -> list:
+    """The bf16 forward convolution alone at the trunk shape (64x64x256 ->
+    256): batch 1 and 2 (training: per step 36 and 72 calls, the fused
+    blocks' forwards and their backwards' recomputes) and batch 8 (serving:
+    18 calls a forward). Against its plain version at the card test's bar,
+    a second call bitwise equal; its time beside the plain version's, the
+    bound, TFLOP/s issued, its grid and cuDNN's conv2d on the reflect-padded
+    channels_last input (a yardstick only). Then every candidate plan (each
+    tile of CONV_TILES, whole or with the kernel rows split over 3 blocks),
+    checked the same way and timed, for the plan's choice."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    c, recs = NGF * 4, []
+    for b, calls, serve_calls in ((1, 36, 0), (2, 72, 0), (BATCH, 0, 2 * N_BLOCKS)):
+        shape = (b, CROP // 4, CROP // 4, c)
+        x, w = randn(shape, torch.bfloat16), randn((3, 3, c, c), torch.bfloat16, 0.02)
+        bias = randn((c,), torch.bfloat16, 0.01)
+        ref = RB._conv3x3_plain(x, w, bias)
+        out, again = torch.empty(ref.shape, device="cuda"), torch.empty(ref.shape, device="cuda")
+        m = b * shape[1] * shape[2]
+        flops = 2.0 * m * 9 * c * c
+        # reads x, w and the bias once; writes the float32 output.
+        b_ms, b_by = bound(x.numel() * 2 + w.numel() * 2 + c * 2 + m * c * 4, flops, "bfloat16")
+
+        def check(fn) -> dict:
+            fn(out)
+            fn(again)
+            torch.cuda.synchronize()
+            res = compare("conv3x3_reflect", out, ref, "bfloat16")
+            bitwise = torch.equal(out, again)
+            ms = time_ms(lambda: fn(out), 20)
+            return {**res, "ok": res["ok"] and bitwise, "second_call_bitwise_equal": bitwise,
+                    "ms": ms, "tflops_issued": flops / 1e9 / ms}
+
+        candidates = {}
+        for tile in RB.CONV_TILES:
+            for splits in (1, 3):
+                p = (*tile, splits)
+                r = check(lambda o, p=p: RB.conv3x3_reflect_planned(x, w, bias, o, p))
+                candidates["{}x{}x{}/{}".format(*p)] = {
+                    "blocks": RB.conv_blocks(p, m, c), **{k: r[k] for k in (
+                        "ms", "tflops_issued", "max_abs_err", "worst_err_over_tol",
+                        "second_call_bitwise_equal", "ok")}}
+                fail_if(not r["ok"], "conv3x3_reflect (candidate plan)",
+                        {"phase": "kernels_train", "kernel": "conv3x3_reflect",
+                         "via": "candidate", "shape": list(shape), "plan": list(p), **r})
+        plan = RB.conv_plan(*shape, c)
+        r = check(lambda o: RB.conv3x3_reflect(x, w, bias, o))
+        xpl = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
+            memory_format=torch.channels_last)
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        rec = {"phase": "kernels_train", "kernel": "conv3x3_reflect", "via": "isolated",
+               "shape": list(shape), "cout": c, "dtype": "bfloat16", **r, "plan": list(plan),
+               "blocks": RB.conv_blocks(plan, m, c),
+               "plain_ms": time_ms(lambda: RB._conv3x3_plain(x, w, bias), 5),
+               "library_ms": time_ms(lambda: F.conv2d(xpl, wl, bias), 20),
+               "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+               "calls_per_step": calls, "calls_per_serving_forward": serve_calls,
+               "candidates": candidates}
+        fail_if(not r["ok"], "conv3x3_reflect", rec)
+        recs.append(rec)
+        del x, w, bias, ref, out, again, xpl, wl
+    torch.cuda.empty_cache()
+    return recs
+
+
+def conv_fwd_device_ms(device_ms: list) -> dict:
+    """Device time and launches of the forward convolution's kernels in a
+    profile's ``(name, ms, calls)`` rows."""
+    rows = [r for r in device_ms if "conv3x3_wgmma" in r[0] or "conv_split_sum" in r[0]]
+    return {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
 
 
 @contextlib.contextmanager
@@ -1319,6 +1429,7 @@ def phase_train(smi: str, path: str = "default") -> dict:
         "profiled_step_device_busy_share": sum(r[1] for r in device_ms) / prof_step_ms,
         "profiled_step_device_ms_by_kernel": [
             {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
+        "profiled_step_conv3x3_fwd": conv_fwd_device_ms(device_ms),
         "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9})
     emit(rec)
     print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
@@ -1350,9 +1461,14 @@ def kernels_line(recs: dict, runs: dict) -> dict:
         "residual_block_chunked_bwd": ("cyclegan_tpu_torch/csrc/resblock_chunked.cu",
                                        "cyclegan_tpu/kernels/resblock_chunked.py:406"),
         "conv_dw": ("cyclegan_tpu_torch/csrc/conv_dw.cu", "cyclegan_tpu/kernels/conv_dw.py:58"),
+        # The forward convolution alone: the heart of #3 (and of #6 and #4's
+        # recompute); its launches are the C entry's on the default path.
+        "conv3x3_reflect": ("cyclegan_tpu_torch/csrc/resblock.cu",
+                            "cyclegan_tpu/kernels/resblock.py:79"),
     }
     path_of = {"residual_block_chunked": "chunked", "residual_block_chunked_bwd": "chunked",
                "conv_dw": "dropout"}
+    counter_of = {"conv3x3_reflect": "cg_conv3x3_reflect"}
     entries = []
     for name, (source, replaces) in meta.items():
         path = path_of.get(name, "default")
@@ -1363,7 +1479,7 @@ def kernels_line(recs: dict, runs: dict) -> dict:
 
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs[path]["launches"][name],
+            "launches": runs[path]["launches"][counter_of.get(name, name)],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],

@@ -71,63 +71,6 @@ constexpr int smem_bytes(int na, int nb) {
   return stages(na, nb) * (na * A_TILE + nb * B_TILE) + 1024;  // + room to align to 1 KB
 }
 
-// Shared-memory descriptor of a canonical MN-major operand with the 128-byte
-// swizzle: 64 elements (128 B) a row along M or N, one row a k, 8 rows an
-// atom (stride 1024 B), 64-wide blocks BLOCK_BYTES apart.
-__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (uint64_t)(BLOCK_BYTES >> 4) << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-// d (64 x 256 float32, the m64nNk16 accumulator layout) += A (64 x 16) B
-// (16 x 256), both bf16 from shared memory, MN-major (imm-trans 1).
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Byte offset of 16-byte chunk c of row k in a tile of 64-wide blocks with
-// the 128-byte swizzle (chunk index XOR row index within the 8-row atom).
-__device__ __forceinline__ uint32_t swz(int k, int c) {
-  return (uint32_t)((c >> 3) * BLOCK_BYTES + k * 128 + (((c & 7) ^ (k & 7)) << 4));
-}
-
 // Grid (ceil(k*k*Cin / BM), ceil(Cout / BN), splits); two warpgroups, each
 // owning 64 rows x 256 columns of the tile (one m64n256k16 per 16 pixels and
 // pass). part[s, m, co] = sum over the pixels q of chunk s (q = (n*H + i)*W
@@ -177,7 +120,7 @@ wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict_
       const size_t off = (((size_t)n * Hp + pi) * Wp + pj) * Cin + a_col_off;
 #pragma unroll
       for (int p = 0; p < NA; ++p)
-        cp_async16(a_smem + (stage * NA + p) * A_TILE + swz(row, a_c),
+        cp_async16(a_smem + (stage * NA + p) * A_TILE + cg_swz(row, a_c, BLOCK_BYTES),
                    ok ? xp + p * xp_part + off : xp, ok ? 16 : 0);
     }
 #pragma unroll
@@ -188,7 +131,7 @@ wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict_
       const size_t off = (size_t)(ok ? q : 0) * Cout + n0 + b_c * 8;
 #pragma unroll
       for (int p = 0; p < NB; ++p)
-        cp_async16(b_smem + (stage * NB + p) * B_TILE + swz(row, b_c),
+        cp_async16(b_smem + (stage * NB + p) * B_TILE + cg_swz(row, b_c, BLOCK_BYTES),
                    ok ? dy + p * dy_part + off : dy, ok ? 16 : 0);
     }
   };
@@ -208,29 +151,31 @@ wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict_
   }
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<STAGES - 3>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // copies -> wgmma
+    cg_fence_async_smem();  // copies -> wgmma
     __syncthreads();
     const int nk = kt + STAGES - 2;
     if (nk < KT) load_stage(nk % STAGES, nk);
     cp_async_commit();
 
     const int st = kt % STAGES;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    cg_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
       for (int pa = 0; pa < NA; ++pa) {
         const uint64_t da =
-            desc_mn_sw128(As + (st * NA + pa) * A_TILE + wg * BLOCK_BYTES + kk * 128);
+            cg_desc_mn_sw128(As + (st * NA + pa) * A_TILE + wg * BLOCK_BYTES + kk * 128,
+                             BLOCK_BYTES);
 #pragma unroll
         for (int pb = 0; pb < NB && pa + pb < PASSES; ++pb)
-          wgmma_m64n256k16(d, da, desc_mn_sw128(Bs + (st * NB + pb) * B_TILE + kk * 128));
+          cg_wgmma<256, 1, 1>(
+              d, da, cg_desc_mn_sw128(Bs + (st * NB + pb) * B_TILE + kk * 128, BLOCK_BYTES));
       }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    cg_wgmma_commit();
+    cg_wgmma_wait<1>();
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  cg_wgmma_wait<0>();
   cp_async_wait<0>();
 
   // The accumulator layout of m64nNk16: warp w of the warpgroup owns rows

@@ -1,32 +1,52 @@
 // 3x3 reflect-padded convolution for the residual block, for Hopper (sm_90a).
 //
 // Replaces: cyclegan_tpu/kernels/resblock.py, the forward Pallas kernel
-// (_forward_pallas -> _kernel) behind residual_block_fused, which computes
+// (_forward_pallas -> _kernel) behind residual_block_fused (TPU kernel #3),
+// which computes
 //   y = x + IN(conv3(rpad(relu(IN(conv3(rpad x) + b1)))) + b2)
 // for one whole sample in VMEM. kernels/resblock.py composes the same
 // function on Hopper from this file's convolution and the instance-norm
 // kernels of instance_norm.cu:
 //   conv3x3_reflect(x, w1, b1) -> u (f32) -> IN apply + relu -> a (x's type)
 //   conv3x3_reflect(a, w2, b2) -> s (f32) -> IN apply + skip x -> y
+// The same convolution is the forward of the chunked block (#6,
+// kernels/resblock_chunked.py) and the recompute of #4's backward below.
 //
 // What bounds it on the H100: operations. One 256-channel 64x64 plane costs
 // 2 * 4096 * 256 * 2304 = 4.8 GFLOP per convolution against ~2 MB of bf16
 // activations, i.e. ~2,300 flop/byte, far above the ~295 flop/byte where
-// HBM would bind. The convolutions are the block's time.
+// HBM would bind: 4.9 us a sample at the 989 TFLOP/s bf16 rate.
 //
-// What the design does about that: the TPU kernel kept the sample's plane in
-// VMEM; a Hopper block cannot hold a 2 MB plane, so the convolution is a
-// tiled implicit GEMM: M = N*H*W output pixels, N = Cout, K = 9*Cin ordered
-// (tap, cin) like the HWIO weight. Each 128x128 output tile walks K in
-// 32-deep steps; a step reads one tap of 32 input channels, with the reflect
-// padding applied as index arithmetic on the load (no padded copy in
-// memory). bf16 inputs run on the tensor cores through mma.sync
-// m16n8k16 (f32 accumulation) fed by ldmatrix from a 3-stage cp.async ring
-// in shared memory. float32 inputs take a SIMT FMA kernel so that the f32
-// result stays full precision (no TF32). The bias is added to the f32
-// accumulator in the epilogue, which writes the f32 result the instance
-// norm reads. wgmma, TMA and fusing the statistics into this epilogue are
-// later work.
+// What the design does about that: a tiled implicit GEMM on wgmma, Hopper's
+// warpgroup product, with both operands in shared memory: M = N*H*W output
+// pixels, N = Cout, K = 9*Cin ordered (tap, cin) like the HWIO weight. A K
+// step is one tap and 64 input channels (36 steps at Cin 256). A holds the
+// tile's im2col rows, 64 channels = 128 B a row, K-major; B the 64 weight
+// rows of the step, Cout-contiguous, so MN-major like conv_dw.cu's
+// operands; both carry the 128-byte swizzle. Each thread's cp.async writes
+// 16-byte chunks to their swizzled slots, with the reflect padding as index
+// arithmetic on the load (no padded copy in memory); a Cin that is a
+// multiple of 32 but not of 64 zero-fills the upper half of a tap's last
+// step, a ragged Cout zero-fills B and masks the stores. A ring of 4 or 5
+// stages runs the copies 2-3 steps ahead with one wgmma group in flight
+// (deeper rings of 6 and 8 made ptxas serialise the wgmmas, C7515, and ran
+// slower on an H100). The tile is the plan of kernels/resblock.py::
+// conv_plan, from the shapes alone: (64 WM) x BN pixels x channels, WM
+// warpgroups of m64nBNk16, the largest tile whose grid still gives 128 of
+// the 132 SMs a block. The trunk (64x64x256 -> 256) takes 128 x 64 tiles at
+// batch 1 (32 x 4 = 128 blocks, two fit an SM; the mma.sync kernel this
+// replaced had 64 blocks there), 128 x 128 at batch 2 (128 blocks) and
+// 128 x 256 at batch 8 (256 blocks). On the card the bound is the L2: each
+// block reads its A rows once per tap and the weights of its columns, ~64
+// flop per byte at 128 x 128, so the largest tile that fills the card wins.
+// A plan may also split the three kernel rows over blocks (splits = 3),
+// each writing float32 partials that conv_split_sum adds in a fixed order
+// with the bias; no atomics, so two calls are bitwise equal. The bias is
+// added to the f32 accumulator in the epilogue, which writes the f32 result
+// the instance norm reads. float32 inputs take a SIMT FMA kernel so that
+// the f32 result stays full precision (no TF32). TMA loads, reuse of the
+// input rows across the taps and the instance-norm statistics in this
+// epilogue are later work.
 //
 // The backward replaces the two VJP Pallas kernels behind
 // residual_block_fused: _bwd_dx_kernel (dx) and _bwd_dw_kernel (dw1, dw2).
@@ -51,145 +71,203 @@
 // chip_smoke.py. A float32 weight (the float32 train step) takes three
 // parts of both operands and six passes, products exact to float32
 // rounding as the FFMA kernel's were (conv_dw.cu says why). No TF32.
-// What the design does about that: dgrad_mma is the forward's mma.sync
-// m16n8k16 loop with zero instead of reflect padding, on a 64 x 128 tile
-// (8 warps of 32 x 32) so that batch 1 (4,356 padded pixels x 256) gives
-// 138 blocks for the 132 SMs where 128 x 128 gave 70; A is stored [m][k]
-// and B [ci][k], both read by plain ldmatrix, from a 3-stage cp.async ring.
-// The output is too small for wider warp tiles: 4 warps of 32 x 64 (fewer
-// ldmatrix per mma) and a wgmma version with one warpgroup a 64 x 128 tile
-// were both slower at batch 2 on an H100, with too few warps an SM to hide
-// their loads. A wgmma tiling that fills the card at batch 1 is the next
-// step for this loop and the forward's. The fold reads dpad as float4 with 32-bit
-// index arithmetic.
+// What the design does about that: dgrad_mma is an implicit GEMM on
+// mma.sync m16n8k16 with zero padding, on a 64 x 128 tile (8 warps of
+// 32 x 32) so that batch 1 (4,356 padded pixels x 256) gives 138 blocks for
+// the 132 SMs where 128 x 128 gave 70; A is stored [m][k] and B [ci][k],
+// both read by plain ldmatrix, from a 3-stage cp.async ring. The output is
+// too small for wider warp tiles: 4 warps of 32 x 64 (fewer ldmatrix per
+// mma) and a wgmma version with one warpgroup a 64 x 128 tile were both
+// slower at batch 2 on an H100, with too few warps an SM to hide their
+// loads. The forward's wgmma tiling above is the candidate for this loop.
+// The fold reads dpad as float4 with 32-bit index arithmetic.
 
 #include "common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int A_LD = BK + 8;  // +16 B per row: conflict-free ldmatrix rows
-constexpr int B_LD = BN + 8;
-constexpr int A_STAGE = BM * A_LD;
-constexpr int B_STAGE = BK * B_LD;
-constexpr int SMEM_BF16 = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
+// conv3x3_wgmma<WM, BN>: an output tile of BM = 64 WM pixels x BN channels,
+// WM warpgroups of m64nBNk16 (128 WM threads). A K step is one tap and 64
+// input channels: A, BM im2col rows of 128 B (K-major), and B, 64 rows of
+// the HWIO weight (MN-major, BN / 64 blocks of 64 channels).
+constexpr int CK = 64;              // input channels a K step
+constexpr int B_BLOCK = CK * 128;   // one 64-wide block of B: 64 rows of 128 B
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block can have
+constexpr int SMEM_SM = 233472;     // shared memory of an SM (1 KB of it per block is reserved)
 
-// Grid (ceil(M / BM), ceil(Cout / BN)); 8 warps as 2 (M) x 4 (N), each
-// warp owning a 64 x 32 piece of the tile (4 x 4 mma tiles of 16 x 8).
-__global__ void __launch_bounds__(THREADS)
-conv3x3_reflect_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     const bf16* __restrict__ bias, float* __restrict__ out, int N, int H,
-                     int W, int Cin, int Cout) {
+template <int WM, int BN, int STAGES_>
+struct ConvTile {
+  static constexpr int BM = 64 * WM, THREADS = 128 * WM, STAGES = STAGES_;
+  static constexpr int A_STAGE = BM * 128, B_STAGE = BN / 64 * B_BLOCK;
+  static constexpr int STAGE = A_STAGE + B_STAGE;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + room to align to 1 KB
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= SMEM_SM ? 2 : 1;
+  static_assert(STAGES >= 3 && SMEM <= SMEM_MAX, "tile does not fit");
+};
+
+// Grid (ceil(N*H*W / BM), ceil(Cout / BN), splits). Block z sums taps
+// [z taps, (z + 1) taps) (taps = 9 / splits, k ordered (tap, ci) like the
+// HWIO weight):
+//   out[z][m, co] = (bias[co] if bias) + sum_{tap, ci} x[n, reflect(h + dy),
+//                   reflect(w + dx), ci] * w[tap, ci, co],
+// m = (n*H + h)*W + w, dy = tap / 3 - 1, dx = tap % 3 - 1. Needs H, W >= 2,
+// Cin % 32 == 0 (a 64-channel step of a tap with Cin % 64 == 32 zero-fills
+// its upper half), Cout % 8 == 0 and 16-byte aligned x and w.
+template <int WM, int BN, int STAGES_>
+__global__ void __launch_bounds__(ConvTile<WM, BN, STAGES_>::THREADS,
+                                  ConvTile<WM, BN, STAGES_>::MIN_BLOCKS)
+conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
+              const bf16* __restrict__ bias, float* __restrict__ out, int N, int H, int W,
+              int Cin, int Cout, int taps) {
+  using T = ConvTile<WM, BN, STAGES_>;
+  constexpr int BM = T::BM, THREADS = T::THREADS, STAGES = T::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + STAGES * A_STAGE;
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int M = N * H * W, HWp = H * W;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int M = N * H * W, HW = H * W;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, tap0 = blockIdx.z * taps;
+  const int steps = (Cin + CK - 1) / CK;  // K steps a tap
+  const int KT = taps * steps;
 
-  // A tile: BM rows x BK bf16 = 512 chunks of 16 B; this thread loads rows
-  // (tid >> 2) and (tid >> 2) + 64, chunk (tid & 3) of each.
-  const int a_kc = tid & 3;
-  int a_n[2], a_h[2], a_w[2];
-  bool a_ok[2];
+  // A: 16-byte chunk (tid & 7) of pixel rows (tid >> 3) + i * A_ROWS; the
+  // pixel of each, a_n < 0 past M.
+  constexpr int A_ROWS = THREADS / 8, A_PASSES = BM / A_ROWS;
+  const int a_c = tid & 7;
+  int a_n[A_PASSES], a_h[A_PASSES], a_w[A_PASSES];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int m = m0 + (tid >> 2) + i * 64;
-    a_ok[i] = m < M;
-    int mm = a_ok[i] ? m : 0;
-    a_n[i] = mm / HWp;
-    int rem = mm - a_n[i] * HWp;
+  for (int i = 0; i < A_PASSES; ++i) {
+    const int m = m0 + (tid >> 3) + i * A_ROWS;
+    a_n[i] = m < M ? m / HW : -1;
+    const int rem = m < M ? m - a_n[i] * HW : 0;
     a_h[i] = rem / W;
     a_w[i] = rem - a_h[i] * W;
   }
-  // B tile: BK rows x BN bf16 = 512 chunks; rows (tid >> 4) and +16,
-  // columns (tid & 15) * 8.
-  const int b_col = (tid & 15) * 8;
-  const bool b_ok = n0 + b_col < Cout;
+  // B: chunk (tid % B_CHUNKS) of weight rows tid / B_CHUNKS + i * B_ROWS.
+  constexpr int B_CHUNKS = BN / 8, B_ROWS = THREADS / B_CHUNKS, B_PASSES = CK / B_ROWS;
+  const int b_c = tid % B_CHUNKS, b_r = tid / B_CHUNKS;
+  const bool b_col_ok = n0 + b_c * 8 < Cout;
 
-  const int KT = 9 * Cin / BK;
   auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    const int tap = k0 / Cin, ci0 = k0 - tap * Cin;
+    const int t = kt / steps, c0 = (kt - t * steps) * CK, tap = tap0 + t;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    bf16* as = As + stage * A_STAGE;
-    bf16* bs = Bs + stage * B_STAGE;
+    unsigned char* as = smem + stage * T::STAGE;
+    unsigned char* bs = as + T::A_STAGE;
+    const bool a_ch_ok = c0 + a_c * 8 < Cin;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid >> 2) + i * 64;
-      const int ih = cg_reflect1(a_h[i] + dy, H), iw = cg_reflect1(a_w[i] + dx, W);
-      const bf16* src = x + (((size_t)a_n[i] * H + ih) * W + iw) * Cin + ci0 + a_kc * 8;
-      cp_async16(as + row * A_LD + a_kc * 8, src, a_ok[i] ? 16 : 0);
+    for (int i = 0; i < A_PASSES; ++i) {
+      const int row = (tid >> 3) + i * A_ROWS;
+      const bool ok = a_n[i] >= 0 && a_ch_ok;
+      const bf16* src = x;
+      if (ok) {
+        const int ih = cg_reflect1(a_h[i] + dy, H), iw = cg_reflect1(a_w[i] + dx, W);
+        src = x + (((size_t)a_n[i] * H + ih) * W + iw) * Cin + c0 + a_c * 8;
+      }
+      cp_async16(as + row * 128 + ((a_c ^ (row & 7)) << 4), src, ok ? 16 : 0);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = (tid >> 4) + i * 16;
-      const bf16* src = b_ok ? w + (size_t)(k0 + k) * Cout + n0 + b_col : w;
-      cp_async16(bs + k * B_LD + b_col, src, b_ok ? 16 : 0);
+    for (int i = 0; i < B_PASSES; ++i) {
+      const int k = b_r + i * B_ROWS;
+      const bool ok = b_col_ok && c0 + k < Cin;
+      const bf16* src = ok ? w + ((size_t)tap * Cin + c0 + k) * Cout + n0 + b_c * 8 : w;
+      cp_async16(bs + cg_swz(k, b_c, B_BLOCK), src, ok ? 16 : 0);
     }
   };
 
-  float acc[4][4][4];
+  float d[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
 
+  // A ring of STAGES tiles: copies run STAGES - 2 steps ahead, and one
+  // step's wgmma group stays in flight while the next is issued; a stage
+  // is refilled only after the group that read it has completed.
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 2; ++s) {
     if (s < KT) load_stage(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<STAGES - 3>();
+    cg_fence_async_smem();  // copies -> wgmma
     __syncthreads();
-    const int nk = kt + STAGES - 1;
+    const int nk = kt + STAGES - 2;
     if (nk < KT) load_stage(nk % STAGES, nk);
     cp_async_commit();
 
-    const bf16* as = As + (kt % STAGES) * A_STAGE;
-    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
+    const uint32_t a = base + (kt % STAGES) * T::STAGE + wg * 64 * 128;
+    const uint32_t b = base + (kt % STAGES) * T::STAGE + T::A_STAGE;
+    cg_fence_operand(d);
+    cg_wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], as + (wm + mt * 16 + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
-      uint32_t bfr[2][4];
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(bfr[np], bs + (kk + (lane & 15)) * B_LD + wn + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
+    for (int j = 0; j < CK / 16; ++j)
+      cg_wgmma<BN, 0, 1>(d, cg_desc_k_sw128(a + j * 32), cg_desc_mn_sw128(b + j * 2048, B_BLOCK));
+    cg_wgmma_commit();
+    cg_wgmma_wait<1>();
+    cg_fence_operand(d);
   }
+  cg_wgmma_wait<0>();
+  cg_fence_operand(d);
   cp_async_wait<0>();
 
-  const int g = lane >> 2, tig = lane & 3;
+  const int lane = tid & 31;
+  float* dst = out + (size_t)blockIdx.z * M * Cout;
+  const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn + nt * 8 + tig * 2;
-    if (col >= Cout) continue;
-    const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int row = m0 + wm + mt * 16 + g;
-      if (row < M)
-        *reinterpret_cast<float2*>(out + (size_t)row * Cout + col) =
-            make_float2(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
-      if (row + 8 < M)
-        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * Cout + col) =
-            make_float2(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
-    }
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + j * 8 + (lane & 3) * 2;
+    if (c >= Cout) continue;
+    const float b0 = bias ? __bfloat162float(bias[c]) : 0.f;
+    const float b1 = bias ? __bfloat162float(bias[c + 1]) : 0.f;
+    if (row < M)
+      *reinterpret_cast<float2*>(dst + (size_t)row * Cout + c) =
+          make_float2(d[4 * j] + b0, d[4 * j + 1] + b1);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(dst + (size_t)(row + 8) * Cout + c) =
+          make_float2(d[4 * j + 2] + b0, d[4 * j + 3] + b1);
   }
+}
+
+// out[m, co] = bias[co] + part[0][m, co] + ... + part[splits - 1][m, co],
+// in that order; four channels a thread (Cout % 4 == 0).
+__global__ void __launch_bounds__(256)
+conv_split_sum(const float* __restrict__ part, const bf16* __restrict__ bias,
+               float* __restrict__ out, int splits, int Cout, size_t MC) {
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; i < MC;
+       i += (size_t)gridDim.x * blockDim.x * 4) {
+    const int c = (int)(i % Cout);
+    float4 s = make_float4(__bfloat162float(bias[c]), __bfloat162float(bias[c + 1]),
+                           __bfloat162float(bias[c + 2]), __bfloat162float(bias[c + 3]));
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 v = *reinterpret_cast<const float4*>(part + sp * MC + i);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + i) = s;
+  }
+}
+
+template <int WM, int BN, int STAGES>
+cudaError_t launch_conv(const bf16* x, const bf16* w, const bf16* bias, float* out, float* part,
+                        int N, int H, int W, int Cin, int Cout, int splits, cudaStream_t s) {
+  using T = ConvTile<WM, BN, STAGES>;
+  static bool sized[CG_MAX_DEVICES] = {};
+  const cudaError_t e = cg_smem_limit(conv3x3_wgmma<WM, BN, STAGES>, T::SMEM, sized);
+  if (e != cudaSuccess) return e;
+  const size_t M = (size_t)N * H * W;
+  dim3 grid((unsigned)((M + T::BM - 1) / T::BM), (Cout + BN - 1) / BN, splits);
+  conv3x3_wgmma<WM, BN, STAGES><<<grid, T::THREADS, T::SMEM, s>>>(
+      x, w, splits > 1 ? nullptr : bias, splits > 1 ? part : out, N, H, W, Cin, Cout, 9 / splits);
+  if (splits == 1) return cudaGetLastError();
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return e2;
+  conv_split_sum<<<cg_grid_1d(M * Cout / 4), 256, 0, s>>>(part, bias, out, splits, Cout,
+                                                           M * Cout);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -263,7 +341,7 @@ conv3x3_reflect_f32(const float* __restrict__ x, const float* __restrict__ w,
 // The input gradient on the tensor cores: a full correlation of the
 // cotangent's bf16 parts with w[tap] transposed, written to padded float32
 // scratch, then the reflect fold.
-constexpr int DBM = 64, DBN = 128, DBK = 32, DSTAGES = 3;
+constexpr int DBM = 64, DBN = 128, DBK = 32, DSTAGES = 3, DTHREADS = 256;
 constexpr int D_LD = DBK + 8;  // [row][k] rows of 80 B: conflict-free ldmatrix
 constexpr int DA_TILE = DBM * D_LD;
 constexpr int DB_TILE = DBN * D_LD;
@@ -281,7 +359,7 @@ constexpr int dgrad_smem(int ng, int nw) {
 // with a + b < max(NG, NW). Needs Cout % 32 == 0 (a 32-deep K step stays
 // inside one tap), Cin % 8 == 0 and 16-byte aligned planes.
 template <int NG, int NW>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(DTHREADS, 2)
 dgrad_mma(const bf16* __restrict__ g, size_t g_part, const bf16* __restrict__ w,
           size_t w_part, float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
   constexpr int PASSES = NG > NW ? NG : NW;
@@ -462,7 +540,7 @@ cudaError_t launch_dgrad_mma(const bf16* g, const bf16* w, float* dpad, int N, i
   if (e != cudaSuccess) return e;
   const int M = N * (H + 2) * (W + 2);
   dim3 grid((M + DBM - 1) / DBM, (Cin + DBN - 1) / DBN);
-  dgrad_mma<NG, NW><<<grid, THREADS, smem, s>>>(g, (size_t)N * H * W * Cout, w,
+  dgrad_mma<NG, NW><<<grid, DTHREADS, smem, s>>>(g, (size_t)N * H * W * Cout, w,
                                                 (size_t)9 * Cin * Cout, dpad, N, H, W, Cin,
                                                 Cout);
   return cudaGetLastError();
@@ -480,26 +558,39 @@ cudaError_t launch_fold(const float* dpad, const void* add, void* out, int N, in
 
 // x: (N, H, W, Cin) and w: (3, 3, Cin, Cout) HWIO and bias: (Cout,), all of
 // dtype (0 f32, 1 bf16); out: (N, H, W, Cout) float32 = conv(rpad1(x), w) + b.
-// Needs H, W >= 2, Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned x and w
+// bf16 runs conv3x3_wgmma on the plan (tile_m, tile_n, stages, splits) of
+// kernels/resblock.py::conv_plan, with part: (splits, N*H*W, Cout) float32
+// scratch when splits is 3 (else unused); float32 ignores the plan. Needs
+// H, W >= 2, Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned x and w
 // (checked by the Python wrapper). Returns the CUDA error code (0 on success).
 extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias, void* out,
-                                  int N, int H, int W, int Cin, int Cout, int dtype,
+                                  void* part, int N, int H, int W, int Cin, int Cout, int dtype,
+                                  int tile_m, int tile_n, int stages, int splits,
                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || H < 2 || W < 2 || Cin % 32 != 0 || Cout % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int M = N * H * W;
   if (dtype == CG_BF16) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_reflect_bf16,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
-    conv3x3_reflect_bf16<<<grid, THREADS, SMEM_BF16, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(bias), static_cast<float*>(out), N, H, W, Cin, Cout);
-    return (int)cudaGetLastError();
+    if ((splits != 1 && splits != 3) || (splits > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    auto xp = static_cast<const bf16*>(x);
+    auto wp = static_cast<const bf16*>(w);
+    auto bp = static_cast<const bf16*>(bias);
+    auto op = static_cast<float*>(out);
+    auto pp = static_cast<float*>(part);
+    // The tiles of kernels/resblock.py::CONV_TILES: (tile_m, tile_n, stages).
+#define CG_CONV_TILE(TM, TN, ST)                                                          \
+  if (tile_m == TM && tile_n == TN && stages == ST)                                       \
+    return (int)launch_conv<TM / 64, TN, ST>(xp, wp, bp, op, pp, N, H, W, Cin, Cout, splits, s);
+    CG_CONV_TILE(128, 256, 4)
+    CG_CONV_TILE(128, 128, 5)
+    CG_CONV_TILE(128, 64, 4)
+    CG_CONV_TILE(64, 128, 4)
+#undef CG_CONV_TILE
+    return (int)cudaErrorInvalidValue;
   }
   if (dtype == CG_F32) {
+    const int M = N * H * W;
     dim3 grid((M + FBM - 1) / FBM, (Cout + FBN - 1) / FBN);
     conv3x3_reflect_f32<<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
