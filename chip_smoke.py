@@ -32,7 +32,7 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
    cotangent, at the float32 bars, and the forward convolution alone at the
    trunk shapes of training (batch 1 and 2) and serving (batch 8), on its
-   plan and on every candidate tile plan, each call bitwise equal to a
+   tile and on every other tile it has, each call bitwise equal to a
    second one;
 6. train: ``CycleGANTrainer.train_step`` of ``voc_semisup_256`` (two
    ResNet-9 generators, two 70x70 PatchGANs, pools of 50, Adam + LambdaLR,
@@ -1020,8 +1020,7 @@ def kernels_conv_fwd(randn, fail_if) -> list:
     18 calls a forward). Against its plain version at the card test's bar,
     a second call bitwise equal; its time beside the plain version's, the
     bound, TFLOP/s issued, its grid and cuDNN's conv2d on the reflect-padded
-    channels_last input (a yardstick only). Then every candidate plan (each
-    tile of CONV_TILES, whole or with the kernel rows split over 3 blocks),
+    channels_last input (a yardstick only). Then every tile of CONV_TILES,
     checked the same way and timed, for the plan's choice."""
     import torch
     import torch.nn.functional as F
@@ -1052,16 +1051,14 @@ def kernels_conv_fwd(randn, fail_if) -> list:
 
         candidates = {}
         for tile in RB.CONV_TILES:
-            for splits in (1, 3):
-                p = (*tile, splits)
-                r = check(lambda o, p=p: RB.conv3x3_reflect_planned(x, w, bias, o, p))
-                candidates["{}x{}x{}/{}".format(*p)] = {
-                    "blocks": RB.conv_blocks(p, m, c), **{k: r[k] for k in (
-                        "ms", "tflops_issued", "max_abs_err", "worst_err_over_tol",
-                        "second_call_bitwise_equal", "ok")}}
-                fail_if(not r["ok"], "conv3x3_reflect (candidate plan)",
-                        {"phase": "kernels_train", "kernel": "conv3x3_reflect",
-                         "via": "candidate", "shape": list(shape), "plan": list(p), **r})
+            r = check(lambda o, t=tile: RB.conv3x3_reflect_planned(x, w, bias, o, t))
+            candidates["{}{}x{}x{}".format("halo/" if tile[0] else "", *tile[1:])] = {
+                "blocks": RB.conv_blocks(tile, *shape[:3], c), **{k: r[k] for k in (
+                    "ms", "tflops_issued", "max_abs_err", "worst_err_over_tol",
+                    "second_call_bitwise_equal", "ok")}}
+            fail_if(not r["ok"], "conv3x3_reflect (candidate tile)",
+                    {"phase": "kernels_train", "kernel": "conv3x3_reflect",
+                     "via": "candidate", "shape": list(shape), "plan": list(tile), **r})
         plan = RB.conv_plan(*shape, c)
         r = check(lambda o: RB.conv3x3_reflect(x, w, bias, o))
         xpl = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
@@ -1069,7 +1066,7 @@ def kernels_conv_fwd(randn, fail_if) -> list:
         wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         rec = {"phase": "kernels_train", "kernel": "conv3x3_reflect", "via": "isolated",
                "shape": list(shape), "cout": c, "dtype": "bfloat16", **r, "plan": list(plan),
-               "blocks": RB.conv_blocks(plan, m, c),
+               "blocks": RB.conv_blocks(plan, *shape[:3], c),
                "plain_ms": time_ms(lambda: RB._conv3x3_plain(x, w, bias), 5),
                "library_ms": time_ms(lambda: F.conv2d(xpl, wl, bias), 20),
                "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
@@ -1085,7 +1082,7 @@ def kernels_conv_fwd(randn, fail_if) -> list:
 def conv_fwd_device_ms(device_ms: list) -> dict:
     """Device time and launches of the forward convolution's kernels in a
     profile's ``(name, ms, calls)`` rows."""
-    rows = [r for r in device_ms if "conv3x3_wgmma" in r[0] or "conv_split_sum" in r[0]]
+    rows = [r for r in device_ms if "conv3x3_wgmma" in r[0]]
     return {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
 
 

@@ -17,36 +17,48 @@
 // activations, i.e. ~2,300 flop/byte, far above the ~295 flop/byte where
 // HBM would bind: 4.9 us a sample at the 989 TFLOP/s bf16 rate.
 //
-// What the design does about that: a tiled implicit GEMM on wgmma, Hopper's
-// warpgroup product, with both operands in shared memory: M = N*H*W output
-// pixels, N = Cout, K = 9*Cin ordered (tap, cin) like the HWIO weight. A K
-// step is one tap and 64 input channels (36 steps at Cin 256). A holds the
-// tile's im2col rows, 64 channels = 128 B a row, K-major; B the 64 weight
-// rows of the step, Cout-contiguous, so MN-major like conv_dw.cu's
-// operands; both carry the 128-byte swizzle. Each thread's cp.async writes
-// 16-byte chunks to their swizzled slots, with the reflect padding as index
-// arithmetic on the load (no padded copy in memory); a Cin that is a
-// multiple of 32 but not of 64 zero-fills the upper half of a tap's last
-// step, a ragged Cout zero-fills B and masks the stores. A ring of 4 or 5
-// stages runs the copies 2-3 steps ahead with one wgmma group in flight
-// (deeper rings of 6 and 8 made ptxas serialise the wgmmas, C7515, and ran
-// slower on an H100). The tile is the plan of kernels/resblock.py::
-// conv_plan, from the shapes alone: (64 WM) x BN pixels x channels, WM
-// warpgroups of m64nBNk16, the largest tile whose grid still gives 128 of
-// the 132 SMs a block. The trunk (64x64x256 -> 256) takes 128 x 64 tiles at
-// batch 1 (32 x 4 = 128 blocks, two fit an SM; the mma.sync kernel this
-// replaced had 64 blocks there), 128 x 128 at batch 2 (128 blocks) and
-// 128 x 256 at batch 8 (256 blocks). On the card the bound is the L2: each
-// block reads its A rows once per tap and the weights of its columns, ~64
-// flop per byte at 128 x 128, so the largest tile that fills the card wins.
-// A plan may also split the three kernel rows over blocks (splits = 3),
-// each writing float32 partials that conv_split_sum adds in a fixed order
-// with the bias; no atomics, so two calls are bitwise equal. The bias is
-// added to the f32 accumulator in the epilogue, which writes the f32 result
-// the instance norm reads. float32 inputs take a SIMT FMA kernel so that
-// the f32 result stays full precision (no TF32). TMA loads, reuse of the
-// input rows across the taps and the instance-norm statistics in this
-// epilogue are later work.
+// What the design does about that: an implicit GEMM on wgmma, Hopper's
+// warpgroup product, with both operands in shared memory (conv3x3_wgmma):
+// M = N*H*W output pixels, N = Cout, K = 9*Cin in the HWIO weight's order
+// (tap, cin), walked in steps of one tap and 64 input channels (36 steps at
+// Cin 256), one warpgroup a 64-pixel row of the tile, m64nBNk16. That order
+// is the one the mma.sync kernel this replaced walked, and its float32 sums
+// come out bitwise equal to that kernel's on an H100 (the recompute of #4's
+// backward holds its bf16 bars with the same rounding as before). A is
+// K-major, 64 channels = 128 B a pixel with the 128-byte swizzle, B the
+// step's 64 weight rows, Cout-contiguous, so MN-major like conv_dw.cu's
+// operands, in a ring of 4-5 steps; cp.async writes every 16-byte chunk to
+// its swizzled slot, with the reflect padding as index arithmetic on the
+// load (no padded copy in memory). Two ways to feed A:
+//   - halo tiles own a patch of 2 image rows x 64 columns and keep, for
+//     every chunk of 64 input channels, the 4 x 66 reflect-padded pixels
+//     around it in shared memory (135 KB at Cin 256; the first steps carry
+//     them in). Tap (ky, kx)'s im2col rows for row g are then the 64 halo
+//     pixels from halo row g + ky, column kx: one descriptor at any start
+//     row (the swizzle follows the address bits, base offset 0), and each
+//     input pixel crosses from L2 once instead of nine times.
+//   - row tiles own 128 consecutive pixels of N*H*W and copy their im2col
+//     rows into each step's ring stage: any Cin (no halo to fit), and the
+//     widest tile (128 x 256) when the batch gives enough blocks.
+// Channels past a Cin that is a multiple of 32 but not of 64, weight
+// columns past a ragged Cout and pixels past the padded plane are
+// zero-filled, and the stores are masked. The copies run 2-3 steps ahead
+// with one wgmma group in flight. The tile is the plan of kernels/
+// resblock.py::conv_plan, from the shapes alone: the first tile that fits
+// and whose grid gives 128 of the 132 SMs a block. At the trunk shape
+// (64x64x256 -> 256): halo 2 rows x 64 channels at batch 1 (32 patches x
+// 4 = 128 blocks; the mma.sync kernel had 64 blocks there), halo 2 rows x
+// 128 at batch 2 (128 blocks), rows 128 x 256 at batch 8 (256 blocks). On
+// the card a step costs far more than its tensor-core time (about 5x at
+// batch 1): per-step overhead and the traffic from L2 bound it, not the
+// products; deeper rings (6-10 steps) did not help, and a prologue unrolled
+// over 4 or more steps made ptxas serialise the wgmmas (C7515). One writer
+// for each output and no atomics: two calls are bitwise equal. The bias is
+// added to the f32 accumulator in the epilogue, which writes the f32
+// result the instance norm reads. float32 inputs take a SIMT FMA kernel so
+// that the f32 result stays full precision (no TF32). A producer warp with
+// TMA and mbarriers, weight multicast across a cluster and the
+// instance-norm statistics in this epilogue are later work.
 //
 // The backward replaces the two VJP Pallas kernels behind
 // residual_block_fused: _bwd_dx_kernel (dx) and _bwd_dw_kernel (dw1, dw2).
@@ -87,62 +99,95 @@
 namespace {
 
 // ---------------------------------------------------------------- bf16 path
-// conv3x3_wgmma<WM, BN>: an output tile of BM = 64 WM pixels x BN channels,
-// WM warpgroups of m64nBNk16 (128 WM threads). A K step is one tap and 64
-// input channels: A, BM im2col rows of 128 B (K-major), and B, 64 rows of
-// the HWIO weight (MN-major, BN / 64 blocks of 64 channels).
-constexpr int CK = 64;              // input channels a K step
-constexpr int B_BLOCK = CK * 128;   // one 64-wide block of B: 64 rows of 128 B
-constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block can have
-constexpr int SMEM_SM = 233472;     // shared memory of an SM (1 KB of it per block is reserved)
+// conv3x3_wgmma<HALO, WM, BN, STAGES>: WM warpgroups, each one m64nBNk16
+// product a k16 into 64 output pixels x BN channels; K steps of one tap x 64
+// input channels (a chunk), tap by tap and, in a tap, chunk by chunk. HALO:
+// the block owns a patch of WM image rows x 64 columns and keeps every
+// chunk's halo; else 64 WM consecutive pixels, im2col rows copied a step.
+constexpr int CK = 64;               // input channels a chunk
+constexpr int PW = 64;               // output columns of a patch: one m64
+constexpr int HALO_W = PW + 2;       // halo columns
+constexpr int B_BLOCK = CK * 128;    // one 64-wide block of B: 64 rows of 128 B
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block can have
+constexpr int SMEM_SM = 233472;      // shared memory of an SM (1 KB of it per block is reserved)
 
-template <int WM, int BN, int STAGES_>
+template <bool HALO, int WM, int BN, int STAGES_>
 struct ConvTile {
-  static constexpr int BM = 64 * WM, THREADS = 128 * WM, STAGES = STAGES_;
-  static constexpr int A_STAGE = BM * 128, B_STAGE = BN / 64 * B_BLOCK;
-  static constexpr int STAGE = A_STAGE + B_STAGE;
-  static constexpr int SMEM = STAGES * STAGE + 1024;  // + room to align to 1 KB
-  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= SMEM_SM ? 2 : 1;
-  static_assert(STAGES >= 3 && SMEM <= SMEM_MAX, "tile does not fit");
+  static constexpr int THREADS = 128 * WM, STAGES = STAGES_;
+  static constexpr int HALO_ROWS = (WM + 2) * HALO_W;
+  static constexpr int HALO_BYTES = (HALO_ROWS * 128 + 1023) / 1024 * 1024;  // one chunk's
+  static constexpr int A_STAGE = HALO ? 0 : 64 * WM * 128;
+  static constexpr int STAGE = A_STAGE + BN / 64 * B_BLOCK;
+  // The ring and 1 KB to align; a HALO tile adds its halos (Cin / 64 of them).
+  static constexpr int RING = STAGES * STAGE + 1024;
+  static constexpr int MIN_BLOCKS = !HALO && 2 * (RING + 1024) <= SMEM_SM ? 2 : 1;
+  static_assert(STAGES >= 3 && RING <= SMEM_MAX, "tile does not fit");
+  static int smem(int Cin) { return RING + (HALO ? (Cin + CK - 1) / CK * HALO_BYTES : 0); }
 };
 
-// Grid (ceil(N*H*W / BM), ceil(Cout / BN), splits). Block z sums taps
-// [z taps, (z + 1) taps) (taps = 9 / splits, k ordered (tap, ci) like the
-// HWIO weight):
-//   out[z][m, co] = (bias[co] if bias) + sum_{tap, ci} x[n, reflect(h + dy),
-//                   reflect(w + dx), ci] * w[tap, ci, co],
-// m = (n*H + h)*W + w, dy = tap / 3 - 1, dx = tap % 3 - 1. Needs H, W >= 2,
-// Cin % 32 == 0 (a 64-channel step of a tap with Cin % 64 == 32 zero-fills
-// its upper half), Cout % 8 == 0 and 16-byte aligned x and w.
-template <int WM, int BN, int STAGES_>
-__global__ void __launch_bounds__(ConvTile<WM, BN, STAGES_>::THREADS,
-                                  ConvTile<WM, BN, STAGES_>::MIN_BLOCKS)
+// Grid (HALO: N * ceil(H / WM) * ceil(W / 64), else ceil(N*H*W / (64 WM));
+// ceil(Cout / BN)):
+//   out[n, h, w, co] = bias[co] + sum_{ky, kx, ci} xp[n, h + ky, w + kx, ci]
+//                      * w[ky, kx, ci, co],
+// xp[n, i, j] = x[n, reflect(i - 1), reflect(j - 1)] the padded plane. Needs
+// H, W >= 2, Cin % 32 == 0 (channels past Cin in a chunk are zero-filled),
+// Cout % 8 == 0, 16-byte aligned x and w and T::smem(Cin) <= SMEM_MAX.
+template <bool HALO, int WM, int BN, int STAGES_>
+__global__ void __launch_bounds__(ConvTile<HALO, WM, BN, STAGES_>::THREADS,
+                                  ConvTile<HALO, WM, BN, STAGES_>::MIN_BLOCKS)
 conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
               const bf16* __restrict__ bias, float* __restrict__ out, int N, int H, int W,
-              int Cin, int Cout, int taps) {
-  using T = ConvTile<WM, BN, STAGES_>;
-  constexpr int BM = T::BM, THREADS = T::THREADS, STAGES = T::STAGES;
+              int Cin, int Cout) {
+  using T = ConvTile<HALO, WM, BN, STAGES_>;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t base = (raw + 1023) & ~1023u, halos = base + STAGES * T::STAGE;
   unsigned char* smem = smem_raw + (base - raw);
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int M = N * H * W, HW = H * W;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, tap0 = blockIdx.z * taps;
-  const int steps = (Cin + CK - 1) / CK;  // K steps a tap
-  const int KT = taps * steps;
+  const int M = N * H * W, chunks = (Cin + CK - 1) / CK, KT = 9 * chunks;
+  const int n0 = blockIdx.y * BN;
+  // HALO: the patch, image n, rows h0 .. h0 + WM - 1, columns w0 .. w0 + 63;
+  // else pixels m0 .. m0 + 64 WM - 1.
+  const int m0 = blockIdx.x * 64 * WM;
+  int n = 0, h0 = 0, w0 = 0;
+  if constexpr (HALO) {
+    const int patch_rows = (H + WM - 1) / WM, patch_cols = (W + PW - 1) / PW;
+    int p = blockIdx.x;
+    n = p / (patch_rows * patch_cols);
+    p -= n * patch_rows * patch_cols;
+    h0 = p / patch_cols * WM;
+    w0 = p % patch_cols * PW;
+  }
 
-  // A: 16-byte chunk (tid & 7) of pixel rows (tid >> 3) + i * A_ROWS; the
-  // pixel of each, a_n < 0 past M.
-  constexpr int A_ROWS = THREADS / 8, A_PASSES = BM / A_ROWS;
+  // Halo row q = r * HALO_W + j of chunk c holds xp[n, h0 + r, w0 + j] for
+  // channels 64 c .. 64 c + 63, zero past the padded plane and past Cin.
+  auto load_halo = [&](int c) {
+    unsigned char* hb = smem + (halos - base) + c * T::HALO_BYTES;
+    const int c0 = c * CK;
+    for (int i = tid; i < T::HALO_ROWS * 8; i += THREADS) {
+      const int q = i >> 3, ch = i & 7;
+      const int r = q / HALO_W, j = q - r * HALO_W;
+      const int pi = h0 + r, pj = w0 + j;
+      const bool ok = pi <= H + 1 && pj <= W + 1 && c0 + ch * 8 < Cin;
+      const bf16* src = x;
+      if (ok)
+        src = x + (((size_t)n * H + cg_reflect1(pi - 1, H)) * W + cg_reflect1(pj - 1, W)) * Cin +
+              c0 + ch * 8;
+      cp_async16(hb + q * 128 + ((ch ^ (q & 7)) << 4), src, ok ? 16 : 0);
+    }
+  };
+  // Else A: 16-byte chunk (tid & 7) of pixel rows (tid >> 3) + i * A_ROWS;
+  // the pixel of each, a_n < 0 past M.
+  constexpr int A_ROWS = THREADS / 8, A_PASSES = 64 * WM / A_ROWS;
   const int a_c = tid & 7;
   int a_n[A_PASSES], a_h[A_PASSES], a_w[A_PASSES];
 #pragma unroll
   for (int i = 0; i < A_PASSES; ++i) {
     const int m = m0 + (tid >> 3) + i * A_ROWS;
-    a_n[i] = m < M ? m / HW : -1;
-    const int rem = m < M ? m - a_n[i] * HW : 0;
+    a_n[i] = m < M ? m / (H * W) : -1;
+    const int rem = m < M ? m - a_n[i] * H * W : 0;
     a_h[i] = rem / W;
     a_w[i] = rem - a_h[i] * W;
   }
@@ -151,22 +196,28 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int b_c = tid % B_CHUNKS, b_r = tid / B_CHUNKS;
   const bool b_col_ok = n0 + b_c * 8 < Cout;
 
-  auto load_stage = [&](int stage, int kt) {
-    const int t = kt / steps, c0 = (kt - t * steps) * CK, tap = tap0 + t;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    unsigned char* as = smem + stage * T::STAGE;
+  // Step kt = tap * chunks + chunk (HALO: steps 0 .. chunks - 1 also carry
+  // the halos).
+  auto load_step = [&](int kt) {
+    const int tap = kt / chunks, c0 = (kt - tap * chunks) * CK;
+    unsigned char* as = smem + (kt % STAGES) * T::STAGE;
     unsigned char* bs = as + T::A_STAGE;
-    const bool a_ch_ok = c0 + a_c * 8 < Cin;
+    if constexpr (HALO) {
+      if (kt < chunks) load_halo(kt);
+    } else {
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bool a_ch_ok = c0 + a_c * 8 < Cin;
 #pragma unroll
-    for (int i = 0; i < A_PASSES; ++i) {
-      const int row = (tid >> 3) + i * A_ROWS;
-      const bool ok = a_n[i] >= 0 && a_ch_ok;
-      const bf16* src = x;
-      if (ok) {
-        const int ih = cg_reflect1(a_h[i] + dy, H), iw = cg_reflect1(a_w[i] + dx, W);
-        src = x + (((size_t)a_n[i] * H + ih) * W + iw) * Cin + c0 + a_c * 8;
+      for (int i = 0; i < A_PASSES; ++i) {
+        const int row = (tid >> 3) + i * A_ROWS;
+        const bool ok = a_n[i] >= 0 && a_ch_ok;
+        const bf16* src = x;
+        if (ok) {
+          const int ih = cg_reflect1(a_h[i] + dy, H), iw = cg_reflect1(a_w[i] + dx, W);
+          src = x + (((size_t)a_n[i] * H + ih) * W + iw) * Cin + c0 + a_c * 8;
+        }
+        cp_async16(as + row * 128 + ((a_c ^ (row & 7)) << 4), src, ok ? 16 : 0);
       }
-      cp_async16(as + row * 128 + ((a_c ^ (row & 7)) << 4), src, ok ? 16 : 0);
     }
 #pragma unroll
     for (int i = 0; i < B_PASSES; ++i) {
@@ -181,12 +232,13 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
 
-  // A ring of STAGES tiles: copies run STAGES - 2 steps ahead, and one
-  // step's wgmma group stays in flight while the next is issued; a stage
-  // is refilled only after the group that read it has completed.
-#pragma unroll
+  // Copies run STAGES - 2 steps ahead, and one step's wgmma group stays in
+  // flight while the next is issued; a stage is refilled only after the
+  // group that read it has completed. The halos are written once. (An
+  // unrolled prologue of 4 or more steps made ptxas serialise the wgmmas.)
+#pragma unroll 1
   for (int s = 0; s < STAGES - 2; ++s) {
-    if (s < KT) load_stage(s, s);
+    if (s < KT) load_step(s);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
@@ -194,11 +246,17 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
     cg_fence_async_smem();  // copies -> wgmma
     __syncthreads();
     const int nk = kt + STAGES - 2;
-    if (nk < KT) load_stage(nk % STAGES, nk);
+    if (nk < KT) load_step(nk);
     cp_async_commit();
 
-    const uint32_t a = base + (kt % STAGES) * T::STAGE + wg * 64 * 128;
-    const uint32_t b = base + (kt % STAGES) * T::STAGE + T::A_STAGE;
+    const int tap = kt / chunks, c = kt - tap * chunks;
+    const uint32_t st = base + (kt % STAGES) * T::STAGE;
+    uint32_t a;
+    if constexpr (HALO)
+      a = halos + c * T::HALO_BYTES + ((wg + tap / 3) * HALO_W + tap % 3) * 128;
+    else
+      a = st + wg * 64 * 128;
+    const uint32_t b = st + T::A_STAGE;
     cg_fence_operand(d);
     cg_wgmma_fence();
 #pragma unroll
@@ -212,61 +270,45 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cg_fence_operand(d);
   cp_async_wait<0>();
 
-  const int lane = tid & 31;
-  float* dst = out + (size_t)blockIdx.z * M * Cout;
-  const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  // Accumulator row r of this warpgroup: its output pixel, or -1.
+  const int lane = tid & 31, r = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  auto pixel = [&](int rr) -> long long {
+    if constexpr (HALO) {
+      const int h = h0 + wg, col = w0 + rr;
+      return h < H && col < W ? ((long long)n * H + h) * W + col : -1;
+    } else {
+      const int m = m0 + wg * 64 + rr;
+      return m < M ? m : -1;
+    }
+  };
+  const long long p0 = pixel(r), p1 = pixel(r + 8);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = n0 + j * 8 + (lane & 3) * 2;
     if (c >= Cout) continue;
-    const float b0 = bias ? __bfloat162float(bias[c]) : 0.f;
-    const float b1 = bias ? __bfloat162float(bias[c + 1]) : 0.f;
-    if (row < M)
-      *reinterpret_cast<float2*>(dst + (size_t)row * Cout + c) =
-          make_float2(d[4 * j] + b0, d[4 * j + 1] + b1);
-    if (row + 8 < M)
-      *reinterpret_cast<float2*>(dst + (size_t)(row + 8) * Cout + c) =
+    const float b0 = __bfloat162float(bias[c]), b1 = __bfloat162float(bias[c + 1]);
+    if (p0 >= 0)
+      *reinterpret_cast<float2*>(out + p0 * Cout + c) = make_float2(d[4 * j] + b0, d[4 * j + 1] + b1);
+    if (p1 >= 0)
+      *reinterpret_cast<float2*>(out + p1 * Cout + c) =
           make_float2(d[4 * j + 2] + b0, d[4 * j + 3] + b1);
   }
 }
 
-// out[m, co] = bias[co] + part[0][m, co] + ... + part[splits - 1][m, co],
-// in that order; four channels a thread (Cout % 4 == 0).
-__global__ void __launch_bounds__(256)
-conv_split_sum(const float* __restrict__ part, const bf16* __restrict__ bias,
-               float* __restrict__ out, int splits, int Cout, size_t MC) {
-  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; i < MC;
-       i += (size_t)gridDim.x * blockDim.x * 4) {
-    const int c = (int)(i % Cout);
-    float4 s = make_float4(__bfloat162float(bias[c]), __bfloat162float(bias[c + 1]),
-                           __bfloat162float(bias[c + 2]), __bfloat162float(bias[c + 3]));
-    for (int sp = 0; sp < splits; ++sp) {
-      const float4 v = *reinterpret_cast<const float4*>(part + sp * MC + i);
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
-    }
-    *reinterpret_cast<float4*>(out + i) = s;
-  }
-}
-
-template <int WM, int BN, int STAGES>
-cudaError_t launch_conv(const bf16* x, const bf16* w, const bf16* bias, float* out, float* part,
-                        int N, int H, int W, int Cin, int Cout, int splits, cudaStream_t s) {
-  using T = ConvTile<WM, BN, STAGES>;
+template <bool HALO, int WM, int BN, int STAGES>
+cudaError_t launch_conv(const bf16* x, const bf16* w, const bf16* bias, float* out, int N, int H,
+                        int W, int Cin, int Cout, cudaStream_t s) {
+  using T = ConvTile<HALO, WM, BN, STAGES>;
+  const int smem = T::smem(Cin);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   static bool sized[CG_MAX_DEVICES] = {};
-  const cudaError_t e = cg_smem_limit(conv3x3_wgmma<WM, BN, STAGES>, T::SMEM, sized);
+  const cudaError_t e = cg_smem_limit(conv3x3_wgmma<HALO, WM, BN, STAGES>, SMEM_MAX, sized);
   if (e != cudaSuccess) return e;
-  const size_t M = (size_t)N * H * W;
-  dim3 grid((unsigned)((M + T::BM - 1) / T::BM), (Cout + BN - 1) / BN, splits);
-  conv3x3_wgmma<WM, BN, STAGES><<<grid, T::THREADS, T::SMEM, s>>>(
-      x, w, splits > 1 ? nullptr : bias, splits > 1 ? part : out, N, H, W, Cin, Cout, 9 / splits);
-  if (splits == 1) return cudaGetLastError();
-  const cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess) return e2;
-  conv_split_sum<<<cg_grid_1d(M * Cout / 4), 256, 0, s>>>(part, bias, out, splits, Cout,
-                                                           M * Cout);
+  const unsigned blocks =
+      HALO ? N * ((H + WM - 1) / WM) * ((W + PW - 1) / PW) : (N * H * W + 64 * WM - 1) / (64 * WM);
+  dim3 grid(blocks, (Cout + BN - 1) / BN);
+  conv3x3_wgmma<HALO, WM, BN, STAGES><<<grid, T::THREADS, smem, s>>>(x, w, bias, out, N, H, W,
+                                                                      Cin, Cout);
   return cudaGetLastError();
 }
 
@@ -558,34 +600,30 @@ cudaError_t launch_fold(const float* dpad, const void* add, void* out, int N, in
 
 // x: (N, H, W, Cin) and w: (3, 3, Cin, Cout) HWIO and bias: (Cout,), all of
 // dtype (0 f32, 1 bf16); out: (N, H, W, Cout) float32 = conv(rpad1(x), w) + b.
-// bf16 runs conv3x3_wgmma on the plan (tile_m, tile_n, stages, splits) of
-// kernels/resblock.py::conv_plan, with part: (splits, N*H*W, Cout) float32
-// scratch when splits is 3 (else unused); float32 ignores the plan. Needs
-// H, W >= 2, Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned x and w
-// (checked by the Python wrapper). Returns the CUDA error code (0 on success).
+// bf16 runs conv3x3_wgmma on the tile (halo, rows, tile_n, stages) that
+// kernels/resblock.py::conv_plan chose; float32 ignores it. Needs H, W >= 2,
+// Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned x and w (checked by the
+// Python wrapper). Returns the CUDA error code (0 on success).
 extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias, void* out,
-                                  void* part, int N, int H, int W, int Cin, int Cout, int dtype,
-                                  int tile_m, int tile_n, int stages, int splits,
-                                  void* stream) {
+                                  int N, int H, int W, int Cin, int Cout, int dtype, int halo,
+                                  int rows, int tile_n, int stages, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || H < 2 || W < 2 || Cin % 32 != 0 || Cout % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == CG_BF16) {
-    if ((splits != 1 && splits != 3) || (splits > 1 && part == nullptr))
-      return (int)cudaErrorInvalidValue;
     auto xp = static_cast<const bf16*>(x);
     auto wp = static_cast<const bf16*>(w);
     auto bp = static_cast<const bf16*>(bias);
     auto op = static_cast<float*>(out);
-    auto pp = static_cast<float*>(part);
-    // The tiles of kernels/resblock.py::CONV_TILES: (tile_m, tile_n, stages).
-#define CG_CONV_TILE(TM, TN, ST)                                                          \
-  if (tile_m == TM && tile_n == TN && stages == ST)                                       \
-    return (int)launch_conv<TM / 64, TN, ST>(xp, wp, bp, op, pp, N, H, W, Cin, Cout, splits, s);
-    CG_CONV_TILE(128, 256, 4)
-    CG_CONV_TILE(128, 128, 5)
-    CG_CONV_TILE(128, 64, 4)
-    CG_CONV_TILE(64, 128, 4)
+    // The tiles of kernels/resblock.py::CONV_TILES: (halo, rows, tile_n, stages).
+#define CG_CONV_TILE(HL, WM, TN, ST)                                     \
+  if (halo == HL && rows == WM && tile_n == TN && stages == ST)          \
+    return (int)launch_conv<HL, WM, TN, ST>(xp, wp, bp, op, N, H, W, Cin, Cout, s);
+    CG_CONV_TILE(false, 2, 256, 4)
+    CG_CONV_TILE(true, 2, 128, 4)
+    CG_CONV_TILE(true, 2, 64, 4)
+    CG_CONV_TILE(false, 2, 128, 5)
+    CG_CONV_TILE(false, 2, 64, 4)
 #undef CG_CONV_TILE
     return (int)cudaErrorInvalidValue;
   }

@@ -45,7 +45,7 @@ SIGNATURES = {
         "cg_instance_norm_act_bwd": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
     },
     "resblock": {
-        "cg_conv3x3_reflect": [_VOIDP] * 5 + [_INT] * 10 + [_VOIDP],
+        "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP],
         "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP],
     },
     "resblock_chunked": {

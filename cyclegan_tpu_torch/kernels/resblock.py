@@ -137,46 +137,56 @@ def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor
     return (dx, *bwd_dw_plain(x, a, ds, du))
 
 
-# The bf16 forward convolution's tiles (csrc/resblock.cu, conv3x3_wgmma<WM,
-# BN, STAGES>): (pixel rows 64 WM, channels BN, stages of the ring), in the
-# order the plan prefers them; the C entry takes exactly these.
-CONV_TILES = ((128, 256, 4), (128, 128, 5), (128, 64, 4), (64, 128, 4))
-SMS = 132
-CONV_FILL = 128                                # blocks that fill the card (97% of SMs)
+# The bf16 forward convolution's tiles (csrc/resblock.cu, conv3x3_wgmma<HALO,
+# WM, BN, STAGES>): WM warpgroups of 64 output pixels x BN channels each,
+# a ring of STAGES steps; a HALO tile owns a patch of WM image rows x 64
+# columns and keeps its input's halos in shared memory, the others own
+# 64 WM consecutive pixels. (HALO, WM, BN, STAGES) in the order the plan
+# prefers them; the C entry takes exactly these.
+CONV_TILES = ((False, 2, 256, 4), (True, 2, 128, 4), (True, 2, 64, 4), (False, 2, 128, 5),
+              (False, 2, 64, 4))
+CONV_COLS = 64                                 # columns of a patch
+CONV_FILL = 128                                # blocks that fill the card (97% of 132 SMs)
 SMEM_BLOCK_MAX, SMEM_SM = 232448, 233472       # bytes a block may have; an SM's
 
 
-def conv_tile(tile_m: int, tile_n: int, stages: int) -> tuple[int, int]:
-    """``(shared memory bytes a block, blocks an SM)`` of a tile, as
-    ``ConvTile`` in csrc/resblock.cu sizes it: ``stages`` of A (pixel rows
-    of 128 B) and B (64 rows of 128 B per 64 channels), 1 KB to align, and
-    1 KB an SM reserves per block."""
-    smem = stages * (tile_m * 128 + tile_n // 64 * 64 * 128) + 1024
-    return smem, 2 if 2 * (smem + 1024) <= SMEM_SM else 1
+def conv_tile(tile: tuple[bool, int, int, int], cin: int) -> tuple[int, int]:
+    """``(shared memory bytes a block, blocks an SM)`` of a tile for ``cin``
+    input channels, as ``ConvTile::smem`` in csrc/resblock.cu sizes it: the
+    ring (STAGES steps of A's 64 WM pixel rows of 128 B, none for a HALO
+    tile, and B's 64 rows x BN channels), 1 KB to align, a HALO tile's
+    halos ((WM + 2) x 66 pixels of 128 B, rounded up to 1 KB, one per 64
+    input channels), and the 1 KB an SM reserves per block."""
+    halo, wm, bn, stages = tile
+    smem = stages * ((0 if halo else 64 * wm * 128) + bn * 128) + 1024
+    if halo:
+        smem += -(-cin // 64) * (-(-(wm + 2) * (CONV_COLS + 2) * 128 // 1024) * 1024)
+    return smem, 2 if not halo and 2 * (smem + 1024) <= SMEM_SM else 1
 
 
-def conv_blocks(plan: tuple[int, int, int, int], m: int, cout: int) -> int:
-    """Blocks in the grid of ``plan`` for ``m`` output pixels."""
-    tile_m, tile_n, _, splits = plan
-    return -(-m // tile_m) * -(-cout // tile_n) * splits
+def conv_blocks(tile: tuple[bool, int, int, int], n: int, h: int, w: int, cout: int) -> int:
+    """Blocks in the grid of ``tile`` for an (n, h, w) output of cout channels."""
+    halo, wm, bn, _ = tile
+    rows = n * -(-h // wm) * -(-w // CONV_COLS) if halo else -(-n * h * w // (64 * wm))
+    return rows * -(-cout // bn)
 
 
 @functools.cache
-def conv_plan(n: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int, int, int]:
-    """``(tile_m, tile_n, stages, splits)`` of the bf16 convolution of an
-    (n, h, w, cin) input to cout channels, from the shapes alone: the first
-    tile of :data:`CONV_TILES` whose grid gives the card :data:`CONV_FILL`
-    blocks, else the tile with the most blocks; splits 1. Raises ValueError
-    on shapes the kernel does not take."""
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int) -> tuple[bool, int, int, int]:
+    """The tile of the bf16 convolution of an (n, h, w, cin) input to cout
+    channels, from the shapes alone: the first of :data:`CONV_TILES` whose
+    shared memory fits a block and whose grid gives the card
+    :data:`CONV_FILL` blocks, else the fitting one with the most blocks.
+    Raises ValueError on shapes the kernel does not take."""
     if h < 2 or w < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w}")
     if cin % 32 or cout % 8:
         raise ValueError(f"conv3x3_reflect needs Cin % 32 == 0 and Cout % 8 == 0, "
                          f"got Cin={cin}, Cout={cout}")
-    m = n * h * w
-    plans = [(*tile, 1) for tile in CONV_TILES]
-    full = [p for p in plans if conv_blocks(p, m, cout) >= CONV_FILL]
-    return full[0] if full else max(plans, key=lambda p: conv_blocks(p, m, cout))
+    fits = [t for t in CONV_TILES if conv_tile(t, cin)[0] <= SMEM_BLOCK_MAX]
+    blocks = {t: conv_blocks(t, n, h, w, cout) for t in fits}
+    full = [t for t in fits if blocks[t] >= CONV_FILL]
+    return full[0] if full else max(fits, key=blocks.get)
 
 
 def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -187,9 +197,9 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def conv3x3_reflect_planned(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                            out: torch.Tensor, plan: tuple[int, int, int, int]) -> None:
-    """:func:`conv3x3_reflect` on a given tile plan (the on-card checks time
-    every candidate of :func:`conv_plan`; float32 ignores the plan)."""
+                            out: torch.Tensor, plan: tuple[bool, int, int, int]) -> None:
+    """:func:`conv3x3_reflect` on a given tile (the on-card checks time
+    every tile of :data:`CONV_TILES`; float32 ignores the tile)."""
     n, h, w_, cin = x.shape
     cout = w.shape[-1]
     conv_plan(n, h, w_, cin, cout)  # the shape checks
@@ -201,12 +211,9 @@ def conv3x3_reflect_planned(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _build.check_same_device("conv3x3_reflect", x, w, b, out)
     if w.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError("conv3x3_reflect: x, w and b must share one dtype")
-    stream = _build.stream_ptr(x)
-    splits = plan[3]
-    part = _build.scratch_ptr(4 * splits * n * h * w_ * cout, x, stream) if splits > 1 else None
     _build.call("resblock", "cg_conv3x3_reflect",
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), part,
-                n, h, w_, cin, cout, _build.DTYPE_CODES[x.dtype], *plan, stream)
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n, h, w_, cin, cout, _build.DTYPE_CODES[x.dtype], *plan, _build.stream_ptr(x))
 
 
 def _check_grad_shapes(name: str, h: int, w_: int, cin: int, cout: int) -> None:

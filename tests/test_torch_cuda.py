@@ -74,11 +74,13 @@ def test_instance_norm_float32_in_bf16_out(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cout", [((2, 8, 9, 64), 64), ((1, 17, 5, 32), 40),
                                         ((2, 16, 16, 256), 256), ((3, 11, 13, 96), 40),
-                                        ((2, 9, 7, 96), 256), ((1, 64, 64, 256), 256)])
+                                        ((2, 9, 7, 96), 256), ((1, 64, 64, 256), 256),
+                                        ((1, 6, 5, 512), 64)])
 def test_conv3x3_reflect_matches_conv2d(card, shape, cout, dtype):
     """Tile edges: Cin 32 and 96 (a partial 64-channel K step), Cout 40 (a
-    partial N tile), M not a multiple of the tile and W != 64, and the
-    trunk's batch-1 shape; a second call is bitwise equal."""
+    partial N tile), M not a multiple of the tile and W != 64, the trunk's
+    batch-1 shape and a Cin whose halos do not fit a block; a second call
+    is bitwise equal."""
     x = torch.randn(shape, device="cuda", generator=card).to(dtype)
     w = (0.05 * torch.randn((3, 3, shape[-1], cout), device="cuda", generator=card)).to(dtype)
     b = (0.1 * torch.randn((cout,), device="cuda", generator=card)).to(dtype)
@@ -91,19 +93,21 @@ def test_conv3x3_reflect_matches_conv2d(card, shape, cout, dtype):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("shape", [(2, 13, 11, 96), (1, 3, 70, 64)])
 @pytest.mark.parametrize("tile", RB.CONV_TILES)
-def test_conv3x3_reflect_every_plan_matches(card, tile, splits):
-    """Every tile of the bf16 kernel, whole and with the kernel rows split
-    over blocks, on ragged M, a partial K step and a partial N tile."""
-    shape, cout = (2, 13, 11, 96), 200
+def test_conv3x3_reflect_every_plan_matches(card, tile, shape):
+    """Every tile of the bf16 kernel on ragged patches and pixel ranges (H
+    not a multiple of the patch rows, W not of its 64 columns, N*H*W not of
+    the block's pixels), a partial chunk of input channels and a partial N
+    tile; a second call is bitwise equal."""
+    cout = 200
     x = torch.randn(shape, device="cuda", generator=card).to(torch.bfloat16)
-    w = (0.05 * torch.randn((3, 3, 96, cout), device="cuda", generator=card)).to(torch.bfloat16)
+    w = (0.05 * torch.randn((3, 3, shape[-1], cout), device="cuda", generator=card)).to(
+        torch.bfloat16)
     b = (0.1 * torch.randn((cout,), device="cuda", generator=card)).to(torch.bfloat16)
     out, again = [torch.empty(shape[:3] + (cout,), device="cuda") for _ in range(2)]
-    plan = (*tile, splits)
-    RB.conv3x3_reflect_planned(x, w, b, out, plan)
-    RB.conv3x3_reflect_planned(x, w, b, again, plan)
+    RB.conv3x3_reflect_planned(x, w, b, out, tile)
+    RB.conv3x3_reflect_planned(x, w, b, again, tile)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, RB._conv3x3_plain(x, w, b), atol=1e-4, rtol=1e-4)
     assert torch.equal(out, again)

@@ -99,21 +99,24 @@ def test_tile_rows_fills_the_card(shape):
 
 @pytest.mark.parametrize("batch", [1, 2, 8])
 def test_conv_plan_fills_the_card(batch):
-    """The bf16 forward convolution's tile plan at the trunk shape
-    (64x64x256 -> 256): a block for at least 128 of the 132 SMs at every
-    batch (the mma.sync kernel it replaced had 64 at batch 1, 128 at batch
-    2), with a ring the kernel has and shared memory an H100 block can hold."""
+    """The bf16 forward convolution's tile at the trunk shape (64x64x256 ->
+    256): a block for at least 128 of the 132 SMs at every batch (the
+    mma.sync kernel it replaced had 64 at batch 1, 128 at batch 2), in
+    shared memory an H100 block can hold."""
     plan = RB.conv_plan(batch, 64, 64, 256, 256)
-    assert plan[:3] in RB.CONV_TILES and plan[3] in (1, 3)
-    assert RB.conv_blocks(plan, batch * 64 * 64, 256) >= 128
-    smem, per_sm = RB.conv_tile(*plan[:3])
-    assert plan[2] >= 3 and smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+    assert plan in RB.CONV_TILES
+    assert RB.conv_blocks(plan, batch, 64, 64, 256) >= 128
+    smem, per_sm = RB.conv_tile(plan, 256)
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("cout", [8, 40, 256])
-@pytest.mark.parametrize("cin", [32, 96, 256])
+@pytest.mark.parametrize("cin", [32, 96, 256, 2048])
 def test_conv_plan_takes_every_channel_count(cin, cout):
-    """Any Cin % 32 == 0 and Cout % 8 == 0 has a plan (a partial K step
-    and a partial N tile are zero-filled in the kernel), on a ragged M."""
+    """Any Cin % 32 == 0 and Cout % 8 == 0 has a tile that fits a block (a
+    partial chunk of input channels and a partial N tile are zero-filled in
+    the kernel; a Cin whose halos do not fit takes a tile without them), on
+    a ragged patch (H odd, W not a multiple of 64)."""
     plan = RB.conv_plan(1, 5, 7, cin, cout)
-    assert plan[:3] in RB.CONV_TILES and RB.conv_blocks(plan, 35, cout) >= 1
+    assert plan in RB.CONV_TILES and RB.conv_blocks(plan, 1, 5, 7, cout) >= 1
+    assert RB.conv_tile(plan, cin)[0] <= 227 * 1024
