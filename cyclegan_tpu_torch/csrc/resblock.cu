@@ -27,7 +27,7 @@
 // backward holds its bf16 bars with the same rounding as before). A is
 // K-major, 64 channels = 128 B a pixel with the 128-byte swizzle, B the
 // step's 64 weight rows, Cout-contiguous, so MN-major like conv_dw.cu's
-// operands, in a ring of 4-5 steps; cp.async writes every 16-byte chunk to
+// operands, in a ring of 4 steps; cp.async writes every 16-byte chunk to
 // its swizzled slot, with the reflect padding as index arithmetic on the
 // load (no padded copy in memory). Two ways to feed A:
 //   - halo tiles own a patch of 2 image rows x 64 columns and keep, for
@@ -42,7 +42,7 @@
 //     widest tile (128 x 256) when the batch gives enough blocks.
 // Channels past a Cin that is a multiple of 32 but not of 64, weight
 // columns past a ragged Cout and pixels past the padded plane are
-// zero-filled, and the stores are masked. The copies run 2-3 steps ahead
+// zero-filled, and the stores are masked. The copies run 2 steps ahead
 // with one wgmma group in flight. The tile is the plan of kernels/
 // resblock.py::conv_plan, from the shapes alone: the first tile that fits
 // and whose grid gives 128 of the 132 SMs a block. At the trunk shape
@@ -622,7 +622,6 @@ extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias
     CG_CONV_TILE(false, 2, 256, 4)
     CG_CONV_TILE(true, 2, 128, 4)
     CG_CONV_TILE(true, 2, 64, 4)
-    CG_CONV_TILE(false, 2, 128, 5)
     CG_CONV_TILE(false, 2, 64, 4)
 #undef CG_CONV_TILE
     return (int)cudaErrorInvalidValue;

@@ -143,8 +143,7 @@ def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor
 # columns and keeps its input's halos in shared memory, the others own
 # 64 WM consecutive pixels. (HALO, WM, BN, STAGES) in the order the plan
 # prefers them; the C entry takes exactly these.
-CONV_TILES = ((False, 2, 256, 4), (True, 2, 128, 4), (True, 2, 64, 4), (False, 2, 128, 5),
-              (False, 2, 64, 4))
+CONV_TILES = ((False, 2, 256, 4), (True, 2, 128, 4), (True, 2, 64, 4), (False, 2, 64, 4))
 CONV_COLS = 64                                 # columns of a patch
 CONV_FILL = 128                                # blocks that fill the card (97% of 132 SMs)
 SMEM_BLOCK_MAX, SMEM_SM = 232448, 233472       # bytes a block may have; an SM's
