@@ -27,7 +27,10 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    (the chunked block and the dropout trunk's weight gradient included),
    against its plain version at the train step's shapes, with its time, the
    plain version's, one library call's and the bound, per call and summed
-   over one train step; two calls of each weight gradient are bitwise equal;
+   over one train step; two calls of each weight gradient and of each
+   instance-norm kernel are bitwise equal; the fused block's VJP is held
+   against the plain VJP on the kernel path's relu mask, and the mask's
+   flips on their own (RELU_FLIP_SHARE);
    then the tensor-core gradient convolutions alone (input gradient, weight
    gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
    cotangent, at the float32 bars, and the forward convolution alone at the
@@ -41,10 +44,14 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    versions from the same weights; every parameter's step-1 gradient, the
    per-step losses of the two paths, every launch counter against the
    per-step count derived from the modules; then the median step time of
-   each path, in turns;
+   each path, in turns, and one profiled step (the forward convolution's and
+   the instance norm's device ms and launches: one instance-norm launch a C
+   entry, or the phase fails);
 7. train_chunked, train_dropout: the same for paths A and B; path A launches the chunked block 27 times a step
    forward and backward and no fused block, path B launches conv_dw 54
-   times a step and no residual-block kernel.
+   times a step and no residual-block kernel;
+8. graph_capture: whether torch.cuda.graph captures the instance norm's
+   cooperative launches (recorded, not required).
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -168,6 +175,16 @@ BWD_TOL = {
     ("conv3x3_reflect_dgrad", "bfloat16"): (1e-5, 1e-4),
     ("conv3x3_reflect_wgrad", "bfloat16"): (1e-5, 1e-4),
 }
+# The bf16 and float32 block VJPs are held against the plain VJP evaluated
+# on the kernel path's relu mask (relu_mask), at the bars above. The
+# elements where the two paths' masks differ are held on their own: each
+# within the forward convolution's rounding of zero (the threshold
+# resblock.relu_mask_flips derives from the convolution's bar and rstd),
+# and together at most this share of the plane. float32 reorderings of
+# 2,304-term sums differ by ~1e-6 relative, so an honest kernel flips ~1e-6
+# of a plane (an H100 showed 0 to 3 elements of a 1M- or 2M-element plane
+# in the seeded cases); a mask that is wrong by design flips far more.
+RELU_FLIP_SHARE = 1e-4
 # The chunked route's rows a chunk (the JAX package's default).
 HC = 8
 # Per-step losses, kernel path vs plain path from the same weights, batch
@@ -236,6 +253,22 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_us(fn, reps: int = 10) -> float | None:
+    """Device µs a call of ``fn``, timed as one CUDA graph of ``reps`` calls
+    replayed (CUDA events around the replays: no host time); None where the
+    graph does not capture."""
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except Exception:  # a launch the graph cannot hold: no number
+        return None
+    return time_ms(graph.replay, 5) * 1e3 / reps
 
 
 def bound(nbytes: float, flops: float | dict, dtype: str | None = None) -> tuple[float, str]:
@@ -532,6 +565,7 @@ def phase_serve(tmp: str) -> dict:
            "profiled_forward_device_ms_by_kernel": [
                {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:14]],
            "profiled_forward_conv3x3_fwd": conv_fwd_device_ms(device_ms),
+           "profiled_forward_instance_norm": in_device_ms(device_ms),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
     decisive = dict(zip(names, masks["bfloat16"].cpu().numpy()))
@@ -620,6 +654,24 @@ def compare_bwd(kernel: str, out, ref, dtype: str) -> dict:
             "ok": bool(worst <= 1.0 and torch.isfinite(out).all())}
 
 
+def block_vjp_check(x, dy, w1, b1, w2, b2, grads, dname: str) -> tuple[dict, dict]:
+    """The fused residual block's VJP on the card (``grads``: its dx, dw1,
+    dw2) against the plain VJP on the kernel path's relu mask (``a > 0`` of
+    ``bwd_dx_cuda``'s recompute, bitwise the Function's) at BWD_TOL; and the
+    mask's flips against the plain version's own, at RELU_FLIP_SHARE."""
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    mask = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)[1] > 0
+    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
+    checks = {n: compare_bwd("residual_block_bwd", o, r, dname)
+              for n, o, r in zip(("dx", "dw1", "dw2"), grads, ref)}
+    flips, worst = RB.relu_mask_flips(x, w1, b1, mask,
+                                      conv_tol=TOL[("conv3x3_reflect", "bfloat16")])
+    return checks, {"relu_mask_flips": flips, "flip_share": flips / mask.numel(),
+                    "flip_share_max": RELU_FLIP_SHARE, "flip_worst_over_threshold": worst,
+                    "ok": worst <= 1.0 and flips <= RELU_FLIP_SHARE * mask.numel()}
+
+
 def train_in_cases() -> list:
     """(shape, act, calls per train step) of the standalone instance norm,
     by reading train/cyclegan.py: per generator apply two norms at 256^2x64,
@@ -693,11 +745,16 @@ def phase_kernels_train() -> dict:
                             "residual_block_bwd_dw")}
     for shape, act, calls in train_in_cases():
         x, dy = randn(shape, torch.bfloat16, 2.0, 0.5), randn(shape, torch.bfloat16)
-        with torch.no_grad():
-            y = IN.instance_norm_act(x, None, 1e-5, act)
-        mean, rstd = IN.launch(x, None, None, 1e-5, act)
-        dx = torch.empty_like(x)
+        y, y2 = torch.empty_like(x), torch.empty_like(x)
+        mean, rstd = IN.launch(x, None, y, 1e-5, act)
+        mean2, rstd2 = IN.launch(x, None, y2, 1e-5, act)
+        dx, dx2 = torch.empty_like(x), torch.empty_like(x)
         IN.launch_bwd(x, dy, mean, rstd, dx, act)
+        IN.launch_bwd(x, dy, mean, rstd, dx2, act)
+        torch.cuda.synchronize()
+        bitwise = {"instance_norm_act": torch.equal(y, y2) and torch.equal(mean, mean2)
+                   and torch.equal(rstd, rstd2),
+                   "instance_norm_act_bwd": torch.equal(dx, dx2)}
         pm, pr = IN.instance_norm_stats_plain(x)
         res_f = compare("instance_norm_act", y, IN.instance_norm_act_plain(x, None, 1e-5, act),
                         "bfloat16")
@@ -712,7 +769,9 @@ def phase_kernels_train() -> dict:
                    "plain_ms": time_ms(lambda: IN.instance_norm_act_plain(x, None, 1e-5, act), 5),
                    "library_ms": time_ms(lambda: _lib_act(F.instance_norm(
                        x.permute(0, 3, 1, 2), eps=1e-5), act), 20)}
+        fwd["graph_us_per_call"] = graph_us(lambda: IN.launch(x, None, y, 1e-5, act))
         bwd = {"ms": time_ms(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act), 20),
+               "graph_us_per_call": graph_us(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act)),
                "plain_ms": time_ms(lambda: IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), 5),
                "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True),
                                      20)}
@@ -722,10 +781,11 @@ def phase_kernels_train() -> dict:
             b_ms, b_by = bound(nb, fl, "float32")
             rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
                    "dtype": "bfloat16", "act": act, **res, **t, "bound_ms": b_ms,
-                   "bound_by": b_by, "calls_per_step": calls}
-            fail_if(not res["ok"], name, rec)
+                   "bound_by": b_by, "us_per_call": t["ms"] * 1e3, "bound_us": b_ms * 1e3,
+                   "second_call_bitwise_equal": bitwise[name], "calls_per_step": calls}
+            fail_if(not (res["ok"] and bitwise[name]), name, rec)
             recs[name].append(rec)
-        del x, dy, y, dx, xl, yl
+        del x, dy, y, y2, dx, dx2, xl, yl
 
     c = NGF * 4
     for dtype, b, calls in ((torch.float32, 2, 0), (torch.bfloat16, 2, 18),
@@ -738,19 +798,19 @@ def phase_kernels_train() -> dict:
         leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
         y = RB.residual_block_fused(*leaves)
         got = torch.autograd.grad(y, leaves, dy)
-        ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+        checks, flip = block_vjp_check(x, dy, w1, b1, w2, b2, (got[0], got[1], got[3]), dname)
         bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
-        checks = {n: compare_bwd("residual_block_bwd", o, r, dname)
-                  for n, o, r in zip(("dx", "dw1", "dw2"), (got[0], got[1], got[3]), ref)}
         dw_check = {"max_abs_err": max(checks["dw1"]["max_abs_err"], checks["dw2"]["max_abs_err"]),
                     "worst_err_over_tol": max(checks["dw1"]["worst_err_over_tol"],
                                               checks["dw2"]["worst_err_over_tol"]),
                     "ok": checks["dw1"]["ok"] and checks["dw2"]["ok"]}
-        ok = all(v["ok"] for v in checks.values()) and bias_zero and y.grad_fn is not None
+        ok = all(v["ok"] for v in checks.values()) and flip["ok"] and bias_zero and \
+            y.grad_fn is not None
         fail_if(not ok, "residual_block_fused VJP",
                 {"phase": "kernels_train", "kernel": "residual_block_bwd", "via":
                  "autograd.Function", "shape": list(shape), "dtype": dname,
-                 "bias_grads_exactly_zero": bias_zero,
+                 "bias_grads_exactly_zero": bias_zero, "reference": "plain VJP on the "
+                 "kernel path's relu mask", **{f"mask_{k}": v for k, v in flip.items()},
                  **{f"{n}_{k}": r[k] for n, r in checks.items()
                     for k in ("max_abs_err", "worst_err_over_tol")}})
         if not calls:
@@ -810,7 +870,7 @@ def phase_kernels_train() -> dict:
                 rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
             fail_if(not res["ok"], name, rec)
             recs[name].append(rec)
-        del x, dy, leaves, y, got, ref, dxk, a, ds, du, g_parts, xl, yl
+        del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl
     torch.cuda.empty_cache()
     recs.update(kernels_train_chunked_dw(randn, fail_if))
     recs["grad_convs"] = kernels_grad_convs(randn, fail_if)
@@ -1086,6 +1146,55 @@ def conv_fwd_device_ms(device_ms: list) -> dict:
     return {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
 
 
+def in_device_ms(device_ms: list) -> dict:
+    """Device time and launches of the instance-norm kernels (forward
+    ``in_fwd``, VJP ``in_bwd``) in a profile's ``(name, ms, calls)`` rows."""
+    out = {}
+    for key, name in (("fwd", "in_fwd<"), ("bwd", "in_bwd<")):
+        rows = [r for r in device_ms if name in r[0]]
+        out[key] = {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
+    return out
+
+
+def in_graph_capture() -> dict:
+    """Whether ``torch.cuda.graph`` captures the instance norm's
+    cooperative launches (forward, then VJP, at the stem's train shape), and
+    whether a replay equals the eager result bitwise. Recorded, not
+    required: a failure is reported, not raised."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, CROP, CROP, NGF), device="cuda", generator=g).to(torch.bfloat16)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(torch.bfloat16)
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+
+    def step():
+        mean, rstd = IN.launch(x, None, y, 1e-5, "relu")
+        IN.launch_bwd(x, dy, mean, rstd, dx, "relu")
+
+    step()
+    torch.cuda.synchronize()
+    want = (y.clone(), dx.clone())
+    y.zero_()
+    dx.zero_()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        y.zero_()
+        dx.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        return {"captured": True, "replay_bitwise_equal":
+                bool(torch.equal(y, want[0]) and torch.equal(dx, want[1]))}
+    except Exception as e:  # recorded, not raised: capture is not required
+        with contextlib.suppress(Exception):
+            torch.cuda.synchronize()
+        return {"captured": False, "error": f"{type(e).__name__}: {e}"[:400]}
+
+
 @contextlib.contextmanager
 def plain_seams():
     """Point the blocks' kernel seams at the autograd Functions over the
@@ -1275,6 +1384,7 @@ def phase_train(smi: str, path: str = "default") -> dict:
 
     from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
     from cyclegan_tpu_torch.data.transforms import normalize
+    from cyclegan_tpu_torch.kernels import _build
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
     from cyclegan_tpu_torch.utils.config import preset
 
@@ -1409,12 +1519,15 @@ def phase_train(smi: str, path: str = "default") -> dict:
            "median_step_ms_kernel": med_k, "steps_per_s_kernel": 1e3 / med_k,
            "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p}
     torch.cuda.reset_peak_memory_stats()
+    entries = dict(_build.launches)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))
         torch.cuda.synchronize()
         prof_step_ms = (time.perf_counter() - t0) * 1e3
+    entries = {k: _build.launches[k] - entries.get(k, 0)
+               for k in ("cg_instance_norm_act", "cg_instance_norm_act_bwd")}
     # Device kernels only (CPU ops that launched them carry the same time).
     device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
                  for e in prof.key_averages() if e.self_device_time_total > 0
@@ -1427,8 +1540,16 @@ def phase_train(smi: str, path: str = "default") -> dict:
         "profiled_step_device_ms_by_kernel": [
             {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
         "profiled_step_conv3x3_fwd": conv_fwd_device_ms(device_ms),
+        "profiled_step_instance_norm": in_device_ms(device_ms),
+        "profiled_step_instance_norm_c_entries": entries,
         "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9})
     emit(rec)
+    # One launch a C entry: the instance norm's kernels, forward and VJP.
+    in_prof = rec["profiled_step_instance_norm"]
+    if (in_prof["fwd"]["launches"], in_prof["bwd"]["launches"]) != \
+            (entries["cg_instance_norm_act"], entries["cg_instance_norm_act_bwd"]):
+        raise AssertionError(f"{path}: instance-norm kernels {in_prof} in the profiled step, "
+                             f"not one a C entry {entries}")
     print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
           f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
           f"versions; {smi}", flush=True)
@@ -1506,6 +1627,7 @@ def main() -> int:
         phase_http(served)
     recs = phase_kernels_train()
     runs = {path: phase_train(smi, path) for path in TRAIN_PATHS}
+    emit({"phase": "graph_capture", "instance_norm": in_graph_capture()})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit(kernels_line(recs, runs))

@@ -1,211 +1,164 @@
-// Instance norm + activation (+ residual add), forward, for Hopper (sm_90a).
+// Instance norm + activation (+ residual add), forward and VJP, for Hopper
+// (sm_90a), one launch each.
 //
 // Replaces: cyclegan_tpu/kernels/instance_norm.py, the forward Pallas kernel
-// (_pallas_fwd -> _fwd_kernel / _fwd_kernel_skip) behind instance_norm_act.
-// Computes, per (sample n, channel c) over the H*W positions of an NHWC
-// tensor:  y = act((x - mean) * rsqrt(var + eps)) [+ skip],  with float32
-// statistics and the biased variance; act is none | relu | leaky(0.2).
+// (_pallas_fwd -> _fwd_kernel / _fwd_kernel_skip, TPU kernel #1) and the VJP
+// (_pallas_bwd -> _bwd_kernel, #2) behind instance_norm_act. Per (sample n,
+// channel c) over the H*W positions of an NHWC tensor:
+//   forward  y = act((x - mean) * rsqrt(var + eps)) [+ skip]
+//   VJP      dx = rstd * (g - mean_hw(g) - xhat * mean_hw(g * xhat)),
+//            xhat = (x - mean) * rstd,  g = act'(xhat) * dy,
+// with float32 statistics and the biased variance; act is none | relu |
+// leaky(0.2). The VJP takes the forward's own mean and rstd and recomputes
+// xhat from x; dx has x's type.
 //
-// What bounds it on the H100: bytes. It does a handful of flops per element,
-// far below the ~295 flop/byte at which the tensor cores, not HBM, would
-// limit. The least traffic is one read of x (and skip) and one write of y.
+// What bounds it on the H100: bytes. Either direction does at most ~8-12
+// flops an element, far below the ~295 flop/byte at which the tensor cores,
+// not HBM, would limit. The least traffic is one read of x (and skip, or
+// dy) and one write of y (or dx).
 //
-// What the design does about that: the TPU kernel held a whole (H*W, C-tile)
-// plane in VMEM and made one pass. No Hopper block holds a plane (the
-// 256x256x64 bf16 stem plane is 8 MB; a block has 227 KB of shared memory),
-// so the reduction is split over H*W:
-//   1. in_partial: each block takes one row tile of H*W for 32 channels and
-//      writes a per-tile (mean, M2) pair (exact chunk statistics from
-//      registers, Chan's merge across chunks and across the block's 8 row
-//      lanes, in a fixed order).
-//   2. in_merge: one block per (n, 32 channels) merges the tiles, in a
-//      fixed order, into mean and rstd. No atomics: the result is
-//      deterministic and does not use E[x^2] - mean^2. The tile size depends
-//      on H*W and C only, so a sample's result does not depend on the batch
-//      it is served in.
-//   3. in_apply: the same grid as 1 normalises, applies the activation, adds
-//      skip and writes the output type.
-// Neighbouring threads read neighbouring channels (NHWC), so each warp load
-// is one contiguous 32-channel run, and each thread keeps 8 loads in
-// flight. The cost is a second read of x (three passes' worth of bytes
-// where two are the bound); fusing the statistics into the producer's
-// epilogue is later work.
+// What the design does about that. The TPU kernel held a whole (H*W,
+// C-tile) plane in VMEM and made one pass. No Hopper block holds a plane
+// (the 256x256x64 bf16 stem plane is 8 MB a sample), so the reduction is
+// split over H*W and merged across blocks. Three launches (partials,
+// merge, apply) with scratch allocated a call would cost the host more
+// than the card at the train shapes, where these calls are host-bound.
+// This design:
+//   - One cooperative launch a call. A persistent grid (as many blocks as
+//     can be resident, cudaOccupancyMaxActiveBlocksPerMultiprocessor x the
+//     SMs, never more than the work) walks virtual tiles in three phases
+//     split by grid barriers: (1) each tile's per-channel partials (forward:
+//     count, mean, M2 by Chan's merge; VJP: sums of g and g * xhat), (2) one
+//     warp per (sample, channel) merges the tiles' partials in tile order
+//     into mean and rstd (or the two VJP means), (3) the apply pass. The
+//     partials live in the caller's per-stream scratch: no allocation but
+//     the outputs. With y == NULL (the residual block's recompute) the
+//     launch stops after phase 2.
+//   - 16-byte loads: a thread owns vec channels (8 bf16 or 4 float32) of
+//     a row, a warp reads whole 128-byte lines (four rows at C = 64); C
+//     that is no multiple of vec takes one channel a thread.
+//   - The second read hits cache where the card allows it: phase 3 walks a
+//     block's tiles in the reverse order of phase 1, so the tiles it read
+//     last, most likely still in its L1 or the 50 MB L2, come first. At the
+//     train shapes (batch <= 2) every plane fits the L2. The merged
+//     statistics reach phase 3 through shared memory, one read a block.
+//   - Phase 1's cost is latency, not bytes, at the trunk's small planes: a
+//     sample gets 128 tiles, so at batch 2 each block takes one tile and
+//     each thread has its rows' loads in flight at once, and the merges of
+//     a thread's channels share one division.
+//   - Determinism: the tiling (kernels/instance_norm.py::in_plan) depends
+//     on the sample's (H*W, C) and the element size only, never on N or on
+//     the grid; each tile is reduced in a fixed order whichever block takes
+//     it, and the merge runs in tile order. No float atomics: a second
+//     call is bitwise equal, and a sample's result is the same whether it
+//     is served alone or in a batch.
 //
 // Input and output types are separate template parameters: the residual
 // block normalises its float32 convolution output into the bf16 activation
-// type with this same code. With y == NULL only the statistics are made
-// (the residual block's backward recomputes them that way).
-//
-// The backward (cg_instance_norm_act_bwd) replaces the VJP Pallas kernel
-// (_pallas_bwd -> _bwd_kernel):
-//   dx = rstd * (g - mean_hw(g) - xhat * mean_hw(g * xhat)),
-//   xhat = (x - mean) * rstd,  g = act'(xhat) * dy,
-// from the forward's own float32 mean and rstd; xhat is recomputed from x.
-// Bytes bound it too (one read of x and dy, one write of dx; two more reads
-// than that here). Same split as the forward, with the same tile size, so
-// a sample's result does not depend on its batch: per-tile sums of g and
-// g * xhat (in_bwd_partial), a fixed-order merge into their means
-// (in_bwd_merge; no atomics), then the apply pass (in_bwd_apply).
+// type with this same code, and feeds the VJP bf16 or float32 cotangents.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cgrp = cooperative_groups;
+
 namespace {
 
-constexpr int kLanesC = 32;  // channels per block (threadIdx.x)
-constexpr int kLanesR = 8;   // row lanes per block (threadIdx.y)
-constexpr int kChunk = 8;    // rows a thread loads before using any of them
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMergeBatch = 8;  // partials a lane loads at once in the merge
 
-struct Stats {
-  float n, mean, m2;
+// The tiling of one sample (kernels/instance_norm.py::in_plan): tiles of
+// `rows` rows x (vec * lanes) channels; `lanes` threads a row, kThreads /
+// lanes rows at a time; groups channel groups, row_tiles tiles of rows.
+struct Plan {
+  int N, HW, C, rows, lanes, groups, row_tiles;
 };
 
-// Chan et al.'s pairwise merge of two (count, mean, M2) summaries.
-__device__ __forceinline__ void chan_merge(Stats& a, float nb, float mb, float m2b) {
-  if (nb == 0.f) return;
-  float n = a.n + nb;
-  float d = mb - a.mean;
-  a.mean += d * (nb / n);
-  a.m2 += m2b + d * d * (a.n * nb / n);
-  a.n = n;
+// V contiguous elements of T as float, in one aligned access of V * sizeof(T)
+// bytes (two of 16 bytes above that), moved as 32-bit words: a struct of
+// bf16 members would be copied element by element, 2 bytes an access.
+__device__ __forceinline__ void words_to_f(const unsigned* w, int n, float* v, float) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) v[i] = __uint_as_float(w[i]);
 }
-
-// Merge the kLanesR row lanes' summaries of one channel in lane order.
-__device__ __forceinline__ Stats merge_lanes(Stats s, float (*sh)[kLanesR][kLanesC]) {
-  sh[0][threadIdx.y][threadIdx.x] = s.n;
-  sh[1][threadIdx.y][threadIdx.x] = s.mean;
-  sh[2][threadIdx.y][threadIdx.x] = s.m2;
-  __syncthreads();
-  if (threadIdx.y == 0)
-    for (int j = 1; j < kLanesR; ++j)
-      chan_merge(s, sh[0][j][threadIdx.x], sh[1][j][threadIdx.x], sh[2][j][threadIdx.x]);
-  return s;
-}
-
-// Grid (tiles, ceil(C / 32), N). Thread (x, y) reads channel c at rows
-// r0 + y, r0 + y + 8, ... of its tile, kChunk rows at a time: the chunk's
-// loads are all in flight together, its mean and M2 are taken exactly from
-// registers, and one Chan merge folds it in.
-template <typename TIn>
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_partial(const TIn* __restrict__ x, float* __restrict__ pmean,
-           float* __restrict__ pm2, int HW, int C, int tile_rows, int tiles) {
-  const int n = blockIdx.z, t = blockIdx.x;
-  const int c = blockIdx.y * kLanesC + threadIdx.x;
-  const int r0 = t * tile_rows;
-  const int r1 = min(r0 + tile_rows, HW);
-  Stats s = {0.f, 0.f, 0.f};
-  if (c < C) {
-    const TIn* xp = x + (size_t)n * HW * C + c;
-    for (int base = r0 + threadIdx.y; base < r1; base += kLanesR * kChunk) {
-      float v[kChunk];
-      int cnt = 0;
+__device__ __forceinline__ void words_to_f(const unsigned* w, int n, float* v, bf16) {
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int r = base + j * kLanesR;
-        v[j] = r < r1 ? cg_to_f(xp[(size_t)r * C]) : 0.f;
-        cnt += r < r1;  // the valid rows are the first cnt
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) sum += v[j];
-      const float mc = sum / (float)cnt;
-      float m2c = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float d = v[j] - mc;
-        if (j < cnt) m2c += d * d;
-      }
-      chan_merge(s, (float)cnt, mc, m2c);
-    }
+  for (int i = 0; i < n; ++i) {  // bf16 -> float is exact: the bits shifted up
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  __shared__ float sh[3][kLanesR][kLanesC];
-  s = merge_lanes(s, sh);
-  if (threadIdx.y == 0 && c < C) {
-    const size_t o = ((size_t)n * tiles + t) * C + c;
-    pmean[o] = s.mean;
-    pm2[o] = s.m2;
+}
+__device__ __forceinline__ void f_to_words(const float* v, int n, unsigned* w, float) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) w[i] = __float_as_uint(v[i]);
+}
+__device__ __forceinline__ void f_to_words(const float* v, int n, unsigned* w, bf16) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+           (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
+  constexpr int B = V * (int)sizeof(T);
+  if constexpr (B > 16) {
+    load_vec<T, V / 2>(p, v);
+    load_vec<T, V / 2>(p + V / 2, v + V / 2);
+  } else if constexpr (B == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+    words_to_f(w, 4, v, T{});
+  } else if constexpr (B == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const unsigned w[2] = {r.x, r.y};
+    words_to_f(w, 2, v, T{});
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = cg_to_f(p[j]);
   }
 }
 
-// Grid (ceil(C / 32), N). Row lane y merges tiles y, y + 8, ... in order,
-// then the lanes are merged in lane order: a fixed order, no atomics.
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_merge(const float* __restrict__ pmean, const float* __restrict__ pm2,
-         float* __restrict__ mean, float* __restrict__ rstd, int HW, int C,
-         int tile_rows, int tiles, float eps) {
-  const int n = blockIdx.y;
-  const int c = blockIdx.x * kLanesC + threadIdx.x;
-  Stats s = {0.f, 0.f, 0.f};
-  if (c < C) {
-#pragma unroll 4
-    for (int t = threadIdx.y; t < tiles; t += kLanesR) {
-      const size_t o = ((size_t)n * tiles + t) * C + c;
-      chan_merge(s, (float)min(tile_rows, HW - t * tile_rows), pmean[o], pm2[o]);
-    }
-  }
-  __shared__ float sh[3][kLanesR][kLanesC];
-  s = merge_lanes(s, sh);
-  if (threadIdx.y == 0 && c < C) {
-    mean[n * C + c] = s.mean;
-    rstd[n * C + c] = rsqrtf(s.m2 / (float)HW + eps);
-  }
-}
-
-// Same grid and row assignment as in_partial.
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_apply(const TIn* __restrict__ x, const TOut* __restrict__ skip, TOut* __restrict__ y,
-         const float* __restrict__ mean, const float* __restrict__ rstd, int HW, int C,
-         int tile_rows, int act) {
-  const int n = blockIdx.z, t = blockIdx.x;
-  const int c = blockIdx.y * kLanesC + threadIdx.x;
-  if (c >= C) return;
-  const float mu = mean[n * C + c], rs = rstd[n * C + c];
-  const int r0 = t * tile_rows;
-  const int r1 = min(r0 + tile_rows, HW);
-  const size_t base_o = (size_t)n * HW * C + c;
-  for (int base = r0 + threadIdx.y; base < r1; base += kLanesR * kChunk) {
-    float v[kChunk], sk[kChunk];
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
+  constexpr int B = V * (int)sizeof(T);
+  if constexpr (B > 16) {
+    store_vec<T, V / 2>(p, v);
+    store_vec<T, V / 2>(p + V / 2, v + V / 2);
+  } else if constexpr (B == 16) {
+    unsigned w[4];
+    f_to_words(v, 4, w, T{});
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (B == 8) {
+    unsigned w[2];
+    f_to_words(v, 2, w, T{});
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int r = base + j * kLanesR;
-      const size_t o = base_o + (size_t)r * C;
-      v[j] = r < r1 ? cg_to_f(x[o]) : 0.f;
-      sk[j] = (r < r1 && skip != nullptr) ? cg_to_f(skip[o]) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int r = base + j * kLanesR;
-      if (r >= r1) break;
-      float z = (v[j] - mu) * rs;
-      if (act == 1) z = fmaxf(z, 0.f);
-      else if (act == 2) z = z >= 0.f ? z : z * 0.2f;
-      y[base_o + (size_t)r * C] = cg_from_f<TOut>(z + sk[j]);
-    }
+    for (int j = 0; j < V; ++j) p[j] = cg_from_f<T>(v[j]);
   }
 }
 
-template <typename TIn, typename TOut>
-cudaError_t launch(const void* x, const void* skip, void* y, float* pmean, float* pm2,
-                   float* mean, float* rstd, int N, int HW, int C, int tile_rows,
-                   float eps, int act, cudaStream_t stream) {
-  const int tiles = (HW + tile_rows - 1) / tile_rows;
-  const int cgroups = (C + kLanesC - 1) / kLanesC;
-  const dim3 block(kLanesC, kLanesR);
-  in_partial<TIn><<<dim3(tiles, cgroups, N), block, 0, stream>>>(
-      static_cast<const TIn*>(x), pmean, pm2, HW, C, tile_rows, tiles);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  in_merge<<<dim3(cgroups, N), block, 0, stream>>>(pmean, pm2, mean, rstd, HW, C,
-                                                   tile_rows, tiles, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || y == nullptr) return e;
-  in_apply<TIn, TOut><<<dim3(tiles, cgroups, N), block, 0, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const TOut*>(skip), static_cast<TOut*>(y),
-      mean, rstd, HW, C, tile_rows, act);
-  return cudaGetLastError();
+// Chan et al.'s pairwise merge of (count, mean, M2) summaries, a <- a + b,
+// for V channels that share their counts: one division for all of them.
+template <int V>
+__device__ __forceinline__ void chan_merge(float& na, float* ma, float* m2a, float nb,
+                                           const float* mb, const float* m2b) {
+  const float n = na + nb;
+  // Counts are whole (n is 0 only where nb is); the fast division (2 ulp)
+  // keeps the long chains of merges short, and is the same on every call.
+  const float r = __fdividef(nb, fmaxf(n, 1.f));
+  const float w = na * r;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float d = mb[j] - ma[j];
+    ma[j] += d * r;
+    m2a[j] += m2b[j] + d * d * w;
+  }
+  na = n;
 }
-
 
 // d act / d xhat at xhat (the JAX package's _act_grad_from_z): relu takes
 // xhat > 0, leaky takes xhat >= 0 -> 1, else 0.2.
@@ -215,191 +168,599 @@ __device__ __forceinline__ float act_grad(float xh, int act) {
   return 1.f;
 }
 
-// Grid (tiles, ceil(C / 32), N), the forward's row assignment. Each thread
-// sums g and g * xhat over its rows in order; the 8 row lanes are added in
-// lane order and one (sum g, sum g*xhat) pair per tile is written.
-template <typename TX, typename TDY>
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_bwd_partial(const TX* __restrict__ x, const TDY* __restrict__ dy,
-               const float* __restrict__ mean, const float* __restrict__ rstd,
-               float* __restrict__ psg, float* __restrict__ psgx, int HW, int C,
-               int tile_rows, int tiles, int act) {
-  const int n = blockIdx.z, t = blockIdx.x;
-  const int c = blockIdx.y * kLanesC + threadIdx.x;
-  const int r0 = t * tile_rows;
-  const int r1 = min(r0 + tile_rows, HW);
-  float sg = 0.f, sgx = 0.f;
-  if (c < C) {
-    const float mu = mean[n * C + c], rs = rstd[n * C + c];
-    const size_t base_o = (size_t)n * HW * C + c;
-    for (int base = r0 + threadIdx.y; base < r1; base += kLanesR * kChunk) {
-      float xv[kChunk], gv[kChunk];
+__device__ __forceinline__ float act_fwd(float z, int act) {
+  if (act == 1) return fmaxf(z, 0.f);
+  if (act == 2) return z >= 0.f ? z : z * 0.2f;
+  return z;
+}
+
+// Where virtual tile vt = (n * groups + g) * row_tiles + t of the plan lies
+// for this thread: sample n, row tile t (rows r0 .. r1), the group's first
+// channel g0, the first channel c0 of the thread's vec channels (c0 >= C:
+// idle lane), its row lane rl.
+template <int V>
+struct Tile {
+  int n, t, r0, r1, g0, c0, rl, row_lanes;
+  __device__ __forceinline__ Tile(const Plan& p, int vt) {
+    t = vt % p.row_tiles;
+    const int ng = vt / p.row_tiles;
+    n = ng / p.groups;
+    const int g = ng % p.groups;
+    r0 = t * p.rows;
+    r1 = min(r0 + p.rows, p.HW);
+    row_lanes = kThreads / p.lanes;
+    rl = threadIdx.x / p.lanes;
+    g0 = g * p.lanes * V;
+    c0 = g0 + (int)threadIdx.x % p.lanes * V;
+  }
+  __device__ __forceinline__ size_t offset(const Plan& p, int r) const {
+    return ((size_t)n * p.HW + r) * p.C + c0;
+  }
+};
+
+// Rows a thread loads before using any: 4 rows of 16 bytes of bf16 or 8 of
+// float32 in flight a thread (16 rows of one element each).
+template <typename T, int V>
+__host__ __device__ constexpr int chunk_rows() {
+  return V == 1 ? 16 : (sizeof(T) == 4 ? 8 : 4);
+}
+
+// A barrier of the whole (cooperative) grid: cooperative groups' sync
+// fences, so writes before it are visible to every block after it (those
+// reads bypass L1: __ldcg).
+__device__ __forceinline__ void grid_barrier() { cgrp::this_grid().sync(); }
+
+// The tile group's channels of two (N, C) float32 arrays (at src and at
+// src + N * C), written by other blocks before the last grid barrier, into
+// shared memory (sh[0 .. cg) and sh[cg .. 2 cg)): one L2 read a channel a
+// block. Every thread of every block reading its own would queue on the
+// same few L2 lines. `staged` (n * C + g0 of the last staging, -1 before
+// any) skips a tile of the same sample and group.
+template <int V>
+__device__ __forceinline__ void stage_stats(const float* __restrict__ src, const Plan& p,
+                                            const Tile<V>& tl, float* sh, int& staged) {
+  const int cg = p.lanes * V;
+  const size_t NC = (size_t)p.N * p.C, base = (size_t)tl.n * p.C + tl.g0;
+  if ((int)base == staged) return;  // the same for every thread of the block
+  staged = (int)base;
+  __syncthreads();  // the previous tile's readers are done
+  for (int i = threadIdx.x; i < cg && tl.g0 + i < p.C; i += kThreads) {
+    sh[i] = __ldcg(src + base + i);
+    sh[cg + i] = __ldcg(src + NC + base + i);
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------ forward
+
+// Phase 1 for one tile: the thread's (count, mean, M2) of each of its vec
+// channels over its rows (exact chunk statistics from registers, one Chan
+// merge a chunk), then the row lanes merged in a fixed tree order through
+// shared memory; row lane 0 writes the tile's partials.
+template <typename TIn, int V>
+__device__ __forceinline__ void fwd_partial(const TIn* __restrict__ x, float* __restrict__ part,
+                                            const Plan& p, int vt, float* sh) {
+  constexpr int K = chunk_rows<TIn, V>();
+  const Tile<V> tl(p, vt);
+  float cnt = 0.f, mean[V], m2[V];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int r = base + j * kLanesR;
-        const size_t o = base_o + (size_t)r * C;
-        xv[j] = r < r1 ? cg_to_f(x[o]) : 0.f;
-        gv[j] = r < r1 ? cg_to_f(dy[o]) : 0.f;
+  for (int j = 0; j < V; ++j) mean[j] = m2[j] = 0.f;
+  if (tl.c0 < p.C) {
+    for (int base = tl.r0 + tl.rl; base < tl.r1; base += tl.row_lanes * K) {
+      float v[K][V];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = base + k * tl.row_lanes;
+        if (r < tl.r1) {
+          load_vec<TIn, V>(x + tl.offset(p, r), v[k]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[k][j] = 0.f;
+        }
+      }
+      const int nk = min(K, (tl.r1 - base + tl.row_lanes - 1) / tl.row_lanes);
+      const float inv = __fdividef(1.f, (float)nk);
+      float mc[V], m2c[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) s += v[k][j];  // rows past r1 hold 0
+        mc[j] = s * inv;
+        m2c[j] = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float d = v[k][j] - mc[j];
+          if (k < nk) m2c[j] += d * d;
+        }
+      }
+      chan_merge<V>(cnt, mean, m2, (float)nk, mc, m2c);
+    }
+  }
+  // Row lanes rl and rl + s merge, s = row_lanes / 2, ..., 1.
+  float* shn = sh;
+  float* shm = sh + kThreads;
+  float* sh2 = sh + kThreads * (V + 1);
+  shn[threadIdx.x] = cnt;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    shm[j * kThreads + threadIdx.x] = mean[j];
+    sh2[j * kThreads + threadIdx.x] = m2[j];
+  }
+  __syncthreads();
+  for (int s = tl.row_lanes / 2; s > 0; s >>= 1) {
+    if (tl.rl < s) {
+      const int o = threadIdx.x + s * p.lanes;
+      float mb[V], m2b[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        mb[j] = shm[j * kThreads + o];
+        m2b[j] = sh2[j * kThreads + o];
+      }
+      chan_merge<V>(cnt, mean, m2, shn[o], mb, m2b);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        shm[j * kThreads + threadIdx.x] = mean[j];
+        sh2[j * kThreads + threadIdx.x] = m2[j];
+      }
+      shn[threadIdx.x] = cnt;
+    }
+    __syncthreads();
+  }
+  if (tl.rl == 0 && tl.c0 < p.C) {
+    const size_t NCT = (size_t)p.N * p.C * p.row_tiles;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const size_t o = ((size_t)tl.n * p.C + tl.c0 + j) * p.row_tiles + tl.t;
+      part[o] = mean[j];
+      part[NCT + o] = m2[j];
+    }
+  }
+}
+
+template <typename TIn, typename TOut, int V>
+__device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
+                                          const TOut* __restrict__ skip, TOut* __restrict__ y,
+                                          const float* __restrict__ stats, const Plan& p,
+                                          int vt, int act, float* sh, int& staged) {
+  constexpr int K = chunk_rows<TIn, V>();
+  const Tile<V> tl(p, vt);
+  const bool live = tl.c0 < p.C;
+  float v[K][V], sk[K][V];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = base + k * tl.row_lanes;
+      if (live && r < tl.r1) {
+        load_vec<TIn, V>(x + tl.offset(p, r), v[k]);
+        if (skip != nullptr) load_vec<TOut, V>(skip + tl.offset(p, r), sk[k]);
+      }
+    }
+  };
+  int base = tl.r0 + tl.rl;
+  load(base);  // in flight while the statistics are staged
+  stage_stats<V>(stats, p, tl, sh, staged);
+  if (!live) return;
+  float mu[V], rs[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mu[j] = sh[tl.c0 - tl.g0 + j];
+    rs[j] = sh[p.lanes * V + tl.c0 - tl.g0 + j];
+  }
+  for (; base < tl.r1; base += tl.row_lanes * K) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = base + k * tl.row_lanes;
+      if (r >= tl.r1) break;
+      float z[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        z[j] = act_fwd((v[k][j] - mu[j]) * rs[j], act);
+        if (skip != nullptr) z[j] += sk[k][j];
+      }
+      store_vec<TOut, V>(y + tl.offset(p, r), z);
+    }
+    if (base + tl.row_lanes * K < tl.r1) load(base + tl.row_lanes * K);
+  }
+}
+
+// One warp per (sample, channel) pair i: lane l merges the partials of row
+// tiles l, l + 32, ... in order, then the lanes merge in a fixed tree.
+__device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
+                                          float* __restrict__ stats, const Plan& p,
+                                          float eps) {
+  const size_t NC = (size_t)p.N * p.C, NCT = NC * p.row_tiles;
+  const int lane = threadIdx.x % 32;
+  for (size_t i = (size_t)blockIdx.x * kWarps + threadIdx.x / 32; i < NC;
+       i += (size_t)gridDim.x * kWarps) {
+    float n = 0.f, m = 0.f, m2 = 0.f;
+    for (int t0 = lane; t0 < p.row_tiles; t0 += 32 * kMergeBatch) {
+      float mb[kMergeBatch], m2b[kMergeBatch];  // all of a batch's loads in flight
+#pragma unroll
+      for (int b = 0; b < kMergeBatch; ++b) {
+        const int t = t0 + 32 * b;
+        mb[b] = t < p.row_tiles ? __ldcg(part + i * p.row_tiles + t) : 0.f;
+        m2b[b] = t < p.row_tiles ? __ldcg(part + NCT + i * p.row_tiles + t) : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float xh = (xv[j] - mu) * rs;
-        const float g = gv[j] * act_grad(xh, act);  // 0 on the rows past r1
-        sg += g;
-        sgx += g * xh;
+      for (int b = 0; b < kMergeBatch; ++b) {
+        const int t = t0 + 32 * b;
+        const float nb = t < p.row_tiles ? (float)min(p.rows, p.HW - t * p.rows) : 0.f;
+        chan_merge<1>(n, &m, &m2, nb, &mb[b], &m2b[b]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float nb = __shfl_down_sync(0xffffffffu, n, off);
+      const float mb = __shfl_down_sync(0xffffffffu, m, off);
+      const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
+      if (lane < off) chan_merge<1>(n, &m, &m2, nb, &mb, &m2b);
+    }
+    if (lane == 0) {
+      stats[i] = m;
+      stats[NC + i] = rsqrtf(m2 / (float)p.HW + eps);
+    }
+  }
+}
+
+// Tiles of this block: blockIdx.x, blockIdx.x + gridDim.x, ...
+__device__ __forceinline__ int block_tiles(int tiles) {
+  return (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+}
+
+template <typename TIn, typename TOut, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_fwd(const TIn* __restrict__ x, const TOut* __restrict__ skip, TOut* __restrict__ y,
+       float* __restrict__ stats, float* __restrict__ part, Plan p, float eps, int act) {
+  __shared__ float sh[(2 * V + 1) * kThreads];
+  const int tiles = p.N * p.groups * p.row_tiles;
+  const int mine = block_tiles(tiles);
+  for (int k = 0; k < mine; ++k)
+    fwd_partial<TIn, V>(x, part, p, blockIdx.x + k * gridDim.x, sh);
+  grid_barrier();
+  fwd_merge(part, stats, p, eps);
+  if (y == nullptr) return;  // the same for every block
+  grid_barrier();
+  int staged = -1;
+  for (int k = mine - 1; k >= 0; --k)
+    fwd_apply<TIn, TOut, V>(x, skip, y, stats, p, blockIdx.x + k * gridDim.x, act, sh, staged);
+}
+
+// ---------------------------------------------------------------------- VJP
+
+// Phase 1 for one tile: the thread's sums of g and g * xhat over its rows
+// in order, the row lanes added in a fixed tree order; row lane 0 writes
+// the tile's two partial sums.
+template <typename TX, typename TDY, int V>
+__device__ __forceinline__ void bwd_partial(const TX* __restrict__ x, const TDY* __restrict__ dy,
+                                            const float* __restrict__ mean,
+                                            const float* __restrict__ rstd,
+                                            float* __restrict__ part, const Plan& p, int vt,
+                                            int act, float* sh) {
+  constexpr int K = chunk_rows<TX, V>();
+  const Tile<V> tl(p, vt);
+  float sg[V], sgx[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sg[j] = sgx[j] = 0.f;
+  if (tl.c0 < p.C) {
+    float mu[V], rs[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mu[j] = mean[(size_t)tl.n * p.C + tl.c0 + j];
+      rs[j] = rstd[(size_t)tl.n * p.C + tl.c0 + j];
+    }
+    for (int base = tl.r0 + tl.rl; base < tl.r1; base += tl.row_lanes * K) {
+      float xv[K][V], gv[K][V];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = base + k * tl.row_lanes;
+        if (r < tl.r1) {
+          load_vec<TX, V>(x + tl.offset(p, r), xv[k]);
+          load_vec<TDY, V>(dy + tl.offset(p, r), gv[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (base + k * tl.row_lanes >= tl.r1) break;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = (xv[k][j] - mu[j]) * rs[j];
+          const float g = gv[k][j] * act_grad(xh, act);
+          sg[j] += g;
+          sgx[j] += g * xh;
+        }
       }
     }
   }
-  __shared__ float sh[2][kLanesR][kLanesC];
-  sh[0][threadIdx.y][threadIdx.x] = sg;
-  sh[1][threadIdx.y][threadIdx.x] = sgx;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    for (int j = 1; j < kLanesR; ++j) {
-      sg += sh[0][j][threadIdx.x];
-      sgx += sh[1][j][threadIdx.x];
-    }
-    const size_t o = ((size_t)n * tiles + t) * C + c;
-    psg[o] = sg;
-    psgx[o] = sgx;
-  }
-}
-
-// Grid (ceil(C / 32), N). Row lane y adds tiles y, y + 8, ... in order,
-// then the lanes are added in lane order; the sums become means over H*W.
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_bwd_merge(const float* __restrict__ psg, const float* __restrict__ psgx,
-             float* __restrict__ gmean, float* __restrict__ gxmean, int HW, int C,
-             int tiles) {
-  const int n = blockIdx.y;
-  const int c = blockIdx.x * kLanesC + threadIdx.x;
-  float sg = 0.f, sgx = 0.f;
-  if (c < C) {
-    for (int t = threadIdx.y; t < tiles; t += kLanesR) {
-      const size_t o = ((size_t)n * tiles + t) * C + c;
-      sg += psg[o];
-      sgx += psgx[o];
-    }
-  }
-  __shared__ float sh[2][kLanesR][kLanesC];
-  sh[0][threadIdx.y][threadIdx.x] = sg;
-  sh[1][threadIdx.y][threadIdx.x] = sgx;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    for (int j = 1; j < kLanesR; ++j) {
-      sg += sh[0][j][threadIdx.x];
-      sgx += sh[1][j][threadIdx.x];
-    }
-    gmean[n * C + c] = sg / (float)HW;
-    gxmean[n * C + c] = sgx / (float)HW;
-  }
-}
-
-// Same grid and row assignment as in_bwd_partial; dx has x's type.
-template <typename TX, typename TDY>
-__global__ void __launch_bounds__(kLanesC * kLanesR)
-in_bwd_apply(const TX* __restrict__ x, const TDY* __restrict__ dy,
-             const float* __restrict__ mean, const float* __restrict__ rstd,
-             const float* __restrict__ gmean, const float* __restrict__ gxmean,
-             TX* __restrict__ dx, int HW, int C, int tile_rows, int act) {
-  const int n = blockIdx.z, t = blockIdx.x;
-  const int c = blockIdx.y * kLanesC + threadIdx.x;
-  if (c >= C) return;
-  const float mu = mean[n * C + c], rs = rstd[n * C + c];
-  const float gm = gmean[n * C + c], gxm = gxmean[n * C + c];
-  const int r0 = t * tile_rows;
-  const int r1 = min(r0 + tile_rows, HW);
-  const size_t base_o = (size_t)n * HW * C + c;
-  for (int base = r0 + threadIdx.y; base < r1; base += kLanesR * kChunk) {
-    float xv[kChunk], gv[kChunk];
+  float* sh1 = sh;
+  float* sh2 = sh + V * kThreads;
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int r = base + j * kLanesR;
-      const size_t o = base_o + (size_t)r * C;
-      xv[j] = r < r1 ? cg_to_f(x[o]) : 0.f;
-      gv[j] = r < r1 ? cg_to_f(dy[o]) : 0.f;
+  for (int j = 0; j < V; ++j) {
+    sh1[j * kThreads + threadIdx.x] = sg[j];
+    sh2[j * kThreads + threadIdx.x] = sgx[j];
+  }
+  __syncthreads();
+  for (int s = tl.row_lanes / 2; s > 0; s >>= 1) {
+    if (tl.rl < s) {
+      const int o = threadIdx.x + s * p.lanes;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        sg[j] += sh1[j * kThreads + o];
+        sgx[j] += sh2[j * kThreads + o];
+        sh1[j * kThreads + threadIdx.x] = sg[j];
+        sh2[j * kThreads + threadIdx.x] = sgx[j];
+      }
+    }
+    __syncthreads();
+  }
+  if (tl.rl == 0 && tl.c0 < p.C) {
+    const size_t NCT = (size_t)p.N * p.C * p.row_tiles;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const size_t o = ((size_t)tl.n * p.C + tl.c0 + j) * p.row_tiles + tl.t;
+      part[o] = sg[j];
+      part[NCT + o] = sgx[j];
+    }
+  }
+}
+
+// One warp per (sample, channel): lane l adds row tiles l, l + 32, ... in
+// order, the lanes add in a fixed tree; the sums become means over H*W.
+__device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float* __restrict__ gm,
+                                          const Plan& p) {
+  const size_t NC = (size_t)p.N * p.C, NCT = NC * p.row_tiles;
+  const int lane = threadIdx.x % 32;
+  for (size_t i = (size_t)blockIdx.x * kWarps + threadIdx.x / 32; i < NC;
+       i += (size_t)gridDim.x * kWarps) {
+    float a = 0.f, b = 0.f;
+    for (int t0 = lane; t0 < p.row_tiles; t0 += 32 * kMergeBatch) {
+      float pa[kMergeBatch], pb[kMergeBatch];  // all of a batch's loads in flight
+#pragma unroll
+      for (int k = 0; k < kMergeBatch; ++k) {
+        const int t = t0 + 32 * k;
+        pa[k] = t < p.row_tiles ? __ldcg(part + i * p.row_tiles + t) : 0.f;
+        pb[k] = t < p.row_tiles ? __ldcg(part + NCT + i * p.row_tiles + t) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kMergeBatch; ++k) {
+        a += pa[k];
+        b += pb[k];
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int r = base + j * kLanesR;
-      if (r >= r1) break;
-      const float xh = (xv[j] - mu) * rs;
-      const float g = gv[j] * act_grad(xh, act);
-      dx[base_o + (size_t)r * C] = cg_from_f<TX>(rs * (g - gm - xh * gxm));
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ab = __shfl_down_sync(0xffffffffu, a, off);
+      const float bb = __shfl_down_sync(0xffffffffu, b, off);
+      if (lane < off) {
+        a += ab;
+        b += bb;
+      }
+    }
+    if (lane == 0) {
+      gm[i] = a / (float)p.HW;
+      gm[NC + i] = b / (float)p.HW;
     }
   }
 }
 
-template <typename TX, typename TDY>
+template <typename TX, typename TDY, int V>
+__device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* __restrict__ dy,
+                                          const float* __restrict__ mean,
+                                          const float* __restrict__ rstd,
+                                          const float* __restrict__ gm, TX* __restrict__ dx,
+                                          const Plan& p, int vt, int act, float* sh,
+                                          int& staged) {
+  constexpr int K = chunk_rows<TX, V>();
+  const Tile<V> tl(p, vt);
+  const bool live = tl.c0 < p.C;
+  float xv[K][V], gv[K][V];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = base + k * tl.row_lanes;
+      if (live && r < tl.r1) {
+        load_vec<TX, V>(x + tl.offset(p, r), xv[k]);
+        load_vec<TDY, V>(dy + tl.offset(p, r), gv[k]);
+      }
+    }
+  };
+  int base = tl.r0 + tl.rl;
+  load(base);  // in flight while the means are staged
+  stage_stats<V>(gm, p, tl, sh, staged);
+  if (!live) return;
+  float mu[V], rs[V], gmu[V], gxm[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const size_t i = (size_t)tl.n * p.C + tl.c0 + j;
+    mu[j] = mean[i];
+    rs[j] = rstd[i];
+    gmu[j] = sh[tl.c0 - tl.g0 + j];
+    gxm[j] = sh[p.lanes * V + tl.c0 - tl.g0 + j];
+  }
+  for (; base < tl.r1; base += tl.row_lanes * K) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = base + k * tl.row_lanes;
+      if (r >= tl.r1) break;
+      float d[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = (xv[k][j] - mu[j]) * rs[j];
+        const float g = gv[k][j] * act_grad(xh, act);
+        d[j] = rs[j] * (g - gmu[j] - xh * gxm[j]);
+      }
+      store_vec<TX, V>(dx + tl.offset(p, r), d);
+    }
+    if (base + tl.row_lanes * K < tl.r1) load(base + tl.row_lanes * K);
+  }
+}
+
+template <typename TX, typename TDY, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_bwd(const TX* __restrict__ x, const TDY* __restrict__ dy, const float* __restrict__ mean,
+       const float* __restrict__ rstd, TX* __restrict__ dx, float* __restrict__ part, Plan p,
+       int act) {
+  __shared__ float sh[2 * V * kThreads];
+  const int tiles = p.N * p.groups * p.row_tiles;
+  const int mine = block_tiles(tiles);
+  for (int k = 0; k < mine; ++k)
+    bwd_partial<TX, TDY, V>(x, dy, mean, rstd, part, p, blockIdx.x + k * gridDim.x, act, sh);
+  grid_barrier();
+  float* gm = part + 2 * (size_t)p.N * p.C * p.row_tiles;
+  bwd_merge(part, gm, p);
+  grid_barrier();
+  int staged = -1;
+  for (int k = mine - 1; k >= 0; --k)
+    bwd_apply<TX, TDY, V>(x, dy, mean, rstd, gm, dx, p, blockIdx.x + k * gridDim.x, act, sh,
+                          staged);
+}
+
+// ------------------------------------------------------------------- host
+
+// The plan the wrapper passed, checked: it must cover every row and every
+// channel of a sample exactly once with vec-channel accesses.
+bool plan_ok(int N, int HW, int C, int rows, int vec, int lanes, int tiles, Plan* p) {
+  if (N <= 0 || HW <= 0 || C <= 0 || rows <= 0 || vec <= 0 || C % vec != 0) return false;
+  if (lanes <= 0 || lanes > 32 || (lanes & (lanes - 1)) != 0) return false;
+  if (rows % (kThreads / lanes) != 0) return false;
+  const int groups = (C / vec + lanes - 1) / lanes, row_tiles = (HW + rows - 1) / rows;
+  if (tiles != groups * row_tiles || (long long)N * tiles > (1LL << 30)) return false;
+  *p = Plan{N, HW, C, rows, lanes, groups, row_tiles};
+  return true;
+}
+
+// Blocks of `kernel` that the card holds at once (occupancy x SMs), found
+// once a device; `cache` is the calling instantiation's own.
+template <typename Kernel>
+cudaError_t coresident(Kernel kernel, int (&cache)[CG_MAX_DEVICES], int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < CG_MAX_DEVICES && cache[dev] > 0) {
+    *blocks = cache[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = per_sm * sms;
+  if (dev < CG_MAX_DEVICES) cache[dev] = *blocks;
+  return cudaSuccess;
+}
+
+// The grid: every block resident (the barriers need it), no more blocks
+// than tiles or (sample, channel) warps to take.
+int grid_of(const Plan& p, int max_blocks) {
+  const long long tiles = (long long)p.N * p.groups * p.row_tiles;
+  const long long warps = ((long long)p.N * p.C + kWarps - 1) / kWarps;
+  const long long work = tiles > warps ? tiles : warps;
+  return (int)(work < max_blocks ? work : max_blocks);
+}
+
+template <typename TIn, typename TOut, int V>
+cudaError_t launch_fwd(const void* x, const void* skip, void* y, float* stats, float* part,
+                       const Plan& p, float eps, int act, cudaStream_t stream) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto kernel = in_fwd<TIn, TOut, V>;
+  int max_blocks = 0;
+  cudaError_t e = coresident(kernel, cache, &max_blocks);
+  if (e != cudaSuccess) return e;
+  auto xp = static_cast<const TIn*>(x);
+  auto sp = static_cast<const TOut*>(skip);
+  auto yp = static_cast<TOut*>(y);
+  Plan plan = p;
+  void* args[] = {&xp, &sp, &yp, &stats, &part, &plan, &eps, &act};
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid_of(p, max_blocks), kThreads,
+                                     args, 0, stream);
+}
+
+template <typename TIn, typename TOut>
+cudaError_t fwd_vec(int vec, const void* x, const void* skip, void* y, float* stats,
+                    float* part, const Plan& p, float eps, int act, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(TIn);
+  if (vec == kVec) return launch_fwd<TIn, TOut, kVec>(x, skip, y, stats, part, p, eps, act, s);
+  if (vec == 1) return launch_fwd<TIn, TOut, 1>(x, skip, y, stats, part, p, eps, act, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TX, typename TDY, int V>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* mean, const float* rstd,
-                       void* dx, float* psg, float* psgx, float* gmean, float* gxmean,
-                       int N, int HW, int C, int tile_rows, int act, cudaStream_t stream) {
-  const int tiles = (HW + tile_rows - 1) / tile_rows;
-  const int cgroups = (C + kLanesC - 1) / kLanesC;
-  const dim3 block(kLanesC, kLanesR);
+                       void* dx, float* part, const Plan& p, int act, cudaStream_t stream) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto kernel = in_bwd<TX, TDY, V>;
+  int max_blocks = 0;
+  cudaError_t e = coresident(kernel, cache, &max_blocks);
+  if (e != cudaSuccess) return e;
   auto xp = static_cast<const TX*>(x);
   auto dyp = static_cast<const TDY*>(dy);
-  in_bwd_partial<TX, TDY><<<dim3(tiles, cgroups, N), block, 0, stream>>>(
-      xp, dyp, mean, rstd, psg, psgx, HW, C, tile_rows, tiles, act);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  in_bwd_merge<<<dim3(cgroups, N), block, 0, stream>>>(psg, psgx, gmean, gxmean, HW, C,
-                                                       tiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  in_bwd_apply<TX, TDY><<<dim3(tiles, cgroups, N), block, 0, stream>>>(
-      xp, dyp, mean, rstd, gmean, gxmean, static_cast<TX*>(dx), HW, C, tile_rows, act);
-  return cudaGetLastError();
+  auto dxp = static_cast<TX*>(dx);
+  Plan plan = p;
+  void* args[] = {&xp, &dyp, &mean, &rstd, &dxp, &part, &plan, &act};
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid_of(p, max_blocks), kThreads,
+                                     args, 0, stream);
+}
+
+template <typename TX, typename TDY>
+cudaError_t bwd_vec(int vec, const void* x, const void* dy, const float* mean, const float* rstd,
+                    void* dx, float* part, const Plan& p, int act, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(TX);
+  if (vec == kVec) return launch_bwd<TX, TDY, kVec>(x, dy, mean, rstd, dx, part, p, act, s);
+  if (vec == 1) return launch_bwd<TX, TDY, 1>(x, dy, mean, rstd, dx, part, p, act, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x: (N, HW, C) of in_dtype; skip (or NULL) and y (or NULL: statistics
-// only) : (N, HW, C) of out_dtype;
-// pmean, pm2: (N, ceil(HW / tile_rows), C) float32 scratch; mean, rstd:
-// (N, C) float32 outputs. act: 0 none, 1 relu, 2 leaky(0.2).
-// Returns the CUDA error code of the launches (0 on success).
-extern "C" int cg_instance_norm_act(const void* x, const void* skip, void* y, void* pmean,
-                                    void* pm2, void* mean, void* rstd, int N, int HW,
-                                    int C, int tile_rows, float eps, int act,
-                                    int in_dtype, int out_dtype, void* stream) {
+// only): (N, HW, C) of out_dtype; stats: (2, N, C) float32 output, mean
+// then rstd; part: scratch of 2 * N * C * ceil(HW / rows) float32. The
+// plan (rows, vec, lanes, tiles a sample) is in_plan's. act: 0 none, 1
+// relu, 2 leaky(0.2). One cooperative launch; returns its CUDA error code
+// (0 on success).
+extern "C" int cg_instance_norm_act(const void* x, const void* skip, void* y, void* stats,
+                                    void* part, int N, int HW, int C, int rows, int vec,
+                                    int lanes, int tiles, float eps, int act, int in_dtype,
+                                    int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto pm = static_cast<float*>(pmean), p2 = static_cast<float*>(pm2);
-  auto mu = static_cast<float*>(mean), rs = static_cast<float*>(rstd);
-  if (N <= 0 || HW <= 0 || C <= 0 || tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<float*>(stats), pt = static_cast<float*>(part);
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
   if (in_dtype == CG_F32 && out_dtype == CG_F32)
-    return (int)launch<float, float>(x, skip, y, pm, p2, mu, rs, N, HW, C, tile_rows, eps, act, s);
+    return (int)fwd_vec<float, float>(vec, x, skip, y, st, pt, p, eps, act, s);
   if (in_dtype == CG_BF16 && out_dtype == CG_BF16)
-    return (int)launch<bf16, bf16>(x, skip, y, pm, p2, mu, rs, N, HW, C, tile_rows, eps, act, s);
+    return (int)fwd_vec<bf16, bf16>(vec, x, skip, y, st, pt, p, eps, act, s);
   if (in_dtype == CG_F32 && out_dtype == CG_BF16)
-    return (int)launch<float, bf16>(x, skip, y, pm, p2, mu, rs, N, HW, C, tile_rows, eps, act, s);
+    return (int)fwd_vec<float, bf16>(vec, x, skip, y, st, pt, p, eps, act, s);
   if (in_dtype == CG_BF16 && out_dtype == CG_F32)
-    return (int)launch<bf16, float>(x, skip, y, pm, p2, mu, rs, N, HW, C, tile_rows, eps, act, s);
+    return (int)fwd_vec<bf16, float>(vec, x, skip, y, st, pt, p, eps, act, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The VJP. x: (N, HW, C) of x_dtype (the forward's input); dy: (N, HW, C)
 // of dy_dtype; mean, rstd: (N, C) float32 from the forward; dx: (N, HW, C)
-// of x_dtype; psg, psgx: (N, ceil(HW / tile_rows), C) float32 scratch;
-// gmean, gxmean: (N, C) float32 scratch. act: 0 none, 1 relu, 2 leaky(0.2).
-// Returns the CUDA error code of the launches (0 on success).
+// of x_dtype; part: scratch of 2 * N * C * (ceil(HW / rows) + 1) float32.
+// The plan is in_plan's for x. act: 0 none, 1 relu, 2 leaky(0.2). One
+// cooperative launch; returns its CUDA error code (0 on success).
 extern "C" int cg_instance_norm_act_bwd(const void* x, const void* dy, const void* mean,
-                                        const void* rstd, void* dx, void* psg, void* psgx,
-                                        void* gmean, void* gxmean, int N, int HW, int C,
-                                        int tile_rows, int act, int x_dtype, int dy_dtype,
-                                        void* stream) {
+                                        const void* rstd, void* dx, void* part, int N, int HW,
+                                        int C, int rows, int vec, int lanes, int tiles, int act,
+                                        int x_dtype, int dy_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
-  auto p1 = static_cast<float*>(psg), p2 = static_cast<float*>(psgx);
-  auto gm = static_cast<float*>(gmean), gxm = static_cast<float*>(gxmean);
-  if (N <= 0 || HW <= 0 || C <= 0 || tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  auto pt = static_cast<float*>(part);
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
   if (x_dtype == CG_F32 && dy_dtype == CG_F32)
-    return (int)launch_bwd<float, float>(x, dy, mu, rs, dx, p1, p2, gm, gxm, N, HW, C, tile_rows, act, s);
+    return (int)bwd_vec<float, float>(vec, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_F32 && dy_dtype == CG_BF16)
-    return (int)launch_bwd<float, bf16>(x, dy, mu, rs, dx, p1, p2, gm, gxm, N, HW, C, tile_rows, act, s);
+    return (int)bwd_vec<float, bf16>(vec, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_BF16 && dy_dtype == CG_BF16)
-    return (int)launch_bwd<bf16, bf16>(x, dy, mu, rs, dx, p1, p2, gm, gxm, N, HW, C, tile_rows, act, s);
+    return (int)bwd_vec<bf16, bf16>(vec, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_BF16 && dy_dtype == CG_F32)
-    return (int)launch_bwd<bf16, float>(x, dy, mu, rs, dx, p1, p2, gm, gxm, N, HW, C, tile_rows, act, s);
+    return (int)bwd_vec<bf16, float>(vec, x, dy, mu, rs, dx, pt, p, act, s);
   return (int)cudaErrorInvalidValue;
 }

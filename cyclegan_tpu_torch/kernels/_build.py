@@ -40,9 +40,9 @@ _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry, by library.
 SIGNATURES = {
     "instance_norm": {
-        "cg_instance_norm_act": [_VOIDP] * 7 + [_INT] * 4 + [_FLOAT] + [_INT] * 3
+        "cg_instance_norm_act": [_VOIDP] * 5 + [_INT] * 7 + [_FLOAT] + [_INT] * 3
         + [_VOIDP],
-        "cg_instance_norm_act_bwd": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
+        "cg_instance_norm_act_bwd": [_VOIDP] * 6 + [_INT] * 10 + [_VOIDP],
     },
     "resblock": {
         "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP],

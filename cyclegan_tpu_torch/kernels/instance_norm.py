@@ -23,6 +23,9 @@ PyTorch versions (:func:`instance_norm_act_plain`,
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from cyclegan_tpu_torch.kernels import _build
@@ -90,83 +93,121 @@ def instance_norm_act_bwd_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.T
     return (r * (g - g_mean - xhat * gx_mean)).to(x.dtype)
 
 
-def _tile_rows(hw: int, c: int) -> int:
-    """Rows of H*W per block: the largest of 1024, 512, ... 64 that gives
-    one sample at least one block per SM of an H100 (132 SMs). It depends
-    on the sample's shape only, so a sample's statistics are summed in the
-    same order whatever batch it is in."""
-    rows = 1024
-    while rows > 64 and -(-hw // rows) * -(-c // 32) < 132:
-        rows //= 2
-    return rows
+# The tiling of csrc/instance_norm.cu: a block of IN_THREADS threads takes a
+# tile of `rows` rows of H*W x (vec * lanes) channels; one sample should give
+# the card at least IN_FILL tiles (a block for 97% of an H100's 132 SMs).
+IN_THREADS = 256
+IN_WARPS = IN_THREADS // 32
+IN_FILL = 128
+IN_ROWS_A_THREAD = (16, 8, 4, 2, 1)   # rows a thread takes in a tile, largest first
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
+class InPlan(NamedTuple):
+    """How csrc/instance_norm.cu tiles one sample's (H*W, C) plane."""
+    rows: int       # rows of H*W a tile
+    vec: int        # channels a thread reads in one access (16 bytes, or 1)
+    lanes: int      # threads a row of a tile (a power of two, at most 32)
+    groups: int     # channel groups of vec * lanes channels
+    row_tiles: int  # tiles of rows
+
+    @property
+    def tiles(self) -> int:
+        """Tiles a sample."""
+        return self.groups * self.row_tiles
+
+
+@functools.cache
+def in_plan(hw: int, c: int, elt: int) -> InPlan:
+    """The tiling of one (hw, c) sample plane of ``elt``-byte elements, from
+    those alone (never the batch, never the grid): a sample's statistics are
+    summed in the same order whatever batch it is in. A thread reads 16
+    bytes of a row (``vec`` channels) where C allows it, else one channel;
+    ``lanes`` threads cover a row's channel group (up to 32 accesses wide,
+    rounded up to a power of two), IN_THREADS / lanes rows at a time; a tile
+    takes the most rows a thread (16, 8, ... 1) that still gives the sample
+    IN_FILL tiles, else one row a thread."""
+    vec = 16 // elt if c % (16 // elt) == 0 else 1
+    lanes = min(32, 1 << (c // vec - 1).bit_length())
+    groups = -(-(c // vec) // lanes)
+    for per_thread in IN_ROWS_A_THREAD:
+        rows = IN_THREADS // lanes * per_thread
+        if -(-hw // rows) * groups >= IN_FILL:
+            break
+    return InPlan(rows, vec, lanes, groups, -(-hw // rows))
+
+
+def in_grid(n: int, c: int, plan: InPlan, coresident: int) -> int:
+    """Blocks of the cooperative launch for a batch of ``n`` (the C side's
+    grid_of): every block resident at once (``coresident``: blocks an SM x
+    SMs, from the occupancy query), no more than the tiles or the (sample,
+    channel) warps of the merge."""
+    return min(coresident, max(n * plan.tiles, -(-n * c // IN_WARPS)))
+
+
+def _check(name: str, vec: int, *tensors: torch.Tensor) -> None:
+    """Contiguous, on one device, of a type the kernels take; 16-byte
+    aligned where a thread reads ``vec`` > 1 channels in one access."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous NHWC on one device")
         if t.dtype not in _build.DTYPE_CODES:
             raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+        if vec > 1 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
 def launch(x: torch.Tensor, skip: torch.Tensor | None, out: torch.Tensor | None,
            eps: float, act: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA forward: NHWC ``x`` (float32 or bf16) -> ``out`` (NHWC,
-    float32 or bf16; ``skip`` has ``out``'s type). ``out=None`` makes the
-    statistics only. Returns the float32 (N, C) ``(mean, rstd)``."""
+    """Run the CUDA forward, one launch: NHWC ``x`` (float32 or bf16) ->
+    ``out`` (NHWC, float32 or bf16; ``skip`` has ``out``'s type). ``out=None``
+    makes the statistics only. Returns the float32 (N, C) ``(mean, rstd)``,
+    two views of one (2, N, C) tensor, the only allocation; the partials
+    go to the stream's scratch."""
     n, h, w, c = x.shape
-    _check("instance_norm_act", x, *(t for t in (skip, out) if t is not None))
+    hw = h * w
+    plan = in_plan(hw, c, x.element_size())
+    _check("instance_norm_act", plan.vec, x, *(t for t in (skip, out) if t is not None))
     if skip is not None and out is None:
         raise ValueError("instance_norm_act: skip needs an output")
     if out is not None and (out.shape != x.shape or (skip is not None and (
             skip.shape != x.shape or skip.dtype != out.dtype))):
         raise ValueError("instance_norm_act: skip/out must match x's shape "
                          "and out's dtype")
-    hw = h * w
-    rows = _tile_rows(hw, c)
-    tiles = -(-hw // rows)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    pmean = torch.empty((n, tiles, c), **f32)
-    pm2 = torch.empty((n, tiles, c), **f32)
-    mean = torch.empty((n, c), **f32)
-    rstd = torch.empty((n, c), **f32)
+    stats = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    stream = _build.stream_ptr(x)
+    part = _build.scratch_ptr(8 * n * c * plan.row_tiles, x, stream)
     out_dtype = (out if out is not None else x).dtype
     _build.call("instance_norm", "cg_instance_norm_act",
                 x.data_ptr(), None if skip is None else skip.data_ptr(),
-                None if out is None else out.data_ptr(), pmean.data_ptr(),
-                pm2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, hw, c, rows,
-                float(eps), ACTS[act], _build.DTYPE_CODES[x.dtype],
-                _build.DTYPE_CODES[out_dtype], _build.stream_ptr(x))
-    return mean, rstd
+                None if out is None else out.data_ptr(), stats.data_ptr(), part,
+                n, hw, c, plan.rows, plan.vec, plan.lanes, plan.tiles, float(eps), ACTS[act],
+                _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], stream)
+    return stats[0], stats[1]
 
 
 def launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                dx: torch.Tensor, act: str) -> None:
-    """Run the CUDA VJP: contiguous NHWC ``x`` and ``dy`` (float32 or bf16
-    each), the forward's (N, C) float32 ``mean``/``rstd`` -> ``dx`` (x's
-    type). Allocates only scratch."""
+    """Run the CUDA VJP, one launch: contiguous NHWC ``x`` and ``dy``
+    (float32 or bf16 each), the forward's (N, C) float32 ``mean``/``rstd``
+    -> ``dx`` (x's type). Allocates nothing; the partial sums go to the
+    stream's scratch."""
     n, h, w, c = x.shape
-    _check("instance_norm_act_bwd", x, dy, dx, mean, rstd)
+    hw = h * w
+    plan = in_plan(hw, c, x.element_size())
+    _check("instance_norm_act_bwd", plan.vec, x, dy, dx)
+    _check("instance_norm_act_bwd", 1, x, mean, rstd)
     if dy.shape != x.shape or dx.shape != x.shape or dx.dtype != x.dtype:
         raise ValueError("instance_norm_act_bwd: dy/dx must match x's shape, dx x's dtype")
     if mean.shape != (n, c) or rstd.shape != (n, c) or mean.dtype != torch.float32 \
             or rstd.dtype != torch.float32:
         raise ValueError("instance_norm_act_bwd: mean/rstd must be (N, C) float32")
-    hw = h * w
-    rows = _tile_rows(hw, c)
-    tiles = -(-hw // rows)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    psg = torch.empty((n, tiles, c), **f32)
-    psgx = torch.empty((n, tiles, c), **f32)
-    gmean = torch.empty((n, c), **f32)
-    gxmean = torch.empty((n, c), **f32)
+    stream = _build.stream_ptr(x)
+    part = _build.scratch_ptr(8 * n * c * (plan.row_tiles + 1), x, stream)
     _build.call("instance_norm", "cg_instance_norm_act_bwd",
                 x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                dx.data_ptr(), psg.data_ptr(), psgx.data_ptr(), gmean.data_ptr(),
-                gxmean.data_ptr(), n, hw, c, rows, ACTS[act],
-                _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype],
-                _build.stream_ptr(x))
+                dx.data_ptr(), part, n, hw, c, plan.rows, plan.vec, plan.lanes, plan.tiles,
+                ACTS[act], _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype], stream)
 
 
 def _fwd_cuda(x, skip, eps, act):

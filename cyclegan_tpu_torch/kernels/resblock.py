@@ -107,9 +107,16 @@ def conv3x3_reflect_wgrad_plain(inp: torch.Tensor, g: torch.Tensor) -> torch.Ten
     return torch.stack(rows)
 
 
-def bwd_dx_plain(x, dy, w1, b1, w2, b2, eps=1e-5):
+def bwd_dx_plain(x, dy, w1, b1, w2, b2, eps=1e-5, relu_mask=None):
     """Plain version of :func:`bwd_dx_cuda`: the recompute, then ds, du and
-    dx = dy + dgrad(du, w1) in x's type. Returns ``(dx, a, ds, du)``."""
+    dx = dy + dgrad(du, w1) in x's type. Returns ``(dx, a, ds, du)``.
+
+    ``relu_mask`` (bool, x's shape), if given, replaces the mask of relu
+    that the recompute's own u gives: du = IN_bwd(u, da * relu_mask; none).
+    The on-card checks pass the kernel path's mask (``a > 0`` of its
+    recompute), so that an element whose normalised u lies within the
+    convolutions' rounding of zero takes the same side in both; without it
+    the result is bitwise what the mask of this function's own u gives."""
     u = _conv3x3_plain(x, w1, b1)
     mean1, rstd1 = _in.instance_norm_stats_plain(u, eps)
     a = _in.instance_norm_act_plain(u, None, eps, "relu", out_dtype=x.dtype)
@@ -117,9 +124,39 @@ def bwd_dx_plain(x, dy, w1, b1, w2, b2, eps=1e-5):
     mean2, rstd2 = _in.instance_norm_stats_plain(s, eps)
     ds = _in.instance_norm_act_bwd_plain(s, dy, mean2, rstd2, "none")
     da = conv3x3_reflect_dgrad_plain(ds, w2)
-    du = _in.instance_norm_act_bwd_plain(u, da, mean1, rstd1, "relu")
+    if relu_mask is None:
+        du = _in.instance_norm_act_bwd_plain(u, da, mean1, rstd1, "relu")
+    else:
+        du = _in.instance_norm_act_bwd_plain(u, da * relu_mask, mean1, rstd1, "none")
     dx = (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
     return dx, a, ds, du
+
+
+def relu_mask_flips(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    mask: torch.Tensor, eps: float = 1e-5,
+                    conv_tol: tuple[float, float] = (1e-4, 1e-4)) -> tuple[int, float]:
+    """Where ``mask`` (the kernel path's relu mask of the block's first
+    normalisation: ``a > 0`` of its recompute) differs from the plain
+    version's own: ``(flips, worst)``, the number of such elements and the
+    largest |uhat| / threshold among them (uhat the plain version's
+    normalised u; 0.0 without flips). The on-card checks hold the plain VJP
+    on ``mask`` (``relu_mask``) and these flips on their own.
+
+    The threshold of sample n, channel c: the kernel's u is within the
+    forward convolution's bar ``atol + rtol |u|`` of the plain u, and its
+    mean within that bar at the plane's largest |u|, so the two normalised
+    values differ by at most ``2 (atol + rtol max_hw |u|) rstd`` (rstd's own
+    rounding moves uhat by a relative ~1e-6, second order where |uhat| is
+    that small). Two values on other sides of zero are each within their
+    difference of zero, so every honest flip has |uhat| under it."""
+    u = _conv3x3_plain(x, w1, b1)
+    mean, rstd = _in.instance_norm_stats_plain(u, eps)
+    uhat = (u - mean[:, None, None]) * rstd[:, None, None]
+    atol, rtol = conv_tol
+    thr = 2 * (atol + rtol * u.abs().amax(dim=(1, 2), keepdim=True)) * rstd[:, None, None]
+    flipped = (uhat > 0) != mask
+    flips = int(flipped.sum())
+    return flips, float((uhat.abs() / thr)[flipped].max()) if flips else 0.0
 
 
 def bwd_dw_plain(x, a, ds, du):
@@ -129,12 +166,34 @@ def bwd_dw_plain(x, a, ds, du):
 
 def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                             eps: float = 1e-5
+                             eps: float = 1e-5, relu_mask: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch VJP: ``(dx (x's type), dw1, dw2 (float32))``, the
-    recompute and the chain of the module docstring, step by step."""
-    dx, a, ds, du = bwd_dx_plain(x, dy, w1, b1, w2, b2, eps)
+    recompute and the chain of the module docstring, step by step;
+    ``relu_mask`` as in :func:`bwd_dx_plain`."""
+    dx, a, ds, du = bwd_dx_plain(x, dy, w1, b1, w2, b2, eps, relu_mask)
     return (dx, *bwd_dw_plain(x, a, ds, du))
+
+
+# The convolutions take channel counts in multiples of this (conv_plan's
+# Cin, _check_grad_shapes' Cin and Cout); the blocks zero-fill a narrower
+# trunk up to it and cut their results back.
+CHANNEL_MULTIPLE = 32
+
+
+def padded_channels(c: int) -> int:
+    """The width the blocks run a trunk of ``c`` channels at."""
+    return -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
+
+
+def zero_fill(t: torch.Tensor, c: int, dims: int = 1) -> torch.Tensor:
+    """A copy of ``t`` with its last ``dims`` dimensions zero-filled up to
+    ``c`` (an NHWC plane, a bias or the (N, 4, C) statistics: 1; a
+    (3, 3, C, C) weight: 2). In exact arithmetic the block is unchanged on
+    the first channels: a zero channel of x meets zero rows of w1, the
+    padded outputs u and s are 0 (zero columns and biases), an instance
+    norm of a constant 0 is 0, and a zero cotangent gives zero gradients."""
+    return F.pad(t, (0, c - t.shape[-1]) * dims)
 
 
 # The bf16 forward convolution's tiles (csrc/resblock.cu, conv3x3_wgmma<HALO,
@@ -296,6 +355,11 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps):
     n, h, w_, c = x.shape
     if w1.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}, got {w1.shape[-1]}")
+    cp = padded_channels(c)
+    if cp != c:
+        y = _fwd_cuda(zero_fill(x, cp), zero_fill(w1, cp, 2), zero_fill(b1, cp),
+                      zero_fill(w2, cp, 2), zero_fill(b2, cp), eps)
+        return y[..., :c].contiguous()
     u = torch.empty((n, h, w_, c), dtype=torch.float32, device=x.device)
     conv3x3_reflect(x, w1, b1, u)
     a = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -350,6 +414,12 @@ def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):
 
 
 def _bwd_cuda(x, dy, w1, b1, w2, b2, eps):
+    c = x.shape[-1]
+    cp = padded_channels(c)
+    if cp != c:
+        dx, dw1, dw2 = _bwd_cuda(zero_fill(x, cp), zero_fill(dy, cp), zero_fill(w1, cp, 2),
+                                 zero_fill(b1, cp), zero_fill(w2, cp, 2), zero_fill(b2, cp), eps)
+        return dx[..., :c].contiguous(), dw1[:, :, :c, :c], dw2[:, :, :c, :c]
     dx, a, ds, du, g_parts = bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps)
     return (dx, *bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts))
 
@@ -380,7 +450,12 @@ def residual_block_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          eps: float = 1e-5) -> torch.Tensor:
     """Fused ResidualBlock, differentiable; x (N, H, W, C), w (3, 3, C, C),
     b (C,), all of one dtype. CUDA tensors launch the kernels, forward and
-    backward; CPU tensors run the plain versions; any other device raises."""
+    backward; CPU tensors run the plain versions; any other device raises.
+
+    On the card a C that is no multiple of :data:`CHANNEL_MULTIPLE` costs
+    copies: x, the weights and biases (and dy in the backward) zero-filled
+    up to :func:`padded_channels`, and y, dx, dw1 and dw2 cut back to C.
+    The main path's widths (64, 128, 256) make none."""
     if x.dim() != 4:
         raise ValueError(f"residual_block_fused wants NHWC, got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):

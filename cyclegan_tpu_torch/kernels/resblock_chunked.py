@@ -173,6 +173,11 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
     n, h, w_, c = x.shape
     if w1.shape[-1] != c or w2.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}")
+    cp = RB.padded_channels(c)
+    if cp != c:
+        outs = _fwd_cuda(RB.zero_fill(x, cp), RB.zero_fill(w1, cp, 2), RB.zero_fill(b1, cp),
+                         RB.zero_fill(w2, cp, 2), RB.zero_fill(b2, cp), eps, hc)
+        return tuple(t[..., :c].contiguous() for t in outs)
     f32 = dict(dtype=torch.float32, device=x.device)
     v32 = torch.empty(x.shape, **f32)
     stats = torch.empty((n, 4, c), **f32)
@@ -192,6 +197,12 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     type; two normalisation VJPs, two input and two weight gradients."""
     global bwd_launches
     n, h, w_, c = x.shape
+    cp = RB.padded_channels(c)
+    if cp != c:
+        # Zero statistics make the padded channels' ds and du exactly 0.
+        dx, dw1, dw2 = _bwd_cuda(*(RB.zero_fill(t, cp) for t in (x, dy, vhat, s, stats)),
+                                 RB.zero_fill(w1, cp, 2), RB.zero_fill(w2, cp, 2), hc)
+        return dx[..., :c].contiguous(), dw1[:, :, :c, :c], dw2[:, :, :c, :c]
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((2, n, h // hc, c), **f32)
     means = torch.empty((n, 2, c), **f32)
@@ -245,7 +256,12 @@ def residual_block_chunked(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                            hc: int = 8) -> torch.Tensor:
     """Chunked ResidualBlock, differentiable; x (N, H, W, C) with H % hc ==
     0, w (3, 3, C, C), b (C,), all of one dtype. CUDA tensors launch the
-    kernels, forward and backward; CPU tensors run the plain versions."""
+    kernels, forward and backward; CPU tensors run the plain versions.
+
+    On the card a C that is no multiple of ``resblock.CHANNEL_MULTIPLE``
+    costs copies: the inputs (and in the backward dy and the saved vhat, s
+    and statistics) zero-filled up to ``resblock.padded_channels``, the
+    outputs and gradients cut back to C. The main path's widths make none."""
     _check_args(x, hc, "residual_block_chunked")
     return ResidualBlockChunked.apply(x, w1, b1, w2, b2, eps, hc, x.device.type == "cpu")
 

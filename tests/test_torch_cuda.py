@@ -49,7 +49,8 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act,skip", [("none", False), ("relu", False), ("leaky", False),
                                       ("none", True)])
-@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 5, 7, 40), (3, 33, 31, 96)])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 5, 7, 40), (3, 33, 31, 96),
+                                   (1, 3, 5, 64)])
 def test_instance_norm_act_matches_plain(card, shape, act, skip, dtype):
     x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(dtype)
     s = torch.randn(shape, device="cuda", generator=card).to(dtype) if skip else None
@@ -114,7 +115,7 @@ def test_conv3x3_reflect_every_plan_matches(card, tile, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 9, 13, 32)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 9, 13, 32), (2, 16, 16, 48)])
 def test_residual_block_matches_plain(card, shape, dtype):
     c = shape[-1]
     x = torch.randn(shape, device="cuda", generator=card).to(dtype)
@@ -175,7 +176,8 @@ def _close(got, ref, tol):
                                               (torch.bfloat16, torch.bfloat16),
                                               (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("act", ["none", "relu", "leaky"])
-@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 5, 7, 40), (3, 33, 31, 96)])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 5, 7, 40), (3, 33, 31, 96),
+                                   (1, 3, 5, 64)])
 def test_instance_norm_bwd_matches_plain(card, shape, act, x_dtype, dy_dtype):
     x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(x_dtype)
     dy = torch.randn(shape, device="cuda", generator=card).to(dy_dtype)
@@ -192,6 +194,93 @@ def test_instance_norm_forward_returns_its_statistics(card):
     ref_mean, ref_rstd = IN.instance_norm_stats_plain(x)
     torch.testing.assert_close(mean, ref_mean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, ref_rstd, atol=1e-5, rtol=1e-5)
+
+
+def _device_kernels(fn) -> list:
+    """Names of the device kernels that ``fn`` launches (torch.profiler).
+    The first session of a process can come back without device events
+    (CUPTI starts lazily), so a first one runs unread."""
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _allocations(fn) -> int:
+    """torch allocations that ``fn`` makes on the card."""
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_is_one_launch_and_allocates_only_its_outputs(card, dtype):
+    """Forward and VJP: one kernel each; the forward allocates its (2, N, C)
+    statistics (and y through the Function), the VJP nothing but dx."""
+    x = torch.randn((2, 64, 64, 64), device="cuda", generator=card).to(dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=card).to(dtype)
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    mean, rstd = IN.launch(x, None, y, 1e-5, "relu")  # builds; grows the scratch
+    IN.launch_bwd(x, dy, mean, rstd, dx, "relu")
+    torch.cuda.synchronize()
+    fwd = _device_kernels(lambda: IN.launch(x, None, y, 1e-5, "relu"))
+    bwd = _device_kernels(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, "relu"))
+    assert len(fwd) == 1 and "in_fwd" in fwd[0], fwd
+    assert len(bwd) == 1 and "in_bwd" in bwd[0], bwd
+    assert _allocations(lambda: IN.launch(x, None, y, 1e-5, "relu")) == 1
+    assert _allocations(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, "relu")) == 0
+    with torch.no_grad():
+        assert _allocations(lambda: IN.instance_norm_act(x, None, 1e-5, "relu")) == 2
+
+
+@pytest.mark.parametrize("x_dtype,dy_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+def test_instance_norm_second_call_and_batching_are_bitwise(card, x_dtype, dy_dtype):
+    """A second call is bitwise equal, and sample 3 of a batch of 8 equals
+    the same sample alone, bitwise (the tiling never sees the batch), for
+    the forward (y and statistics) and the VJP."""
+    x = (torch.randn((8, 40, 24, 96), device="cuda", generator=card) * 2 + 1).to(x_dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=card).to(dy_dtype)
+    skip = torch.randn(x.shape, device="cuda", generator=card).to(dy_dtype)
+
+    def run(x_, dy_, skip_):
+        y = torch.empty_like(skip_)
+        mean, rstd = IN.launch(x_, skip_, y, 1e-5, "leaky")
+        dx = torch.empty_like(x_)
+        IN.launch_bwd(x_, dy_, mean, rstd, dx, "leaky")
+        return y, mean, rstd, dx
+
+    first, again = run(x, dy, skip), run(x, dy, skip)
+    alone = run(*(t[3:4].clone() for t in (x, dy, skip)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a[3:4], b) for a, b in zip(first, alone))
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 256, 256, 64), torch.bfloat16),
+                                         ((2, 256, 256, 64), torch.float32),
+                                         ((8, 256, 256, 64), torch.bfloat16)])
+def test_instance_norm_full_size_planes_match_plain(card, shape, dtype):
+    """The stem planes: 16.8 MB in bf16 and 33.5 MB in float32 at the
+    train batch (both fit the 50 MB L2), and serving's 67 MB at batch 8
+    (it does not)."""
+    x = (torch.randn(shape, device="cuda", generator=card) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    y = torch.empty_like(x)
+    mean, rstd = IN.launch(x, None, y, 1e-5, "relu")
+    dx = torch.empty_like(x)
+    IN.launch_bwd(x, dy, mean, rstd, dx, "relu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), IN.instance_norm_act_plain(x, None, 1e-5, "relu")
+                               .float(), **TOL[dtype])
+    pm, pr = IN.instance_norm_stats_plain(x)
+    torch.testing.assert_close(mean, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, pr, atol=1e-5, rtol=1e-5)
+    _close(dx, IN.instance_norm_act_bwd_plain(x, dy, mean, rstd, "relu"), BWD_TOL[dtype])
 
 
 # (operand type, output type): float32 throughout (three bf16 passes), bf16
@@ -240,8 +329,32 @@ def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
     assert (CD.launches, dict(_build.launches)) == before
 
 
+# The relu mask of the block VJP's recompute: the plain VJP runs on the
+# kernel path's mask (relu_mask), and the elements where the two masks
+# differ are held on their own. Each must lie within the forward
+# convolution's rounding of zero (resblock.relu_mask_flips derives the
+# threshold from the convolution's 1e-4 bar and rstd), and they may be at
+# most this share of the plane: float32 reorderings of 2,304-term sums
+# differ by ~1e-6 relative, so an honest kernel flips ~1e-6 of a plane;
+# a mask that is wrong by design flips far more.
+RELU_FLIP_SHARE = 1e-4
+
+
+def _kernel_relu_mask(x, w1, b1):
+    """``a > 0`` of the kernel path's recompute, zero-filled as the block
+    fills a narrow trunk (bitwise what the VJP's recompute makes)."""
+    c = x.shape[-1]
+    cp = RB.padded_channels(c)
+    xp, w1p, b1p = RB.zero_fill(x, cp), RB.zero_fill(w1, cp, 2), RB.zero_fill(b1, cp)
+    u = torch.empty(xp.shape, device="cuda")
+    RB.conv3x3_reflect(xp, w1p, b1p, u)
+    a = torch.empty_like(xp)
+    IN.launch(u, None, a, 1e-5, "relu")
+    return a[..., :c] > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 9, 13, 32)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 9, 13, 32), (2, 16, 16, 48)])
 def test_residual_block_bwd_matches_plain(card, shape, dtype):
     c = shape[-1]
     x = torch.randn(shape, device="cuda", generator=card).to(dtype)
@@ -257,10 +370,13 @@ def test_residual_block_bwd_matches_plain(card, shape, dtype):
     got = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
     assert (RB.bwd_dx_launches, RB.bwd_dw_launches) == (before[0] + 1, before[1] + 1)
-    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+    mask = _kernel_relu_mask(x, w1, b1)
+    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
     for g_, r_ in zip((got[0], got[1], got[3]), ref):
         _close(g_, r_, BWD_TOL[dtype])
     assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[4]) == 0
+    flips, worst = RB.relu_mask_flips(x, w1, b1, mask)
+    assert worst <= 1.0 and flips <= RELU_FLIP_SHARE * mask.numel(), (flips, worst)
 
 
 def test_kernel_outputs_carry_grad_fn(card):
@@ -314,7 +430,7 @@ def test_small_train_step_kernel_path_matches_plain_path(card, monkeypatch):
 # runs the slice-2 gradient kernels on float32 cotangents.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,hc", [((2, 16, 16, 64), 4), ((1, 12, 9, 32), 12),
-                                      ((1, 8, 8, 32), 1)])
+                                      ((1, 8, 8, 32), 1), ((2, 16, 16, 48), 4)])
 def test_chunked_block_matches_plain(card, shape, hc, dtype):
     c = shape[-1]
     x = (torch.randn(shape, device="cuda", generator=card) + 0.5).to(dtype)
@@ -343,6 +459,30 @@ def test_chunked_block_matches_plain(card, shape, hc, dtype):
     # Fixed summation orders: a second backward is bitwise equal.
     again = RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc)
     assert all(torch.equal(a, b) for a, b in zip(again, (got[0], got[1], got[3])))
+
+
+@pytest.mark.parametrize("c,padded", [(256, False), (48, True)])
+def test_blocks_zero_fill_only_narrow_trunks(card, monkeypatch, c, padded):
+    """Both blocks, forward and backward: a trunk of 48 channels runs
+    zero-filled to 64; the full width (256) makes no padding copy."""
+    calls = []
+
+    def fill(t, cp, dims=1):
+        calls.append(t.shape)
+        return F.pad(t, (0, cp - t.shape[-1]) * dims)
+
+    monkeypatch.setattr(RB, "zero_fill", fill)
+    shape = (1, 8, 8, c)
+    x = torch.randn(shape, device="cuda", generator=card).to(torch.bfloat16)
+    w = (0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(torch.bfloat16)
+    b = torch.zeros((c,), device="cuda", dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b, w, b)]
+    for block in (RB.residual_block_fused, lambda *a: RC.residual_block_chunked(*a, 1e-5, 4)):
+        y = block(*leaves)
+        got = torch.autograd.grad(y, leaves, torch.ones_like(y))
+        assert y.shape == shape and got[0].shape == shape and got[1].shape == w.shape
+    torch.cuda.synchronize()
+    assert bool(calls) == padded
 
 
 def test_chunked_refuses_h_not_divisible_by_hc(card):

@@ -89,12 +89,56 @@ def test_conv_kernel_rejects_shapes_it_does_not_take(shape, c_out, match):
 
 @pytest.mark.parametrize("shape", [(65536, 64), (16384, 128), (4096, 256), (30, 40)])
 def test_tile_rows_fills_the_card(shape):
-    """Even one sample gives the card a block per SM (or the smallest
-    tile); the batch does not enter."""
-    rows = IN._tile_rows(*shape)
-    assert rows in (64, 128, 256, 512, 1024)
+    """The instance norm's tiling (``in_plan``): even one sample gives the
+    card a tile per SM, or tiles of one row a thread; the batch does not
+    enter. Bf16 planes read 8 channels a thread (16 bytes)."""
     hw, c = shape
-    assert rows == 64 or -(-hw // rows) * -(-c // 32) >= 132
+    plan = IN.in_plan(hw, c, 2)
+    assert plan.vec == 8 and plan.rows % (IN.IN_THREADS // plan.lanes) == 0
+    per_thread = plan.rows // (IN.IN_THREADS // plan.lanes)
+    assert per_thread in IN.IN_ROWS_A_THREAD
+    assert per_thread == 1 or plan.tiles >= IN.IN_FILL
+
+
+def _covered(hw, c, plan):
+    """How often each (row, channel) of a sample falls in a tile of the
+    plan, walking the tiles as csrc/instance_norm.cu decodes them."""
+    seen = np.zeros((hw, c), np.int32)
+    for t in range(plan.tiles):
+        g, rt = divmod(t, plan.row_tiles)
+        for lane in range(plan.lanes):
+            c0 = (g * plan.lanes + lane) * plan.vec
+            if c0 < c:
+                seen[rt * plan.rows:(rt + 1) * plan.rows, c0:c0 + plan.vec] += 1
+    return seen
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("hw,c", [(4096, 64), (1024, 256), (961, 512), (35, 40), (35, 96),
+                                  (35, 12), (7, 3), (1, 1), (16384, 128)])
+def test_in_plan_covers_each_row_and_channel_once(hw, c, elt):
+    """Ragged C (40, 96; 12 and 3 take one channel a thread), H*W below one
+    tile, two channel groups (512); the plan is what the C entry checks."""
+    plan = IN.in_plan(hw, c, elt)
+    assert (_covered(hw, c, plan) == 1).all()
+    assert c % plan.vec == 0 and plan.vec in (1, 16 // elt)
+    assert plan.lanes & (plan.lanes - 1) == 0 and 1 <= plan.lanes <= 32
+    assert plan.rows % (IN.IN_THREADS // plan.lanes) == 0
+    assert plan.groups == -(-(c // plan.vec) // plan.lanes)
+    assert plan.row_tiles == -(-hw // plan.rows) and plan.tiles == plan.groups * plan.row_tiles
+
+
+@pytest.mark.parametrize("hw,c,elt", [(65536, 64, 2), (4096, 256, 4), (35, 40, 2)])
+def test_in_grid_never_exceeds_what_the_card_holds(hw, c, elt):
+    """The plan has no batch in it; the cooperative grid takes no more
+    blocks than the occupancy query allows (any count, 1 block an SM and
+    up) and at least one, whatever the batch."""
+    plan = IN.in_plan(hw, c, elt)
+    for n in (1, 2, 3, 8, 64):
+        for coresident in (1, 132, 264, 528, 1056):
+            grid = IN.in_grid(n, c, plan, coresident)
+            assert 1 <= grid <= coresident
+            assert grid == coresident or grid >= n * plan.tiles
 
 
 @pytest.mark.parametrize("batch", [1, 2, 8])
