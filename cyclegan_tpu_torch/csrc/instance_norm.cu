@@ -76,9 +76,9 @@ struct Plan {
   int N, HW, C, rows, lanes, groups, row_tiles;
 };
 
-// V contiguous elements of T as float, in one aligned access of V * sizeof(T)
-// bytes (two of 16 bytes above that), moved as 32-bit words: a struct of
-// bf16 members would be copied element by element, 2 bytes an access.
+// V contiguous elements of T moved as 32-bit words, in one aligned access
+// of V * sizeof(T) bytes (two of 16 bytes above that): a struct of bf16
+// members would be copied element by element, 2 bytes an access.
 __device__ __forceinline__ void words_to_f(const unsigned* w, int n, float* v, float) {
 #pragma unroll
   for (int i = 0; i < n; ++i) v[i] = __uint_as_float(w[i]);
@@ -102,26 +102,6 @@ __device__ __forceinline__ void f_to_words(const float* v, int n, unsigned* w, b
 }
 
 template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
-  constexpr int B = V * (int)sizeof(T);
-  if constexpr (B > 16) {
-    load_vec<T, V / 2>(p, v);
-    load_vec<T, V / 2>(p + V / 2, v + V / 2);
-  } else if constexpr (B == 16) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-    words_to_f(w, 4, v, T{});
-  } else if constexpr (B == 8) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    const unsigned w[2] = {r.x, r.y};
-    words_to_f(w, 2, v, T{});
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = cg_to_f(p[j]);
-  }
-}
-
-template <typename T, int V>
 __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
   constexpr int B = V * (int)sizeof(T);
   if constexpr (B > 16) {
@@ -139,6 +119,52 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
 #pragma unroll
     for (int j = 0; j < V; ++j) p[j] = cg_from_f<T>(v[j]);
   }
+}
+
+// V elements of T held as the 32-bit words they were loaded as (a lone
+// bf16 in the low half of one): half the registers of bf16 values as
+// float, so twice the rows can be in flight; converted where used.
+template <typename T, int V>
+struct Raw {
+  static constexpr int kWords = (V * (int)sizeof(T) + 3) / 4;
+  unsigned w[kWords];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void load_raw(const T* __restrict__ p, Raw<T, V>& r) {
+  constexpr int B = V * (int)sizeof(T);
+  if constexpr (B >= 16) {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+      r.w[4 * i] = q.x;
+      r.w[4 * i + 1] = q.y;
+      r.w[4 * i + 2] = q.z;
+      r.w[4 * i + 3] = q.w;
+    }
+  } else if constexpr (B == 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    r.w[0] = q.x;
+    r.w[1] = q.y;
+  } else if constexpr (B == 4) {
+    r.w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else {  // one bf16
+    r.w[0] = (unsigned)__bfloat16_as_ushort(p[0]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void zero_raw(Raw<T, V>& r) {
+#pragma unroll
+  for (int i = 0; i < Raw<T, V>::kWords; ++i) r.w[i] = 0u;  // converts to 0.0f
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void raw_to_f(const Raw<T, V>& r, float* v) {
+  if constexpr (V * sizeof(T) == 2)
+    v[0] = __uint_as_float(r.w[0] << 16);
+  else
+    words_to_f(r.w, Raw<T, V>::kWords, v, T{});
 }
 
 // Chan et al.'s pairwise merge of (count, mean, M2) summaries, a <- a + b,
@@ -198,11 +224,12 @@ struct Tile {
   }
 };
 
-// Rows a thread loads before using any: 4 rows of 16 bytes of bf16 or 8 of
-// float32 in flight a thread (16 rows of one element each).
-template <typename T, int V>
+// Rows a thread loads before using any, of T and (the second stream: skip,
+// the output or dy) U: 8 rows of 16 bytes of each, 4 where U is twice as
+// wide as T (bf16 x, float32 dy), 16 of one element each.
+template <typename T, typename U, int V>
 __host__ __device__ constexpr int chunk_rows() {
-  return V == 1 ? 16 : (sizeof(T) == 4 ? 8 : 4);
+  return V == 1 ? 16 : (sizeof(U) > sizeof(T) ? 4 : 8);
 }
 
 // A barrier of the whole (cooperative) grid: cooperative groups' sync
@@ -240,38 +267,45 @@ __device__ __forceinline__ void stage_stats(const float* __restrict__ src, const
 template <typename TIn, int V>
 __device__ __forceinline__ void fwd_partial(const TIn* __restrict__ x, float* __restrict__ part,
                                             const Plan& p, int vt, float* sh) {
-  constexpr int K = chunk_rows<TIn, V>();
+  constexpr int K = chunk_rows<TIn, TIn, V>();
   const Tile<V> tl(p, vt);
   float cnt = 0.f, mean[V], m2[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) mean[j] = m2[j] = 0.f;
   if (tl.c0 < p.C) {
     for (int base = tl.r0 + tl.rl; base < tl.r1; base += tl.row_lanes * K) {
-      float v[K][V];
+      Raw<TIn, V> raw[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int r = base + k * tl.row_lanes;
-        if (r < tl.r1) {
-          load_vec<TIn, V>(x + tl.offset(p, r), v[k]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) v[k][j] = 0.f;
-        }
+        if (r < tl.r1)
+          load_raw<TIn, V>(x + tl.offset(p, r), raw[k]);
+        else
+          zero_raw(raw[k]);
       }
       const int nk = min(K, (tl.r1 - base + tl.row_lanes - 1) / tl.row_lanes);
       const float inv = __fdividef(1.f, (float)nk);
       float mc[V], m2c[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float s = 0.f;
+      for (int j = 0; j < V; ++j) mc[j] = m2c[j] = 0.f;
 #pragma unroll
-        for (int k = 0; k < K; ++k) s += v[k][j];  // rows past r1 hold 0
-        mc[j] = s * inv;
-        m2c[j] = 0.f;
+      for (int k = 0; k < K; ++k) {  // rows past r1 hold 0
+        float v[V];
+        raw_to_f(raw[k], v);
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float d = v[k][j] - mc[j];
-          if (k < nk) m2c[j] += d * d;
+        for (int j = 0; j < V; ++j) mc[j] += v[j];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) mc[j] *= inv;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= nk) break;
+        float v[V];
+        raw_to_f(raw[k], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = v[j] - mc[j];
+          m2c[j] += d * d;
         }
       }
       chan_merge<V>(cnt, mean, m2, (float)nk, mc, m2c);
@@ -323,17 +357,18 @@ __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
                                           const TOut* __restrict__ skip, TOut* __restrict__ y,
                                           const float* __restrict__ stats, const Plan& p,
                                           int vt, int act, float* sh, int& staged) {
-  constexpr int K = chunk_rows<TIn, V>();
+  constexpr int K = chunk_rows<TIn, TOut, V>();
   const Tile<V> tl(p, vt);
   const bool live = tl.c0 < p.C;
-  float v[K][V], sk[K][V];
+  Raw<TIn, V> v[K];
+  Raw<TOut, V> sk[K];
   auto load = [&](int base) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int r = base + k * tl.row_lanes;
       if (live && r < tl.r1) {
-        load_vec<TIn, V>(x + tl.offset(p, r), v[k]);
-        if (skip != nullptr) load_vec<TOut, V>(skip + tl.offset(p, r), sk[k]);
+        load_raw<TIn, V>(x + tl.offset(p, r), v[k]);
+        if (skip != nullptr) load_raw<TOut, V>(skip + tl.offset(p, r), sk[k]);
       }
     }
   };
@@ -352,11 +387,13 @@ __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
     for (int k = 0; k < K; ++k) {
       const int r = base + k * tl.row_lanes;
       if (r >= tl.r1) break;
-      float z[V];
+      float z[V], s[V];
+      raw_to_f(v[k], z);
+      if (skip != nullptr) raw_to_f(sk[k], s);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        z[j] = act_fwd((v[k][j] - mu[j]) * rs[j], act);
-        if (skip != nullptr) z[j] += sk[k][j];
+        z[j] = act_fwd((z[j] - mu[j]) * rs[j], act);
+        if (skip != nullptr) z[j] += s[j];
       }
       store_vec<TOut, V>(y + tl.offset(p, r), z);
     }
@@ -437,7 +474,7 @@ __device__ __forceinline__ void bwd_partial(const TX* __restrict__ x, const TDY*
                                             const float* __restrict__ rstd,
                                             float* __restrict__ part, const Plan& p, int vt,
                                             int act, float* sh) {
-  constexpr int K = chunk_rows<TX, V>();
+  constexpr int K = chunk_rows<TX, TDY, V>();
   const Tile<V> tl(p, vt);
   float sg[V], sgx[V];
 #pragma unroll
@@ -450,22 +487,26 @@ __device__ __forceinline__ void bwd_partial(const TX* __restrict__ x, const TDY*
       rs[j] = rstd[(size_t)tl.n * p.C + tl.c0 + j];
     }
     for (int base = tl.r0 + tl.rl; base < tl.r1; base += tl.row_lanes * K) {
-      float xv[K][V], gv[K][V];
+      Raw<TX, V> xr[K];
+      Raw<TDY, V> gr[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int r = base + k * tl.row_lanes;
         if (r < tl.r1) {
-          load_vec<TX, V>(x + tl.offset(p, r), xv[k]);
-          load_vec<TDY, V>(dy + tl.offset(p, r), gv[k]);
+          load_raw<TX, V>(x + tl.offset(p, r), xr[k]);
+          load_raw<TDY, V>(dy + tl.offset(p, r), gr[k]);
         }
       }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (base + k * tl.row_lanes >= tl.r1) break;
+        float xv[V], gv[V];
+        raw_to_f(xr[k], xv);
+        raw_to_f(gr[k], gv);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float xh = (xv[k][j] - mu[j]) * rs[j];
-          const float g = gv[k][j] * act_grad(xh, act);
+          const float xh = (xv[j] - mu[j]) * rs[j];
+          const float g = gv[j] * act_grad(xh, act);
           sg[j] += g;
           sgx[j] += g * xh;
         }
@@ -550,17 +591,18 @@ __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* _
                                           const float* __restrict__ gm, TX* __restrict__ dx,
                                           const Plan& p, int vt, int act, float* sh,
                                           int& staged) {
-  constexpr int K = chunk_rows<TX, V>();
+  constexpr int K = chunk_rows<TX, TDY, V>();
   const Tile<V> tl(p, vt);
   const bool live = tl.c0 < p.C;
-  float xv[K][V], gv[K][V];
+  Raw<TX, V> xr[K];
+  Raw<TDY, V> gr[K];
   auto load = [&](int base) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int r = base + k * tl.row_lanes;
       if (live && r < tl.r1) {
-        load_vec<TX, V>(x + tl.offset(p, r), xv[k]);
-        load_vec<TDY, V>(dy + tl.offset(p, r), gv[k]);
+        load_raw<TX, V>(x + tl.offset(p, r), xr[k]);
+        load_raw<TDY, V>(dy + tl.offset(p, r), gr[k]);
       }
     }
   };
@@ -582,11 +624,13 @@ __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* _
     for (int k = 0; k < K; ++k) {
       const int r = base + k * tl.row_lanes;
       if (r >= tl.r1) break;
-      float d[V];
+      float d[V], gv[V];
+      raw_to_f(xr[k], d);
+      raw_to_f(gr[k], gv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float xh = (xv[k][j] - mu[j]) * rs[j];
-        const float g = gv[k][j] * act_grad(xh, act);
+        const float xh = (d[j] - mu[j]) * rs[j];
+        const float g = gv[j] * act_grad(xh, act);
         d[j] = rs[j] * (g - gmu[j] - xh * gxm[j]);
       }
       store_vec<TX, V>(dx + tl.offset(p, r), d);
