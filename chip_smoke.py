@@ -30,7 +30,10 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    over one train step; two calls of each weight gradient and of each
    instance-norm kernel are bitwise equal; the fused block's VJP is held
    against the plain VJP on the kernel path's relu mask, and the mask's
-   flips on their own (RELU_FLIP_SHARE);
+   flips on their own (RELU_FLIP_SHARE); the chunked block's normalisation
+   kernels alone (forward pair, VJP pair) with their device us a call
+   beside the byte bound, a second call and a sample run alone bitwise
+   equal to the first and to its place in the batch;
    then the tensor-core gradient convolutions alone (input gradient, weight
    gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
    cotangent, at the float32 bars, and the forward convolution alone at the
@@ -44,14 +47,16 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    versions from the same weights; every parameter's step-1 gradient, the
    per-step losses of the two paths, every launch counter against the
    per-step count derived from the modules; then the median step time of
-   each path, in turns, and one profiled step (the forward convolution's and
-   the instance norm's device ms and launches: one instance-norm launch a C
-   entry, or the phase fails);
-7. train_chunked, train_dropout: the same for paths A and B; path A launches the chunked block 27 times a step
-   forward and backward and no fused block, path B launches conv_dw 54
+   each path, in turns, and one profiled step (the forward convolution's, the
+   instance norm's and the chunked norm kernels' device ms and launches:
+   one launch a C entry of either norm, or the phase fails);
+7. train_chunked, train_dropout: the same for paths A and B; path A
+   launches the chunked block 27 times a step forward and backward (its
+   norm kernels 108 times) and no fused block, path B launches conv_dw 54
    times a step and no residual-block kernel;
 8. graph_capture: whether torch.cuda.graph captures the instance norm's
-   cooperative launches (recorded, not required).
+   cooperative launches and a chunked block's forward and VJP, and whether
+   a replay is bitwise equal (recorded, not required).
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -884,6 +889,67 @@ def _max_check(checks: dict) -> dict:
             "ok": all(r["ok"] for r in checks.values())}
 
 
+def chunked_norm_halves(randn, x, dy) -> dict:
+    """The chunked block's normalisation kernels alone (csrc/resblock_chunked.cu,
+    one launch a call) on seeded float32 convolution outputs and x's type:
+    the forward's two calls (IN1 of u, IN2 of s32 with the skip x) and the
+    VJP's two (IN2 of dy, s; IN1 of da, vhat), each pair's device us a call
+    as a CUDA-graph replay and eagerly (CUDA events around back-to-back
+    calls, host included), beside its byte bound (each input read once,
+    each output written once); a second call bitwise equal, and sample 1 of
+    a batch of 2 equal to the same sample alone."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    shape, eps = x.shape, 1e-5
+    u, s32, da = (randn(shape, torch.float32, 2.0, 0.5) for _ in range(3))
+
+    def run(u, s32, da, x, dy):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        stats = torch.empty((x.shape[0], 4, x.shape[-1]), **f32)
+        vh, a, s, y, dv, a2 = (torch.empty_like(x) for _ in range(6))
+        ds, du = torch.empty(x.shape, **f32), torch.empty(x.shape, **f32)
+
+        def fwd():
+            RC.in_fwd(u, stats, x, vh, a, HC, eps, 1)
+            RC.in_fwd(s32, stats, x, s, y, HC, eps, 2)
+
+        def vjp():
+            RC.in_vjp(dy, s, stats, ds, HC, 2)
+            RC.in_vjp(da, vh, stats, du, HC, 1, dv=dv, a=a2)
+
+        return fwd, vjp, {"fwd": (stats, vh, a, s, y), "vjp": (ds, dv, a2, du)}
+
+    fwd, vjp, outs = run(u, s32, da, x, dy)
+    fwd()
+    vjp()
+    first = {k: [t.clone() for t in v] for k, v in outs.items()}
+    fwd()
+    vjp()
+    alone = None
+    if shape[0] > 1:
+        f1, v1, alone = run(*(t[1:2].clone() for t in (u, s32, da, x, dy)))
+        f1()
+        v1()
+    torch.cuda.synchronize()
+    p = x.numel() * x.element_size()          # one plane of x's type
+    f = x.numel() * 4                          # one float32 plane
+    nbytes = {"fwd": (f + 2 * p) + (f + p + 2 * p), "vjp": (2 * p + f) + (f + p + 2 * p + f)}
+    rec = {}
+    for side, fn in (("fwd", fwd), ("vjp", vjp)):
+        b_ms, _ = bound(nbytes[side], 0.0, "float32")
+        rec[side] = {
+            "calls": 2, "shape": list(shape), "dtype": str(x.dtype).split(".")[1], "hc": HC,
+            "graph_us_per_pair": graph_us(fn), "eager_us_per_pair": time_ms(fn, 20) * 1e3,
+            "bound_us": b_ms * 1e3, "bound_by": "bytes", "bytes": nbytes[side],
+            "second_call_bitwise_equal": all(torch.equal(a, b)
+                                             for a, b in zip(first[side], outs[side])),
+            "sample_alone_bitwise_equal": None if alone is None else all(
+                torch.equal(a[1:2], b) for a, b in zip(first[side], alone[side]))}
+    return rec
+
+
 def kernels_train_chunked_dw(randn, fail_if) -> dict:
     """TPU kernels #6 and #7 (the chunked block, path A) and #8 (conv_dw,
     path B) against their plain versions at the train step's trunk shapes,
@@ -909,6 +975,7 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
         # #6: y, vhat, s and the statistics against the plain forward.
         y, vhat, s, stats = RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, HC)
         ref = RC.residual_block_chunked_plain(x, w1, b1, w2, b2, 1e-5, HC)
+        norms = chunked_norm_halves(randn, x, dy)
         torch.cuda.synchronize()
         fwd = {n: compare("residual_block_chunked", o, r, dname)
                for n, o, r in zip(("y", "vhat", "s"), (y, vhat, s), ref)}
@@ -991,14 +1058,18 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
                 rec.update(bf16_passes=passes if name.endswith("bwd") else dw_passes,
                            bound_ms_f32_rate=bound(nb, old_work)[0])
             if name == "residual_block_chunked":
-                rec["checks"] = fwd
+                rec.update(checks=fwd, norm_halves=norms["fwd"])
             elif name == "residual_block_chunked_bwd":
                 rec.update(checks=bwd, bias_grads_exactly_zero=bias_zero,
-                           second_call_bitwise_equal=bitwise)
+                           second_call_bitwise_equal=bitwise, norm_halves=norms["vjp"])
             else:
                 rec["second_call_bitwise_equal"] = dw_bitwise
             ok = res["ok"] and (name == "residual_block_chunked" or
                                 (bias_zero and bitwise if name.endswith("bwd") else dw_bitwise))
+            if name.startswith("residual_block_chunked"):
+                side = norms["fwd" if name == "residual_block_chunked" else "vjp"]
+                ok = ok and side["second_call_bitwise_equal"] and \
+                    side["sample_alone_bitwise_equal"] is not False
             fail_if(not ok, name, rec)
             if calls:
                 recs[name].append(rec)
@@ -1146,14 +1217,19 @@ def conv_fwd_device_ms(device_ms: list) -> dict:
     return {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
 
 
-def in_device_ms(device_ms: list) -> dict:
+def in_device_ms(device_ms: list, names=(("fwd", "::in_fwd<"), ("bwd", "::in_bwd<"))) -> dict:
     """Device time and launches of the instance-norm kernels (forward
-    ``in_fwd``, VJP ``in_bwd``) in a profile's ``(name, ms, calls)`` rows."""
+    ``in_fwd``, VJP ``in_bwd``; or other ``names``) in a profile's ``(name,
+    ms, calls)`` rows."""
     out = {}
-    for key, name in (("fwd", "in_fwd<"), ("bwd", "in_bwd<")):
+    for key, name in names:
         rows = [r for r in device_ms if name in r[0]]
         out[key] = {"ms": sum(r[1] for r in rows), "launches": sum(r[2] for r in rows)}
     return out
+
+
+# The chunked block's normalisation kernels (csrc/resblock_chunked.cu).
+CHUNKED_NORMS = (("fwd", "chunked_in_fwd<"), ("vjp", "chunked_in_vjp<"))
 
 
 def in_graph_capture() -> dict:
@@ -1189,6 +1265,49 @@ def in_graph_capture() -> dict:
         torch.cuda.synchronize()
         return {"captured": True, "replay_bitwise_equal":
                 bool(torch.equal(y, want[0]) and torch.equal(dx, want[1]))}
+    except Exception as e:  # recorded, not raised: capture is not required
+        with contextlib.suppress(Exception):
+            torch.cuda.synchronize()
+        return {"captured": False, "error": f"{type(e).__name__}: {e}"[:400]}
+
+
+def chunked_graph_capture() -> dict:
+    """Whether ``torch.cuda.graph`` captures a chunked block's forward and
+    VJP (its cluster launches, convolutions and allocations) at the trunk's
+    train shape, and whether a replay equals the eager result bitwise.
+    Recorded, not required."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    c = NGF * 4
+    shape = (2, CROP // 4, CROP // 4, c)
+
+    def randn(s_, scale=1.0):
+        return (torch.randn(s_, device="cuda", generator=g) * scale).to(torch.bfloat16)
+
+    x, dy = randn(shape), randn(shape)
+    w1, w2 = randn((3, 3, c, c), 0.02), randn((3, 3, c, c), 0.02)
+    b1, b2 = randn((c,), 0.01), randn((c,), 0.01)
+
+    def step():
+        y, vhat, s, stats = RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, HC)
+        return (y, vhat, s, stats, *RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, HC))
+
+    want = step()
+    torch.cuda.synchronize()
+    try:
+        step()  # warm the allocator's blocks on the capture's side stream
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = step()
+        for t in outs:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        return {"captured": True, "replay_bitwise_equal":
+                all(bool(torch.equal(a, b)) for a, b in zip(outs, want))}
     except Exception as e:  # recorded, not raised: capture is not required
         with contextlib.suppress(Exception):
             torch.cuda.synchronize()
@@ -1527,7 +1646,8 @@ def phase_train(smi: str, path: str = "default") -> dict:
         torch.cuda.synchronize()
         prof_step_ms = (time.perf_counter() - t0) * 1e3
     entries = {k: _build.launches[k] - entries.get(k, 0)
-               for k in ("cg_instance_norm_act", "cg_instance_norm_act_bwd")}
+               for k in ("cg_instance_norm_act", "cg_instance_norm_act_bwd",
+                         "cg_chunked_in_fwd", "cg_chunked_in_vjp")}
     # Device kernels only (CPU ops that launched them carry the same time).
     device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
                  for e in prof.key_averages() if e.self_device_time_total > 0
@@ -1541,7 +1661,8 @@ def phase_train(smi: str, path: str = "default") -> dict:
             {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
         "profiled_step_conv3x3_fwd": conv_fwd_device_ms(device_ms),
         "profiled_step_instance_norm": in_device_ms(device_ms),
-        "profiled_step_instance_norm_c_entries": entries,
+        "profiled_step_chunked_norms": in_device_ms(device_ms, CHUNKED_NORMS),
+        "profiled_step_norm_c_entries": entries,
         "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9})
     emit(rec)
     # One launch a C entry: the instance norm's kernels, forward and VJP.
@@ -1549,6 +1670,13 @@ def phase_train(smi: str, path: str = "default") -> dict:
     if (in_prof["fwd"]["launches"], in_prof["bwd"]["launches"]) != \
             (entries["cg_instance_norm_act"], entries["cg_instance_norm_act_bwd"]):
         raise AssertionError(f"{path}: instance-norm kernels {in_prof} in the profiled step, "
+                             f"not one a C entry {entries}")
+    # And the chunked block's: one launch a cg_chunked_in_fwd / _vjp call
+    # (path A: 4 a block, 108 a step).
+    rc_prof = rec["profiled_step_chunked_norms"]
+    if (rc_prof["fwd"]["launches"], rc_prof["vjp"]["launches"]) != \
+            (entries["cg_chunked_in_fwd"], entries["cg_chunked_in_vjp"]):
+        raise AssertionError(f"{path}: chunked norm kernels {rc_prof} in the profiled step, "
                              f"not one a C entry {entries}")
     print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
           f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
@@ -1627,7 +1755,8 @@ def main() -> int:
         phase_http(served)
     recs = phase_kernels_train()
     runs = {path: phase_train(smi, path) for path in TRAIN_PATHS}
-    emit({"phase": "graph_capture", "instance_norm": in_graph_capture()})
+    emit({"phase": "graph_capture", "instance_norm": in_graph_capture(),
+          "chunked_block": chunked_graph_capture()})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit(kernels_line(recs, runs))

@@ -34,9 +34,21 @@ normalisation kernels of ``csrc/resblock_chunked.cu`` (TPU kernels #6 and
 its input and weight gradient), or raises; on a CPU tensor it runs the
 plain versions through the same Function. ``H % hc != 0`` raises: the chunk
 is the statistics kernels' row tile.
+
+Each normalisation (:func:`in_fwd` twice a forward, :func:`in_vjp` twice a
+VJP) is one launch: a thread-block cluster per (sample, 32 channels) whose
+CTAs take the sample's row chunks in order (:func:`chunk_plan`), form the
+chunks' partial sums, add the cluster's partials in chunk order through
+distributed shared memory and apply the normalisation to the tiles they
+hold. Nothing but the block's outputs and the planes a convolution reads
+is allocated; the statistics depend on the shapes and ``hc`` only, never
+on the batch.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -114,61 +126,121 @@ def residual_block_chunked_bwd_plain(x: torch.Tensor, dy: torch.Tensor, vhat: to
     return dx, RB.conv3x3_reflect_wgrad_plain(x, du), RB.conv3x3_reflect_wgrad_plain(a, ds)
 
 
+# The tiling of csrc/resblock_chunked.cu: a thread-block cluster of CHUNK_THREADS
+# threads a CTA per (sample, CHUNK_GROUP channels), its CTAs taking the
+# sample's row chunks in order; a CTA holds its chunks' input tiles in at most
+# CHUNK_SMEM_MAX bytes of shared memory, with their partials.
+CHUNK_GROUP = 32
+CHUNK_THREADS = 256
+CHUNK_CLUSTER_MAX = 8   # the portable cluster size
+CHUNK_SMEM_MAX = 200 * 1024
+
+
+class ChunkPlan(NamedTuple):
+    """How csrc/resblock_chunked.cu lays one call out on the card."""
+    chunks: int     # K = H / hc row chunks a sample
+    cluster: int    # CTAs a cluster, one cluster a (sample, channel group)
+    per_cta: int    # chunks a CTA takes, in order (rank r: r * per_cta ..)
+    groups: int     # channel groups of CHUNK_GROUP channels
+    resident: bool  # the CTA's input tiles held in shared memory
+    smem: int       # dynamic shared memory bytes a CTA
+
+    def grid(self, n: int) -> tuple[int, int, int]:
+        """The launch's grid (cluster rank, channel group, sample)."""
+        return self.cluster, self.groups, n
+
+
+def in_bytes(which: int, vjp: bool, elt: int) -> int:
+    """Bytes a pixel and channel of the inputs a call reads: u or s32
+    (float32) and x for the forward; dy and s, or da (float32) and vhat, for
+    the VJP; ``elt`` is x's element size."""
+    if vjp:
+        return 2 * elt if which == 2 else 4 + elt
+    return 4 if which == 1 else 4 + elt
+
+
+@functools.cache
+def chunk_plan(h: int, w: int, c: int, hc: int, in_bytes_: int) -> ChunkPlan:
+    """The layout of one call from the sample's shape, ``hc`` and the bytes a
+    pixel-channel of its inputs (never the batch: a sample's statistics are
+    summed in the same order in any batch). The cluster is the largest count
+    up to CHUNK_CLUSTER_MAX that divides the chunks; each CTA keeps two
+    float32 partials a channel for every chunk of the sample (its own and
+    those the other CTAs write to it), and holds its chunks' tiles where
+    they fit in CHUNK_SMEM_MAX."""
+    _check_hc(h, hc)
+    if c % CHUNK_GROUP:
+        raise ValueError(f"chunked instance norm needs C % {CHUNK_GROUP} == 0, got {c}")
+    k = h // hc
+    cluster = max(d for d in range(1, CHUNK_CLUSTER_MAX + 1) if k % d == 0)
+    per_cta = k // cluster
+    part = k * 2 * CHUNK_GROUP * 4
+    tiles = per_cta * hc * w * CHUNK_GROUP * in_bytes_
+    resident = part + tiles <= CHUNK_SMEM_MAX
+    return ChunkPlan(k, cluster, per_cta, c // CHUNK_GROUP, resident,
+                     part + tiles if resident else part)
+
+
 def _check(name: str, planes: list, same_type: list, f32: list, hc: int,
-           part: torch.Tensor, stats: torch.Tensor,
-           means: torch.Tensor | None = None) -> None:
+           stats: torch.Tensor) -> None:
     """Device, contiguity and alignment of every tensor; ``planes`` share
     one NHWC shape, ``same_type`` the first plane's dtype, ``f32`` are
-    float32; the scratch and statistics fit the shape and ``hc``."""
-    _build.check_same_device(name, *planes, part, stats, *([means] if means is not None else []))
+    float32; the statistics fit the shape and ``hc`` does."""
+    _build.check_same_device(name, *planes, stats)
     n, h, w_, c = planes[0].shape
     if any(p.shape != planes[0].shape for p in planes):
         raise ValueError(f"{name}: planes {[tuple(p.shape) for p in planes]} differ")
     if any(t.dtype != planes[0].dtype for t in same_type) or \
-            any(t.dtype != torch.float32 for t in f32 + [part, stats]):
+            any(t.dtype != torch.float32 for t in f32 + [stats]):
         raise TypeError(f"{name}: wrong dtypes")
     if h < 2 or w_ < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
     _check_hc(h, hc)
-    if part.shape != (2, n, h // hc, c) or stats.shape != (n, 4, c) or \
-            (means is not None and means.shape != (n, 2, c)):
-        raise ValueError(f"{name}: scratch or statistics do not fit {tuple(planes[0].shape)}")
+    if stats.shape != (n, 4, c):
+        raise ValueError(f"{name}: statistics do not fit {tuple(planes[0].shape)}")
 
 
 def in_fwd(v32: torch.Tensor, stats: torch.Tensor, x: torch.Tensor, out0: torch.Tensor,
-           out1: torch.Tensor, part: torch.Tensor, hc: int, eps: float, which: int) -> None:
-    """CUDA kernels: the forward instance norm after convolution ``which``
-    (1: stats slots 0-1, out0 = vhat, out1 = a; 2: slots 2-3, out0 = s,
-    out1 = y = IN(s) + x) from its float32 output ``v32``."""
+           out1: torch.Tensor, hc: int, eps: float, which: int) -> None:
+    """CUDA kernel, one launch: the forward instance norm after convolution
+    ``which`` (1: stats slots 0-1, out0 = vhat, out1 = a; 2: slots 2-3, out0
+    = s, out1 = y = IN(s) + x) from its float32 output ``v32``. Allocates
+    nothing."""
     n, h, w_, c = x.shape
-    _check("chunked_in_fwd", [x, v32, out0, out1], [out0, out1], [v32], hc, part, stats)
+    _check("chunked_in_fwd", [x, v32, out0, out1], [out0, out1], [v32], hc, stats)
+    plan = chunk_plan(h, w_, c, hc, in_bytes(which, False, x.element_size()))
     _build.call("resblock_chunked", "cg_chunked_in_fwd",
                 v32.data_ptr(), stats.data_ptr(), x.data_ptr(), out0.data_ptr(),
-                out1.data_ptr(), part.data_ptr(), n, h, w_, c, hc, float(eps), which,
-                _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+                out1.data_ptr(), n, h, w_, c, hc, plan.cluster, plan.per_cta,
+                int(plan.resident), float(eps), which, _build.DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x))
 
 
 def in_vjp(g: torch.Tensor, src: torch.Tensor, stats: torch.Tensor, out: torch.Tensor,
-           part: torch.Tensor, means: torch.Tensor, hc: int, which: int,
-           dv: torch.Tensor | None = None, a: torch.Tensor | None = None) -> None:
-    """CUDA kernels: the VJP of instance norm ``which`` from saved values
-    (2: g = dy, src = s, out = ds; 1: g = da (float32), src = vhat, writes
-    dv and a = relu(vhat) in src's type, out = du). ``out`` is float32."""
+           hc: int, which: int, dv: torch.Tensor | None = None,
+           a: torch.Tensor | None = None) -> None:
+    """CUDA kernel, one launch: the VJP of instance norm ``which`` from
+    saved values (2: g = dy, src = s, out = ds; 1: g = da (float32), src =
+    vhat, writes dv and a = relu(vhat) in src's type, out = du). ``out`` is
+    float32. Allocates nothing."""
     n, h, w_, c = src.shape
     side = [dv, a] if which == 1 else []
     if which == 1 and (dv is None or a is None):
         raise ValueError("chunked_in_vjp: which=1 writes dv and a")
     _check("chunked_in_vjp", [src, g, out, *side], side + ([g] if which == 2 else []),
-           [out] + ([g] if which == 1 else []), hc, part, stats, means)
+           [out] + ([g] if which == 1 else []), hc, stats)
+    plan = chunk_plan(h, w_, c, hc, in_bytes(which, True, src.element_size()))
     _build.call("resblock_chunked", "cg_chunked_in_vjp",
                 g.data_ptr(), src.data_ptr(), stats.data_ptr(),
                 None if dv is None else dv.data_ptr(), None if a is None else a.data_ptr(),
-                out.data_ptr(), part.data_ptr(), means.data_ptr(), n, h, w_, c, hc, which,
-                _build.DTYPE_CODES[src.dtype], _build.stream_ptr(src))
+                out.data_ptr(), n, h, w_, c, hc, plan.cluster, plan.per_cta,
+                int(plan.resident), which, _build.DTYPE_CODES[src.dtype],
+                _build.stream_ptr(src))
 
 
 def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
-    """TPU kernel #6 on the card: ``(y, vhat, s, stats)``."""
+    """TPU kernel #6 on the card: ``(y, vhat, s, stats)``; allocates the
+    outputs and the convolutions' float32 output, nothing else."""
     global launches
     n, h, w_, c = x.shape
     if w1.shape[-1] != c or w2.shape[-1] != c:
@@ -181,20 +253,21 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
     f32 = dict(dtype=torch.float32, device=x.device)
     v32 = torch.empty(x.shape, **f32)
     stats = torch.empty((n, 4, c), **f32)
-    part = torch.empty((2, n, h // hc, c), **f32)
     vhat, a, s, y = (torch.empty_like(x, memory_format=torch.contiguous_format)
                      for _ in range(4))
     RB.conv3x3_reflect(x, w1, b1, v32)                 # u, float32
-    in_fwd(v32, stats, x, vhat, a, part, hc, eps, 1)
+    in_fwd(v32, stats, x, vhat, a, hc, eps, 1)
     RB.conv3x3_reflect(a, w2, b2, v32)                 # s overwrites u
-    in_fwd(v32, stats, x, s, y, part, hc, eps, 2)
+    in_fwd(v32, stats, x, s, y, hc, eps, 2)
     launches += 1
     return y, vhat, s, stats
 
 
 def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     """TPU kernel #7 on the card: ``(dx, dw1, dw2)``, dw in the weights'
-    type; two normalisation VJPs, two input and two weight gradients."""
+    type; two normalisation VJPs, two input and two weight gradients. Of
+    its own it allocates the outputs and what a convolution reads (ds, da,
+    du, dv, a)."""
     global bwd_launches
     n, h, w_, c = x.shape
     cp = RB.padded_channels(c)
@@ -204,15 +277,13 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
                                  RB.zero_fill(w1, cp, 2), RB.zero_fill(w2, cp, 2), hc)
         return dx[..., :c].contiguous(), dw1[:, :, :c, :c], dw2[:, :, :c, :c]
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((2, n, h // hc, c), **f32)
-    means = torch.empty((n, 2, c), **f32)
     ds, da, du = (torch.empty(x.shape, **f32) for _ in range(3))
     dv, a, dx = (torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(3))
-    in_vjp(dy, s, stats, ds, part, means, hc, 2)
+    in_vjp(dy, s, stats, ds, hc, 2)
     parts = CD.parts(torch.float32, x.dtype)
     ds_parts = CD.bf16_parts(ds, parts)   # one split feeds both gradients of ds
     RB.conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
-    in_vjp(da, vhat, stats, du, part, means, hc, 1, dv=dv, a=a)
+    in_vjp(da, vhat, stats, du, hc, 1, dv=dv, a=a)
     du_parts = CD.bf16_parts(du, parts)
     RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
     dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype, g_parts=du_parts)

@@ -12,8 +12,9 @@ multiple of 128); ``chip_smoke.py`` covers the main path's shapes.
 Tolerances are those of ``chip_smoke.py``, with the same reasons.
 """
 
-import numpy as np
+import copy
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -430,8 +431,12 @@ def test_small_train_step_kernel_path_matches_plain_path(card, monkeypatch):
 # runs the slice-2 gradient kernels on float32 cotangents.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,hc", [((2, 16, 16, 64), 4), ((1, 12, 9, 32), 12),
-                                      ((1, 8, 8, 32), 1), ((2, 16, 16, 48), 4)])
+                                      ((1, 8, 8, 32), 1), ((2, 16, 16, 48), 4),
+                                      ((1, 8, 320, 32), 8)])
 def test_chunked_block_matches_plain(card, shape, hc, dtype):
+    """hc 4 (a cluster of 4 CTAs), hc 1 (eight one-row chunks, a cluster of
+    8), 12 (one chunk), C = 48 (zero-filled to 64), and a chunk whose tile
+    does not fit a CTA's shared memory (read again from L2)."""
     c = shape[-1]
     x = (torch.randn(shape, device="cuda", generator=card) + 0.5).to(dtype)
     w1, w2 = [(0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
@@ -493,6 +498,94 @@ def test_chunked_refuses_h_not_divisible_by_hc(card):
         RC.residual_block_chunked(x, w, b, w, b, 1e-5, 8)
 
 
+def _chunked_norm_calls(card, shape, hc, dtype):
+    """The four normalisation calls of the chunked block on seeded inputs
+    (float32 u, s32, da; x, dy in ``dtype``), each a function that writes
+    its outputs, in the order the block makes them; and the outputs."""
+    f32 = dict(device="cuda", dtype=torch.float32)
+    u, s32, da = (torch.randn(shape, device="cuda", generator=card) * 2 + 0.5 for _ in range(3))
+    x, dy = (torch.randn(shape, device="cuda", generator=card).to(dtype) for _ in range(2))
+    stats = torch.empty((shape[0], 4, shape[-1]), **f32)
+    vhat, a, s, y, dv, a2 = (torch.empty_like(x) for _ in range(6))
+    ds, du = torch.empty(shape, **f32), torch.empty(shape, **f32)
+    calls = [lambda: RC.in_fwd(u, stats, x, vhat, a, hc, 1e-5, 1),
+             lambda: RC.in_fwd(s32, stats, x, s, y, hc, 1e-5, 2),
+             lambda: RC.in_vjp(dy, s, stats, ds, hc, 2),
+             lambda: RC.in_vjp(da, vhat, stats, du, hc, 1, dv=dv, a=a2)]
+    return calls, (stats, vhat, a, s, y, ds, dv, a2, du), (u, s32, da, x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_norms_are_one_launch_and_allocate_only_outputs(card, dtype):
+    """Each normalisation call is one kernel and allocates nothing; the
+    block's forward allocates its outputs and the convolutions' float32
+    output, its VJP its outputs and what a convolution reads (ds, da, du,
+    dv, a, the cotangents' bf16 parts, each weight gradient's padded input
+    parts; float32 weights also split into parts for the input
+    gradients): no partials, no means."""
+    shape, hc = (2, 16, 16, 64), 4
+    calls, _, _ = _chunked_norm_calls(card, shape, hc, dtype)
+    for f in calls:  # builds
+        f()
+    torch.cuda.synchronize()
+    for f, name in zip(calls, ("chunked_in_fwd", "chunked_in_fwd", "chunked_in_vjp",
+                               "chunked_in_vjp")):
+        kernels = _device_kernels(f)
+        assert len(kernels) == 1 and name in kernels[0], kernels
+        assert _allocations(f) == 0
+    c = shape[-1]
+    x, dy = (torch.randn(shape, device="cuda", generator=card).to(dtype) for _ in range(2))
+    w1, w2 = [(0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    b = torch.zeros((c,), device="cuda", dtype=dtype)
+    _, vhat, s, stats = RC._fwd_cuda(x, w1, b, w2, b, 1e-5, hc)
+    RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc)
+    torch.cuda.synchronize()
+    assert _allocations(lambda: RC._fwd_cuda(x, w1, b, w2, b, 1e-5, hc)) == 6
+    assert _allocations(lambda: RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc)) == \
+        (12 if dtype == torch.bfloat16 else 14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,hc", [((4, 16, 12, 64), 4), ((4, 16, 12, 64), 1),
+                                      ((3, 8, 320, 32), 8)])
+def test_chunked_norms_second_call_and_batching_are_bitwise(card, shape, hc, dtype):
+    """A second call is bitwise equal, and sample 2 of the batch equals the
+    same sample alone, bitwise, for all four calls (one cluster a sample
+    and channel group: the layout never sees the batch); clusters of 4 and
+    of 8 with two chunks a CTA, and tiles read again from L2."""
+    calls, outs, ins = _chunked_norm_calls(card, shape, hc, dtype)
+    for f in calls:
+        f()
+    first = [t.clone() for t in outs]
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(first, outs))
+    u, s32, da, x, dy = (t[2:3].clone() for t in ins)
+    stats, vhat, a, s, y, ds, dv, a2, du = (torch.empty_like(t[2:3]) for t in outs)
+    RC.in_fwd(u, stats, x, vhat, a, hc, 1e-5, 1)
+    RC.in_fwd(s32, stats, x, s, y, hc, 1e-5, 2)
+    RC.in_vjp(dy, s, stats, ds, hc, 2)
+    RC.in_vjp(da, vhat, stats, du, hc, 1, dv=dv, a=a2)
+    torch.cuda.synchronize()
+    alone = (stats, vhat, a, s, y, ds, dv, a2, du)
+    assert all(torch.equal(a_[2:3], b_) for a_, b_ in zip(first, alone))
+
+
+def test_chunked_norms_refuse_a_plan_they_did_not_make(card):
+    """The C entry checks the layout it is given against the shapes."""
+    calls, outs, ins = _chunked_norm_calls(card, (1, 16, 8, 32), 4, torch.bfloat16)
+    stats, vhat, a = outs[:3]
+    u, x = ins[0], ins[3]
+    for cluster, per_cta, resident in ((3, 1, 1), (4, 2, 1), (4, 1, 0)):
+        with pytest.raises(_build.KernelLaunchError):
+            _build.call("resblock_chunked", "cg_chunked_in_fwd", u.data_ptr(),
+                        stats.data_ptr(), x.data_ptr(), vhat.data_ptr(), a.data_ptr(),
+                        1, 16, 8, 32, 4, cluster, per_cta, resident, 1e-5, 1, 1,
+                        _build.stream_ptr(x))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("xshape,cout,k", [((2, 10, 9, 128), 128, 3), ((3, 7, 6, 40), 24, 3),
                                            ((1, 5, 5, 8), 16, 1), ((1, 66, 66, 256), 256, 3),
@@ -526,12 +619,89 @@ def test_conv2d_valid_dw_fused_matches_reference(card):
     _close(got[1], ref[1], BWD_TOL[torch.bfloat16])
 
 
+# chip_smoke.py's bar for the float32 step-1 gradients, kernel path vs plain
+# path: |g_kernel - g_plain| / |g_plain| per tensor (the step's gradient is
+# ill-conditioned; plain vs plain differs by up to ~1e-3 of a tensor's norm
+# on an H100, and a wrong gradient gives O(1)).
+GRAD_TOL_F32 = 1e-2
+
+
+def _step1_grads(t) -> dict:
+    """The step-1 gradients the updates used, by ``net.parameter`` name."""
+    return {f"{net_name}.{name}": p.grad.detach().clone()
+            for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), t.nets())
+            for name, p in net.named_parameters()}
+
+
+def _copy_state(dst, dst_st, src, src_st) -> None:
+    """``src``'s parameters, Adam moments, schedules, generators and step
+    count into ``dst`` (deep copies: Adam's own load would share the
+    moments' tensors between the two trainers)."""
+    for d, s_ in zip(dst.nets(), src.nets()):
+        d.load_state_dict(s_.state_dict())
+    for name in ("g_opt", "d_opt", "g_sched", "d_sched"):
+        getattr(dst_st, name).load_state_dict(copy.deepcopy(getattr(src_st, name).state_dict()))
+    dst_st.generator.set_state(src_st.generator.get_state())
+    dst_st.dropout.set_state(src_st.dropout.get_state())
+    dst_st.step = src_st.step
+
+
+def _act_branch(y, act):
+    """Which branch of the norm's activation each element took, from its
+    output (relu: y > 0; leaky: y >= 0; none: no branch)."""
+    return None if act == "none" else (y.detach() > 0 if act == "relu" else y.detach() >= 0)
+
+
+class _PlainINOnBranches(torch.autograd.Function):
+    """The plain instance norm + activation, forward and VJP, with the
+    activation's branch of every element given (``branch``, as
+    _act_branch records it) instead of taken from its own normalised
+    value."""
+
+    @staticmethod
+    def forward(ctx, x, skip, eps, act, branch):
+        mean, rstd = IN.instance_norm_stats_plain(x, eps)
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        slope = torch.ones_like(xhat) if branch is None else \
+            torch.where(branch, 1.0, 0.0 if act == "relu" else IN.LEAKY_SLOPE)
+        ctx.save_for_backward(xhat, rstd, slope)
+        y = xhat * slope
+        return (y if skip is None else y + skip.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, rstd, slope = ctx.saved_tensors
+        g = dy.float() * slope
+        dx = rstd[:, None, None] * (g - g.mean((1, 2), keepdim=True)
+                                    - xhat * (g * xhat).mean((1, 2), keepdim=True))
+        return dx.to(dy.dtype), dy if ctx.needs_input_grad[1] else None, None, None, None
+
+
 @pytest.mark.parametrize("path", ["chunked", "dropout"])
 def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
     """Two float32 steps of a small trainer (ngf 32, so the trunk has 128
     channels and its convolutions route through conv_dw on the dropout
-    path), the seams on the kernels and on the plain versions, from the
-    same weights and dropout seed."""
+    path), the seams on the kernels and on the plain versions, each step
+    from one state: step 1 from the same init, step 2 on both paths from
+    the plain path's state after step 1 (parameters, Adam, schedules,
+    generators). Adam's first update is about lr * sign(g), so a gradient
+    element within rounding of zero whose sign differs between the paths
+    moves its weight 2 lr apart, and a step 2 from each path's own state
+    compares two different models. The losses of both steps at rtol 1e-3,
+    atol 1e-4.
+
+    The step-1 gradient of every weight and of every bias no instance norm
+    follows is held at GRAD_TOL_F32 of its norm against the plain versions
+    run on the kernel path's activation branches (every norm's relu or
+    leaky branch of every element, as the kernel path took it). The step's
+    gradient is discontinuous there: an element whose normalised value is
+    within rounding of zero takes the other branch on the other path, and
+    on the dropout path one such element moves whole networks' gradients
+    by up to 3% (the plain path with one norm's output moved by 1e-6 of its
+    size does so too). The branches that differ from the plain path's own
+    are held apart, at most RELU_FLIP_SHARE of the elements. A bias an
+    instance norm follows has a gradient that is zero in exact arithmetic:
+    rounding noise, held finite."""
     if path == "chunked":
         monkeypatch.setenv("CYCLEGAN_TPU_RESBLOCK", "chunked")
         monkeypatch.setenv("CYCLEGAN_TPU_RESBLOCK_HC", "4")
@@ -543,21 +713,62 @@ def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
              "lab_label": r.integers(0, 5, (1, 32, 32))}
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
-    def run():
-        t = CycleGANTrainer(cfg, 5, 3, 1000, device="cuda")
-        st = t.init_state(torch.Generator().manual_seed(0))
-        return [{k: float(v) for k, v in t.train_step(st, batch)[1].items()}
-                for _ in range(2)]
+    def losses(t, st):
+        return {k: float(v) for k, v in t.train_step(st, batch)[1].items()}
 
+    def trainer():
+        t = CycleGANTrainer(cfg, 5, 3, 1000, device="cuda")
+        return t, t.init_state(torch.Generator().manual_seed(0))
+
+    def recording(norm, into):
+        def seam(x, skip=None, eps=1e-5, act="none"):
+            y = norm(x, skip, eps, act)
+            into.append(_act_branch(y, act))
+            return y
+        return seam
+
+    def plain_seams(m, norm):
+        m.setattr(blocks, "instance_norm_act", norm)
+        m.setattr(blocks, "residual_block_chunked", RC.residual_block_chunked_reference)
+        m.setattr(OF, "conv2d_valid_dw_fused", OF.conv2d_valid_dw_fused_reference)
+
+    (kt, ks), (pt, ps), (bt, bs) = trainer(), trainer(), trainer()
+    k_branch, p_branch = [], []
     counts = (RC.launches, RC.bwd_launches, CD.launches, RB.launches)
-    got = run()
+    with monkeypatch.context() as m:
+        m.setattr(blocks, "instance_norm_act", recording(IN.instance_norm_act, k_branch))
+        got = [losses(kt, ks)]
+    g_kernel = _step1_grads(kt)
+    with monkeypatch.context() as m:
+        branches = iter(k_branch)
+        plain_seams(m, lambda x, skip=None, eps=1e-5, act="none": _PlainINOnBranches.apply(
+            x, skip, eps, act, next(branches)))
+        losses(bt, bs)
+        g_plain = _step1_grads(bt)
+    with monkeypatch.context() as m:
+        plain_seams(m, recording(IN.instance_norm_act_reference, p_branch))
+        ref = [losses(pt, ps)]
+        _copy_state(kt, ks, pt, ps)
+        ref.append(losses(pt, ps))
+    got.append(losses(kt, ks))
     want = (12, 12, 0, 0) if path == "chunked" else (0, 0, 24, 0)  # 3 G applies x 2 blocks
     assert tuple(a - b for a, b in zip((RC.launches, RC.bwd_launches, CD.launches,
                                         RB.launches), counts)) == want
-    monkeypatch.setattr(blocks, "instance_norm_act", IN.instance_norm_act_reference)
-    monkeypatch.setattr(blocks, "residual_block_chunked", RC.residual_block_chunked_reference)
-    monkeypatch.setattr(OF, "conv2d_valid_dw_fused", OF.conv2d_valid_dw_fused_reference)
-    ref = run()
-    for g_, r_ in zip(got, ref):
+    for step, (g_, r_) in enumerate(zip(got, ref), 1):
         for k in g_:
-            np.testing.assert_allclose(g_[k], r_[k], rtol=1e-3, atol=1e-4, err_msg=k)
+            np.testing.assert_allclose(g_[k], r_[k], rtol=1e-3, atol=1e-4,
+                                       err_msg=f"step {step} {k}")
+    pairs = [(a, b) for a, b in zip(k_branch, p_branch[:len(k_branch)]) if a is not None]
+    flips = sum(int((a != b).sum()) for a, b in pairs)
+    assert flips <= RELU_FLIP_SHARE * sum(a.numel() for a, _ in pairs), flips
+    pre_norm = {f"{net_name}.{name}.conv.bias"
+                for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), kt.nets())
+                for name, m_ in net.named_modules()
+                if isinstance(getattr(m_, "norm", None), blocks.InstanceNorm)}
+    for name, gp in g_plain.items():
+        gk = g_kernel[name]
+        assert torch.isfinite(gk).all(), name
+        if name in pre_norm:
+            continue
+        rel = float((gk - gp).norm() / gp.norm())
+        assert rel <= GRAD_TOL_F32, f"{name}: step-1 gradient {rel} of its norm off"

@@ -21,7 +21,18 @@ its ``cyclegan_tpu_torch/build``). Prints one JSON line per result:
   the kernel path's mask at the same bar, and the flips on their own);
 - ``in_profile``: one profiled default train step of ``voc_semisup_256``
   (bf16, 256x256, batch 1) in each checkout: the instance-norm kernels'
-  device ms and launches, forward and VJP, by kernel.
+  device ms and launches, forward and VJP, by kernel;
+- ``kernel_outputs``: the default path's and path B's kernels (instance norm
+  forward and VJP, the input and weight gradients, ``conv_dw``, the fused
+  block forward and VJP) on the same seeded inputs, and whether the two
+  checkouts' outputs are bitwise equal;
+- ``chunked_profile``: one profiled path-A step
+  (``CYCLEGAN_TPU_RESBLOCK=chunked``, hc 8) in each checkout: the chunked
+  block's normalisation kernels' device ms and launches, by kernel;
+- ``chunked_norms``: those kernels alone at the trunk's (2, 64, 64, 256)
+  bf16, hc 8, in each checkout: the forward's two calls and the VJP's two,
+  device us a pair as a CUDA-graph replay and eagerly, and the block's
+  forward and VJP (rows #6 and #7) eagerly, at batch 2 and 1.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -67,6 +78,7 @@ def child(checkout: str, out_path: str, seeds: int) -> None:
         o = torch.empty(shape[:3] + (cout,), device="cuda")
         RB.conv3x3_reflect(x, w, b, o)
         outs[str((shape, cout))] = o.cpu()
+    outs.update(kernel_outputs())
     torch.save(outs, out_path)
     for seed in range(seeds):
         for batch in (2, 1):
@@ -94,6 +106,148 @@ def child(checkout: str, out_path: str, seeds: int) -> None:
             print(json.dumps(rec), flush=True)
     print(json.dumps({"result": "in_profile", "checkout": checkout, **in_profile(cs)}),
           flush=True)
+    print(json.dumps({"result": "chunked_profile", "checkout": checkout,
+                      **chunked_profile(cs)}), flush=True)
+    print(json.dumps({"result": "chunked_norms", "checkout": checkout, **chunked_norms(cs)}),
+          flush=True)
+
+
+def kernel_outputs() -> dict:
+    """The default path's and path B's kernels on seeded bf16 inputs at
+    train shapes, by name: instance norm forward (and its statistics) and
+    VJP, the block's input gradient (float32 cotangent) and weight gradient,
+    conv_dw, and the fused block's forward and VJP."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    out = {}
+    shape = (2, 64, 64, 256)
+    x, w1, b1, randn = _inputs(shape, 256, 11, torch.bfloat16)
+    w2, b2, dy = randn((3, 3, 256, 256), 0.02), randn((256,), 0.01), randn(shape)
+    for ishape, act in (((2, 256, 256, 64), "relu"), ((1, 31, 31, 512), "leaky")):
+        xi, di = randn(ishape), randn(ishape)
+        y, dx = torch.empty_like(xi), torch.empty_like(xi)
+        mean, rstd = IN.launch(xi, None, y, 1e-5, act)
+        IN.launch_bwd(xi, di, mean, rstd, dx, act)
+        out.update({f"in_fwd{ishape}": y, f"in_stats{ishape}": torch.stack([mean, rstd]),
+                    f"in_bwd{ishape}": dx})
+    g = torch.randn(shape, device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(12))
+    da = torch.empty(shape, device="cuda")
+    RB.conv3x3_reflect_dgrad(g, w2, da)
+    out["conv3x3_reflect_dgrad"] = da
+    out["conv3x3_reflect_wgrad"] = RB.conv3x3_reflect_wgrad(x, g)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    out["conv_dw"] = CD.conv_dw(xp.permute(0, 2, 3, 1).contiguous(), dy)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y = RB.residual_block_fused(*leaves)
+    out["residual_block_fused"] = y.detach()
+    for name, t in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                       torch.autograd.grad(y, leaves, dy)):
+        out[f"residual_block_bwd_{name}"] = t
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+# The chunked block's normalisation kernels of either design: one launch a
+# call (chunked_in_fwd, chunked_in_vjp) or three (partials, merge, apply).
+RC_KERNEL = re.compile(r"::(chunked_in_fwd|chunked_in_vjp|fwd_partials|vjp_partials_[sv]|"
+                       r"merge_partials|fwd_apply_in[12]|vjp_apply_[sv])[<(]")
+
+
+def _train_batch(cs, cfg):
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
+    from cyclegan_tpu_torch.data.transforms import normalize
+
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    lab_img, lab = _synthetic_sample(0, cfg.crop_hw, n_cls, in_ch)
+    unlab_img, _ = _synthetic_sample(1, cfg.crop_hw, n_cls, in_ch)
+    return n_cls, in_ch, {
+        "lab_image": torch.from_numpy(normalize(lab_img)[None]).cuda(),
+        "unlab_image": torch.from_numpy(normalize(unlab_img)[None]).cuda(),
+        "lab_label": torch.from_numpy(lab.astype(np.int64)[None]).cuda(),
+        **{f"pool_use_new_{k}": np.ones(cfg.batch_size, bool) for k in ("img", "lab")},
+        **{f"pool_idx_{k}": np.zeros(cfg.batch_size, np.int64) for k in ("img", "lab")}}
+
+
+def chunked_profile(cs) -> dict:
+    """One path-A train step of chip_smoke's preset (bf16, batch 1, hc 8,
+    after two unprofiled steps) under torch.profiler: the chunked block's
+    normalisation kernels' device ms and launches, by kernel."""
+    import torch
+
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(cs.TRAIN_PRESET)
+    n_cls, in_ch, batch = _train_batch(cs, cfg)
+    with cs.resblock_env("chunked"):
+        t = CycleGANTrainer(cfg, n_cls, in_ch, cs.VOC_STEPS_PER_EPOCH, device="cuda")
+    st = t.init_state(torch.Generator().manual_seed(0))
+    for _ in range(2):
+        st, _ = t.train_step(st, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t.train_step(st, batch)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        m = RC_KERNEL.search(e.key)
+        if e.self_device_time_total > 0 and m:
+            was = by_kernel.get(m.group(1), (0.0, 0))
+            by_kernel[m.group(1)] = (was[0] + e.self_device_time_total / 1e3, was[1] + e.count)
+    return {"ms": sum(v[0] for v in by_kernel.values()),
+            "launches": sum(v[1] for v in by_kernel.values()), "by_kernel": by_kernel}
+
+
+def chunked_norms(cs) -> dict:
+    """The chunked block's normalisation calls alone at (2, 64, 64, 256)
+    bf16, hc 8 (either checkout's wrappers: the three-kernel design takes
+    its scratch as arguments), and the whole block forward and VJP at batch
+    2 and 1."""
+    import inspect
+
+    import torch
+
+    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
+
+    hc, out = 8, {}
+    shape = (2, 64, 64, 256)
+    x, w1, b1, randn = _inputs(shape, 256, 13, torch.bfloat16)
+    f32 = dict(device="cuda", dtype=torch.float32)
+    u, s32, da = (torch.randn(shape, **f32) for _ in range(3))
+    dy = randn(shape)
+    stats = torch.empty((2, 4, 256), **f32)
+    vh, a, s, y, dv, a2 = (torch.empty_like(x) for _ in range(6))
+    ds, du = torch.empty(shape, **f32), torch.empty(shape, **f32)
+    scratch = "part" in inspect.signature(RC.in_fwd).parameters
+    part = [torch.empty((2, 2, 64 // hc, 256), **f32)] if scratch else []
+    means = [torch.empty((2, 2, 256), **f32)] if scratch else []
+
+    def fwd():
+        RC.in_fwd(u, stats, x, vh, a, *part, hc, 1e-5, 1)
+        RC.in_fwd(s32, stats, x, s, y, *part, hc, 1e-5, 2)
+
+    def vjp():
+        RC.in_vjp(dy, s, stats, ds, *part, *means, hc, 2)
+        RC.in_vjp(da, vh, stats, du, *part, *means, hc, 1, dv=dv, a=a2)
+
+    for side, fn in (("fwd", fwd), ("vjp", vjp)):
+        out[side] = {"graph_us_per_pair": cs.graph_us(fn),
+                     "eager_us_per_pair": cs.time_ms(fn, 20) * 1e3}
+    w2, b2 = randn((3, 3, 256, 256), 0.02), randn((256,), 0.01)
+    for b in (2, 1):
+        xb, dyb = x[:b].contiguous(), dy[:b].contiguous()
+        yb, vhat, sb, st = RC._fwd_cuda(xb, w1, b1, w2, b2, 1e-5, hc)
+        out[f"block_b{b}"] = {
+            "fwd_ms": cs.time_ms(lambda: RC._fwd_cuda(xb, w1, b1, w2, b2, 1e-5, hc), 10),
+            "bwd_ms": cs.time_ms(lambda: RC._bwd_cuda(xb, dyb, vhat, sb, st, w1, w2, hc), 10)}
+    return out
 
 
 # The instance-norm kernels of either design: three launches a call
@@ -171,7 +325,8 @@ def main() -> int:
                             paths[name]], check=True, cwd=checkout)
         base, head = (torch.load(paths[n]) for n in ("base", "head"))
     for key in base:
-        print(json.dumps({"result": "conv", "case": key,
+        print(json.dumps({"result": "conv" if key.startswith("((") else "kernel_outputs",
+                          "case": key,
                           "bitwise_equal": bool(torch.equal(base[key], head[key])),
                           "max_abs_diff": float((base[key] - head[key]).abs().max())}))
     return 0
