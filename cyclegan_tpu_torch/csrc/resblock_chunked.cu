@@ -1,5 +1,3 @@
-// DESIGN (b), kept for one measurement: PR 6's cooperative grid with the
-// partials in the stream's scratch, in place of the cluster of design (a).
 // Row-chunked residual block: the instance-norm halves of the forward and
 // of the VJP from saved residuals, for Hopper (sm_90a), one launch each.
 //
@@ -94,7 +92,6 @@ struct Args {
   void* out2;          // du (VJP1)
   int HW, C, chunk_px, per_cta, cluster;
   float eps;
-  float* gpart;  // (N, C / 32, K, 2, 32) partials in the stream's scratch
 };
 
 // Bytes of 8 channels of E as 16-byte pieces: 2 for float32, 1 for bf16.
@@ -199,7 +196,9 @@ __device__ __forceinline__ void chunked_in(const Args& a) {
   __shared__ float st[2][kGroup];
   extern __shared__ __align__(16) uint4 smem[];
 
-  const int rank = blockIdx.x;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  cluster_arrive_relaxed();  // this CTA runs: the others may write to it
+  const int rank = (int)cluster.block_rank();
   const int n = blockIdx.z, gc0 = blockIdx.y * kGroup;
   const int tc = threadIdx.x % kLanes, pl = threadIdx.x / kLanes;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -303,14 +302,19 @@ __device__ __forceinline__ void chunked_in(const Args& a) {
     __syncthreads();
   }
 
-  // Phase 2 (design b): the partials through the stream's scratch and a
-  // barrier of the whole cooperative grid; every CTA copies all K back.
+  // Phase 2: each CTA writes its chunks' partials into every other CTA of
+  // the cluster (distributed shared memory, once all have started); after
+  // the cluster barrier every CTA adds all K in chunk order from its own
+  // copy, so no CTA reads another's memory and none waits to exit.
+  cluster_wait();
   const int mine = a.per_cta * 2 * kGroup;
-  float* gp = a.gpart + ((size_t)n * gridDim.y + blockIdx.y) * K * 2 * kGroup;
-  for (int i = threadIdx.x; i < mine; i += kThreads) gp[rank * mine + i] = part[rank * mine + i];
-  cgrp::this_grid().sync();
-  for (int i = threadIdx.x; i < K * 2 * kGroup; i += kThreads) part[i] = __ldcg(gp + i);
-  __syncthreads();
+  const float* own = part + rank * mine;
+  for (int i = threadIdx.x; i < (a.cluster - 1) * mine; i += kThreads) {
+    const int r = i / mine + (i / mine >= rank ? 1 : 0), j = i % mine;
+    *cluster.map_shared_rank(part + rank * mine + j, r) = own[j];
+  }
+  cluster_arrive();
+  cluster_wait();
   if (threadIdx.x < kGroup) {
     const int c = threadIdx.x;
     float t0 = 0.f, t1 = 0.f;
@@ -412,10 +416,19 @@ cudaError_t launch(Kernel kernel, bool (&done)[CG_MAX_DEVICES], const Args& a, i
                    int smem, cudaStream_t s) {
   cudaError_t e = cg_smem_limit(kernel, kSmemMax, done);
   if (e != cudaSuccess) return e;
-  Args args = a;
-  void* argv[] = {&args};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(a.cluster, a.C / kGroup, N),
-                                     dim3(kThreads), argv, smem, s);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, a.C / kGroup, N);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 template <typename T, int WHICH>
@@ -442,7 +455,7 @@ cudaError_t launch_vjp(const Args& a, int N, int smem, int resident, cudaStream_
 // per_cta, resident) is chunk_plan's; needs C % 32 == 0, H % hc == 0, H, W
 // >= 2. Returns the launch's CUDA error code (0 on success).
 extern "C" int cg_chunked_in_fwd(const void* v32, void* stats, const void* x, void* out0,
-                                 void* out1, void* gpart, int N, int H, int W, int C, int hc, int cluster,
+                                 void* out1, int N, int H, int W, int C, int hc, int cluster,
                                  int per_cta, int resident, float eps, int which, int dtype,
                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -453,7 +466,7 @@ extern "C" int cg_chunked_in_fwd(const void* v32, void* stats, const void* x, vo
                &smem))
     return (int)cudaErrorInvalidValue;
   const Args a{v32, x, static_cast<float*>(stats), out0, out1, nullptr, H * W, C, hc * W,
-               per_cta, cluster, eps, static_cast<float*>(gpart)};
+               per_cta, cluster, eps};
   if (dtype == CG_BF16)
     return (int)(which == 1 ? launch_fwd<bf16, 1>(a, N, smem, resident, s)
                             : launch_fwd<bf16, 2>(a, N, smem, resident, s));
@@ -467,7 +480,7 @@ extern "C" int cg_chunked_in_fwd(const void* v32, void* stats, const void* x, vo
 // (dtype) and out = du (float32) from the stored dv. stats: the forward's
 // (N, 4, C). The plan as for cg_chunked_in_fwd.
 extern "C" int cg_chunked_in_vjp(const void* g, const void* src, const void* stats, void* dv,
-                                 void* a, void* out, void* gpart, int N, int H, int W, int C, int hc,
+                                 void* a, void* out, int N, int H, int W, int C, int hc,
                                  int cluster, int per_cta, int resident, int which, int dtype,
                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -479,10 +492,8 @@ extern "C" int cg_chunked_in_vjp(const void* g, const void* src, const void* sta
     return (int)cudaErrorInvalidValue;
   auto st = const_cast<float*>(static_cast<const float*>(stats));
   const Args args = which == 2
-      ? Args{g, src, st, out, nullptr, nullptr, H * W, C, hc * W, per_cta, cluster, 0.f,
-             static_cast<float*>(gpart)}
-      : Args{g, src, st, dv, a, out, H * W, C, hc * W, per_cta, cluster, 0.f,
-             static_cast<float*>(gpart)};
+      ? Args{g, src, st, out, nullptr, nullptr, H * W, C, hc * W, per_cta, cluster, 0.f}
+      : Args{g, src, st, dv, a, out, H * W, C, hc * W, per_cta, cluster, 0.f};
   if (dtype == CG_BF16)
     return (int)(which == 2 ? launch_vjp<bf16, 2>(args, N, smem, resident, s)
                             : launch_vjp<bf16, 1>(args, N, smem, resident, s));

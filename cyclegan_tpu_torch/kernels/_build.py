@@ -49,8 +49,8 @@ SIGNATURES = {
         "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP],
     },
     "resblock_chunked": {
-        "cg_chunked_in_fwd": [_VOIDP] * 6 + [_INT] * 8 + [_FLOAT] + [_INT] * 2 + [_VOIDP],
-        "cg_chunked_in_vjp": [_VOIDP] * 7 + [_INT] * 10 + [_VOIDP],
+        "cg_chunked_in_fwd": [_VOIDP] * 5 + [_INT] * 8 + [_FLOAT] + [_INT] * 2 + [_VOIDP],
+        "cg_chunked_in_vjp": [_VOIDP] * 6 + [_INT] * 10 + [_VOIDP],
     },
     "conv_dw": {
         "cg_bf16_parts": [_VOIDP] * 2 + [_INT] * 7 + [_VOIDP],

@@ -211,9 +211,7 @@ def in_fwd(v32: torch.Tensor, stats: torch.Tensor, x: torch.Tensor, out0: torch.
     plan = chunk_plan(h, w_, c, hc, in_bytes(which, False, x.element_size()))
     _build.call("resblock_chunked", "cg_chunked_in_fwd",
                 v32.data_ptr(), stats.data_ptr(), x.data_ptr(), out0.data_ptr(),
-                out1.data_ptr(),
-                _build.scratch_ptr(8 * n * c * plan.chunks, x, _build.stream_ptr(x)),
-                n, h, w_, c, hc, plan.cluster, plan.per_cta,
+                out1.data_ptr(), n, h, w_, c, hc, plan.cluster, plan.per_cta,
                 int(plan.resident), float(eps), which, _build.DTYPE_CODES[x.dtype],
                 _build.stream_ptr(x))
 
@@ -235,9 +233,7 @@ def in_vjp(g: torch.Tensor, src: torch.Tensor, stats: torch.Tensor, out: torch.T
     _build.call("resblock_chunked", "cg_chunked_in_vjp",
                 g.data_ptr(), src.data_ptr(), stats.data_ptr(),
                 None if dv is None else dv.data_ptr(), None if a is None else a.data_ptr(),
-                out.data_ptr(),
-                _build.scratch_ptr(8 * n * c * plan.chunks, src, _build.stream_ptr(src)),
-                n, h, w_, c, hc, plan.cluster, plan.per_cta,
+                out.data_ptr(), n, h, w_, c, hc, plan.cluster, plan.per_cta,
                 int(plan.resident), which, _build.DTYPE_CODES[src.dtype],
                 _build.stream_ptr(src))
 
