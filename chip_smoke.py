@@ -1298,7 +1298,6 @@ def chunked_graph_capture() -> dict:
     want = step()
     torch.cuda.synchronize()
     try:
-        step()  # warm the allocator's blocks on the capture's side stream
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs = step()

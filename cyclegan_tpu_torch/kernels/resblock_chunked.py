@@ -126,12 +126,11 @@ def residual_block_chunked_bwd_plain(x: torch.Tensor, dy: torch.Tensor, vhat: to
     return dx, RB.conv3x3_reflect_wgrad_plain(x, du), RB.conv3x3_reflect_wgrad_plain(a, ds)
 
 
-# The tiling of csrc/resblock_chunked.cu: a thread-block cluster of CHUNK_THREADS
-# threads a CTA per (sample, CHUNK_GROUP channels), its CTAs taking the
-# sample's row chunks in order; a CTA holds its chunks' input tiles in at most
-# CHUNK_SMEM_MAX bytes of shared memory, with their partials.
+# The layout of csrc/resblock_chunked.cu: a thread-block cluster per (sample,
+# CHUNK_GROUP channels), its CTAs taking the sample's row chunks in order; a
+# CTA holds its chunks' input tiles in at most CHUNK_SMEM_MAX bytes of shared
+# memory, with the partials. The launch's grid is (cluster, groups, N).
 CHUNK_GROUP = 32
-CHUNK_THREADS = 256
 CHUNK_CLUSTER_MAX = 8   # the portable cluster size
 CHUNK_SMEM_MAX = 200 * 1024
 
@@ -144,10 +143,6 @@ class ChunkPlan(NamedTuple):
     groups: int     # channel groups of CHUNK_GROUP channels
     resident: bool  # the CTA's input tiles held in shared memory
     smem: int       # dynamic shared memory bytes a CTA
-
-    def grid(self, n: int) -> tuple[int, int, int]:
-        """The launch's grid (cluster rank, channel group, sample)."""
-        return self.cluster, self.groups, n
 
 
 def in_bytes(which: int, vjp: bool, elt: int) -> int:

@@ -151,13 +151,9 @@ def kernel_outputs() -> dict:
     return {k: v.detach().cpu() for k, v in out.items()}
 
 
-# The chunked block's normalisation kernels of either design: one launch a
-# call (chunked_in_fwd, chunked_in_vjp) or three (partials, merge, apply).
-RC_KERNEL = re.compile(r"::(chunked_in_fwd|chunked_in_vjp|fwd_partials|vjp_partials_[sv]|"
-                       r"merge_partials|fwd_apply_in[12]|vjp_apply_[sv])[<(]")
-
-
-def _train_batch(cs, cfg):
+def _train_batch(cfg):
+    """The synthetic batch of chip_smoke's train phase (samples 0 and 1),
+    with pool decisions that keep every new image."""
     import numpy as np
     import torch
 
@@ -175,18 +171,19 @@ def _train_batch(cs, cfg):
         **{f"pool_idx_{k}": np.zeros(cfg.batch_size, np.int64) for k in ("img", "lab")}}
 
 
-def chunked_profile(cs) -> dict:
-    """One path-A train step of chip_smoke's preset (bf16, batch 1, hc 8,
-    after two unprofiled steps) under torch.profiler: the chunked block's
-    normalisation kernels' device ms and launches, by kernel."""
+def _profiled_step(cs, route: str) -> list:
+    """One train step of chip_smoke's preset (bf16, batch 1, after two
+    unprofiled steps) on the trunk ``route`` (chip_smoke's resblock_env:
+    "chunked" or the default) under torch.profiler: ``(kernel, device ms,
+    launches)`` of every device kernel."""
     import torch
 
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
     from cyclegan_tpu_torch.utils.config import preset
 
     cfg = preset(cs.TRAIN_PRESET)
-    n_cls, in_ch, batch = _train_batch(cs, cfg)
-    with cs.resblock_env("chunked"):
+    n_cls, in_ch, batch = _train_batch(cfg)
+    with cs.resblock_env(route):
         t = CycleGANTrainer(cfg, n_cls, in_ch, cs.VOC_STEPS_PER_EPOCH, device="cuda")
     st = t.init_state(torch.Generator().manual_seed(0))
     for _ in range(2):
@@ -195,12 +192,48 @@ def chunked_profile(cs) -> dict:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t.train_step(st, batch)
         torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+
+
+# The instance-norm kernels of either design: three launches a call
+# (in_partial, in_merge, in_apply and their in_bwd_ counterparts) or one
+# (in_fwd, in_bwd).
+IN_KERNEL = re.compile(r"::in_(partial|merge|apply|fwd|bwd\w*)[<(]")
+
+
+def in_profile(cs) -> dict:
+    """The instance-norm kernels' device ms and launches, forward and VJP,
+    in one profiled default train step."""
+    rows = [r for r in _profiled_step(cs, "fused") if IN_KERNEL.search(r[0])]
+    out = {}
+    for side, vjp in (("fwd", False), ("bwd", True)):
+        by_kernel = {}
+        for key, ms, n in rows:
+            if ("::in_bwd" in key) == vjp:
+                name = IN_KERNEL.search(key).group(0)[2:-1]
+                was = by_kernel.get(name, (0.0, 0))
+                by_kernel[name] = (was[0] + ms, was[1] + n)
+        out[side] = {"ms": sum(v[0] for v in by_kernel.values()),
+                     "launches": sum(v[1] for v in by_kernel.values()), "by_kernel": by_kernel}
+    return out
+
+
+# The chunked block's normalisation kernels of either design: one launch a
+# call (chunked_in_fwd, chunked_in_vjp) or three (partials, merge, apply).
+RC_KERNEL = re.compile(r"::(chunked_in_fwd|chunked_in_vjp|fwd_partials|vjp_partials_[sv]|"
+                       r"merge_partials|fwd_apply_in[12]|vjp_apply_[sv])[<(]")
+
+
+def chunked_profile(cs) -> dict:
+    """The chunked block's normalisation kernels' device ms and launches,
+    by kernel, in one profiled path-A train step (hc of chip_smoke)."""
     by_kernel = {}
-    for e in prof.key_averages():
-        m = RC_KERNEL.search(e.key)
-        if e.self_device_time_total > 0 and m:
+    for key, ms, n in _profiled_step(cs, "chunked"):
+        m = RC_KERNEL.search(key)
+        if m:
             was = by_kernel.get(m.group(1), (0.0, 0))
-            by_kernel[m.group(1)] = (was[0] + e.self_device_time_total / 1e3, was[1] + e.count)
+            by_kernel[m.group(1)] = (was[0] + ms, was[1] + n)
     return {"ms": sum(v[0] for v in by_kernel.values()),
             "launches": sum(v[1] for v in by_kernel.values()), "by_kernel": by_kernel}
 
@@ -247,56 +280,6 @@ def chunked_norms(cs) -> dict:
         out[f"block_b{b}"] = {
             "fwd_ms": cs.time_ms(lambda: RC._fwd_cuda(xb, w1, b1, w2, b2, 1e-5, hc), 10),
             "bwd_ms": cs.time_ms(lambda: RC._bwd_cuda(xb, dyb, vhat, sb, st, w1, w2, hc), 10)}
-    return out
-
-
-# The instance-norm kernels of either design: three launches a call
-# (in_partial, in_merge, in_apply and their in_bwd_ counterparts) or one
-# (in_fwd, in_bwd).
-IN_KERNEL = re.compile(r"::in_(partial|merge|apply|fwd|bwd\w*)[<(]")
-
-
-def in_profile(cs) -> dict:
-    """One default train step of chip_smoke's preset (bf16, batch 1, after
-    two unprofiled steps) under torch.profiler: the instance-norm kernels'
-    device ms and launches, forward and VJP."""
-    import numpy as np
-    import torch
-
-    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
-    from cyclegan_tpu_torch.data.transforms import normalize
-    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
-    from cyclegan_tpu_torch.utils.config import preset
-
-    cfg = preset(cs.TRAIN_PRESET)
-    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
-    lab_img, lab = _synthetic_sample(0, cfg.crop_hw, n_cls, in_ch)
-    unlab_img, _ = _synthetic_sample(1, cfg.crop_hw, n_cls, in_ch)
-    batch = {"lab_image": torch.from_numpy(normalize(lab_img)[None]).cuda(),
-             "unlab_image": torch.from_numpy(normalize(unlab_img)[None]).cuda(),
-             "lab_label": torch.from_numpy(lab.astype(np.int64)[None]).cuda(),
-             **{f"pool_use_new_{k}": np.ones(cfg.batch_size, bool) for k in ("img", "lab")},
-             **{f"pool_idx_{k}": np.zeros(cfg.batch_size, np.int64) for k in ("img", "lab")}}
-    t = CycleGANTrainer(cfg, n_cls, in_ch, cs.VOC_STEPS_PER_EPOCH, device="cuda")
-    st = t.init_state(torch.Generator().manual_seed(0))
-    for _ in range(2):
-        st, _ = t.train_step(st, batch)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t.train_step(st, batch)
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0 and IN_KERNEL.search(e.key)]
-    out = {}
-    for side, vjp in (("fwd", False), ("bwd", True)):
-        by_kernel = {}
-        for key, ms, n in rows:
-            if ("::in_bwd" in key) == vjp:
-                name = IN_KERNEL.search(key).group(0)[2:-1]
-                was = by_kernel.get(name, (0.0, 0))
-                by_kernel[name] = (was[0] + ms, was[1] + n)
-        out[side] = {"ms": sum(v[0] for v in by_kernel.values()),
-                     "launches": sum(v[1] for v in by_kernel.values()), "by_kernel": by_kernel}
     return out
 
 

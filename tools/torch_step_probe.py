@@ -29,6 +29,10 @@ Each trial, for each path:
    2 lr however small its gradient.
 
 Prints one JSON line per trial and path, then a summary line per path.
+With ``--sensitivity NORM`` it prints instead, per path, how far the plain
+path's step-1 gradients move when that instance norm's output moves by
+1e-8, 1e-7 and 1e-6 of its size (a discontinuous step moves by a lot at
+some size and not at all below it).
 Imports nothing of JAX or the JAX package.
 """
 
@@ -98,11 +102,16 @@ def _two_steps(path: str, plain: bool, step1_grads=None):
     them). ``step1_grads`` replaces the step-1 updates' gradients."""
     import torch
 
+    from cyclegan_tpu_torch.ops import blocks
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
 
     cfg, batch = _setup(path)
     with _route(path):
         t = CycleGANTrainer(cfg, 5, 3, 1000, device="cuda")
+    for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), t.nets()):
+        for name, m in net.named_modules():
+            if isinstance(m, blocks.InstanceNorm):
+                m.probe_name = f"{net_name}.{name}"
     st = t.init_state(torch.Generator().manual_seed(0))
     recorded = []
 
@@ -204,10 +213,54 @@ def trial(path: str, first: dict) -> dict:
         "losses_plain_flipped": f_losses}
 
 
+@contextlib.contextmanager
+def _perturbed(target: str, eps: float):
+    """The output of instance norm ``target`` (``net.module`` name) moved
+    by ``eps`` of its mean magnitude, seeded Gaussian noise."""
+    import torch
+
+    from cyclegan_tpu_torch.ops import blocks
+
+    forward = blocks.InstanceNorm.forward
+
+    def moved(self, x, act="none", skip=None):
+        y = forward(self, x, act, skip)
+        if getattr(self, "probe_name", None) != target:
+            return y
+        g = torch.Generator(device=y.device).manual_seed(1)
+        return y + eps * y.detach().abs().mean() * torch.randn(y.shape, device=y.device,
+                                                              generator=g)
+
+    blocks.InstanceNorm.forward = moved
+    try:
+        yield
+    finally:
+        blocks.InstanceNorm.forward = forward
+
+
+def sensitivity(path: str, target: str, eps_list) -> dict:
+    """How far the plain path's step-1 gradients move when one norm's
+    output moves by a relative ``eps``: the worst |g_eps - g| / |g| over
+    the weights and the biases no instance norm follows."""
+    _, ref, t = _two_steps(path, plain=True)
+    names, pre_norm = _names(t), _pre_norm_biases(t)
+    out = {"path": path, "norm": target,
+           "plain_again": _compare(names, _two_steps(path, plain=True)[1], ref, pre_norm)[2]}
+    for eps in eps_list:
+        with _perturbed(target, eps):
+            out[f"moved_{eps:g}"] = _compare(names, _two_steps(path, plain=True)[1], ref,
+                                             pre_norm)[2]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trials", type=int, default=24)
     ap.add_argument("--paths", nargs="+", default=["chunked", "dropout"])
+    ap.add_argument("--sensitivity", metavar="NORM",
+                    help="instead: move this norm's output (e.g. G_l2i.down1.norm) by "
+                         "1e-8, 1e-7 and 1e-6 of its size on the plain path and print how "
+                         "far the step-1 gradients move")
     args = ap.parse_args()
     import torch
 
@@ -217,6 +270,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.sensitivity:
+        for path in args.paths:
+            print(json.dumps({"result": "sensitivity", **sensitivity(
+                path, args.sensitivity, (1e-8, 1e-7, 1e-6))}), flush=True)
+        return 0
     for path in args.paths:
         recs, first = [], {}
         for i in range(args.trials):
