@@ -56,7 +56,19 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    times a step and no residual-block kernel;
 8. graph_capture: whether torch.cuda.graph captures the instance norm's
    cooperative launches and a chunked block's forward and VJP, and whether
-   a replay is bitwise equal (recorded, not required).
+   a replay is bitwise equal (recorded, not required);
+9. cli: ``python -m cyclegan_tpu_torch.main`` in process on the same
+   preset over the synthetic dataset: --training for 2 epochs of 3 steps
+   with a checkpoint every step, preempted at step 4 and relaunched,
+   against an uninterrupted run from the same seed (per-step losses within
+   the bf16 train-step bars; the largest weight difference and whether the
+   two are bitwise equal recorded); --testing of the final checkpoint (one
+   PNG per val image, mIoU and pixel accuracy within 1e-4 of the last
+   validation); one epoch each of --steps_per_call 2 and --grad_accum 2.
+   Every launch runs with the counters at 0 and must show kernels #1-#5
+   launched as often as the modules derive for its train steps and eval
+   forwards; steps/s from the logger, the loop's input wait and the
+   validation seconds are recorded with the card's name and power limit.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -1684,6 +1696,175 @@ def phase_train(smi: str, path: str = "default") -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "record": rec}
 
+# The CLI phase: `python -m cyclegan_tpu_torch.main` driven in-process on
+# the voc_semisup_256 preset at full width over the synthetic dataset.
+# dataset_size 24 at 1/8 labeled gives 3 steps an epoch at batch 1 (32 gives
+# 4, for the stacked runs); the val split is the synthetic 40 images.
+CLI_SIZE, CLI_STACK_SIZE, CLI_VAL = 24, 32, 40
+CLI_PREEMPT_AT = 4  # optimizer step: epoch 1, call 1
+CLI_IN_KERNELS = ("instance_norm_act", "instance_norm_act_bwd", "residual_block_fused",
+                  "residual_block_bwd_dx", "residual_block_bwd_dw")
+SCORE_TOL = 1e-4  # --testing against the last validation, mIoU and pixel accuracy
+
+
+def forward_launches(trainer, n_i2l: int, n_l2i: int) -> dict:
+    """Launches of ``n_i2l`` G_i2l and ``n_l2i`` G_l2i forwards (eval,
+    sample dumps, --testing): each norm outside a whole trunk block is one
+    instance_norm_act launch, each fused trunk block one
+    residual_block_fused launch; no backward kernel."""
+    from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
+
+    out = dict.fromkeys(CLI_IN_KERNELS, 0)
+    for net, n in ((trainer.G_i2l, n_i2l), (trainer.G_l2i, n_l2i)):
+        fused = sum(isinstance(m, ResidualBlock) and m.route == "fused" for m in net.modules())
+        norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
+        out["instance_norm_act"] += n * (norms - 2 * fused)
+        out["residual_block_fused"] += n * fused
+    return out
+
+
+def phase_cli(smi: str) -> dict:
+    """(a) --training for 2 epochs with mid-epoch checkpoints every step,
+    preempted at step CLI_PREEMPT_AT and resumed, against an uninterrupted
+    run from the same seed; (b) --testing of the final checkpoint; (c) one
+    epoch each of --steps_per_call 2 and --grad_accum 2. Every launch runs
+    with the counters at 0 and is held to the counts derived from the
+    modules."""
+    import torch
+
+    from cyclegan_tpu_torch.data import native
+    from cyclegan_tpu_torch.main import main as cli
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(TRAIN_PRESET)
+    with resblock_env("fused"):
+        counter = CycleGANTrainer(cfg, NUM_CLASSES, 3, 1, device="cuda")
+    per_step = {k: v for k, v in expected_launches(counter, 1).items() if k in CLI_IN_KERNELS}
+
+    def derived(steps: int, n_i2l: int = 0, n_l2i: int = 0) -> dict:
+        fwd = forward_launches(counter, n_i2l, n_l2i)
+        return {k: steps * per_step[k] + fwd[k] for k in CLI_IN_KERNELS}
+
+    base = ["--preset", TRAIN_PRESET, "--dataset", "synthetic", "--log_every", "1"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+
+    def dirs(name: str) -> list:
+        return ["--checkpoint_dir", os.path.join(tmp, name, "ckpt"),
+                "--results_dir", os.path.join(tmp, name, "res")]
+
+    def logged(name: str) -> list:
+        with open(os.path.join(tmp, name, "res", "train_metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def launch(what: str, argv: list, want: dict, env: dict | None = None):
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            with resblock_env("fused"):
+                _zero_counters()
+                t0 = time.perf_counter()
+                res = cli(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {k: _read_counters()[k] for k in CLI_IN_KERNELS}
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        if got != want or not any(got.values()):
+            raise AssertionError(f"cli {what}: launch counters {got} != derived {want}")
+        runs[what] = {"seconds": wall, "launches": got, "derived": want,
+                      "runner_seconds": (res or {}).get("seconds")}
+        return res
+
+    runs: dict = {}
+    train = ["--training", "--dataset_size", str(CLI_SIZE), "--epochs", "2"]
+    steps_per_epoch = 3
+    val = CLI_VAL
+    try:
+        # (a) the reference, uninterrupted; then preempted and resumed.
+        ref_val = launch("a_reference", train + base + dirs("ref"),
+                         derived(2 * steps_per_epoch, 2 * val + 2, 2))
+        first = launch("a_preempted", train + base + dirs("res") + ["--save_every_steps", "1"],
+                       derived(CLI_PREEMPT_AT, val + 1, 1),
+                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_PREEMPT_AT)})
+        if not first.get("preempted"):
+            raise AssertionError(f"cli: the first launch was not preempted: {first}")
+        last_val = launch("a_resumed", train + base + dirs("res") + ["--save_every_steps", "1"],
+                          derived(2 * steps_per_epoch - CLI_PREEMPT_AT, val + 1, 1))
+        ref_log, res_log = logged("ref"), logged("res")
+        if not [r["step"] for r in ref_log] == [r["step"] for r in res_log] == \
+                list(range(1, 2 * steps_per_epoch + 1)):
+            raise AssertionError(f"cli: logged steps {[r['step'] for r in ref_log]} and "
+                                 f"{[r['step'] for r in res_log]}")
+        loss_err = {}
+        for key, tols in TRAIN_TOL["bfloat16"].items():
+            errs = [abs(r[key] - q[key]) / (tols[min(i, 2)][1] + tols[min(i, 2)][0] * abs(q[key]))
+                    for i, (r, q) in enumerate(zip(res_log, ref_log))]
+            loss_err[key] = errs
+            if not all(math.isfinite(r[key]) for r in res_log) or max(errs) > 1.0:
+                raise AssertionError(f"cli: resumed {key} {[r[key] for r in res_log]} vs "
+                                     f"uninterrupted {[q[key] for q in ref_log]}")
+        ref_ck = torch.load(os.path.join(tmp, "ref", "ckpt", "1.pt"), weights_only=True)
+        res_ck = torch.load(os.path.join(tmp, "res", "ckpt", "1.pt"), weights_only=True)
+        pairs = [(a, res_ck["nets"][n][k]) for n, sd in ref_ck["nets"].items()
+                 for k, a in sd.items()]
+        max_w = max(float((a - b).abs().max()) for a, b in pairs)
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        del ref_ck, res_ck, pairs
+        if not (ref_val and last_val and math.isfinite(max_w)):
+            raise AssertionError(f"cli: validations {ref_val} {last_val}, weights {max_w}")
+        # (b) --testing of the resumed run's final checkpoint.
+        scores = launch("b_testing", ["--testing"] + base + dirs("res"), derived(0, val, 0))
+        pngs = [f for f in os.listdir(os.path.join(tmp, "res", "res")) if f.startswith("pred_")]
+        score_err = {k: abs(scores[k] - last_val[k]) for k in ("miou", "pixel_acc")}
+        if len(pngs) != val or max(score_err.values()) > SCORE_TOL:
+            raise AssertionError(f"cli --testing: {len(pngs)} PNGs, scores {scores} vs the "
+                                 f"last validation {last_val}")
+        # (c) one epoch of each batch stack, 4 batches an epoch.
+        stacked = ["--training", "--dataset_size", str(CLI_STACK_SIZE), "--epochs", "1",
+                   "--validation_every", "0"]
+        for flag in ("--steps_per_call", "--grad_accum"):
+            launch(f"c{flag[1:]}", stacked + base + dirs(flag) + [flag, "2"], derived(4))
+        c_logs = {flag: logged(flag) for flag in ("--steps_per_call", "--grad_accum")}
+        if [r["step"] for r in c_logs["--steps_per_call"]] != [2, 4] or \
+                [r["step"] for r in c_logs["--grad_accum"]] != [1, 2]:
+            raise AssertionError(f"cli (c): logged steps {c_logs}")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        del counter
+        torch.cuda.empty_cache()
+
+    def sps(log: list) -> list:
+        return [r["steps_per_sec"] for r in log]
+
+    secs = runs["a_reference"]["runner_seconds"]
+    rec = {"phase": "cli", "preset": TRAIN_PRESET, "dataset": "synthetic",
+           "steps_per_epoch": steps_per_epoch, "val_images": val, "nvidia_smi": smi,
+           "native_available": native.available(), "runs": runs,
+           "steps_per_sec_logged": {"a_reference": sps(ref_log), "a_resumed": sps(res_log),
+                                    **{k: sps(v) for k, v in c_logs.items()}},
+           "prefetch_share_of_train_loop": secs["input_wait"] / secs["train"],
+           "validation_pass_s": secs["validation"] / 2,
+           "losses_resumed": [{k: r[k] for k in ("g_total", "d_total")} for r in res_log],
+           "losses_uninterrupted": [{k: r[k] for k in ("g_total", "d_total")} for r in ref_log],
+           "loss_err_over_tol": loss_err, "tol": TRAIN_TOL["bfloat16"],
+           "resumed_max_weight_diff": max_w, "resumed_bitwise_equal": bitwise,
+           "last_validation": last_val, "testing_scores": {k: scores[k] for k in score_err},
+           "testing_err": score_err, "testing_pngs": len(pngs)}
+    emit(rec)
+    print(f"cli ({TRAIN_PRESET}, synthetic, 256x256 b1 bf16): "
+          f"{statistics.median(sps(ref_log)):.2f} steps/s logged, validation "
+          f"{rec['validation_pass_s']:.3f} s a pass of {val}, prefetch "
+          f"{rec['prefetch_share_of_train_loop']:.4f} of the loop; resumed "
+          f"{'bitwise equal' if bitwise else f'max weight diff {max_w:.3g}'}; {smi}",
+          flush=True)
+    return rec
+
 
 def kernels_line(recs: dict, runs: dict) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
@@ -1756,6 +1937,7 @@ def main() -> int:
     runs = {path: phase_train(smi, path) for path in TRAIN_PATHS}
     emit({"phase": "graph_capture", "instance_norm": in_graph_capture(),
           "chunked_block": chunked_graph_capture()})
+    phase_cli(smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit(kernels_line(recs, runs))

@@ -1,2 +1,3 @@
-"""Host-side data helpers for serving (numpy + PIL copies of the JAX
-package's transforms, palette and class-name tables)."""
+"""Host-side data pipeline (numpy + PIL copies of the JAX package's
+readers, transforms and palette; the loaders; the ctypes binding of the
+native pixel library)."""

@@ -1,11 +1,23 @@
-"""Dataset tables and the synthetic sample (copies of
-``cyclegan_tpu/data/datasets.py``'s ``DATASET_SPECS``, ``CLASS_NAMES``,
-``class_names`` and ``_synthetic_sample``; the dataset readers arrive with
-the data slice)."""
+"""Dataset readers, tables and the synthetic generator (a copy of
+``cyclegan_tpu/data/datasets.py``).
+
+Directory-convention readers for VOC2012, Cityscapes and ACDC, and a
+synthetic dataset (random coloured shapes with exact masks) that needs no
+data on disk. A dataset yields (image uint8 HWC, label uint8 HW) pairs; the
+loader applies the transforms. The labeled/unlabeled split is drawn from a
+fixed seed.
+"""
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass, field
+from typing import Sequence
+
 import numpy as np
+from PIL import Image
+
+from cyclegan_tpu_torch.data.palette import encode_colormap
 
 DATASET_SPECS = {
     # name: (num_classes, in_channels, ignore_index)
@@ -44,6 +56,47 @@ def class_names(dataset: str, num_classes: int) -> tuple[str, ...]:
     return tuple(f"class_{i}" for i in range(num_classes))
 
 
+@dataclass
+class SegmentationDataset:
+    """Samples loaded lazily: ``items`` are (image path, label path or None)
+    pairs, or ints for the synthetic dataset (generated once, then cached)."""
+
+    name: str
+    items: Sequence
+    num_classes: int
+    in_channels: int
+    ignore_index: int = 255
+    synthetic_size_hw: tuple[int, int] = (160, 160)
+    _cache: dict = field(default_factory=dict, repr=False)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def get(self, i: int) -> tuple[np.ndarray, np.ndarray | None]:
+        item = self.items[i]
+        if isinstance(item, (int, np.integer)):
+            if item not in self._cache:
+                self._cache[item] = _synthetic_sample(
+                    int(item), self.synthetic_size_hw, self.num_classes, self.in_channels)
+            return self._cache[item]
+        img_path, lab_path = item
+        img = np.asarray(Image.open(img_path).convert("L" if self.in_channels == 1 else "RGB"))
+        if self.in_channels == 1:
+            img = img[..., None]
+        lab = None
+        if lab_path is not None:
+            lab_img = Image.open(lab_path)
+            if lab_img.mode == "P":
+                lab = np.asarray(lab_img)  # palette indices are the class ids
+            elif lab_img.mode in ("RGB", "RGBA"):
+                # An RGB-encoded palette mask: decode the colours. PIL's
+                # convert('P') would quantize to the web palette instead.
+                lab = encode_colormap(np.asarray(lab_img.convert("RGB")), self.num_classes)
+            else:
+                lab = np.asarray(lab_img.convert("L"))
+        return img, lab
+
+
 def _synthetic_sample(idx: int, size_hw: tuple[int, int], num_classes: int,
                       in_channels: int) -> tuple[np.ndarray, np.ndarray]:
     """Deterministic random-shapes image (uint8 HWC) and its exact mask
@@ -76,3 +129,74 @@ def _synthetic_sample(idx: int, size_hw: tuple[int, int], num_classes: int,
     if in_channels == 1:
         img = img.mean(axis=-1, keepdims=True).astype(np.uint8)
     return img, lab
+
+
+def _voc_items(root: str, split: str):
+    list_file = os.path.join(root, "ImageSets", "Segmentation", f"{split}.txt")
+    with open(list_file) as f:
+        names = [ln.strip() for ln in f if ln.strip()]
+    return [(os.path.join(root, "JPEGImages", n + ".jpg"),
+             os.path.join(root, "SegmentationClass", n + ".png")) for n in names]
+
+
+def _cityscapes_items(root: str, split: str):
+    img_root = os.path.join(root, "leftImg8bit", split)
+    lab_root = os.path.join(root, "gtFine", split)
+    items = []
+    for city in sorted(os.listdir(img_root)):
+        for fn in sorted(os.listdir(os.path.join(img_root, city))):
+            if not fn.endswith("leftImg8bit.png"):
+                continue
+            base = fn[: -len("_leftImg8bit.png")]
+            items.append((os.path.join(img_root, city, fn),
+                          os.path.join(lab_root, city, base + "_gtFine_labelTrainIds.png")))
+    return items
+
+
+def _acdc_items(root: str, split: str):
+    """ACDC as per-slice PNGs: <root>/<split>/{images,labels}/*.png."""
+    img_dir = os.path.join(root, split, "images")
+    lab_dir = os.path.join(root, split, "labels")
+    items = []
+    for fn in sorted(os.listdir(img_dir)):
+        lab = os.path.join(lab_dir, fn)
+        items.append((os.path.join(img_dir, fn), lab if os.path.exists(lab) else None))
+    return items
+
+
+def make_dataset(name: str, root: str | None = None, *, split: str = "train",
+                 size: int | None = None) -> SegmentationDataset:
+    """Build a dataset; the synthetic ones need no ``root``."""
+    if name not in DATASET_SPECS:
+        raise ValueError(f"unknown dataset: {name!r} (expected {sorted(DATASET_SPECS)})")
+    num_classes, in_ch, ignore = DATASET_SPECS[name]
+    if name.startswith("synthetic"):
+        n = size or (200 if split == "train" else 40)
+        offset = {"train": 0, "val": 1_000_000, "test": 2_000_000}.get(split, 0)
+        items = list(range(offset, offset + n))
+    else:
+        if root is None or not os.path.isdir(root):
+            raise FileNotFoundError(f"dataset root for {name!r} not found: {root!r} — use "
+                                    f"dataset='synthetic' for a no-data run")
+        items = {"voc2012": _voc_items, "cityscapes": _cityscapes_items,
+                 "acdc": _acdc_items}[name](root, split)
+        if size is not None:
+            items = items[:size]
+    return SegmentationDataset(name, items, num_classes, in_ch, ignore)
+
+
+def split_labeled(ds: SegmentationDataset, labeled_fraction: float, seed: int = 0
+                  ) -> tuple[SegmentationDataset, SegmentationDataset]:
+    """Fixed-seed labeled/unlabeled split for semi-supervision; an empty
+    unlabeled part reuses the labeled items."""
+    n = len(ds)
+    n_lab = max(1, int(round(n * labeled_fraction)))
+    perm = np.random.default_rng(seed).permutation(n)
+    lab_items = [ds.items[i] for i in perm[:n_lab]]
+    unlab_items = [ds.items[i] for i in perm[n_lab:]] or lab_items
+
+    def mk(items):
+        return SegmentationDataset(ds.name, items, ds.num_classes, ds.in_channels,
+                                   ds.ignore_index, ds.synthetic_size_hw)
+
+    return mk(lab_items), mk(unlab_items)

@@ -1,9 +1,9 @@
-"""VOC colormap <-> class-index codecs (numpy + PIL).
+"""VOC colormap <-> class-index codecs and one-hot encoding (numpy + PIL).
 
-A copy of what serving needs from ``cyclegan_tpu/data/palette.py``. The
-prediction PNG is always the P-mode palette PNG (one index byte per pixel,
-rendered with the VOC palette); the JAX package's RGB alternative is not
-carried over.
+A copy of ``cyclegan_tpu/data/palette.py``. The prediction PNG is always
+the P-mode palette PNG (one index byte per pixel, rendered with the VOC
+palette); the JAX package's ``CYCLEGAN_TPU_PRED_PNG=rgb`` alternative is
+not carried over (``decode_colormap`` gives the RGB rendering).
 """
 
 from __future__ import annotations
@@ -49,12 +49,34 @@ def encode_colormap(rgb: np.ndarray, num_classes: int = 21) -> np.ndarray:
     return lut[flat]
 
 
-def save_prediction_png(labels: np.ndarray, fp) -> None:
-    """Write a class map (H, W) as a P-mode PNG carrying the VOC palette
-    (path or file object). Reading it back gives the indices unchanged."""
+def decode_colormap(labels: np.ndarray) -> np.ndarray:
+    """Class-index map (H, W) -> RGB (H, W, 3) uint8 via the VOC palette."""
+    return voc_colormap(256)[np.clip(labels, 0, 255)]
+
+
+def palette_image(labels: np.ndarray):
+    """Class-index map (H, W) -> P-mode PIL image carrying the VOC palette:
+    it renders as ``decode_colormap`` does, with one index byte a pixel."""
     from PIL import Image
 
     im = Image.fromarray(
         np.ascontiguousarray(np.clip(labels, 0, 255).astype(np.uint8)), mode="P")
     im.putpalette(voc_colormap(256).tobytes())
-    im.save(fp, format="PNG")
+    return im
+
+
+def save_prediction_png(labels: np.ndarray, fp) -> None:
+    """Write a class map (H, W) as a P-mode PNG carrying the VOC palette
+    (path or file object). Reading it back gives the indices unchanged."""
+    palette_image(labels).save(fp, format="PNG")
+
+
+def one_hot(labels: np.ndarray, num_classes: int, *, ignore_index: int | None = 255
+            ) -> np.ndarray:
+    """(..., H, W) int labels -> (..., H, W, num_classes) float32 one-hot;
+    ignored pixels are all zeros."""
+    safe = np.where(labels == ignore_index, 0, labels) if ignore_index is not None else labels
+    oh = np.eye(num_classes, dtype=np.float32)[safe]
+    if ignore_index is not None:
+        oh = oh * (labels != ignore_index)[..., None].astype(np.float32)
+    return oh

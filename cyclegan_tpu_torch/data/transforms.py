@@ -1,9 +1,12 @@
-"""Evaluation-image shaping (numpy + PIL).
+"""Image/label transforms (numpy + PIL).
 
-A copy of the serving half of ``cyclegan_tpu/data/transforms.py``
-(``normalize``, ``resize_pair``, ``eval_transform``): the port may not
-import the JAX package, so it keeps its own. Outputs are exactly
-(crop_h, crop_w).
+A copy of ``cyclegan_tpu/data/transforms.py`` (the port may not import the
+JAX package, so it keeps its own): resize -> random crop -> random
+horizontal flip -> normalize to [-1, 1] for training, and the deterministic
+evaluation shaping. The augment draws come from an injected
+``numpy.random.Generator`` in the order crop top, crop left, flip: the
+contract that makes the port's batches bit-identical to the JAX package's.
+Outputs are exactly (crop_h, crop_w).
 """
 
 from __future__ import annotations
@@ -30,9 +33,76 @@ def resize_pair(img: np.ndarray, lab: np.ndarray | None, size_hw: tuple[int, int
     return img, lab
 
 
+def random_crop_pair(img: np.ndarray, lab: np.ndarray | None, crop_hw: tuple[int, int],
+                     rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray | None]:
+    """Random (crop_h, crop_w) window of both; an image smaller than the
+    window is upscaled first so the crop always fits."""
+    ch, cw = crop_hw
+    h, w = img.shape[:2]
+    if h < ch or w < cw:
+        scale = max(ch / h, cw / w)
+        img, lab = resize_pair(img, lab, (max(ch, int(round(h * scale))),
+                                          max(cw, int(round(w * scale)))))
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - ch + 1))
+    left = int(rng.integers(0, w - cw + 1))
+    img = img[top:top + ch, left:left + cw]
+    if lab is not None:
+        lab = lab[top:top + ch, left:left + cw]
+    return img, lab
+
+
+def random_hflip_pair(img: np.ndarray, lab: np.ndarray | None, rng: np.random.Generator,
+                      p: float = 0.5) -> tuple[np.ndarray, np.ndarray | None]:
+    if rng.random() < p:
+        img = img[:, ::-1]
+        if lab is not None:
+            lab = lab[:, ::-1]
+    return img, lab
+
+
 def normalize(img: np.ndarray) -> np.ndarray:
     """uint8 [0, 255] -> float32 [-1, 1] (torchvision Normalize(0.5, 0.5))."""
     return img.astype(np.float32) / 127.5 - 1.0
+
+
+def draw_train_params(img: np.ndarray, lab: np.ndarray | None, *, crop_hw: tuple[int, int],
+                      rng: np.random.Generator, resize_hw: tuple[int, int] | None = None,
+                      flip_p: float = 0.5):
+    """Resize (if asked, or if the image is smaller than the crop) and draw
+    the crop and flip parameters: ``(img, lab, top, left, flip)``. The draw
+    order (top, left, flip) is the contract the numpy and native pixel
+    paths share."""
+    if resize_hw is not None:
+        img, lab = resize_pair(img, lab, resize_hw)
+    ch, cw = crop_hw
+    h, w = img.shape[:2]
+    if h < ch or w < cw:
+        scale = max(ch / h, cw / w)
+        img, lab = resize_pair(img, lab, (max(ch, int(round(h * scale))),
+                                          max(cw, int(round(w * scale)))))
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - ch + 1))
+    left = int(rng.integers(0, w - cw + 1))
+    flip = rng.random() < flip_p
+    return img, lab, top, left, flip
+
+
+def train_transform(img: np.ndarray, lab: np.ndarray | None, *, crop_hw: tuple[int, int],
+                    rng: np.random.Generator, resize_hw: tuple[int, int] | None = None
+                    ) -> tuple[np.ndarray, np.ndarray | None]:
+    """resize -> random crop -> random flip -> normalize (the numpy path)."""
+    img, lab, top, left, flip = draw_train_params(img, lab, crop_hw=crop_hw, rng=rng,
+                                                  resize_hw=resize_hw)
+    ch, cw = crop_hw
+    img = img[top:top + ch, left:left + cw]
+    lab = lab[top:top + ch, left:left + cw] if lab is not None else None
+    if flip:
+        img = img[:, ::-1]
+        lab = lab[:, ::-1] if lab is not None else None
+    img = normalize(np.ascontiguousarray(img))
+    lab = np.ascontiguousarray(lab) if lab is not None else None
+    return img, lab
 
 
 def eval_transform(img: np.ndarray, lab: np.ndarray | None, *,

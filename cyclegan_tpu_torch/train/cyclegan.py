@@ -75,6 +75,18 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _stack_size(batches: dict) -> int:
+    """K of a dict of batches stacked along a leading axis."""
+    return int(next(iter(batches.values())).shape[0])
+
+
+def _accumulate(sums: dict, metrics_: dict) -> None:
+    """Add detached float32 metrics into ``sums``, key by key."""
+    for key, v in metrics_.items():
+        v = v.detach().float()
+        sums[key] = v if key not in sums else sums[key] + v
+
+
 class CycleGANTrainer:
     """Builds the four networks on ``device`` (default: the CUDA device;
     without one this raises rather than run on the CPU)."""
@@ -228,6 +240,53 @@ class CycleGANTrainer:
         state.step += 1
         metrics_.update((k, v.detach()) for k, v in d_aux.items())
         return state, metrics_
+
+    def multi_step(self, state: CycleGANState, batches: dict) -> tuple[CycleGANState, dict]:
+        """K chained train steps (``Config.steps_per_call``): ``batches``
+        carries a leading K axis (images (K, B, H, W, C), labels (K, B, H,
+        W)). Returns the last step's metrics, as the JAX ``lax.scan`` does."""
+        metrics_ = {}
+        for i in range(_stack_size(batches)):
+            state, metrics_ = self.train_step(state, {k: v[i] for k, v in batches.items()})
+        return state, metrics_
+
+    def accum_step(self, state: CycleGANState, batches: dict) -> tuple[CycleGANState, dict]:
+        """ONE alternating G/D update from K stacked microbatches
+        (``Config.grad_accum``; ``batches`` as in :meth:`multi_step`).
+
+        As the JAX ``accum_step``: the G gradients of every microbatch are
+        taken at the same pre-update parameters, summed, divided by K and
+        applied in one Adam step; each microbatch draws fresh dropout masks;
+        the pools are queried once per microbatch, in order (the replay
+        stream therefore differs from one query of the K*B batch); the D
+        phase starts from the D the G phase saw and averages its gradients
+        the same way. Metrics are the means over the K microbatches. With
+        equal valid-pixel counts per microbatch the losses equal one
+        :meth:`train_step` on the concatenated batch."""
+        k = _stack_size(batches)
+        micro = [{key: v[i] for key, v in batches.items()} for i in range(k)]
+        drop = state.dropout if self.cfg.use_dropout else None
+        g_params, d_params = self.g_params(), self.d_params()
+        onehots = [self._onehot(b["lab_label"]) for b in micro]
+        g_sum, sums, fakes = None, {}, []
+        for b, oh in zip(micro, onehots):
+            g_total, aux, fake_img, fake_lab = self._g_loss(b, oh, drop)
+            grads = torch.autograd.grad(g_total, g_params)
+            g_sum = list(grads) if g_sum is None else [s.add_(g) for s, g in zip(g_sum, grads)]
+            _accumulate(sums, aux)
+            fakes.append((fake_img, fake_lab))
+        self._update(g_params, [g / k for g in g_sum], state.g_opt, state.g_sched)
+        del g_sum
+        pooled = [self._pool(state, b, *f) for b, f in zip(micro, fakes)]
+        d_sum = None
+        for b, oh, (p_img, p_lab) in zip(micro, onehots, pooled):
+            d_total, d_aux = self._d_loss(b, oh, p_img, p_lab)
+            grads = torch.autograd.grad(d_total, d_params)
+            d_sum = list(grads) if d_sum is None else [s.add_(g) for s, g in zip(d_sum, grads)]
+            _accumulate(sums, d_aux)
+        self._update(d_params, [g / k for g in d_sum], state.d_opt, state.d_sched)
+        state.step += 1
+        return state, {key: v / k for key, v in sums.items()}
 
     @torch.no_grad()
     def logits(self, image: torch.Tensor) -> torch.Tensor:

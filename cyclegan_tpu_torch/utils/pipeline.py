@@ -8,14 +8,24 @@ batch k's PNGs. Results are consumed strictly in submission order, so the
 output equals the serial loop's; only the fetch point moves. The fetch is
 ``.cpu()``, which waits for that tensor alone; there is no per-batch
 ``synchronize``.
+
+The depth (the most device results in flight) defaults to
+``CYCLEGAN_TPU_INFER_DEPTH`` (1 when unset; 0 fetches each result as soon
+as it is enqueued).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+
+def infer_depth() -> int:
+    """The configured pipeline depth (``CYCLEGAN_TPU_INFER_DEPTH``, default 1)."""
+    return max(0, int(os.environ.get("CYCLEGAN_TPU_INFER_DEPTH", "1")))
 
 
 class InferencePipeline:
@@ -24,12 +34,14 @@ class InferencePipeline:
     ``put(payload, device_result)`` enqueues a device tensor with its
     host-side payload; whenever more than ``depth`` results are pending the
     oldest is fetched to a numpy array and handed to
-    ``consume(payload, fetched)``. ``flush()`` drains everything.
+    ``consume(payload, fetched)``. ``flush()`` drains everything. ``depth``
+    None means :func:`infer_depth`.
     """
 
-    def __init__(self, consume: Callable[[Any, np.ndarray], None], depth: int = 1) -> None:
+    def __init__(self, consume: Callable[[Any, np.ndarray], None],
+                 depth: int | None = None) -> None:
         self._consume = consume
-        self.depth = max(0, depth)
+        self.depth = infer_depth() if depth is None else max(0, depth)
         self._pending: list[tuple[Any, torch.Tensor]] = []
 
     def put(self, payload: Any, device_result: torch.Tensor) -> None:

@@ -779,3 +779,40 @@ def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
             continue
         rel = float((gk - gp).norm() / gp.norm())
         assert rel <= GRAD_TOL_F32, f"{name}: step-1 gradient {rel} of its norm off"
+
+
+def test_cli_trains_on_the_card_and_restores_there(card, tmp_path):
+    """``python -m cyclegan_tpu_torch.main --training`` for 2 steps at ngf 8
+    on the card (its default device) through the IN and fused-block
+    kernels, then a checkpoint restore that lands every tensor on the card:
+    the nets, Adam's moments (its step counts stay on the host, as torch
+    keeps them), the pools and the dropout generator."""
+    from cyclegan_tpu_torch.main import main
+    from cyclegan_tpu_torch.train import checkpoint as ck
+
+    cfg = Config(dataset="synthetic", dataset_size=4, labeled_fraction=0.5,
+                 gen_net="resnet_2blocks", ngf=8, ndf=8, crop_height=32, crop_width=32,
+                 batch_size=1, pool_size=2, epochs=1, decay_epoch=1, use_dropout=False,
+                 checkpoint_dir=str(tmp_path / "ckpt"), results_dir=str(tmp_path / "res"))
+    flags = ["--dataset", "synthetic", "--dataset_size", "4", "--labeled_fraction", "0.5",
+             "--gen_net", "resnet_2blocks", "--ngf", "8", "--ndf", "8", "--crop_height", "32",
+             "--crop_width", "32", "--batch_size", "1", "--pool_size", "2", "--epochs", "1",
+             "--decay_epoch", "1", "--log_every", "1", "--validation_every", "1",
+             "--checkpoint_dir", cfg.checkpoint_dir, "--results_dir", cfg.results_dir]
+    before = (IN.launches, IN.bwd_launches, RB.launches, RB.bwd_dx_launches)
+    res = main(["--training"] + flags)
+    torch.cuda.synchronize()
+    after = (IN.launches, IN.bwd_launches, RB.launches, RB.bwd_dx_launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert np.isfinite(res["miou"])
+    trainer, state, _, _ = ck.restore_for_inference(cfg, semisupervised=True)
+    assert state.step == 2 and state.pool_img.count == 2
+    for net in trainer.nets():
+        assert all(t.is_cuda for t in net.state_dict().values())
+    for opt in (state.g_opt, state.d_opt):
+        for st in opt.state.values():
+            assert all(v.is_cuda for k, v in st.items() if k != "step")
+    assert state.pool_img.buffer.is_cuda and state.pool_lab.buffer.is_cuda
+    assert state.dropout.device.type == "cuda"
+    scores = main(["--testing"] + flags)
+    assert scores["miou"] == pytest.approx(res["miou"], abs=1e-6)
