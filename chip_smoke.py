@@ -8,7 +8,9 @@ image->label generator, ngf 64, 21 classes, 256x256, bf16 compute over
 float32 weights drawn from a seed) and the semi-supervised CycleGAN train
 step of the ``voc_semisup_256`` preset on three routes through the trunk
 (the default fused residual block; path A, ``CYCLEGAN_TPU_RESBLOCK=chunked``;
-path B, ``use_dropout``), and prints one JSON line per phase:
+path B, ``use_dropout``), the supervised segmenter of ``voc_supervised_128``
+(its ResNet-6, ``unet_128`` and ``--norm batch`` routes, ``remat``, and its
+CLI with tiled and TTA testing), and prints one JSON line per phase:
 
 1. device: the card, its power limit, and the parallel nvcc build of every
    kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers,
@@ -68,7 +70,30 @@ path B, ``use_dropout``), and prints one JSON line per phase:
    Every launch runs with the counters at 0 and must show kernels #1-#5
    launched as often as the modules derive for its train steps and eval
    forwards; steps/s from the logger, the loop's input wait and the
-   validation seconds are recorded with the card's name and power limit.
+   validation seconds are recorded with the card's name and power limit;
+10. kernels_supervised: the kernels of the supervised paths alone at their
+   shapes (bf16, batch 2) against their plain versions, timed: #1/#2 at
+   config 1's norm planes and at every U-Net plane (2x2x512 up to
+   64x64x64, no activation; float32 too at 2x2 and 4x4), #3-#5 at config
+   1's trunk (2, 32, 32, 256), #8 on batch norm's padded trunk input;
+11. train_supervised, train_supervised_unet, train_supervised_bn:
+   ``SupervisedTrainer.train_step`` of ``voc_supervised_128`` (BASELINE
+   config 1: resnet_6blocks, ngf 64, 128x128, batch 2, bf16), of its
+   unet_128 route and of its --norm batch route, as phase 6 does: float32
+   and bf16 runs of 3 steps on the kernels and on the plain seams, ce_loss
+   and float32 step-1 gradients against the plain-vs-plain floor, launch
+   counters against the modules, medians in turns and one profiled step;
+   under batch norm the running averages of both paths (BN_STATS_TOL) and
+   eval-mode logits from them;
+12. remat: one step each of the default CycleGAN path and of config 1 with
+   remat=True against remat=False from one state, within the step-1 bars;
+   the counters must show every trunk block's second forward;
+13. cli_supervised: ``python -m cyclegan_tpu_torch.main --training --model
+   supervised --preset voc_supervised_128 --dataset synthetic`` in process:
+   two epochs of 3 steps, preempted at step 4 and resumed against an
+   uninterrupted run, --testing equal to the last validation, and one
+   --testing on a 192x192 tiled canvas with flip and scales 0.75, 1.0,
+   1.25 (its seconds and mIoU), every launch held to the derived counts.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -720,10 +745,8 @@ def phase_kernels_train() -> dict:
     through the autograd Functions (dtypes x acts x skip), then every shape
     of one train step in bf16, timed, for the kernels line."""
     import torch
-    import torch.nn.functional as F
 
     from cyclegan_tpu_torch.kernels import instance_norm as IN
-    from cyclegan_tpu_torch.kernels import resblock as RB
 
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
@@ -761,138 +784,177 @@ def phase_kernels_train() -> dict:
                             "residual_block_fused", "residual_block_bwd_dx",
                             "residual_block_bwd_dw")}
     for shape, act, calls in train_in_cases():
-        x, dy = randn(shape, torch.bfloat16, 2.0, 0.5), randn(shape, torch.bfloat16)
-        y, y2 = torch.empty_like(x), torch.empty_like(x)
-        mean, rstd = IN.launch(x, None, y, 1e-5, act)
-        mean2, rstd2 = IN.launch(x, None, y2, 1e-5, act)
-        dx, dx2 = torch.empty_like(x), torch.empty_like(x)
-        IN.launch_bwd(x, dy, mean, rstd, dx, act)
-        IN.launch_bwd(x, dy, mean, rstd, dx2, act)
-        torch.cuda.synchronize()
-        bitwise = {"instance_norm_act": torch.equal(y, y2) and torch.equal(mean, mean2)
-                   and torch.equal(rstd, rstd2),
-                   "instance_norm_act_bwd": torch.equal(dx, dx2)}
-        pm, pr = IN.instance_norm_stats_plain(x)
-        res_f = compare("instance_norm_act", y, IN.instance_norm_act_plain(x, None, 1e-5, act),
-                        "bfloat16")
-        res_b = compare_bwd("instance_norm_act_bwd", dx,
-                            IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), "bfloat16")
-        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
-        yl = _lib_act(F.instance_norm(xl, eps=1e-5), act)
-        dyl = dy.permute(0, 3, 1, 2)
-        nbytes = x.numel() * x.element_size()
-        with torch.no_grad():
-            fwd = {"ms": time_ms(lambda: IN.instance_norm_act(x, None, 1e-5, act), 20),
-                   "plain_ms": time_ms(lambda: IN.instance_norm_act_plain(x, None, 1e-5, act), 5),
-                   "library_ms": time_ms(lambda: _lib_act(F.instance_norm(
-                       x.permute(0, 3, 1, 2), eps=1e-5), act), 20)}
-        fwd["graph_us_per_call"] = graph_us(lambda: IN.launch(x, None, y, 1e-5, act))
-        bwd = {"ms": time_ms(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act), 20),
-               "graph_us_per_call": graph_us(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act)),
-               "plain_ms": time_ms(lambda: IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), 5),
-               "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True),
-                                     20)}
-        for name, res, t, nb, fl in (
-                ("instance_norm_act", res_f, fwd, 2 * nbytes, 8.0 * x.numel()),
-                ("instance_norm_act_bwd", res_b, bwd, 3 * nbytes, 12.0 * x.numel())):
-            b_ms, b_by = bound(nb, fl, "float32")
-            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
-                   "dtype": "bfloat16", "act": act, **res, **t, "bound_ms": b_ms,
-                   "bound_by": b_by, "us_per_call": t["ms"] * 1e3, "bound_us": b_ms * 1e3,
-                   "second_call_bitwise_equal": bitwise[name], "calls_per_step": calls}
-            fail_if(not (res["ok"] and bitwise[name]), name, rec)
-            recs[name].append(rec)
-        del x, dy, y, y2, dx, dx2, xl, yl
+        for rec in in_case(shape, act, calls, randn, fail_if):
+            recs[rec["kernel"]].append(rec)
 
-    c = NGF * 4
     for dtype, b, calls in ((torch.float32, 2, 0), (torch.bfloat16, 2, 18),
                             (torch.bfloat16, 1, 9)):
-        dname = str(dtype).split(".")[1]
-        shape = (b, CROP // 4, CROP // 4, c)
-        x, dy = randn(shape, dtype), randn(shape, dtype)
-        w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
-        b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
-        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
-        y = RB.residual_block_fused(*leaves)
-        got = torch.autograd.grad(y, leaves, dy)
-        checks, flip = block_vjp_check(x, dy, w1, b1, w2, b2, (got[0], got[1], got[3]), dname)
-        bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
-        dw_check = {"max_abs_err": max(checks["dw1"]["max_abs_err"], checks["dw2"]["max_abs_err"]),
-                    "worst_err_over_tol": max(checks["dw1"]["worst_err_over_tol"],
-                                              checks["dw2"]["worst_err_over_tol"]),
-                    "ok": checks["dw1"]["ok"] and checks["dw2"]["ok"]}
-        ok = all(v["ok"] for v in checks.values()) and flip["ok"] and bias_zero and \
-            y.grad_fn is not None
-        fail_if(not ok, "residual_block_fused VJP",
-                {"phase": "kernels_train", "kernel": "residual_block_bwd", "via":
-                 "autograd.Function", "shape": list(shape), "dtype": dname,
-                 "bias_grads_exactly_zero": bias_zero, "reference": "plain VJP on the "
-                 "kernel path's relu mask", **{f"mask_{k}": v for k, v in flip.items()},
-                 **{f"{n}_{k}": r[k] for n, r in checks.items()
-                    for k in ("max_abs_err", "worst_err_over_tol")}})
-        if not calls:
-            continue
-        res_f = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
-                        RB.residual_block_plain(x, w1, b1, w2, b2), dname)
-        dxk, a, ds, du, g_parts = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
-        # Library yardstick: reflect pad + cuDNN conv + F.instance_norm, NCHW
-        # over channels_last, autograd for dx alone and for (dw1, dw2) alone.
-        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
-        W1, W2 = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                  .requires_grad_() for w in (w1, w2)]
-
-        def lib_rb(xn=xl):
-            h = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), W1, b1)
-            h = torch.relu(F.instance_norm(h, eps=1e-5))
-            h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), W2, b2)
-            return xn + F.instance_norm(h, eps=1e-5)
-
-        yl, dyl = lib_rb(), dy.permute(0, 3, 1, 2)
-        m = b * shape[1] * shape[2]
-        conv = 2.0 * m * 9 * c * c   # flops of one 3x3 convolution
-        elt = x.element_size()
-        act_b, w_b = x.numel() * elt, 2 * (w1.numel() + c) * elt
-        with torch.no_grad():
-            t_fwd = {"ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 10),
-                     "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 5),
-                     "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
-        t_dx = {"ms": time_ms(lambda: RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5), 10),
-                "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
-                "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
-                                                                  retain_graph=True), 10)}
-        t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts), 10),
-                "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, a, ds, du), 3),
-                "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
-                                                                  retain_graph=True), 10)}
-        f32_b = ds.numel() * 4
-        # Work at the rate of the products the kernels issue: the bf16
-        # recompute convolutions, and the gradient convolutions' passes over
-        # the bf16 parts (old_work: the same gradients at the float32 rate,
-        # the bound of their float32 FFMA predecessors).
-        passes = grad_passes(dtype, torch.float32)
-        for name, res, t, nb, work, old_work in (
-                ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
-                 {"bfloat16": 2 * conv}, None),
-                ("residual_block_bwd_dx", checks["dx"], t_dx, 3 * act_b + w_b,
-                 {"bfloat16": 2 * conv + passes * 2 * conv},
-                 {"bfloat16": 2 * conv, "float32": 2 * conv}),
-                ("residual_block_bwd_dw", dw_check, t_dw,
-                 2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"bfloat16": passes * 2 * conv},
-                 {"float32": 2 * conv})):
-            b_ms, b_by = bound(nb, work)
-            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
-                   "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
-                   "gflop": sum(work.values()) / 1e9, "calls_per_step": calls}
-            if old_work is not None:
-                rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
-            fail_if(not res["ok"], name, rec)
-            recs[name].append(rec)
-        del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl
+        for rec in rb_case(dtype, (b, CROP // 4, CROP // 4, NGF * 4), calls, randn, fail_if):
+            recs[rec["kernel"]].append(rec)
     torch.cuda.empty_cache()
     recs.update(kernels_train_chunked_dw(randn, fail_if))
     recs["grad_convs"] = kernels_grad_convs(randn, fail_if)
     recs["conv3x3_reflect"] = kernels_conv_fwd(randn, fail_if)
     return recs
+
+
+def in_case(shape, act: str, calls: int, randn, fail_if, phase: str = "kernels_train",
+            dtype=None) -> list:
+    """TPU kernels #1 and #2 alone at one shape of ``dtype`` (default bf16;
+    a seeded x and dy):
+    each against its plain version (BWD_TOL for the VJP), a second call
+    bitwise equal, its time eagerly and as a CUDA-graph replay, the plain
+    version's, one library call's (F.instance_norm + act, and its autograd
+    graph) and the byte bound. Returns the forward's and the VJP's records."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+
+    out = []
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[1]
+    x, dy = randn(shape, dtype, 2.0, 0.5), randn(shape, dtype)
+    y, y2 = torch.empty_like(x), torch.empty_like(x)
+    mean, rstd = IN.launch(x, None, y, 1e-5, act)
+    mean2, rstd2 = IN.launch(x, None, y2, 1e-5, act)
+    dx, dx2 = torch.empty_like(x), torch.empty_like(x)
+    IN.launch_bwd(x, dy, mean, rstd, dx, act)
+    IN.launch_bwd(x, dy, mean, rstd, dx2, act)
+    torch.cuda.synchronize()
+    bitwise = {"instance_norm_act": torch.equal(y, y2) and torch.equal(mean, mean2)
+               and torch.equal(rstd, rstd2),
+               "instance_norm_act_bwd": torch.equal(dx, dx2)}
+    pm, pr = IN.instance_norm_stats_plain(x)
+    res_f = compare("instance_norm_act", y, IN.instance_norm_act_plain(x, None, 1e-5, act),
+                    dname)
+    res_b = compare_bwd("instance_norm_act_bwd", dx,
+                        IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), dname)
+    xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    yl = _lib_act(F.instance_norm(xl, eps=1e-5), act)
+    dyl = dy.permute(0, 3, 1, 2)
+    nbytes = x.numel() * x.element_size()
+    with torch.no_grad():
+        fwd = {"ms": time_ms(lambda: IN.instance_norm_act(x, None, 1e-5, act), 20),
+               "plain_ms": time_ms(lambda: IN.instance_norm_act_plain(x, None, 1e-5, act), 5),
+               "library_ms": time_ms(lambda: _lib_act(F.instance_norm(
+                   x.permute(0, 3, 1, 2), eps=1e-5), act), 20)}
+    fwd["graph_us_per_call"] = graph_us(lambda: IN.launch(x, None, y, 1e-5, act))
+    bwd = {"ms": time_ms(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act), 20),
+           "graph_us_per_call": graph_us(lambda: IN.launch_bwd(x, dy, mean, rstd, dx, act)),
+           "plain_ms": time_ms(lambda: IN.instance_norm_act_bwd_plain(x, dy, pm, pr, act), 5),
+           "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True),
+                                 20)}
+    for name, res, t, nb, fl in (
+            ("instance_norm_act", res_f, fwd, 2 * nbytes, 8.0 * x.numel()),
+            ("instance_norm_act_bwd", res_b, bwd, 3 * nbytes, 12.0 * x.numel())):
+        b_ms, b_by = bound(nb, fl, "float32")
+        rec = {"phase": phase, "kernel": name, "shape": list(shape),
+               "dtype": dname, "act": act, **res, **t, "bound_ms": b_ms,
+               "bound_by": b_by, "us_per_call": t["ms"] * 1e3, "bound_us": b_ms * 1e3,
+               "second_call_bitwise_equal": bitwise[name], "calls_per_step": calls}
+        fail_if(not (res["ok"] and bitwise[name]), name, rec)
+        out.append(rec)
+    del x, dy, y, y2, dx, dx2, xl, yl
+    return out
+
+
+def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_train") -> list:
+    """TPU kernels #3-#5 (the fused residual block) at one NHWC trunk
+    ``shape``: the block's VJP through the Function against the plain VJP on
+    the kernel path's relu mask (block_vjp_check), bias gradients exactly
+    zero; then, where the path makes ``calls`` of it a step, the forward,
+    dx and dw each against its plain version, timed beside the plain
+    version, one library graph (reflect pad + cuDNN + F.instance_norm) and
+    the bound. Returns the three records (none when ``calls`` is 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    out = []
+    b, c = shape[0], shape[-1]
+    dname = str(dtype).split(".")[1]
+    x, dy = randn(shape, dtype), randn(shape, dtype)
+    w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
+    b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y = RB.residual_block_fused(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    checks, flip = block_vjp_check(x, dy, w1, b1, w2, b2, (got[0], got[1], got[3]), dname)
+    bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
+    dw_check = {"max_abs_err": max(checks["dw1"]["max_abs_err"], checks["dw2"]["max_abs_err"]),
+                "worst_err_over_tol": max(checks["dw1"]["worst_err_over_tol"],
+                                          checks["dw2"]["worst_err_over_tol"]),
+                "ok": checks["dw1"]["ok"] and checks["dw2"]["ok"]}
+    ok = all(v["ok"] for v in checks.values()) and flip["ok"] and bias_zero and \
+        y.grad_fn is not None
+    fail_if(not ok, "residual_block_fused VJP",
+            {"phase": phase, "kernel": "residual_block_bwd", "via":
+             "autograd.Function", "shape": list(shape), "dtype": dname,
+             "bias_grads_exactly_zero": bias_zero, "reference": "plain VJP on the "
+             "kernel path's relu mask", **{f"mask_{k}": v for k, v in flip.items()},
+             **{f"{n}_{k}": r[k] for n, r in checks.items()
+                for k in ("max_abs_err", "worst_err_over_tol")}})
+    if not calls:
+        return out
+    res_f = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
+                    RB.residual_block_plain(x, w1, b1, w2, b2), dname)
+    dxk, a, ds, du, g_parts = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
+    # Library yardstick: reflect pad + cuDNN conv + F.instance_norm, NCHW
+    # over channels_last, autograd for dx alone and for (dw1, dw2) alone.
+    xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    W1, W2 = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              .requires_grad_() for w in (w1, w2)]
+
+    def lib_rb(xn=xl):
+        h = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), W1, b1)
+        h = torch.relu(F.instance_norm(h, eps=1e-5))
+        h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), W2, b2)
+        return xn + F.instance_norm(h, eps=1e-5)
+
+    yl, dyl = lib_rb(), dy.permute(0, 3, 1, 2)
+    m = b * shape[1] * shape[2]
+    conv = 2.0 * m * 9 * c * c   # flops of one 3x3 convolution
+    elt = x.element_size()
+    act_b, w_b = x.numel() * elt, 2 * (w1.numel() + c) * elt
+    with torch.no_grad():
+        t_fwd = {"ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 10),
+                 "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 5),
+                 "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
+    t_dx = {"ms": time_ms(lambda: RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5), 10),
+            "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
+            "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
+                                                              retain_graph=True), 10)}
+    t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts), 10),
+            "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, a, ds, du), 3),
+            "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
+                                                              retain_graph=True), 10)}
+    f32_b = ds.numel() * 4
+    # Work at the rate of the products the kernels issue: the bf16
+    # recompute convolutions, and the gradient convolutions' passes over
+    # the bf16 parts (old_work: the same gradients at the float32 rate,
+    # the bound of their float32 FFMA predecessors).
+    passes = grad_passes(dtype, torch.float32)
+    for name, res, t, nb, work, old_work in (
+            ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
+             {"bfloat16": 2 * conv}, None),
+            ("residual_block_bwd_dx", checks["dx"], t_dx, 3 * act_b + w_b,
+             {"bfloat16": 2 * conv + passes * 2 * conv},
+             {"bfloat16": 2 * conv, "float32": 2 * conv}),
+            ("residual_block_bwd_dw", dw_check, t_dw,
+             2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"bfloat16": passes * 2 * conv},
+             {"float32": 2 * conv})):
+        b_ms, b_by = bound(nb, work)
+        rec = {"phase": phase, "kernel": name, "shape": list(shape),
+               "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
+               "gflop": sum(work.values()) / 1e9, "calls_per_step": calls}
+        if old_work is not None:
+            rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
+        fail_if(not res["ok"], name, rec)
+        out.append(rec)
+    del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl
+    return out
 
 
 def _max_check(checks: dict) -> dict:
@@ -909,8 +971,11 @@ def chunked_norm_halves(randn, x, dy) -> dict:
     as a CUDA-graph replay and eagerly (CUDA events around back-to-back
     calls, host included), beside its byte bound (each input read once,
     each output written once); a second call bitwise equal, and sample 1 of
-    a batch of 2 equal to the same sample alone."""
+    a batch of 2 equal to the same sample alone; beside them one autograd
+    graph of F.instance_norm + act [+ skip] for each pair (eager, CUDA
+    events: the library yardstick)."""
     import torch
+    import torch.nn.functional as F
 
     from cyclegan_tpu_torch.kernels import resblock_chunked as RC
 
@@ -948,12 +1013,34 @@ def chunked_norm_halves(randn, x, dy) -> dict:
     p = x.numel() * x.element_size()          # one plane of x's type
     f = x.numel() * 4                          # one float32 plane
     nbytes = {"fwd": (f + 2 * p) + (f + p + 2 * p), "vjp": (2 * p + f) + (f + p + 2 * p + f)}
+    # Library yardstick: one autograd graph of F.instance_norm + relu and
+    # F.instance_norm + the skip (NCHW views of the same inputs), forward,
+    # and its backward to u and s32 from the cotangents da and dy.
+    un, sn = (t.permute(0, 3, 1, 2).detach().requires_grad_() for t in (u, s32))
+    xn, dan, dyn = (t.permute(0, 3, 1, 2) for t in (x, da, dy))
+
+    def lib_fwd():
+        return (torch.relu(F.instance_norm(un, eps=eps)).to(x.dtype),
+                (F.instance_norm(sn, eps=eps) + xn).to(x.dtype))
+
+    lib_out = lib_fwd()
+
+    def lib_vjp():
+        return torch.autograd.grad(lib_out, (un, sn), (dan.to(x.dtype), dyn),
+                                   retain_graph=True)
+
     rec = {}
-    for side, fn in (("fwd", fwd), ("vjp", vjp)):
+    for side, fn, lib in (("fwd", fwd, lib_fwd), ("vjp", vjp, lib_vjp)):
         b_ms, _ = bound(nbytes[side], 0.0, "float32")
+        lib_graph = None
+        with torch.no_grad() if side == "fwd" else contextlib.nullcontext():
+            lib_eager = time_ms(lib, 20) * 1e3
+            if side == "fwd":
+                lib_graph = graph_us(lib)
         rec[side] = {
             "calls": 2, "shape": list(shape), "dtype": str(x.dtype).split(".")[1], "hc": HC,
             "graph_us_per_pair": graph_us(fn), "eager_us_per_pair": time_ms(fn, 20) * 1e3,
+            "library_eager_us_per_pair": lib_eager, "library_graph_us_per_pair": lib_graph,
             "bound_us": b_ms * 1e3, "bound_by": "bytes", "bytes": nbytes[side],
             "second_call_bitwise_equal": all(torch.equal(a, b)
                                              for a, b in zip(first[side], outs[side])),
@@ -1367,28 +1454,40 @@ def resblock_env(route: str):
                 os.environ[k] = v
 
 
+def _named_nets(trainer):
+    """(name, net) of every net a trainer trains."""
+    names = ("model",) if hasattr(trainer, "model") else ("G_i2l", "G_l2i", "D_img", "D_lab")
+    return zip(names, trainer.nets())
+
+
 def _pre_norm_biases(trainer) -> tuple[set, set]:
     """ids of the biases of the trunk blocks that run whole (fused or
-    chunked), and of every conv bias that an instance norm follows (those
-    included)."""
-    from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
+    chunked), and of every conv bias that a norm follows, instance or batch
+    (those included): the norm cancels it, so its gradient is zero in exact
+    arithmetic and rounding noise in float."""
+    from cyclegan_tpu_torch.models.generators import UnetLevel
+    from cyclegan_tpu_torch.ops.blocks import BatchNorm, InstanceNorm, ResidualBlock
 
+    norms = (InstanceNorm, BatchNorm)
     trunk, pre_norm = set(), set()
     for net in trainer.nets():
         for m in net.modules():
             if isinstance(m, ResidualBlock) and m.route != "unfused":
                 trunk |= {id(m.conv0.conv.bias), id(m.conv1.conv.bias)}
-            if isinstance(getattr(m, "norm", None), InstanceNorm) and m.conv.bias is not None:
+            if isinstance(getattr(m, "norm", None), norms) and m.conv.bias is not None:
                 pre_norm.add(id(m.conv.bias))
+            if isinstance(m, UnetLevel):
+                pre_norm |= {id(c.bias) for c, n in ((m.down, m.down_norm), (m.up, m.up_norm))
+                             if isinstance(n, norms)}
     return trunk, pre_norm
 
 
 def _grads(trainer) -> dict:
     """Clones of the gradients of every weight and of every bias that no
-    instance norm follows, by ``net.parameter`` name."""
+    norm follows, by ``net.parameter`` name."""
     _, pre_norm = _pre_norm_biases(trainer)
     return {f"{net_name}.{name}": p.grad.detach().clone()
-            for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), trainer.nets())
+            for net_name, net in _named_nets(trainer)
             for name, p in net.named_parameters() if id(p) not in pre_norm}
 
 
@@ -1403,7 +1502,7 @@ def _check_grads(trainer) -> dict:
 
     trunk, pre_norm = _pre_norm_biases(trainer)
     bad, n = [], {"params": 0, "nonzero_checked": 0, "trunk_bias_zero": 0}
-    for net_name, net in zip(("G_i2l", "G_l2i", "D_img", "D_lab"), trainer.nets()):
+    for net_name, net in _named_nets(trainer):
         for name, p in net.named_parameters():
             n["params"] += 1
             grad = p.grad
@@ -1422,50 +1521,81 @@ def _check_grads(trainer) -> dict:
     return n
 
 
+def net_counts(net) -> dict:
+    """Kernel calls of one train-mode forward of ``net`` and its backward,
+    from its modules: ``norms`` instance norms outside whole trunk blocks,
+    ``fused`` / ``chunked`` whole trunk blocks, ``dw`` ConvBlocks whose
+    weight gradient is conv_dw. Under remat the backward recomputes every
+    trunk block's forward: ``re_norms`` more instance norms (those of
+    unfused trunk blocks), ``re_fused`` and ``re_chunked`` more block
+    forwards."""
+    from cyclegan_tpu_torch.ops.blocks import ConvBlock, InstanceNorm, ResidualBlock
+
+    blocks = [m for m in net.modules() if isinstance(m, ResidualBlock)]
+    whole = [m for m in blocks if m.route != "unfused"]
+    routes = [m.route for m in whole]
+    fused, chunked = routes.count("fused"), routes.count("chunked")
+    norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
+    # The ConvBlocks of whole blocks only hold their weights.
+    idle = {id(c) for m in whole for c in (m.conv0, m.conv1)}
+    dw = sum(isinstance(m, ConvBlock) and m.dw_fused and id(m) not in idle
+             for m in net.modules())
+    remat = bool(getattr(net, "remat", False))
+    trunk_norms = sum(isinstance(n, InstanceNorm) for m in blocks if m.route == "unfused"
+                      for n in m.modules())
+    # The norms of whole trunk blocks are inside their kernels.
+    return {"norms": norms - 2 * (fused + chunked), "fused": fused, "chunked": chunked,
+            "dw": dw, "re_norms": trunk_norms if remat else 0,
+            "re_fused": fused if remat else 0, "re_chunked": chunked if remat else 0}
+
+
+def launches_per_step(in_calls: int, rb: int, rc: int, dw: int, re_in: int = 0,
+                      re_rb: int = 0, re_rc: int = 0) -> dict:
+    """Wrapper and C-entry launches of a step that makes ``in_calls``
+    instance norms (and their VJPs), ``rb`` fused and ``rc`` chunked blocks
+    (forward and backward), ``dw`` conv_dw weight gradients, and under remat
+    ``re_in`` / ``re_rb`` / ``re_rc`` recomputed norm and block forwards.
+    C entries: the fused block's forward makes 2 convolutions and 2 norms,
+    its backward recomputes both and their statistics and makes 2 norm
+    VJPs, 2 input and 2 weight gradients. The chunked forward makes 2
+    convolutions and 2 norms; its backward reads the saved residuals: 2 norm
+    VJPs, 2 input and 2 weight gradients, and no convolution. The weight
+    gradients are cg_conv_dw, as path B's conv_dw is. cg_bf16_parts: both
+    backwards split ds and du once each, for an input and a weight gradient,
+    and reflect-pad the input of each weight gradient (4); bf16 conv_dw on
+    channels that are multiples of 8 needs none."""
+    return {"instance_norm_act": in_calls + re_in, "instance_norm_act_bwd": in_calls,
+            "residual_block_fused": rb + re_rb, "residual_block_bwd_dx": rb,
+            "residual_block_bwd_dw": rb,
+            "residual_block_chunked": rc + re_rc, "residual_block_chunked_bwd": rc,
+            "conv_dw": dw,
+            "cg_instance_norm_act": in_calls + re_in + 4 * rb + 2 * re_rb + 2 * re_rc,
+            "cg_instance_norm_act_bwd": in_calls + 2 * rb,
+            "cg_conv3x3_reflect": 4 * rb + 2 * rc + 2 * re_rb + 2 * re_rc,
+            "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
+            "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 4 * rb + 4 * rc,
+            "cg_chunked_in_fwd": 2 * rc + 2 * re_rc, "cg_chunked_in_vjp": 2 * rc}
+
+
 def expected_launches(trainer, steps: int) -> dict:
     """Launch counts of ``steps`` train steps, from the modules and
     train/cyclegan.py: three generator applies (G_i2l on [unlab; lab], G_l2i
     on [onehot; fake_lab], G_i2l on fake_img) and four discriminator applies
     (D_lab, D_img in the G phase; D_img, D_lab in the D phase), each with
     its backward (the G-phase gradient flows through D into the fakes)."""
-    from cyclegan_tpu_torch.ops.blocks import ConvBlock, InstanceNorm, ResidualBlock
+    g, d = net_counts(trainer.G_i2l), net_counts(trainer.D_img)
+    per = launches_per_step(3 * g["norms"] + 4 * d["norms"], 3 * g["fused"],
+                            3 * g["chunked"], 3 * g["dw"], 3 * g["re_norms"],
+                            3 * g["re_fused"], 3 * g["re_chunked"])
+    return {k: v * steps for k, v in per.items()}
 
-    def per_net(net):
-        whole = [m for m in net.modules()
-                 if isinstance(m, ResidualBlock) and m.route != "unfused"]
-        routes = [m.route for m in whole]
-        fused, chunked = routes.count("fused"), routes.count("chunked")
-        norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
-        # The ConvBlocks of whole blocks only hold their weights.
-        idle = {id(c) for m in whole for c in (m.conv0, m.conv1)}
-        dw = sum(isinstance(m, ConvBlock) and m.dw_fused and id(m) not in idle
-                 for m in net.modules())
-        # The norms of whole trunk blocks are inside their kernels.
-        return norms - 2 * (fused + chunked), fused, chunked, dw
 
-    g_in, g_rb, g_rc, g_dw = per_net(trainer.G_i2l)
-    d_in = per_net(trainer.D_img)[0]
-    in_calls, rb, rc, dw = 3 * g_in + 4 * d_in, 3 * g_rb, 3 * g_rc, 3 * g_dw
-    per = {"instance_norm_act": in_calls, "instance_norm_act_bwd": in_calls,
-           "residual_block_fused": rb, "residual_block_bwd_dx": rb,
-           "residual_block_bwd_dw": rb,
-           "residual_block_chunked": rc, "residual_block_chunked_bwd": rc, "conv_dw": dw,
-           # C entries: the fused block's forward makes 2 convolutions and 2
-           # norms, its backward recomputes both and their statistics and
-           # makes 2 norm VJPs, 2 input and 2 weight gradients. The chunked
-           # forward makes 2 convolutions and 2 norms; its backward reads the
-           # saved residuals: 2 norm VJPs, 2 input and 2 weight gradients,
-           # and no convolution. The weight gradients are cg_conv_dw, as
-           # path B's conv_dw is. cg_bf16_parts: both backwards split ds and
-           # du once each, for an input and a weight gradient, and
-           # reflect-pad the input of each weight gradient (4); bf16 conv_dw
-           # on channels that are multiples of 8 needs none.
-           "cg_instance_norm_act": in_calls + 4 * rb,
-           "cg_instance_norm_act_bwd": in_calls + 2 * rb,
-           "cg_conv3x3_reflect": 4 * rb + 2 * rc,
-           "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
-           "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 4 * rb + 4 * rc,
-           "cg_chunked_in_fwd": 2 * rc, "cg_chunked_in_vjp": 2 * rc}
+def supervised_launches(trainer, steps: int) -> dict:
+    """Launch counts of ``steps`` supervised train steps: one forward of the
+    segmentation net and its backward a step (train/supervised.py)."""
+    g = net_counts(trainer.model)
+    per = launches_per_step(g["norms"], g["fused"], g["chunked"], g["dw"], g["re_norms"],
+                            g["re_fused"], g["re_chunked"])
     return {k: v * steps for k, v in per.items()}
 
 
@@ -1508,13 +1638,66 @@ PATH_COUNTS = {"chunked": {"residual_block_chunked": 27, "residual_block_chunked
                            "residual_block_chunked": 0}}
 
 
+def profile_step(step) -> dict:
+    """One profiled call of ``step``: its host ms, the device kernels' sum
+    and busy share, the largest kernels, the forward convolution's, the
+    weight gradient's, the instance norm's and the chunked norms' device ms
+    and launches, and the norm C entries called."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import _build
+
+    entries = dict(_build.launches)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    entries = {k: _build.launches[k] - entries.get(k, 0)
+               for k in ("cg_instance_norm_act", "cg_instance_norm_act_bwd",
+                         "cg_chunked_in_fwd", "cg_chunked_in_vjp")}
+    # Device kernels only (CPU ops that launched them carry the same time).
+    device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages() if e.self_device_time_total > 0
+                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    device_ms.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in device_ms)
+    return {"profiled_step_ms": step_ms, "profiled_step_device_ms_total": total,
+            "profiled_step_device_busy_share": total / step_ms,
+            "profiled_step_device_ms_by_kernel": [
+                {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
+            "profiled_step_conv3x3_fwd": conv_fwd_device_ms(device_ms),
+            "profiled_step_wgrad_wgmma": in_device_ms(device_ms,
+                                                      (("k1", "wgrad_wgmma<"),))["k1"],
+            "profiled_step_instance_norm": in_device_ms(device_ms),
+            "profiled_step_chunked_norms": in_device_ms(device_ms, CHUNKED_NORMS),
+            "profiled_step_norm_c_entries": entries}
+
+
+def check_one_launch_a_entry(rec: dict, path: str) -> None:
+    """The instance norm's kernels, forward and VJP, and the chunked block's
+    norms (path A: 4 a block, 108 a step) launch once a C entry call in
+    ``profile_step``'s record, or this raises."""
+    entries = rec["profiled_step_norm_c_entries"]
+    in_prof = rec["profiled_step_instance_norm"]
+    if (in_prof["fwd"]["launches"], in_prof["bwd"]["launches"]) != \
+            (entries["cg_instance_norm_act"], entries["cg_instance_norm_act_bwd"]):
+        raise AssertionError(f"{path}: instance-norm kernels {in_prof} in the profiled step, "
+                             f"not one a C entry {entries}")
+    rc_prof = rec["profiled_step_chunked_norms"]
+    if (rc_prof["fwd"]["launches"], rc_prof["vjp"]["launches"]) != \
+            (entries["cg_chunked_in_fwd"], entries["cg_chunked_in_vjp"]):
+        raise AssertionError(f"{path}: chunked norm kernels {rc_prof} in the profiled step, "
+                             f"not one a C entry {entries}")
+
+
 def phase_train(smi: str, path: str = "default") -> dict:
     import numpy as np
     import torch
 
     from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
     from cyclegan_tpu_torch.data.transforms import normalize
-    from cyclegan_tpu_torch.kernels import _build
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
     from cyclegan_tpu_torch.utils.config import preset
 
@@ -1649,46 +1832,10 @@ def phase_train(smi: str, path: str = "default") -> dict:
            "median_step_ms_kernel": med_k, "steps_per_s_kernel": 1e3 / med_k,
            "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p}
     torch.cuda.reset_peak_memory_stats()
-    entries = dict(_build.launches)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))
-        torch.cuda.synchronize()
-        prof_step_ms = (time.perf_counter() - t0) * 1e3
-    entries = {k: _build.launches[k] - entries.get(k, 0)
-               for k in ("cg_instance_norm_act", "cg_instance_norm_act_bwd",
-                         "cg_chunked_in_fwd", "cg_chunked_in_vjp")}
-    # Device kernels only (CPU ops that launched them carry the same time).
-    device_ms = [(e.key, e.self_device_time_total / 1e3, e.count)
-                 for e in prof.key_averages() if e.self_device_time_total > 0
-                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    device_ms.sort(key=lambda r: -r[1])
-    rec.update({
-        "profiled_step_ms": prof_step_ms,
-        "profiled_step_device_ms_total": sum(r[1] for r in device_ms),
-        "profiled_step_device_busy_share": sum(r[1] for r in device_ms) / prof_step_ms,
-        "profiled_step_device_ms_by_kernel": [
-            {"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in device_ms[:20]],
-        "profiled_step_conv3x3_fwd": conv_fwd_device_ms(device_ms),
-        "profiled_step_instance_norm": in_device_ms(device_ms),
-        "profiled_step_chunked_norms": in_device_ms(device_ms, CHUNKED_NORMS),
-        "profiled_step_norm_c_entries": entries,
-        "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9})
+    rec.update(profile_step(lambda: kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))))
+    rec["peak_mem_gb_profiled_step"] = torch.cuda.max_memory_allocated() / 1e9
     emit(rec)
-    # One launch a C entry: the instance norm's kernels, forward and VJP.
-    in_prof = rec["profiled_step_instance_norm"]
-    if (in_prof["fwd"]["launches"], in_prof["bwd"]["launches"]) != \
-            (entries["cg_instance_norm_act"], entries["cg_instance_norm_act_bwd"]):
-        raise AssertionError(f"{path}: instance-norm kernels {in_prof} in the profiled step, "
-                             f"not one a C entry {entries}")
-    # And the chunked block's: one launch a cg_chunked_in_fwd / _vjp call
-    # (path A: 4 a block, 108 a step).
-    rc_prof = rec["profiled_step_chunked_norms"]
-    if (rc_prof["fwd"]["launches"], rc_prof["vjp"]["launches"]) != \
-            (entries["cg_chunked_in_fwd"], entries["cg_chunked_in_vjp"]):
-        raise AssertionError(f"{path}: chunked norm kernels {rc_prof} in the profiled step, "
-                             f"not one a C entry {entries}")
+    check_one_launch_a_entry(rec, path)
     print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
           f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
           f"versions; {smi}", flush=True)
@@ -1707,20 +1854,25 @@ CLI_IN_KERNELS = ("instance_norm_act", "instance_norm_act_bwd", "residual_block_
 SCORE_TOL = 1e-4  # --testing against the last validation, mIoU and pixel accuracy
 
 
-def forward_launches(trainer, n_i2l: int, n_l2i: int) -> dict:
-    """Launches of ``n_i2l`` G_i2l and ``n_l2i`` G_l2i forwards (eval,
-    sample dumps, --testing): each norm outside a whole trunk block is one
+def net_forward_launches(net, n: int) -> dict:
+    """Launches of ``n`` forwards of ``net`` without gradients (eval, sample
+    dumps, --testing): each norm outside a whole trunk block is one
     instance_norm_act launch, each fused trunk block one
     residual_block_fused launch; no backward kernel."""
     from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
 
     out = dict.fromkeys(CLI_IN_KERNELS, 0)
-    for net, n in ((trainer.G_i2l, n_i2l), (trainer.G_l2i, n_l2i)):
-        fused = sum(isinstance(m, ResidualBlock) and m.route == "fused" for m in net.modules())
-        norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
-        out["instance_norm_act"] += n * (norms - 2 * fused)
-        out["residual_block_fused"] += n * fused
+    fused = sum(isinstance(m, ResidualBlock) and m.route == "fused" for m in net.modules())
+    norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
+    out["instance_norm_act"] += n * (norms - 2 * fused)
+    out["residual_block_fused"] += n * fused
     return out
+
+
+def forward_launches(trainer, n_i2l: int, n_l2i: int) -> dict:
+    """Launches of ``n_i2l`` G_i2l and ``n_l2i`` G_l2i forwards."""
+    a, b = net_forward_launches(trainer.G_i2l, n_i2l), net_forward_launches(trainer.G_l2i, n_l2i)
+    return {k: a[k] + b[k] for k in CLI_IN_KERNELS}
 
 
 def phase_cli(smi: str) -> dict:
@@ -1866,11 +2018,543 @@ def phase_cli(smi: str) -> dict:
     return rec
 
 
-def kernels_line(recs: dict, runs: dict) -> dict:
+# The supervised segmenter (BASELINE.json config 1): the voc_supervised_128
+# preset at its published widths (resnet_6blocks, ngf 64, 21 classes,
+# 128x128, batch 2, bf16 over float32), on three routes: its default
+# generator, unet_128 (7 levels), and --norm batch. VOC2012's 100-image
+# subset at batch 2 gives 50 steps an epoch (the LambdaLR staircase).
+SUP_PRESET = "voc_supervised_128"
+SUP_STEPS_PER_EPOCH = 50
+SUP_PATHS = {"train_supervised": {}, "train_supervised_unet": {"gen_net": "unet_128"},
+             "train_supervised_bn": {"norm": "batch"}}
+# The per-step ce_loss, kernel path vs plain path: the g_total bars of
+# TRAIN_TOL, with the same reasons (step 1 at the same weights; from step 2
+# Adam's first updates move weights by +-lr whatever their gradient's size).
+SUP_TOL = {dtype: tols["g_total"] for dtype, tols in TRAIN_TOL.items()}
+# Batch-norm running averages after 3 steps, kernel path vs plain path:
+# |k - p| <= tol * max(1, |p|). Step 1's forwards run no kernel (the trunk's
+# weight gradient is #8's, a backward), so they agree bitwise; from step 2
+# the weights differ as above, and every bias before a batch norm has a
+# gradient of rounding size that Adam moves by +-lr (1.2e-3 apart after 3
+# steps, a running mean 2.8e-4, on the CPU against the JAX package); in
+# bf16 a weight moved by 2e-4 also rounds to another bf16 value.
+BN_STATS_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
+
+
+def _sup_batch(cfg, n_cls: int, in_ch: int, index: int = 0) -> dict:
+    """Two synthetic samples at the preset's crop, a void border on the
+    labels (as VOC's masks have), on the card."""
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import _synthetic_sample
+    from cyclegan_tpu_torch.data.transforms import normalize
+
+    imgs, labs = [], []
+    for i in range(cfg.batch_size):
+        img, lab = _synthetic_sample(index + i, cfg.crop_hw, n_cls, in_ch)
+        lab = lab.astype(np.int64)
+        lab[:2], lab[:, :2] = 255, 255
+        imgs.append(normalize(img))
+        labs.append(lab)
+    return {"image": torch.from_numpy(np.stack(imgs)).cuda(),
+            "label": torch.from_numpy(np.stack(labs)).cuda()}
+
+
+def _running_stats(trainer) -> dict:
+    from cyclegan_tpu_torch.ops.blocks import BatchNorm
+
+    return {f"{n}.{k}": getattr(m, k).detach().clone() for n, m in trainer.model.named_modules()
+            if isinstance(m, BatchNorm) for k in ("running_mean", "running_var")}
+
+
+def _stats_err(a: dict, b: dict) -> float:
+    return max(float(((a[k] - b[k]).abs() / b[k].abs().clamp_min(1.0)).max()) for k in b)
+
+
+def phase_train_supervised(smi: str, path: str) -> dict:
+    """SupervisedTrainer.train_step of voc_supervised_128 (or its unet_128 /
+    --norm batch route) on one synthetic batch of 2: float32 then bf16, 3
+    steps on the kernels and 3 on the plain seams from one state each; the
+    per-step ce_loss, the float32 step-1 gradients against the measured
+    plain-vs-plain floor, every launch counter against the count derived
+    from the modules, the median step of each path in turns, one profiled
+    step; under batch norm the running averages of both paths and the
+    eval-mode logits from them."""
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS
+    from cyclegan_tpu_torch.ops.blocks import frozen_running_stats
+    from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(SUP_PRESET).replace(**SUP_PATHS[path])
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    batch = _sup_batch(cfg, n_cls, in_ch)
+
+    def trainer(c=cfg):
+        with resblock_env("fused"):
+            t = SupervisedTrainer(c, n_cls, in_ch, SUP_STEPS_PER_EPOCH, device="cuda")
+        return t, t.init_state(torch.Generator().manual_seed(0))
+
+    def run(t, st, plain=False, after_step1=None) -> list:
+        out = []
+        with plain_seams() if plain else contextlib.nullcontext():
+            for s in range(TRAIN_STEPS):
+                st, m = t.train_step(st, batch)
+                if s == 0 and after_step1 is not None:
+                    after_step1(t)
+                out.append(float(m["ce_loss"]))
+        return out
+
+    def agree(dtype: str, k: list, p: list) -> list:
+        errs = [abs(a - b) / (atol + rtol * abs(b)) for a, b, (rtol, atol)
+                in zip(k, p, SUP_TOL[dtype])]
+        if not all(np.isfinite(k)) or max(errs) > 1.0:
+            raise AssertionError(f"{path} {dtype} ce_loss: kernel path {k} vs plain path {p}")
+        return errs
+
+    f32 = cfg.replace(bf16=False)
+    g_kernel, g_plain, g_plain2 = {}, {}, {}
+    kt32, ks32 = trainer(f32)
+    k32 = run(kt32, ks32, after_step1=lambda t: g_kernel.update(_grads(t)))
+    pt32, ps32 = trainer(f32)
+    p32 = run(pt32, ps32, plain=True, after_step1=lambda t: g_plain.update(_grads(t)))
+    run(*trainer(f32), plain=True, after_step1=lambda t: g_plain2.update(_grads(t)))
+    worst32 = agree("float32", k32, p32)
+
+    def rel_err(g):
+        return {k: float((g[k] - g_plain[k]).norm() / g_plain[k].norm()) for k in g_plain}
+
+    grad_err, grad_floor = rel_err(g_kernel), rel_err(g_plain2)
+    worst_grad = max(grad_err, key=grad_err.get)
+    if not max(grad_err.values()) <= GRAD_TOL_F32:
+        raise AssertionError(f"{path} float32 step-1 gradients, kernel vs plain path: worst "
+                             f"{worst_grad} {grad_err[worst_grad]} > {GRAD_TOL_F32}")
+    bn = {}
+    if cfg.norm == "batch":
+        bn["float32_stats_err"] = _stats_err(_running_stats(kt32), _running_stats(pt32))
+    del g_kernel, g_plain, g_plain2, kt32, ks32, pt32, ps32
+    torch.cuda.empty_cache()
+
+    kt, ks = trainer()
+    n_params = sum(p.numel() for p in kt.model.parameters())
+    # The path's run: counts set to 0 just before, read just after.
+    _zero_counters()
+    grads = {}
+    k_losses = run(kt, ks, after_step1=lambda t: grads.update(_check_grads(t)))
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    want = supervised_launches(kt, TRAIN_STEPS)
+    if {k: launches.get(k, 0) for k in want} != want or not any(want.values()):
+        raise AssertionError(f"{path}: launch counters {launches} != derived {want}")
+    pt, ps = trainer()
+    p_losses = run(pt, ps, plain=True)
+    worst = agree("bfloat16", k_losses, p_losses)
+    if cfg.norm == "batch":
+        bn["bfloat16_stats_err"] = _stats_err(_running_stats(kt), _running_stats(pt))
+        x = batch["image"].permute(0, 3, 1, 2)
+        with torch.no_grad(), frozen_running_stats(kt.model):
+            train_logits = kt.model(x).permute(0, 2, 3, 1)
+        eval_logits = kt.logits(batch["image"])
+        bn.update(eval_logits_shape=list(eval_logits.shape),
+                  eval_logits_finite=bool(torch.isfinite(eval_logits).all()),
+                  eval_differs_from_train_mode=not torch.equal(eval_logits.float(),
+                                                               train_logits.float()),
+                  eval_argmax_agreement_kernel_vs_plain=float(
+                      (eval_logits.argmax(-1) == pt.logits(batch["image"]).argmax(-1))
+                      .float().mean()),
+                  tol=BN_STATS_TOL)
+        if not (bn["float32_stats_err"] <= BN_STATS_TOL["float32"]
+                and bn["bfloat16_stats_err"] <= BN_STATS_TOL["bfloat16"]
+                and bn["eval_logits_finite"] and bn["eval_differs_from_train_mode"]
+                and bn["eval_logits_shape"] == [cfg.batch_size, *cfg.crop_hw, n_cls]):
+            raise AssertionError(f"{path}: batch norm {bn}")
+
+    def timed(t, st) -> list:
+        out = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(st, batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with plain_seams():
+        plain_ms = timed(pt, ps)
+    kernel_ms = timed(kt, ks) + timed(kt, ks)
+    with plain_seams():
+        plain_ms += timed(pt, ps)
+    del pt, ps
+    torch.cuda.empty_cache()
+    med_k, med_p = statistics.median(kernel_ms), statistics.median(plain_ms)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_step(lambda: kt.train_step(ks, batch))
+    rec = {"phase": path, "preset": SUP_PRESET, "gen_net": cfg.gen_net, "norm": cfg.norm,
+           "crop": list(cfg.crop_hw), "batch": cfg.batch_size, "n_params": n_params,
+           "nvidia_smi": smi, "losses_kernel_path": k_losses, "losses_plain_path": p_losses,
+           "loss_err_over_tol": worst, "float32_losses_kernel_path": k32,
+           "float32_losses_plain_path": p32, "float32_loss_err_over_tol": worst32,
+           "float32_step1_grad_rel_err_worst": [worst_grad, grad_err[worst_grad]],
+           "float32_step1_grad_rel_err_median": statistics.median(grad_err.values()),
+           "float32_step1_grad_plain_vs_plain_worst": max(grad_floor.values()),
+           "float32_step1_grad_plain_vs_plain_median": statistics.median(grad_floor.values()),
+           "float32_step1_grads_compared": len(grad_err), "tol": SUP_TOL,
+           "step1_grads": grads, "batch_norm": bn or None,
+           "launches_over_3_steps": launches, "expected_launches": want,
+           "step_ms_kernel": kernel_ms, "step_ms_plain": plain_ms,
+           "median_step_ms_kernel": med_k, "steps_per_s_kernel": 1e3 / med_k,
+           "median_step_ms_plain": med_p, "steps_per_s_plain": 1e3 / med_p, **prof,
+           "peak_mem_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    check_one_launch_a_entry(rec, path)
+    print(f"{path} ({SUP_PRESET}, {cfg.gen_net}, norm {cfg.norm}, 128x128 b2 bf16): median "
+          f"{med_k:.2f} ms on the kernels, {med_p:.2f} ms on the plain versions; profiled "
+          f"step device {prof['profiled_step_device_ms_total']:.2f} ms, busy "
+          f"{prof['profiled_step_device_busy_share']:.2f}; {smi}", flush=True)
+    del kt, ks
+    torch.cuda.empty_cache()
+    return {"launches": launches, "record": rec}
+
+
+def phase_kernels_supervised() -> dict:
+    """kernels_supervised with its own seeded generator."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device="cuda", generator=g) * scale + shift).to(dtype)
+
+    def fail_if(bad: bool, what: str, rec: dict):
+        emit(rec)
+        if bad:
+            raise AssertionError(f"{what} disagrees with its plain version: {rec}")
+
+    return kernels_supervised(randn, fail_if)
+
+
+def kernels_supervised(randn, fail_if) -> dict:
+    """The kernels of the supervised paths alone at their shapes (bf16,
+    batch 2), against their plain versions, timed: #1/#2 at config 1's norm
+    planes (relu) and at every U-Net plane (no activation; also float32 at
+    the 2x2 and 4x4 planes, where a tile of in_plan has more rows than the
+    plane), #3-#5 at config 1's trunk (2, 32, 32, 256), and #8 on its
+    reflect-padded trunk input (batch norm's trunk). Returns {path:
+    {kernel: [records]}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import conv_dw as CD
+
+    out = {path: {} for path in SUP_PATHS}
+
+    def add(path, recs):
+        for r in recs:
+            out[path].setdefault(r["kernel"], []).append(r)
+
+    b = 2
+    for s, c, act, calls in ((128, 64, "relu", 2), (64, 128, "relu", 2), (32, 256, "relu", 1)):
+        add("train_supervised", in_case((b, s, s, c), act, calls, randn, fail_if,
+                                        "kernels_supervised"))
+    add("train_supervised", rb_case(torch.bfloat16, (b, 32, 32, 256), 6, randn, fail_if,
+                                    "kernels_supervised"))
+    # U-Net planes: each carries a down norm and the up norm of the level
+    # below it, but the outermost 64x64x64 (its up norm only).
+    for s, c, calls in ((2, 512, 2), (4, 512, 2), (8, 512, 2), (16, 256, 2), (32, 128, 2),
+                        (64, 64, 1)):
+        add("train_supervised_unet", in_case((b, s, s, c), "none", calls, randn, fail_if,
+                                             "kernels_supervised"))
+    for s in (2, 4):
+        in_case((b, s, s, 512), "none", 0, randn, fail_if, "kernels_supervised", torch.float32)
+    # #8 at batch norm's trunk: 12 calls a step (6 blocks x 2 convolutions).
+    shape, c = (b, 32, 32, 256), 256
+    x, dy = randn(shape, torch.bfloat16), randn(shape, torch.bfloat16)
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    xp = xp.contiguous()
+    dw, again = CD.conv_dw(xp, dy), CD.conv_dw(xp, dy)
+    torch.cuda.synchronize()
+    res = compare_bwd("conv_dw", dw, CD.conv_dw_plain(xp, dy), "bfloat16")
+    conv = 2.0 * b * 32 * 32 * 9 * c * c
+    passes = grad_passes(xp.dtype, dy.dtype)
+    b_ms, b_by = bound(xp.numel() * 2 + dy.numel() * 2 + dw.numel() * 4,
+                       {"bfloat16": passes * conv})
+    xpl, dyl = xp.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    rec = {"phase": "kernels_supervised", "kernel": "conv_dw", "shape": list(xp.shape),
+           "dtype": "bfloat16", **res, "second_call_bitwise_equal": torch.equal(dw, again),
+           "ms": time_ms(lambda: CD.conv_dw(xp, dy), 20),
+           "plain_ms": time_ms(lambda: CD.conv_dw_plain(xp, dy), 5),
+           "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), dyl),
+                                 20),
+           "bound_ms": b_ms, "bound_by": b_by, "bf16_passes": passes, "calls_per_step": 12}
+    fail_if(not (res["ok"] and rec["second_call_bitwise_equal"]), "conv_dw", rec)
+    add("train_supervised_bn", [rec])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(smi: str) -> dict:
+    """One step each of the CycleGAN default path (voc_semisup_256) and of
+    config 1 (voc_supervised_128) with remat=True against remat=False from
+    one state, float32 and bf16: losses within the step-1 bars of TRAIN_TOL
+    / SUP_TOL; in float32 the step-1 gradients within GRAD_TOL_F32 of each
+    other, beside the floor of two remat=False steps; in bf16 (the path's
+    type) every launch counter equal to the derived count, which holds the
+    trunk blocks' second forward, the peak memory of a step and the median
+    step time of each setting, in turns."""
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
+    from cyclegan_tpu_torch.data.transforms import normalize
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    out = {"phase": "remat", "nvidia_smi": smi}
+    for name, preset_name in (("cyclegan", TRAIN_PRESET), ("supervised", SUP_PRESET)):
+        cfg = preset(preset_name)
+        n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+        if name == "cyclegan":
+            lab_img, lab = _synthetic_sample(0, cfg.crop_hw, n_cls, in_ch)
+            unlab_img, _ = _synthetic_sample(1, cfg.crop_hw, n_cls, in_ch)
+            lab = lab.astype(np.int64)
+            lab[:2], lab[:, :2] = 255, 255
+            batch = {"lab_image": torch.from_numpy(normalize(lab_img)[None]).cuda(),
+                     "unlab_image": torch.from_numpy(normalize(unlab_img)[None]).cuda(),
+                     "lab_label": torch.from_numpy(lab[None]).cuda(),
+                     "pool_use_new_img": np.array([True]), "pool_idx_img": np.array([0]),
+                     "pool_use_new_lab": np.array([True]), "pool_idx_lab": np.array([0])}
+            make, steps_per_epoch, derive = CycleGANTrainer, VOC_STEPS_PER_EPOCH, \
+                expected_launches
+            tols = {d: {k: v[0] for k, v in t.items()} for d, t in TRAIN_TOL.items()}
+        else:
+            batch = _sup_batch(cfg, n_cls, in_ch)
+            make, steps_per_epoch, derive = SupervisedTrainer, SUP_STEPS_PER_EPOCH, \
+                supervised_launches
+            tols = {d: {"ce_loss": t[0]} for d, t in SUP_TOL.items()}
+
+        def trainer(remat: bool, bf16: bool):
+            with resblock_env("fused"):
+                t = make(cfg.replace(remat=remat, bf16=bf16), n_cls, in_ch, steps_per_epoch,
+                         device="cuda")
+            return t, t.init_state(torch.Generator().manual_seed(0))
+
+        def step(remat: bool, bf16: bool) -> dict:
+            t, st = trainer(remat, bf16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _zero_counters()
+            st, m = t.train_step(st, batch)
+            torch.cuda.synchronize()
+            r = {"losses": {k: float(v) for k, v in m.items()}, "grads": _grads(t),
+                 "launches": _read_counters(), "derived": derive(t, 1),
+                 "peak_mem_gb_above_state": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                 "trainer": (t, st)}
+            return r
+
+        def loss_err(on: dict, off: dict, dtype: str) -> dict:
+            return {k: abs(on["losses"][k] - off["losses"][k])
+                    / (atol + rtol * abs(off["losses"][k]))
+                    for k, (rtol, atol) in tols[dtype].items()}
+
+        def grad_err(a: dict, b: dict) -> dict:
+            return {k: float((a["grads"][k] - b["grads"][k]).norm()
+                             / b["grads"][k].norm().clamp_min(1e-30)) for k in b["grads"]}
+
+        # float32: gradients of remat on against off, beside off against off.
+        off32, on32 = step(False, False), step(True, False)
+        floor = grad_err(step(False, False), off32)
+        g32 = grad_err(on32, off32)
+        worst = max(g32, key=g32.get)
+        err32 = loss_err(on32, off32, "float32")
+        del off32, on32
+        torch.cuda.empty_cache()
+        # bf16: counters, memory and time.
+        off, on = step(False, True), step(True, True)
+        for r in (off, on):
+            if {k: r["launches"].get(k, 0) for k in r["derived"]} != r["derived"]:
+                raise AssertionError(f"remat {name}: launch counters {r['launches']} != "
+                                     f"derived {r['derived']}")
+        # The trunk's second forward: every whole block launched twice.
+        if on["launches"]["residual_block_fused"] != 2 * off["launches"]["residual_block_fused"]:
+            raise AssertionError(f"remat {name}: no recompute in the counters {on['launches']}")
+        err16 = loss_err(on, off, "bfloat16")
+        times = {False: [], True: []}
+        for remat in (False, True, True, False):
+            t, st = (on if remat else off)["trainer"]
+            for _ in range(TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train_step(st, batch)
+                torch.cuda.synchronize()
+                times[remat].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"preset": preset_name, "losses_remat": on["losses"],
+                     "losses_no_remat": off["losses"], "loss_err_over_tol": err16,
+                     "losses_bitwise_equal": on["losses"] == off["losses"],
+                     "float32_loss_err_over_tol": err32,
+                     "float32_step1_grad_rel_err_worst": [worst, g32[worst]],
+                     "float32_step1_grad_no_remat_twice_worst": max(floor.values()),
+                     "launches_remat": on["launches"], "launches_no_remat": off["launches"],
+                     "peak_mem_gb_remat": on["peak_mem_gb_above_state"],
+                     "peak_mem_gb_no_remat": off["peak_mem_gb_above_state"],
+                     "step_ms_remat": times[True], "step_ms_no_remat": times[False],
+                     "median_step_ms_remat": statistics.median(times[True]),
+                     "median_step_ms_no_remat": statistics.median(times[False])}
+        del off, on
+        torch.cuda.empty_cache()
+        if max(err16.values()) > 1.0 or max(err32.values()) > 1.0 or g32[worst] > GRAD_TOL_F32:
+            raise AssertionError(f"remat {name}: {out[name]}")
+    emit(out)
+    for name in ("cyclegan", "supervised"):
+        r = out[name]
+        print(f"remat ({r['preset']}, bf16): median {r['median_step_ms_remat']:.2f} ms against "
+              f"{r['median_step_ms_no_remat']:.2f} ms without, peak "
+              f"{r['peak_mem_gb_remat']:.3f} against {r['peak_mem_gb_no_remat']:.3f} GB "
+              f"above the state; {smi}", flush=True)
+    return out
+
+
+CLI_SUP_SIZE, CLI_SUP_PREEMPT_AT = 6, 4   # 3 steps an epoch at batch 2; epoch 1, call 1
+CLI_SUP_TTA = ["--eval_resize", "tile", "--resize_height", "192", "--resize_width", "192",
+               "--eval_flip", "true", "--eval_scales", "0.75,1.0,1.25"]
+
+
+def phase_cli_supervised(smi: str) -> dict:
+    """``python -m cyclegan_tpu_torch.main --training --model supervised
+    --preset voc_supervised_128 --dataset synthetic`` in process: two epochs
+    of 3 steps with a checkpoint every step, preempted at step 4 and
+    resumed, against an uninterrupted run (per-step ce_loss within the bf16
+    train-step bars); --testing equal to the last validation; --testing
+    with a 192x192 tiled canvas, flip and three scales (seconds, mIoU).
+    Every launch is held to the counts derived from the modules: train
+    steps, one eval forward a val batch (six a batch under flip x 3 scales,
+    each one batched call over all the canvas's windows)."""
+    import torch
+
+    from cyclegan_tpu_torch.main import main as cli
+    from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(SUP_PRESET)
+    with resblock_env("fused"):
+        counter = SupervisedTrainer(cfg, NUM_CLASSES, 3, 1, device="cuda")
+    per_step = {k: v for k, v in supervised_launches(counter, 1).items() if k in CLI_IN_KERNELS}
+    per_fwd = net_forward_launches(counter.model, 1)
+    val_batches = -(-CLI_VAL // cfg.batch_size)
+
+    def derived(steps: int, forwards: int) -> dict:
+        return {k: steps * per_step[k] + forwards * per_fwd[k] for k in CLI_IN_KERNELS}
+
+    base = ["--model", "supervised", "--preset", SUP_PRESET, "--dataset", "synthetic",
+            "--log_every", "1"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_sup_")
+    runs: dict = {}
+
+    def dirs(name: str) -> list:
+        return ["--checkpoint_dir", os.path.join(tmp, name, "ckpt"),
+                "--results_dir", os.path.join(tmp, name, "res")]
+
+    def logged(name: str) -> list:
+        with open(os.path.join(tmp, name, "res", "train_metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def launch(what: str, argv: list, want: dict, env: dict | None = None):
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            with resblock_env("fused"):
+                _zero_counters()
+                t0 = time.perf_counter()
+                res = cli(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {k: _read_counters()[k] for k in CLI_IN_KERNELS}
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        if got != want or not any(got.values()):
+            raise AssertionError(f"cli_supervised {what}: launch counters {got} != "
+                                 f"derived {want}")
+        runs[what] = {"seconds": wall, "launches": got, "derived": want,
+                      "runner_seconds": (res or {}).get("seconds")}
+        return res
+
+    train = ["--training", "--dataset_size", str(CLI_SUP_SIZE), "--epochs", "2"]
+    steps = 3
+    try:
+        ref_val = launch("reference", train + base + dirs("ref"),
+                         derived(2 * steps, 2 * val_batches))
+        first = launch("preempted", train + base + dirs("res") + ["--save_every_steps", "1"],
+                       derived(CLI_SUP_PREEMPT_AT, val_batches),
+                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_SUP_PREEMPT_AT)})
+        if not first.get("preempted"):
+            raise AssertionError(f"cli_supervised: not preempted: {first}")
+        last_val = launch("resumed", train + base + dirs("res") + ["--save_every_steps", "1"],
+                          derived(2 * steps - CLI_SUP_PREEMPT_AT, val_batches))
+        ref_log, res_log = logged("ref"), logged("res")
+        if not [r["step"] for r in ref_log] == [r["step"] for r in res_log] == \
+                list(range(1, 2 * steps + 1)):
+            raise AssertionError(f"cli_supervised: logged steps {ref_log} / {res_log}")
+        tols = SUP_TOL["bfloat16"]
+        loss_err = [abs(r["ce_loss"] - q["ce_loss"]) / (tols[min(i, 2)][1]
+                                                        + tols[min(i, 2)][0] * abs(q["ce_loss"]))
+                    for i, (r, q) in enumerate(zip(res_log, ref_log))]
+        if not all(math.isfinite(r["ce_loss"]) for r in res_log) or max(loss_err) > 1.0:
+            raise AssertionError(f"cli_supervised: resumed {res_log} vs {ref_log}")
+        scores = launch("testing", ["--testing"] + base + dirs("res"), derived(0, val_batches))
+        score_err = {k: abs(scores[k] - last_val[k]) for k in ("miou", "pixel_acc")}
+        pngs = [f for f in os.listdir(os.path.join(tmp, "res", "res")) if f.startswith("pred_")]
+        if len(pngs) != CLI_VAL or max(score_err.values()) > SCORE_TOL:
+            raise AssertionError(f"cli_supervised --testing: {len(pngs)} PNGs, {scores} vs "
+                                 f"the last validation {last_val}")
+        tta = launch("testing_tile_flip_scales", ["--testing"] + base + dirs("res")
+                     + CLI_SUP_TTA, derived(0, 6 * val_batches))
+        if not all(math.isfinite(tta[k]) for k in ("miou", "pixel_acc")):
+            raise AssertionError(f"cli_supervised tile/TTA: {tta}")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        del counter
+        torch.cuda.empty_cache()
+    secs = runs["reference"]["runner_seconds"]
+    rec = {"phase": "cli_supervised", "preset": SUP_PRESET, "dataset": "synthetic",
+           "steps_per_epoch": steps, "val_images": CLI_VAL, "nvidia_smi": smi, "runs": runs,
+           "steps_per_sec_logged": {"reference": [r["steps_per_sec"] for r in ref_log],
+                                    "resumed": [r["steps_per_sec"] for r in res_log]},
+           "prefetch_share_of_train_loop": secs["input_wait"] / secs["train"],
+           "validation_pass_s": secs["validation"] / 2,
+           "losses_resumed": [r["ce_loss"] for r in res_log],
+           "losses_uninterrupted": [r["ce_loss"] for r in ref_log], "loss_err_over_tol": loss_err,
+           "last_validation": last_val, "testing_scores": {k: scores[k] for k in score_err},
+           "testing_err": score_err, "testing_pngs": len(pngs),
+           "tile_flip_scales": {"flags": " ".join(CLI_SUP_TTA),
+                                "seconds": runs["testing_tile_flip_scales"]["seconds"],
+                                "miou": tta["miou"], "pixel_acc": tta["pixel_acc"]}}
+    emit(rec)
+    print(f"cli_supervised ({SUP_PRESET}, synthetic, 128x128 b2 bf16): "
+          f"{statistics.median(rec['steps_per_sec_logged']['reference']):.2f} steps/s logged, "
+          f"validation {rec['validation_pass_s']:.3f} s a pass of {CLI_VAL}; --testing mIoU "
+          f"{scores['miou']:.5f}; tiled 192x192 + flip + 3 scales "
+          f"{rec['tile_flip_scales']['seconds']:.2f} s, mIoU {tta['miou']:.5f}; {smi}",
+          flush=True)
+    return rec
+
+
+def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
     ``launches`` from the run (3 steps) of the path that runs the kernel
-    (``runs``: path -> phase_train's result)."""
+    (``runs``: path -> phase_train's or phase_train_supervised's result).
+    ``on_paths``: the same numbers for each supervised path that runs the
+    kernel, at its shapes (``sup_recs``: kernels_supervised's records), and
+    ``max_abs_err`` the largest over every shape held."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -1903,16 +2587,34 @@ def kernels_line(recs: dict, runs: dict) -> dict:
         def total(key):
             return sum(r[key] * r["calls_per_step"] for r in rs)
 
+        on_paths = {}
+        for sup_path, by_kernel in (sup_recs or {}).items():
+            srs = [r for r in by_kernel.get(name, []) if r["calls_per_step"]]
+            if not srs:
+                continue
+
+            def stotal(key, srs=srs):
+                return sum(r[key] * r["calls_per_step"] for r in srs)
+
+            on_paths[sup_path] = {
+                "launches": runs[sup_path]["launches"][counter_of.get(name, name)],
+                "max_abs_err": max(r["max_abs_err"] for r in srs), "ms": stotal("ms"),
+                "plain_ms": stotal("plain_ms"), "bound_ms": stotal("bound_ms"),
+                "library_ms": stotal("library_ms"),
+                "shapes": sorted({str(r["shape"]) for r in srs}),
+                "per": f"one train step ({SUP_PRESET}, {dict(SUP_PATHS[sup_path])}, 128x128, "
+                       f"batch 2, bf16): {sum(r['calls_per_step'] for r in srs)} calls"}
+        every = rs + [r for v in (sup_recs or {}).values() for r in v.get(name, [])]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": runs[path]["launches"][counter_of.get(name, name)],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
             "library_ms": total("library_ms"),
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
-            "launches_over": f"{TRAIN_STEPS} train steps, path {path}"})
+            "launches_over": f"{TRAIN_STEPS} train steps, path {path}", "on_paths": on_paths})
     return {"kernels": entries}
 
 
@@ -1938,9 +2640,15 @@ def main() -> int:
     emit({"phase": "graph_capture", "instance_norm": in_graph_capture(),
           "chunked_block": chunked_graph_capture()})
     phase_cli(smi)
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    sup_recs = phase_kernels_supervised()
+    t_sup = time.perf_counter()
+    runs.update((path, phase_train_supervised(smi, path)) for path in SUP_PATHS)
+    phase_remat(smi)
+    phase_cli_supervised(smi)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "supervised_phases_seconds": time.perf_counter() - t_sup})
     print(smi, flush=True)
-    emit(kernels_line(recs, runs))
+    emit(kernels_line(recs, runs, sup_recs))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -10,6 +10,11 @@ Usage:
   python -m cyclegan_tpu_torch.main --training --preset voc_semisup_256 \
       --data_root /data/VOC2012
   python -m cyclegan_tpu_torch.main --training --dataset synthetic --epochs 2
+  python -m cyclegan_tpu_torch.main --training --model supervised \
+      --preset voc_supervised_128 --data_root /data/VOC2012
+  python -m cyclegan_tpu_torch.main --testing --model supervised \
+      --preset voc_supervised_128 --eval_resize tile --resize_height 192 \
+      --resize_width 192 --eval_flip true --eval_scales 0.75,1.0,1.25
   python -m cyclegan_tpu_torch.main --testing --dataset synthetic
   # artifact from a Flax G_i2l param tree saved as a '/'-keyed .npz
   python -m cyclegan_tpu_torch.main --export model --weights_npz g_i2l.npz

@@ -8,7 +8,16 @@ float32 parameters. ``use_dropout`` puts dropout(0.5) in every trunk block;
 it drops only in train mode and only when ``forward`` is given the masks'
 generator. ``resblock`` / ``resblock_hc`` pick the trunk blocks' route (see
 ``ops.blocks``; None: the environment's choice when the blocks are built).
-The U-Net generators arrive in a later slice.
+``remat`` recomputes each trunk block in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations.
+
+The U-Net generators (``unet_128``: 7 levels, ``unet_256``: 8): nested
+skip-connection levels, each a LeakyReLU(0.2) + 4x4 stride-2 convolution
+down, the inner levels, a ReLU + 4x4 stride-2 transposed convolution up,
+norms at the inner levels (instance norm through the kernel seam with no
+activation), dropout at the middle levels, and the level's input
+concatenated on the channel axis. As in the JAX package, they take no
+remat.
 """
 
 from __future__ import annotations
@@ -17,9 +26,30 @@ import re
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from cyclegan_tpu_torch.ops.blocks import ConvBlock, DeconvBlock, ResidualBlock
+from cyclegan_tpu_torch.ops import functional as F
+from cyclegan_tpu_torch.ops.blocks import (ConvBlock, DeconvBlock, Dropout, ResidualBlock,
+                                           apply_norm, frozen_running_stats, get_norm)
 from cyclegan_tpu_torch.ops.init import init_weights
+
+
+def _remat_block(block: ResidualBlock, h: torch.Tensor,
+                 dropout: torch.Generator | None) -> torch.Tensor:
+    """``block(h, dropout)`` under ``torch.utils.checkpoint``: the dropout
+    mask is drawn here, once, and handed to both passes (the checkpoint's
+    RNG preservation covers the global generators only, and the block draws
+    from none of them), and the recomputed pass leaves the batch norms'
+    running averages as the first pass left them."""
+    keep = block.keep_mask(h, dropout)
+    passes = [0]
+
+    def run(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
+        passes[0] += 1
+        with frozen_running_stats(block, passes[0] > 1):
+            return block(x, keep)
+
+    return checkpoint(run, h, keep, use_reentrant=False, preserve_rng_state=False)
 
 
 class ResnetGenerator(nn.Module):
@@ -33,11 +63,11 @@ class ResnetGenerator(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
                  use_dropout: bool = False, resblock: str | None = None,
-                 resblock_hc: int | None = None) -> None:
+                 resblock_hc: int | None = None, remat: bool = False) -> None:
         super().__init__()
         if head not in ("tanh", "none"):
             raise ValueError(f"unknown head {head!r} (tanh|none)")
-        self.head_act = head
+        self.head_act, self.remat = head, remat
         self.stem = ConvBlock(input_nc, ngf, 7, pad=3, norm=norm, act="relu", dtype=dtype)
         self.down1 = ConvBlock(ngf, ngf * 2, 3, stride=2, pad=1, pad_mode="zero",
                                norm=norm, act="relu", dtype=dtype)
@@ -58,10 +88,94 @@ class ResnetGenerator(nn.Module):
         """``dropout``: the generator of this forward's dropout masks (a
         fresh mask per block and call), or None for no dropout."""
         h = self.down2(self.down1(self.stem(x)))
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.trunk:
-            h = block(h, dropout)
+            h = _remat_block(block, h, dropout) if remat else block(h, dropout)
         h = self.head(self.up2(self.up1(h)))
         return torch.tanh(h) if self.head_act == "tanh" else h
+
+
+class UnetLevel(nn.Module):
+    """One U-Net skip-connection level (the JAX ``_UnetBlock``): ``down``
+    (4x4 stride-2 convolution, after a LeakyReLU 0.2 below the outermost
+    level), the nested level ``sub``, ``up`` (ReLU, 4x4 stride-2 transposed
+    convolution). The inner levels norm both convolutions' outputs (the
+    innermost only ``up``'s), the middle ones drop after ``up``'s norm, and
+    every level but the outermost returns ``cat([x, up], channels)``."""
+
+    def __init__(self, outer_nc: int, inner_nc: int, input_nc: int | None = None,
+                 sub: "UnetLevel | None" = None, outermost: bool = False,
+                 innermost: bool = False, norm: str = "instance", use_dropout: bool = False,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.outermost, self.innermost, self.dtype = outermost, innermost, dtype
+        self.down = nn.Conv2d(outer_nc if input_nc is None else input_nc, inner_nc, 4,
+                              stride=2, padding=1)
+        inner = not outermost and not innermost
+        self.down_norm = get_norm(norm)(inner_nc) if inner else None
+        self.sub = sub
+        self.up = nn.ConvTranspose2d(inner_nc if innermost else 2 * inner_nc, outer_nc, 4,
+                                     stride=2, padding=1)
+        self.up_norm = None if outermost else get_norm(norm)(outer_nc)
+        self.dropout = Dropout() if use_dropout else None
+
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None) -> torch.Tensor:
+        d, c = self.dtype, self.down
+        h = x if self.outermost else F.leaky_relu(x, 0.2)
+        h = F.conv2d(h, c.weight, c.bias, stride=2, padding=1, compute_dtype=d)
+        h = apply_norm(self.down_norm, h)
+        if self.sub is not None:
+            h = self.sub(h, dropout)
+        c = self.up
+        h = F.conv2d_transpose(torch.relu(h), c.weight, c.bias, stride=2, padding=1,
+                               output_padding=0, compute_dtype=d)
+        if self.outermost:
+            return h
+        h = apply_norm(self.up_norm, h)
+        if self.dropout is not None:
+            h = self.dropout(h, dropout)
+        t = torch.result_type(x, h)
+        return torch.cat([x.to(t), h.to(t)], dim=1)
+
+
+class UnetGenerator(nn.Module):
+    """U-Net generator (``unet_128``: ``num_downs`` 7, ``unet_256``: 8); the
+    levels nest from ``root`` (outermost) down; :meth:`levels` lists them
+    innermost first, the order of the Flax names ``_UnetBlock_0..``."""
+
+    def __init__(self, input_nc: int, output_nc: int, num_downs: int = 7, ngf: int = 64,
+                 norm: str = "instance", head: str = "tanh",
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None, use_dropout: bool = False) -> None:
+        super().__init__()
+        if head not in ("tanh", "none"):
+            raise ValueError(f"unknown head {head!r} (tanh|none)")
+        if num_downs < 5:
+            raise ValueError(f"num_downs {num_downs}: a U-Net has at least 5 levels")
+        self.head_act = head
+        kw = dict(norm=norm, dtype=dtype)
+        level = UnetLevel(ngf * 8, ngf * 8, innermost=True, **kw)
+        for _ in range(num_downs - 5):
+            level = UnetLevel(ngf * 8, ngf * 8, sub=level, use_dropout=use_dropout, **kw)
+        for outer, inner in ((ngf * 4, ngf * 8), (ngf * 2, ngf * 4), (ngf, ngf * 2)):
+            level = UnetLevel(outer, inner, sub=level, **kw)
+        self.root = UnetLevel(output_nc, ngf, input_nc, sub=level, outermost=True, **kw)
+        init_weights(self, generator)
+
+    def levels(self) -> list[UnetLevel]:
+        out, level = [], self.root
+        while level is not None:
+            out.append(level)
+            level = level.sub
+        return out[::-1]
+
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None) -> torch.Tensor:
+        """``dropout``: the generator of this forward's dropout masks."""
+        h = self.root(x, dropout)
+        return torch.tanh(h) if self.head_act == "tanh" else h
+
+
+UNET_DOWNS = {"unet_128": 7, "unet_256": 8}
 
 
 def define_Gen(input_nc: int, output_nc: int, ngf: int = 64,
@@ -69,18 +183,19 @@ def define_Gen(input_nc: int, output_nc: int, ngf: int = 64,
                head: str = "tanh", dtype: torch.dtype = torch.float32,
                generator: torch.Generator | None = None,
                use_dropout: bool = False, resblock: str | None = None,
-               resblock_hc: int | None = None) -> nn.Module:
+               resblock_hc: int | None = None, remat: bool = False) -> nn.Module:
     """Generator factory (reference ``define_Gen``), initialised N(0, 0.02)
     from ``generator``. Unlike the Flax module, a torch module needs
     ``input_nc`` up front. ``resnet_<n>blocks`` takes any trunk depth n (the
-    reference's are 6 and 9; small ones serve tests)."""
+    reference's are 6 and 9; small ones serve tests); ``unet_128`` and
+    ``unet_256`` ignore ``remat``, ``resblock`` and ``resblock_hc``."""
     m = re.fullmatch(r"resnet_(\d+)blocks", netG)
     if m:
         return ResnetGenerator(input_nc, output_nc, ngf, n_blocks=int(m.group(1)),
                                norm=norm, head=head, dtype=dtype, generator=generator,
                                use_dropout=use_dropout, resblock=resblock,
-                               resblock_hc=resblock_hc)
-    if netG in ("unet_128", "unet_256"):
-        raise NotImplementedError(f"{netG}: the U-Net generators arrive in a later "
-                                  f"slice of the port")
+                               resblock_hc=resblock_hc, remat=remat)
+    if netG in UNET_DOWNS:
+        return UnetGenerator(input_nc, output_nc, UNET_DOWNS[netG], ngf, norm=norm, head=head,
+                             dtype=dtype, generator=generator, use_dropout=use_dropout)
     raise ValueError(f"unknown netG: {netG!r}")

@@ -2,8 +2,11 @@
 
 Counterpart of ``cyclegan_tpu/ops/blocks.py``: ``ConvBlock`` (pad -> conv ->
 norm -> activation), ``DeconvBlock`` (transposed conv -> norm -> ReLU),
-``ResidualBlock`` and the norm selector. Parameters are float32 in torch
-layout (conv OIHW, transposed conv (I, O, kH, kW)); ``dtype`` is the compute
+``ResidualBlock`` and the norm selector (instance, batch or none; batch
+norm is :class:`BatchNorm`, the JAX package's Flax convention, switched
+between batch and running statistics by the module's train/eval mode).
+Parameters are float32 in torch layout (conv OIHW, transposed conv (I, O,
+kH, kW)); ``dtype`` is the compute
 precision (bf16 on the card). Activations are NCHW tensors that live in
 ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is the NHWC tensor
 the kernels take, at no cost.
@@ -27,6 +30,7 @@ any other value keeps the port's default, the fused block.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable
 
@@ -69,18 +73,94 @@ class InstanceNorm(nn.Module):
         return to_nchw(instance_norm_act(to_nhwc(x), skip, self.eps, act))
 
 
-def get_norm(norm: str) -> Callable[[], nn.Module | None]:
-    """Norm-layer selector (reference ``get_norm_layer``): a zero-argument
-    factory; ``none`` yields None (the caller skips the layer)."""
+class BatchNorm(nn.Module):
+    """The JAX package's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+    dtype=float32)`` over the channels of an NCHW tensor: affine (``weight``
+    ones, ``bias`` zeros), float32 statistics and a float32 result whatever
+    the input type. In train mode it normalises with the batch statistics
+    (mean, and variance as E[x^2] - E[x]^2 clamped at 0, as Flax's fast
+    variance) and moves the running averages: ``new = 0.9 old + 0.1
+    batch``, the variance's fed with the BIASED batch variance (Flax's
+    convention; ``nn.BatchNorm2d`` feeds the unbiased one, N/(N-1) larger).
+    In eval mode it normalises with the running averages. ``frozen`` keeps
+    the running averages as they are in train mode (a recomputed forward
+    under remat must not move them twice)."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.momentum, self.eps, self.frozen = momentum, eps, False
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """The initial values: scale 1, bias 0, running mean 0, variance 1."""
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3)) - torch.square(mean),
+                                  0.0)
+            if not self.frozen:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                    self.running_var.mul_(m).add_((1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.float().view(1, -1, 1, 1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module, frozen: bool = True):
+    """Hold the running averages of every :class:`BatchNorm` in ``module``
+    (when ``frozen``) for the duration of the block."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.frozen for m in norms]
+    for m in norms:
+        m.frozen = m.frozen or frozen
+    try:
+        yield
+    finally:
+        for m, f in zip(norms, saved):
+            m.frozen = f
+
+
+def get_norm(norm: str) -> Callable[[int], nn.Module | None]:
+    """Norm-layer selector (reference ``get_norm_layer``): a factory of the
+    channel count; ``none`` yields None (the caller skips the layer)."""
     if norm == "instance":
-        return InstanceNorm
-    if norm == "none":
-        return lambda: None
+        return lambda features: InstanceNorm()
     if norm == "batch":
-        raise NotImplementedError(
-            "norm='batch' arrives with a later training slice of the port "
-            "(BatchNorm with the biased-variance running EMA)")
+        return BatchNorm
+    if norm == "none":
+        return lambda features: None
     raise ValueError(f"unknown norm: {norm!r} (expected instance|batch|none)")
+
+
+def apply_norm(norm: nn.Module | None, x: torch.Tensor, act: str = "none",
+               skip: torch.Tensor | None = None) -> torch.Tensor:
+    """``act(norm(x)) [+ skip]``: instance norm fuses the activation and the
+    skip into its kernel; batch norm returns float32, and the skip is added
+    after a cast to ``x``'s type, with float32 promotion (the JAX block's
+    casts)."""
+    if skip is not None:
+        skip = skip.to(x.dtype)
+    if isinstance(norm, InstanceNorm):
+        return norm(x, act, skip)
+    if norm is not None:
+        x = norm(x)
+    x = _act(x, act)
+    return x if skip is None else x + skip
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -106,7 +186,7 @@ class ConvBlock(nn.Module):
             raise ValueError(f"unknown pad_mode {pad_mode!r} (reflect|zero)")
         self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride, bias=use_bias)
         self.pad, self.pad_mode, self.act, self.dtype = pad, pad_mode, act, dtype
-        self.norm = get_norm(norm)()
+        self.norm = get_norm(norm)(features)
         # The trunk's 3x3 convolutions: weight gradient from TPU kernel #8.
         self.dw_fused = pad_mode == "reflect" and F.use_dw_fused(in_ch, features, kernel,
                                                                  stride)
@@ -124,10 +204,7 @@ class ConvBlock(nn.Module):
         else:
             x = F.conv2d(x, self.conv.weight, self.conv.bias, stride=stride,
                          padding=self.pad, compute_dtype=self.dtype)
-        if isinstance(self.norm, InstanceNorm):
-            return self.norm(x, self.act, skip)
-        x = _act(x, self.act)
-        return x if skip is None else x + skip.to(x.dtype)
+        return apply_norm(self.norm, x, self.act, skip)
 
 
 class DeconvBlock(nn.Module):
@@ -143,16 +220,14 @@ class DeconvBlock(nn.Module):
                                        padding=padding, output_padding=output_padding,
                                        bias=use_bias)
         self.act, self.dtype = act, dtype
-        self.norm = get_norm(norm)()
+        self.norm = get_norm(norm)(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
         x = F.conv2d_transpose(x, c.weight, c.bias, stride=c.stride[0],
                                padding=c.padding[0], output_padding=c.output_padding[0],
                                compute_dtype=self.dtype)
-        if isinstance(self.norm, InstanceNorm):
-            return self.norm(x, self.act)
-        return _act(x, self.act)
+        return apply_norm(self.norm, x, self.act)
 
 
 def dropout_keep(shape: tuple[int, ...], p: float, generator: torch.Generator) -> torch.Tensor:
@@ -165,19 +240,31 @@ def dropout_keep(shape: tuple[int, ...], p: float, generator: torch.Generator) -
 class Dropout(nn.Module):
     """Inverted dropout (``nn.Dropout`` semantics: kept values scaled by
     1 / (1 - p)). It drops only in train mode and only when the caller
-    passes a generator, as a Flax apply drops only when it is given a
-    dropout key and ``deterministic=False``."""
+    passes a generator (or a keep-mask drawn from one), as a Flax apply
+    drops only when it is given a dropout key and ``deterministic=False``."""
 
     def __init__(self, p: float = 0.5) -> None:
         super().__init__()
         self.p = p
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def keep_mask(self, shape: tuple[int, ...],
+                  generator: torch.Generator | None) -> torch.Tensor | None:
+        """The NCHW keep-mask of a forward on an input of NCHW ``shape``
+        (drawn through :func:`dropout_keep` in NHWC), or None where this
+        forward would not drop."""
         if not self.training or generator is None:
+            return None
+        n, c, h, w = shape
+        return dropout_keep((n, h, w, c), self.p, generator).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor,
+                drop: torch.Generator | torch.Tensor | None = None) -> torch.Tensor:
+        """``drop``: the masks' generator, or a keep-mask of
+        :meth:`keep_mask` drawn before (a recomputed forward replays it)."""
+        keep = drop if isinstance(drop, torch.Tensor) or drop is None \
+            else self.keep_mask(tuple(x.shape), drop)
+        if keep is None or not self.training:
             return x
-        n, c, h, w = x.shape
-        keep = dropout_keep((n, h, w, c), self.p, generator).permute(0, 3, 1, 2)
         return torch.where(keep, x / (1 - self.p), torch.zeros((), dtype=x.dtype,
                                                                device=x.device))
 
@@ -216,10 +303,20 @@ class ResidualBlock(nn.Module):
         self.hc = env_hc if hc is None else hc
         self.dtype = dtype
 
+    def keep_mask(self, x: torch.Tensor,
+                  generator: torch.Generator | None) -> torch.Tensor | None:
+        """The dropout keep-mask a forward on ``x`` would draw from
+        ``generator`` (None where it would not drop): drawn ahead of a
+        recomputed forward, so both passes drop the same elements."""
+        if self.dropout is None:
+            return None
+        return self.dropout.keep_mask(tuple(x.shape), generator)
+
     def forward(self, x: torch.Tensor,
-                dropout: torch.Generator | None = None) -> torch.Tensor:
-        """``dropout``: the generator of the dropout masks (train mode only;
-        None or eval mode never drops)."""
+                dropout: torch.Generator | torch.Tensor | None = None) -> torch.Tensor:
+        """``dropout``: the generator of the dropout masks, or the keep-mask
+        of :meth:`keep_mask` (train mode only; None or eval mode never
+        drops)."""
         if self.route == "unfused":
             h = self.conv0(x)
             if self.dropout is not None:

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from cyclegan_tpu_torch.ops.blocks import BatchNorm
+
 
 @torch.no_grad()
 def conv_kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None,
@@ -29,10 +31,14 @@ def conv_kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None,
 def init_weights(module: nn.Module, generator: torch.Generator | None = None,
                  std: float = 0.02) -> nn.Module:
     """N(0, std) for every conv / transposed-conv weight, zeros for biases,
-    in registration order (one generator makes the result reproducible)."""
+    in registration order (one generator makes the result reproducible);
+    batch norms back to their initial values (Flax's: scale 1, bias 0,
+    running mean 0 and variance 1)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             conv_kernel_init_(m.weight, generator, std)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.reset()
     return module

@@ -1,5 +1,5 @@
-"""Checkpoints of a CycleGAN run (reference ``save_checkpoint`` /
-``load_checkpoint``).
+"""Checkpoints of a CycleGAN or supervised run (reference
+``save_checkpoint`` / ``load_checkpoint``).
 
 Counterpart of ``cyclegan_tpu/train/checkpoint.py`` (Orbax there,
 ``torch.save`` here). A checkpoint directory holds ``<step>.pt`` (the
@@ -11,8 +11,11 @@ A state payload (:func:`state_payload`) holds everything a run carries:
 the four nets' state dicts, both Adams and both LambdaLRs, both replay
 pools (the filled rows, the count and the capacity), the states of the
 pool-decision and dropout ``torch.Generator``s, and the step; every tensor
-is a CPU copy. :func:`load_state` puts it back into a trainer and its state
-on the trainer's device. Pools are restored at the STORED capacity and
+is a CPU copy. A supervised payload holds the net's state dict, Adam, its
+LambdaLR, the dropout generator's state and the step. The nets' state
+dicts carry the batch norms' running averages, and their keys do not
+depend on ``remat``. :func:`load_state` puts a payload back into a trainer
+and its state on the trainer's device. Pools are restored at the STORED capacity and
 type, so a resume or ``--testing`` works across ``pool_size`` and
 precision changes; a stored empty pool (a ``pool_size`` 0 run) refuses a
 run that wants one, as the JAX package does.
@@ -27,6 +30,7 @@ import re
 import torch
 
 from cyclegan_tpu_torch.train.pool import PoolState
+from cyclegan_tpu_torch.train.supervised import SupervisedState
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 NETS = ("G_i2l", "G_l2i", "D_img", "D_lab")
@@ -52,6 +56,10 @@ def _pool_payload(pool: PoolState) -> dict:
 
 def state_payload(trainer, state) -> dict:
     """Everything of ``(trainer, state)`` a resume needs, as CPU copies."""
+    if isinstance(state, SupervisedState):
+        return {"nets": {"model": _cpu(trainer.model.state_dict())},
+                "opt": _cpu(state.opt.state_dict()), "sched": state.sched.state_dict(),
+                "dropout": state.dropout.get_state(), "step": int(state.step)}
     return {"nets": {n: _cpu(getattr(trainer, n).state_dict()) for n in NETS},
             "g_opt": _cpu(state.g_opt.state_dict()), "d_opt": _cpu(state.d_opt.state_dict()),
             "g_sched": state.g_sched.state_dict(), "d_sched": state.d_sched.state_dict(),
@@ -77,6 +85,13 @@ def _restore_pool(stored: dict, pool: PoolState, name: str, device) -> PoolState
 def load_state(trainer, state, payload: dict):
     """Load a :func:`state_payload` into ``trainer`` and ``state`` (in
     place, every tensor on the trainer's device); returns ``state``."""
+    if isinstance(state, SupervisedState):
+        trainer.model.load_state_dict(payload["nets"]["model"])
+        state.opt.load_state_dict(payload["opt"])
+        state.sched.load_state_dict(payload["sched"])
+        state.dropout.set_state(payload["dropout"])
+        state.step = int(payload["step"])
+        return state
     for n in NETS:
         getattr(trainer, n).load_state_dict(payload["nets"][n])
     state.g_opt.load_state_dict(payload["g_opt"])
@@ -201,14 +216,13 @@ def restore_for_inference(cfg, *, semisupervised: bool, num_classes: int | None 
     in_channels)``; raises FileNotFoundError when there is no checkpoint."""
     from cyclegan_tpu_torch.data.datasets import DATASET_SPECS
     from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
 
-    if not semisupervised:
-        raise NotImplementedError("--model supervised (train/supervised.py) arrives with a "
-                                  "later slice of the port (ROADMAP Queue 1 item 6)")
     spec_nc, spec_ic, _ = DATASET_SPECS[cfg.dataset]
     num_classes = num_classes or spec_nc
     in_ch = in_channels or spec_ic
-    trainer = CycleGANTrainer(cfg, num_classes, in_ch, steps_per_epoch=1, device=device)
+    make = CycleGANTrainer if semisupervised else SupervisedTrainer
+    trainer = make(cfg, num_classes, in_ch, steps_per_epoch=1, device=device)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
     newest = newest_checkpoint(cfg.checkpoint_dir)
     if newest is None:

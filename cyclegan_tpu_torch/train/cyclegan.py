@@ -26,13 +26,22 @@ D phase::
 As in the JAX step, applications of one network are concatenated along the
 batch (instance norm is per sample, so this equals separate applies): G_i2l
 on [unlab; lab], G_l2i on [onehot(lab); fake_lab], each D on [real; fake].
-Batches use the JAX package's layout: images (B, H, W, C) float32, labels
-(B, H, W) integers. Modules are NCHW over channels_last memory. The metrics
-come from the pre-update parameters, as detached float32 tensors.
+Under ``norm='batch'`` the statistics would couple the halves, so each
+network is applied separately, in the reference's order (G_i2l(unlab),
+G_l2i(onehot), G_l2i(fake_lab), D_lab, D_img, G_i2l(fake_img),
+G_i2l(lab); then D_img real, fake, D_lab real, fake): the batch norms'
+running averages move with every train-mode forward, the discriminators'
+in the G phase too, and that order decides them. ``logits``, ``predict``,
+``eval_step`` and ``generate_image`` run the nets in eval mode (running
+averages). Batches use the JAX package's layout: images (B, H, W, C)
+float32, labels (B, H, W) integers. Modules are NCHW over channels_last
+memory. The metrics come from the pre-update parameters, as detached
+float32 tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -75,6 +84,20 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+@contextlib.contextmanager
+def eval_mode(*nets: nn.Module):
+    """Run ``nets`` in eval mode (batch norms on their running averages,
+    no dropout) for the block, then back in the mode each was in."""
+    modes = [n.training for n in nets]
+    for n in nets:
+        n.eval()
+    try:
+        yield
+    finally:
+        for n, m in zip(nets, modes):
+            n.train(m)
+
+
 def _stack_size(batches: dict) -> int:
     """K of a dict of batches stacked along a leading axis."""
     return int(next(iter(batches.values())).shape[0])
@@ -93,9 +116,6 @@ class CycleGANTrainer:
 
     def __init__(self, cfg: Config, num_classes: int, in_channels: int,
                  steps_per_epoch: int, device: str | torch.device | None = None):
-        if cfg.remat:
-            raise NotImplementedError("remat (torch.utils.checkpoint of the trunks) "
-                                      "arrives with a later slice of the port")
         self.cfg = cfg
         self.num_classes = num_classes
         self.in_channels = in_channels
@@ -104,9 +124,11 @@ class CycleGANTrainer:
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
         d = self.dtype
         self.G_i2l = define_Gen(in_channels, num_classes, cfg.ngf, cfg.gen_net, cfg.norm,
-                                head="none", dtype=d, use_dropout=cfg.use_dropout)
+                                head="none", dtype=d, use_dropout=cfg.use_dropout,
+                                remat=cfg.remat)
         self.G_l2i = define_Gen(num_classes, in_channels, cfg.ngf, cfg.gen_net, cfg.norm,
-                                head="tanh", dtype=d, use_dropout=cfg.use_dropout)
+                                head="tanh", dtype=d, use_dropout=cfg.use_dropout,
+                                remat=cfg.remat)
         self.D_img = define_Dis(in_channels, cfg.ndf, cfg.dis_net, cfg.n_layers_D,
                                 cfg.norm, dtype=d)
         self.D_lab = define_Dis(num_classes, cfg.ndf, cfg.dis_net, cfg.n_layers_D,
@@ -161,18 +183,27 @@ class CycleGANTrainer:
     def _g_loss(self, batch: dict, real_lab_oh: torch.Tensor,
                 drop: torch.Generator | None):
         b = batch["unlab_image"].shape[0]
-        seg_out = self.G_i2l(_nchw(torch.cat([batch["unlab_image"], batch["lab_image"]])),
-                             drop)
-        fake_lab = torch.softmax(seg_out[:b], dim=1)
-        sup_logits = seg_out[b:]
-        l2i_out = self.G_l2i(_nchw(torch.cat([real_lab_oh, _nhwc(fake_lab).float()])), drop)
-        fake_img, rec_img = l2i_out[:b], l2i_out[b:]
+        sup_logits = None
+        if self.cfg.norm != "batch":
+            seg_out = self.G_i2l(_nchw(torch.cat([batch["unlab_image"],
+                                                  batch["lab_image"]])), drop)
+            fake_lab = torch.softmax(seg_out[:b], dim=1)
+            sup_logits = seg_out[b:]
+            l2i_out = self.G_l2i(_nchw(torch.cat([real_lab_oh, _nhwc(fake_lab).float()])),
+                                 drop)
+            fake_img, rec_img = l2i_out[:b], l2i_out[b:]
+        else:
+            fake_lab = torch.softmax(self.G_i2l(_nchw(batch["unlab_image"]), drop), dim=1)
+            fake_img = self.G_l2i(_nchw(real_lab_oh), drop)
+            rec_img = self.G_l2i(fake_lab.float(), drop)
         adv_lab = losses.lsgan_loss(self.D_lab(fake_lab), True)
         adv_img = losses.lsgan_loss(self.D_img(fake_img), True)
         cyc_img = losses.l1_loss(_nhwc(rec_img), batch["unlab_image"]) * self.lamda
         rec_lab_logits = self.G_i2l(fake_img, drop)
         cyc_lab = losses.cross_entropy_loss(_nhwc(rec_lab_logits), batch["lab_label"],
                                             ignore_index=self.ignore_index) * self.lamda_lab
+        if sup_logits is None:  # batch norm: after the label cycle, as the reference
+            sup_logits = self.G_i2l(_nchw(batch["lab_image"]), drop)
         sup = losses.cross_entropy_loss(_nhwc(sup_logits), batch["lab_label"],
                                         ignore_index=self.ignore_index)
         total = adv_lab + adv_img + cyc_img + cyc_lab + sup
@@ -182,15 +213,19 @@ class CycleGANTrainer:
 
     def _d_loss(self, batch: dict, real_lab_oh: torch.Tensor, pooled_fake_img: torch.Tensor,
                 pooled_fake_lab: torch.Tensor):
-        b = batch["unlab_image"].shape[0]
         img = batch["unlab_image"]
-        s_img = self.D_img(_nchw(torch.cat([img, pooled_fake_img.to(img.dtype)])))
-        d_img_loss = 0.5 * (losses.lsgan_loss(s_img[:b], True)
-                            + losses.lsgan_loss(s_img[b:], False))
-        s_lab = self.D_lab(_nchw(torch.cat([real_lab_oh,
-                                            pooled_fake_lab.to(real_lab_oh.dtype)])))
-        d_lab_loss = 0.5 * (losses.lsgan_loss(s_lab[:b], True)
-                            + losses.lsgan_loss(s_lab[b:], False))
+        b = img.shape[0]
+        d_losses = []
+        for D, real, fake in ((self.D_img, img, pooled_fake_img),
+                              (self.D_lab, real_lab_oh, pooled_fake_lab)):
+            if self.cfg.norm != "batch":
+                s = D(_nchw(torch.cat([real, fake.to(real.dtype)])))
+                s_real, s_fake = s[:b], s[b:]
+            else:
+                s_real, s_fake = D(_nchw(real)), D(_nchw(fake))
+            d_losses.append(0.5 * (losses.lsgan_loss(s_real, True)
+                                   + losses.lsgan_loss(s_fake, False)))
+        d_img_loss, d_lab_loss = d_losses
         total = d_img_loss + d_lab_loss
         return total, {"d_img": d_img_loss, "d_lab": d_lab_loss, "d_total": total}
 
@@ -291,7 +326,8 @@ class CycleGANTrainer:
     @torch.no_grad()
     def logits(self, image: torch.Tensor) -> torch.Tensor:
         """Raw class logits (B, H, W, K) of G_i2l for images (B, H, W, C)."""
-        return _nhwc(self.G_i2l(_nchw(image)))
+        with eval_mode(self.G_i2l):
+            return _nhwc(self.G_i2l(_nchw(image)))
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
@@ -306,4 +342,5 @@ class CycleGANTrainer:
     @torch.no_grad()
     def generate_image(self, labels: torch.Tensor) -> torch.Tensor:
         """Label map (B, H, W) -> synthesized image (B, H, W, C)."""
-        return _nhwc(self.G_l2i(_nchw(self._onehot(labels))))
+        with eval_mode(self.G_l2i):
+            return _nhwc(self.G_l2i(_nchw(self._onehot(labels))))

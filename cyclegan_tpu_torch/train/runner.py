@@ -9,12 +9,13 @@ The loop never waits on the card for a step's result: metrics are read one
 log interval late, and the next two batches are copied to the device
 (pinned host memory, ``non_blocking``) while the current step runs.
 
-What the port does not run yet raises ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that brings it: ``--model supervised`` (item 6),
-``--eval_resize tile``, ``--eval_flip`` and ``--eval_scales`` (item 8), and
-more than one device, spatial shards or processes (item 11). The XLA and
-gloo machinery of the JAX runner (``_aligned_jit``, the phase barriers) has
-no counterpart.
+``run_supervised`` trains the supervised segmenter (configuration 1),
+``run_cyclegan`` the semi-supervised CycleGAN (configurations 2-4); both
+evaluate with ``--eval_resize tile`` and the ``--eval_flip`` /
+``--eval_scales`` TTA when asked (``eval_tile.py``, ``tta.py``). More than
+one device, spatial shards or processes raise ``NotImplementedError``
+naming ROADMAP Queue 1 item 11. The XLA and gloo machinery of the JAX
+runner (``_aligned_jit``, the phase barriers) has no counterpart.
 
 Divergences from the JAX runner, on purpose:
 - a run cut by ``--max_steps`` inside an epoch saves a mid-epoch checkpoint
@@ -39,6 +40,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from cyclegan_tpu_torch import eval_tile, tta
 from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, class_names, make_dataset, split_labeled
 from cyclegan_tpu_torch.data.loader import Loader, paired_iterator, paired_steps_per_epoch
 from cyclegan_tpu_torch.data.palette import save_prediction_png
@@ -46,6 +48,7 @@ from cyclegan_tpu_torch.train import checkpoint as checkpoint_lib
 from cyclegan_tpu_torch.train import metrics as metrics_lib
 from cyclegan_tpu_torch.train.checkpoint import CheckpointManager, load_state, state_payload
 from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
 from cyclegan_tpu_torch.utils.config import Config
 from cyclegan_tpu_torch.utils.observability import MetricsLogger, StepProfiler, enable_debug_flags
 from cyclegan_tpu_torch.utils.pipeline import InferencePipeline
@@ -104,11 +107,24 @@ def _effective_steps_per_epoch(cfg: Config, steps_per_epoch: int) -> int:
 
 
 def _eval_shaping(cfg: Config) -> tuple[tuple[int, int], str]:
-    """(target_hw, loader eval_mode) of the val/test loaders."""
-    if cfg.eval_resize == "tile":
-        raise NotImplementedError("--eval_resize tile (eval_tile.py) arrives with a later "
-                                  "slice of the port (ROADMAP Queue 1 item 8)")
-    return cfg.crop_hw, cfg.eval_resize
+    """(target_hw, loader eval_mode) of the val/test loaders. ``--eval_resize
+    tile`` scores a fixed canvas (``--resize_height/--resize_width``) tiled
+    by crop-size windows: the loader squash-resizes to the canvas and the
+    eval functions tile it."""
+    if cfg.eval_resize != "tile":
+        return cfg.crop_hw, cfg.eval_resize
+    if not (cfg.resize_height and cfg.resize_width):
+        raise ValueError("--eval_resize tile needs --resize_height/--resize_width "
+                         "(the fixed canvas the val images are scored at)")
+    if cfg.resize_height < cfg.crop_height or cfg.resize_width < cfg.crop_width:
+        raise ValueError(f"tile canvas {cfg.resize_height}x{cfg.resize_width} is smaller "
+                         f"than the window {cfg.crop_height}x{cfg.crop_width}")
+    if cfg.resize_height % 4 or cfg.resize_width % 4:
+        # The l2i sample-dump generator runs on the whole canvas; the
+        # generators' down/up pair only round-trips shapes divisible by 4.
+        raise ValueError(f"tile canvas {cfg.resize_height}x{cfg.resize_width} must be "
+                         f"divisible by 4")
+    return (cfg.resize_height, cfg.resize_width), "resize"
 
 
 def select_step(trainer, steps_per_call: int = 1, grad_accum: int = 1) -> Callable:
@@ -128,17 +144,42 @@ def select_step(trainer, steps_per_call: int = 1, grad_accum: int = 1) -> Callab
 def _make_eval_fns(cfg: Config, trainer) -> tuple[Callable, Callable]:
     """(eval_fn(batch) -> confusion matrix, predict(image) -> class map),
     class maps as uint8 when the classes fit (a quarter of the bytes to
-    fetch)."""
-    if cfg.eval_flip or cfg.eval_scales:
-        raise NotImplementedError("--eval_flip and --eval_scales (tta.py) arrive with a later "
-                                  "slice of the port (ROADMAP Queue 1 item 8)")
+    fetch). ``--eval_resize tile``, ``--eval_flip`` and ``--eval_scales``
+    wrap the canvas-level logits in the JAX runner's order: the tiling
+    innermost (a mirrored or rescaled canvas is tiled again), the flip
+    inside the scaling (the average runs over scales x mirror). Without
+    them the trainer's own eval step and predict run."""
     _eval_shaping(cfg)
+    canvas_logits = None
+    if cfg.eval_resize == "tile":
+        def canvas_logits(image: torch.Tensor) -> torch.Tensor:
+            return eval_tile.tiled_logits(trainer.logits, image, cfg.crop_hw)
+    if cfg.eval_flip:
+        canvas_logits = tta.flip_avg(canvas_logits or trainer.logits)
+    scales = tta.parse_scales(cfg.eval_scales)
+    if scales and cfg.eval_resize == "tile":
+        # At set-up, not at the first validation (after a training epoch).
+        tta.validate_tile_scales((cfg.resize_height, cfg.resize_width), cfg.crop_hw, scales)
+    if scales:
+        canvas_logits = tta.scale_avg(canvas_logits or trainer.logits, scales)
 
-    def predict(image: torch.Tensor) -> torch.Tensor:
-        pred = trainer.predict(image)
+    def u8(pred: torch.Tensor) -> torch.Tensor:
         return pred.to(torch.uint8) if trainer.num_classes <= 255 else pred
 
-    return trainer.eval_step, predict
+    if canvas_logits is None:
+        return trainer.eval_step, lambda image: u8(trainer.predict(image))
+
+    @torch.no_grad()
+    def eval_fn(batch: dict) -> torch.Tensor:
+        pred = canvas_logits(batch["image"]).argmax(-1)
+        return metrics_lib.confusion_matrix(pred, batch["label"], trainer.num_classes,
+                                            ignore_index=trainer.ignore_index)
+
+    @torch.no_grad()
+    def predict(image: torch.Tensor) -> torch.Tensor:
+        return u8(canvas_logits(image).argmax(-1))
+
+    return eval_fn, predict
 
 
 def _make_loader(cfg: Config, ds, *, train: bool, seed: int, drop_last: bool = True):
@@ -420,8 +461,26 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
 
 
 def run_supervised(cfg: Config, *, max_steps: int | None = None, device=None) -> dict:
-    raise NotImplementedError("--model supervised (train/supervised.py) arrives with a later "
-                              "slice of the port (ROADMAP Queue 1 item 6)")
+    """The supervised segmentation run (configuration 1) on ``device``
+    (default the CUDA device): one generator trained on the labeled train
+    split with pixel cross-entropy, validated every ``validation_every``
+    epochs."""
+    _check_single_device(cfg)
+    num_classes, in_ch = _dataset_spec(cfg)
+    train_ds = make_dataset(cfg.dataset, cfg.data_root, split="train", size=cfg.dataset_size)
+    val_ds = make_dataset(cfg.dataset, cfg.data_root, split="val")
+    train_loader = _make_loader(cfg, train_ds, train=True, seed=cfg.seed)
+    val_loader = _make_loader(cfg, val_ds, train=False, seed=0, drop_last=False)
+    steps_per_epoch = train_loader.steps_per_epoch()
+    if steps_per_epoch == 0:
+        raise ValueError(f"empty epoch: {len(train_ds)} training images < batch_size "
+                         f"{cfg.batch_size} — lower batch_size or raise dataset_size")
+    trainer = SupervisedTrainer(cfg, num_classes, in_ch,
+                                _effective_steps_per_epoch(cfg, steps_per_epoch), device=device)
+    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    return _train_loop(cfg, trainer, state, train_loader.epoch, val_loader,
+                       calls_per_epoch=steps_per_epoch // _stacking(cfg)[0],
+                       max_steps=max_steps)
 
 
 def run_cyclegan(cfg: Config, *, max_steps: int | None = None, device=None) -> dict:

@@ -166,7 +166,7 @@ def test_restore_for_inference_takes_the_newer_of_epoch_and_mid(tmp_path):
     tt, st = _trainer(pool_size=0)
     with pytest.raises(FileNotFoundError):
         ck.restore_for_inference(cfg, semisupervised=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(FileNotFoundError):
         ck.restore_for_inference(cfg, semisupervised=False, device="cpu")
     tt = CycleGANTrainer(cfg, 4, 1, steps_per_epoch=2, device="cpu")
     st = tt.init_state(torch.Generator().manual_seed(0))

@@ -78,10 +78,8 @@ def test_cityscapes_cli_train_test(tmp_path, capsys):
 def test_cli_refuses_what_is_not_ported_and_a_missing_card(tmp_path, monkeypatch):
     flags = _flags(tmp_path, 32, 32) + ["--dataset", "synthetic", "--dataset_size", "4"]
     for mode in ("--training", "--testing"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            main([mode, "--model", "supervised"] + flags)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        main(["--training", "--eval_flip", "true"] + flags)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            main([mode, "--model", "supervised", "--num_devices", "2"] + flags)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         main(["--training", "--preset", "voc_dp8_bf16"] + flags)
     # No --device: the card, and without one the CLI refuses.

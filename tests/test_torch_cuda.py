@@ -816,3 +816,79 @@ def test_cli_trains_on_the_card_and_restores_there(card, tmp_path):
     assert state.dropout.device.type == "cuda"
     scores = main(["--testing"] + flags)
     assert scores["miou"] == pytest.approx(res["miou"], abs=1e-6)
+
+
+# The supervised paths (BASELINE config 1): kernels #1/#2 at every U-Net
+# plane (the 2x2 and 4x4 planes are smaller than a tile of in_plan), #3-#5
+# at config 1's trunk (2, 32, 32, 256), and the supervised CLI on the card.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 2, 2, 512), (2, 4, 4, 512), (2, 8, 8, 512),
+                                   (2, 16, 16, 256), (2, 32, 32, 128), (2, 64, 64, 64)])
+def test_instance_norm_at_unet_planes_matches_plain(card, shape, dtype):
+    x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    y = torch.empty_like(x)
+    mean, rstd = IN.launch(x, None, y, 1e-5, "none")
+    dx = torch.empty_like(x)
+    IN.launch_bwd(x, dy, mean, rstd, dx, "none")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), IN.instance_norm_act_plain(x, None, 1e-5).float(),
+                               **TOL[dtype])
+    pm, pr = IN.instance_norm_stats_plain(x)
+    _close(dx, IN.instance_norm_act_bwd_plain(x, dy, pm, pr, "none"), BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_block_at_config1_trunk_matches_plain(card, dtype):
+    shape, c = (2, 32, 32, 256), 256
+    x = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    w1, w2 = [(0.02 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y = RB.residual_block_fused(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.detach().float(),
+                               RB.residual_block_plain(x, w1, b1, w2, b2).float(), **RB_TOL[dtype])
+    mask = _kernel_relu_mask(x, w1, b1)
+    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
+    for g_, r_ in zip((got[0], got[1], got[3]), ref):
+        _close(g_, r_, BWD_TOL[dtype])
+    flips, worst = RB.relu_mask_flips(x, w1, b1, mask)
+    assert worst <= 1.0 and flips <= RELU_FLIP_SHARE * mask.numel(), (flips, worst)
+
+
+@pytest.mark.parametrize("extra", [[], ["--gen_net", "unet_128", "--crop_height", "128",
+                                        "--crop_width", "128"],
+                                   ["--norm", "batch", "--remat", "true"]])
+def test_supervised_cli_trains_and_tests_on_the_card(card, tmp_path, extra):
+    """``--training --model supervised`` for 2 steps at ngf 8 on the card,
+    then ``--testing`` (plain, and tiled with flip and two scales) of its
+    checkpoint: the kernels launched, the scores equal the last
+    validation's."""
+    from cyclegan_tpu_torch.main import main
+
+    flags = ["--model", "supervised", "--dataset", "synthetic", "--dataset_size", "4",
+             "--gen_net", "resnet_2blocks", "--ngf", "8", "--crop_height", "32",
+             "--crop_width", "32", "--batch_size", "2", "--epochs", "1", "--decay_epoch", "1",
+             "--log_every", "1", "--checkpoint_dir", str(tmp_path / "ckpt"),
+             "--results_dir", str(tmp_path / "res"), *extra]
+    before = (IN.launches + RB.launches + CD.launches, IN.bwd_launches + RB.bwd_dx_launches
+              + CD.launches)
+    res = main(["--training"] + flags)
+    torch.cuda.synchronize()
+    after = (IN.launches + RB.launches + CD.launches, IN.bwd_launches + RB.bwd_dx_launches
+             + CD.launches)
+    assert after[0] > before[0] or "batch" in extra, (before, after)
+    assert np.isfinite(res["miou"])
+    scores = main(["--testing"] + flags)
+    assert scores["miou"] == pytest.approx(res["miou"], abs=1e-6)
+    crop = int(extra[extra.index("--crop_height") + 1]) if "--crop_height" in extra else 32
+    h = 2 * crop   # the tiled canvas: twice the window
+    tta = main(["--testing", "--eval_resize", "tile", "--resize_height", str(h),
+                "--resize_width", str(h), "--eval_flip", "true", "--eval_scales", "1.0,1.25"]
+               + flags)
+    assert np.isfinite(tta["miou"])

@@ -61,14 +61,18 @@ def test_generator_matches_flax(head, norm):
 
 
 def test_define_gen_and_unported_options():
+    """Every generator and norm of the JAX package builds (the U-Nets and
+    batch norm are ported: tests/test_torch_unet.py,
+    tests/test_torch_norm_batch.py); unknown names raise."""
     assert len(define_Gen(3, 4, 8, "resnet_9blocks").trunk) == 9
     assert len(define_Gen(3, 4, 8, "resnet_6blocks").trunk) == 6
-    with pytest.raises(NotImplementedError, match="U-Net"):
-        define_Gen(3, 4, 8, "unet_256")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        get_norm("batch")
+    assert len(define_Gen(3, 4, 8, "unet_256").levels()) == 8
+    assert len(define_Gen(3, 4, 8, "unet_128").levels()) == 7
+    assert get_norm("batch")(8) is not None and get_norm("none")(8) is None
     with pytest.raises(ValueError):
         define_Gen(3, 4, 8, "vgg")
+    with pytest.raises(ValueError):
+        get_norm("group")
 
 
 def test_init_is_seeded_normal():

@@ -202,14 +202,17 @@ def test_stacked_and_grain_runs_train_and_log(tmp_path, extra):
 
 
 def test_unported_options_raise_naming_their_queue_item(tmp_path):
+    """Only the parallel options (item 11) are left; tile eval and TTA
+    (item 8) now validate their settings instead."""
     cfg = _cfg(tmp_path, "u")
-    for bad, item in ((dict(eval_resize="tile"), "item 8"), (dict(eval_flip=True), "item 8"),
-                      (dict(eval_scales="0.5,1.0"), "item 8"), (dict(num_devices=2), "item 11"),
-                      (dict(spatial_shards=2), "item 11"), (dict(num_processes=2), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            runner.run_cyclegan(cfg.replace(**bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        runner.run_supervised(cfg, device="cpu")
+    for bad in (dict(num_devices=2), dict(spatial_shards=2), dict(num_processes=2)):
+        for run in (runner.run_cyclegan, runner.run_supervised):
+            with pytest.raises(NotImplementedError, match="item 11"):
+                run(cfg.replace(**bad), device="cpu")
+    with pytest.raises(ValueError, match="resize_height"):
+        runner.run_cyclegan(cfg.replace(eval_resize="tile"), device="cpu")
+    with pytest.raises(ValueError, match="eval_scales"):
+        runner.run_cyclegan(cfg.replace(eval_scales="0.5,-1"), device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         runner.run_cyclegan(cfg.replace(steps_per_call=2, grad_accum=2), device="cpu")
 

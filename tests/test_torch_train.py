@@ -271,10 +271,15 @@ def test_bridge_rejects_a_missing_net_layer():
 
 
 def test_trainer_refuses_unported_options():
-    """use_dropout is ported (tests/test_torch_dropout.py); these are not."""
-    with pytest.raises(NotImplementedError, match="remat"):
-        CycleGANTrainer(tconfig.Config(remat=True, **CFG_KW), N_CLASSES, 3, 1,
+    """use_dropout, remat, norm='batch' and the U-Nets are ported
+    (tests/test_torch_dropout.py, test_torch_remat.py,
+    test_torch_norm_batch.py, test_torch_unet.py); names the JAX package
+    does not know are refused."""
+    for kw in (dict(remat=True), dict(norm="batch"), dict(gen_net="unet_128")):
+        CycleGANTrainer(tconfig.Config(**kw, **CFG_KW), N_CLASSES, 3, 1, device="cpu")
+    with pytest.raises(ValueError, match="unknown norm"):
+        CycleGANTrainer(tconfig.Config(norm="group", **CFG_KW), N_CLASSES, 3, 1,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="norm='batch'"):
-        CycleGANTrainer(tconfig.Config(norm="batch", **CFG_KW), N_CLASSES, 3, 1,
+    with pytest.raises(ValueError, match="unknown netG"):
+        CycleGANTrainer(tconfig.Config(gen_net="unet_64", **CFG_KW), N_CLASSES, 3, 1,
                         device="cpu")
