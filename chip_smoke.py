@@ -61,12 +61,15 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    a replay is bitwise equal (recorded, not required);
 9. cli: ``python -m cyclegan_tpu_torch.main`` in process on the same
    preset over the synthetic dataset: --training for 2 epochs of 3 steps
-   with a checkpoint every step, preempted at step 4 and relaunched,
-   against an uninterrupted run from the same seed (per-step losses within
-   the bf16 train-step bars; the largest weight difference and whether the
-   two are bitwise equal recorded); --testing of the final checkpoint (one
-   PNG per val image, mIoU and pixel accuracy within 1e-4 of the last
-   validation); one epoch each of --steps_per_call 2 and --grad_accum 2.
+   in the default mode a user trains in (steps/s, input wait and
+   validation seconds are this run's); then, under deterministic algorithms
+   (deterministic_algorithms, as in phase 13), the same uninterrupted
+   against a run with a checkpoint every step, preempted at step 4 and
+   relaunched (per-step losses within the bf16 train-step bars; the largest
+   weight difference and whether the two are bitwise equal recorded; the
+   default run's loss gap to the deterministic one recorded); --testing of
+   the final checkpoint (one PNG per val image, mIoU and pixel accuracy
+   within 1e-4 of the last validation); one epoch each of --steps_per_call 2 and --grad_accum 2.
    Every launch runs with the counters at 0 and must show kernels #1-#5
    launched as often as the modules derive for its train steps and eval
    forwards; steps/s from the logger, the loop's input wait and the
@@ -90,10 +93,30 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    the counters must show every trunk block's second forward;
 13. cli_supervised: ``python -m cyclegan_tpu_torch.main --training --model
    supervised --preset voc_supervised_128 --dataset synthetic`` in process:
-   two epochs of 3 steps, preempted at step 4 and resumed against an
-   uninterrupted run, --testing equal to the last validation, and one
+   two epochs of 3 steps in the default mode (timed), then under
+   deterministic algorithms the same against a run preempted at step 4
+   and resumed, --testing equal to the last validation, and one
    --testing on a 192x192 tiled canvas with flip and scales 0.75, 1.0,
-   1.25 (its seconds and mIoU), every launch held to the derived counts.
+   1.25 (its seconds and mIoU), every launch held to the derived counts;
+14. serve_full: serving at the full width of ``voc_semisup_256`` from a
+   checkpoint the port writes: ``--export`` through the CLI (heads segment,
+   logits and generate, ``--export_input uint8``, ``--export_quantize int8``
+   and ``bf16``: the .pt sizes against float32, the loaded weights bitwise
+   the host's dequantisation), ``run_serve`` of the logits artifact on a
+   512x512 canvas with flip and scales 0.75 / 1.0 / 1.25 (window stacks of
+   N = 32, 72 and 128 at batch 8) with GT scoring: kernels #1 and #3 launched
+   as often as the calls, windows and blocks derive, the kernel path against
+   the plain seams on one batch (argmax on decisive pixels), the end-to-end
+   rate (run_serve over 64 images after the counted run, twice); #1,
+   #3 and the forward convolution alone at N = 128 against their plain
+   versions, timed; the int8 and bf16 artifacts on the same canvas (their
+   agreement with float32 and their mIoU); the uint8-input artifact's PNGs
+   bitwise the float32 one's; the generate head (shape, range, float32
+   kernel path within GEN_TOL of the plain one); HTTP with the same options
+   (/info's ``tta``, p50 latency of 8 concurrent requests); ``--serve_dp``
+   bitwise the single-device path; config 1's ``unet_128`` and ``--norm
+   batch`` artifacts kernel against plain; ``tools/torch_quantize_miou_run.py``
+   at its defaults, its line printed.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -131,6 +154,10 @@ NGF = 64
 NUM_CLASSES = 21
 N_BLOCKS = 9
 N_IMAGES = 16
+# serve_full's end-to-end rate: run_serve over this many images (8
+# batches), warm (after the counted run built and ran every shape), twice.
+SERVE_RATE_IMAGES = 64
+SERVE_RATE_REPEATS = 2
 
 # Tolerances |kernel - plain| <= atol + rtol * |plain|, per kernel and dtype.
 TOL = {
@@ -467,7 +494,7 @@ def phase_kernels() -> None:
     torch.cuda.empty_cache()
 
 
-def _write_inputs(root: str) -> tuple[str, str]:
+def _write_inputs(root: str, n: int = N_IMAGES) -> tuple[str, str]:
     import numpy as np
     from PIL import Image
 
@@ -476,7 +503,7 @@ def _write_inputs(root: str) -> tuple[str, str]:
     os.makedirs(img_dir)
     os.makedirs(gt_dir)
     yy, xx = np.mgrid[0:CROP, 0:CROP]
-    for i in range(N_IMAGES):
+    for i in range(n):
         # Smooth colour fields plus noise, and blocky masks with a void border.
         base = np.stack([np.sin((xx * (c + 1) + yy * (i + 1)) / 40.0) for c in range(3)], -1)
         img = np.clip(127.5 * (base + 1) + rng.normal(0, 20, base.shape), 0, 255)
@@ -493,6 +520,23 @@ def _decisive(logits, dtype: str):
     return (top2[..., 0] - top2[..., 1]) > TIE_REL[dtype] * top2[..., 0].abs()
 
 
+@contextlib.contextmanager
+def plain_forward_seams():
+    """Point the blocks' forward kernel seams (instance norm, the fused
+    residual block) at their plain versions."""
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+    from cyclegan_tpu_torch.ops import blocks
+
+    seams = (blocks.instance_norm_act, blocks.residual_block_fused)
+    blocks.instance_norm_act, blocks.residual_block_fused = (
+        IN.instance_norm_act_plain, RB.residual_block_plain)
+    try:
+        yield
+    finally:
+        blocks.instance_norm_act, blocks.residual_block_fused = seams
+
+
 def _paths_agree(G, tmp: str, x, dtype: str):
     """Logits of the served function with the kernels and with the blocks'
     seams pointed at the plain versions, on one batch: argmax agreement over
@@ -501,9 +545,6 @@ def _paths_agree(G, tmp: str, x, dtype: str):
     import torch
 
     from cyclegan_tpu_torch import export
-    from cyclegan_tpu_torch.kernels import instance_norm as IN
-    from cyclegan_tpu_torch.kernels import resblock as RB
-    from cyclegan_tpu_torch.ops import blocks
 
     art = export.export_generator(
         G, os.path.join(tmp, f"logits_{dtype}"), gen_net="resnet_9blocks", ngf=NGF,
@@ -511,13 +552,8 @@ def _paths_agree(G, tmp: str, x, dtype: str):
         head="logits")
     fn, _, _ = export.load_head(art, "cuda")
     lk = fn(x).float()
-    seams = (blocks.instance_norm_act, blocks.residual_block_fused)
-    blocks.instance_norm_act, blocks.residual_block_fused = (
-        IN.instance_norm_act_plain, RB.residual_block_plain)
-    try:
+    with plain_forward_seams():
         lp = fn(x).float()
-    finally:
-        blocks.instance_norm_act, blocks.residual_block_fused = seams
     decisive = _decisive(lp, dtype)
     agree = lk.argmax(-1) == lp.argmax(-1)
     return {"all": float(agree.float().mean()),
@@ -1438,6 +1474,29 @@ def plain_seams():
 
 
 @contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and PyTorch's deterministic algorithms (``warn_only``: an op
+    without one warns) around the runs a resume check compares. Without
+    them two runs from one seed differ from the first update on (the
+    library's backward sums in another order each run), and the GAN steps
+    grow that to the bf16 bars by step 5, so the resumed-against-
+    uninterrupted check could fail on rounding alone; with them a step's
+    gradients are bitwise repeatable on an H100. The runner never sets
+    them: the timed CLI runs are in the default mode."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+@contextlib.contextmanager
 def resblock_env(route: str):
     """The JAX package's route variables while a trainer is built (the
     blocks read them once, then): chunked with HC rows a chunk, or unset."""
@@ -1909,11 +1968,13 @@ def phase_cli(smi: str) -> dict:
         with open(os.path.join(tmp, name, "res", "train_metrics.jsonl")) as f:
             return [json.loads(line) for line in f]
 
-    def launch(what: str, argv: list, want: dict, env: dict | None = None):
+    def launch(what: str, argv: list, want: dict, env: dict | None = None,
+               deterministic: bool = False):
         saved = {k: os.environ.get(k) for k in (env or {})}
         os.environ.update(env or {})
+        mode = deterministic_algorithms() if deterministic else contextlib.nullcontext()
         try:
-            with resblock_env("fused"):
+            with resblock_env("fused"), mode:
                 _zero_counters()
                 t0 = time.perf_counter()
                 res = cli(argv)
@@ -1928,6 +1989,7 @@ def phase_cli(smi: str) -> dict:
         if got != want or not any(got.values()):
             raise AssertionError(f"cli {what}: launch counters {got} != derived {want}")
         runs[what] = {"seconds": wall, "launches": got, "derived": want,
+                      "deterministic": deterministic,
                       "runner_seconds": (res or {}).get("seconds")}
         return res
 
@@ -1936,30 +1998,43 @@ def phase_cli(smi: str) -> dict:
     steps_per_epoch = 3
     val = CLI_VAL
     try:
-        # (a) the reference, uninterrupted; then preempted and resumed.
+        # (a) the uninterrupted run in the default mode (timed); then, under
+        # deterministic algorithms (two launches are otherwise not bitwise
+        # repeatable on the card), the same against one preempted and
+        # resumed.
         ref_val = launch("a_reference", train + base + dirs("ref"),
                          derived(2 * steps_per_epoch, 2 * val + 2, 2))
+        launch("a_deterministic", train + base + dirs("det"),
+               derived(2 * steps_per_epoch, 2 * val + 2, 2), deterministic=True)
         first = launch("a_preempted", train + base + dirs("res") + ["--save_every_steps", "1"],
                        derived(CLI_PREEMPT_AT, val + 1, 1),
-                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_PREEMPT_AT)})
+                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_PREEMPT_AT)},
+                       deterministic=True)
         if not first.get("preempted"):
             raise AssertionError(f"cli: the first launch was not preempted: {first}")
         last_val = launch("a_resumed", train + base + dirs("res") + ["--save_every_steps", "1"],
-                          derived(2 * steps_per_epoch - CLI_PREEMPT_AT, val + 1, 1))
-        ref_log, res_log = logged("ref"), logged("res")
-        if not [r["step"] for r in ref_log] == [r["step"] for r in res_log] == \
-                list(range(1, 2 * steps_per_epoch + 1)):
-            raise AssertionError(f"cli: logged steps {[r['step'] for r in ref_log]} and "
+                          derived(2 * steps_per_epoch - CLI_PREEMPT_AT, val + 1, 1),
+                          deterministic=True)
+        ref_log, det_log, res_log = logged("ref"), logged("det"), logged("res")
+        if not [r["step"] for r in ref_log] == [r["step"] for r in det_log] == \
+                [r["step"] for r in res_log] == list(range(1, 2 * steps_per_epoch + 1)):
+            raise AssertionError(f"cli: logged steps {[r['step'] for r in ref_log]}, "
+                                 f"{[r['step'] for r in det_log]} and "
                                  f"{[r['step'] for r in res_log]}")
-        loss_err = {}
-        for key, tols in TRAIN_TOL["bfloat16"].items():
-            errs = [abs(r[key] - q[key]) / (tols[min(i, 2)][1] + tols[min(i, 2)][0] * abs(q[key]))
-                    for i, (r, q) in enumerate(zip(res_log, ref_log))]
-            loss_err[key] = errs
+
+        def over_tol(log: list, against: list) -> dict:
+            return {key: [abs(r[key] - q[key]) / (tols[min(i, 2)][1]
+                                                  + tols[min(i, 2)][0] * abs(q[key]))
+                          for i, (r, q) in enumerate(zip(log, against))]
+                    for key, tols in TRAIN_TOL["bfloat16"].items()}
+
+        loss_err = over_tol(res_log, det_log)
+        for key, errs in loss_err.items():
             if not all(math.isfinite(r[key]) for r in res_log) or max(errs) > 1.0:
                 raise AssertionError(f"cli: resumed {key} {[r[key] for r in res_log]} vs "
-                                     f"uninterrupted {[q[key] for q in ref_log]}")
-        ref_ck = torch.load(os.path.join(tmp, "ref", "ckpt", "1.pt"), weights_only=True)
+                                     f"uninterrupted {[q[key] for q in det_log]}")
+        default_err = over_tol(ref_log, det_log)
+        ref_ck = torch.load(os.path.join(tmp, "det", "ckpt", "1.pt"), weights_only=True)
         res_ck = torch.load(os.path.join(tmp, "res", "ckpt", "1.pt"), weights_only=True)
         pairs = [(a, res_ck["nets"][n][k]) for n, sd in ref_ck["nets"].items()
                  for k, a in sd.items()]
@@ -2003,8 +2078,10 @@ def phase_cli(smi: str) -> dict:
            "prefetch_share_of_train_loop": secs["input_wait"] / secs["train"],
            "validation_pass_s": secs["validation"] / 2,
            "losses_resumed": [{k: r[k] for k in ("g_total", "d_total")} for r in res_log],
-           "losses_uninterrupted": [{k: r[k] for k in ("g_total", "d_total")} for r in ref_log],
-           "loss_err_over_tol": loss_err, "tol": TRAIN_TOL["bfloat16"],
+           "losses_uninterrupted": [{k: r[k] for k in ("g_total", "d_total")} for r in det_log],
+           "losses_default_mode": [{k: r[k] for k in ("g_total", "d_total")} for r in ref_log],
+           "loss_err_over_tol": loss_err, "default_mode_err_over_tol": default_err,
+           "tol": TRAIN_TOL["bfloat16"],
            "resumed_max_weight_diff": max_w, "resumed_bitwise_equal": bitwise,
            "last_validation": last_val, "testing_scores": {k: scores[k] for k in score_err},
            "testing_err": score_err, "testing_pngs": len(pngs)}
@@ -2462,11 +2539,13 @@ def phase_cli_supervised(smi: str) -> dict:
         with open(os.path.join(tmp, name, "res", "train_metrics.jsonl")) as f:
             return [json.loads(line) for line in f]
 
-    def launch(what: str, argv: list, want: dict, env: dict | None = None):
+    def launch(what: str, argv: list, want: dict, env: dict | None = None,
+               deterministic: bool = False):
         saved = {k: os.environ.get(k) for k in (env or {})}
         os.environ.update(env or {})
+        mode = deterministic_algorithms() if deterministic else contextlib.nullcontext()
         try:
-            with resblock_env("fused"):
+            with resblock_env("fused"), mode:
                 _zero_counters()
                 t0 = time.perf_counter()
                 res = cli(argv)
@@ -2482,31 +2561,44 @@ def phase_cli_supervised(smi: str) -> dict:
             raise AssertionError(f"cli_supervised {what}: launch counters {got} != "
                                  f"derived {want}")
         runs[what] = {"seconds": wall, "launches": got, "derived": want,
+                      "deterministic": deterministic,
                       "runner_seconds": (res or {}).get("seconds")}
         return res
 
     train = ["--training", "--dataset_size", str(CLI_SUP_SIZE), "--epochs", "2"]
     steps = 3
     try:
+        # The uninterrupted run in the default mode (timed); then, under
+        # deterministic algorithms, the same against one preempted and resumed.
         ref_val = launch("reference", train + base + dirs("ref"),
                          derived(2 * steps, 2 * val_batches))
+        launch("deterministic", train + base + dirs("det"), derived(2 * steps, 2 * val_batches),
+               deterministic=True)
         first = launch("preempted", train + base + dirs("res") + ["--save_every_steps", "1"],
                        derived(CLI_SUP_PREEMPT_AT, val_batches),
-                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_SUP_PREEMPT_AT)})
+                       env={"CYCLEGAN_TPU_PREEMPT_AT_STEP": str(CLI_SUP_PREEMPT_AT)},
+                       deterministic=True)
         if not first.get("preempted"):
             raise AssertionError(f"cli_supervised: not preempted: {first}")
         last_val = launch("resumed", train + base + dirs("res") + ["--save_every_steps", "1"],
-                          derived(2 * steps - CLI_SUP_PREEMPT_AT, val_batches))
-        ref_log, res_log = logged("ref"), logged("res")
-        if not [r["step"] for r in ref_log] == [r["step"] for r in res_log] == \
-                list(range(1, 2 * steps + 1)):
-            raise AssertionError(f"cli_supervised: logged steps {ref_log} / {res_log}")
+                          derived(2 * steps - CLI_SUP_PREEMPT_AT, val_batches),
+                          deterministic=True)
+        ref_log, det_log, res_log = logged("ref"), logged("det"), logged("res")
+        if not [r["step"] for r in ref_log] == [r["step"] for r in det_log] == \
+                [r["step"] for r in res_log] == list(range(1, 2 * steps + 1)):
+            raise AssertionError(f"cli_supervised: logged steps {ref_log} / {det_log} / "
+                                 f"{res_log}")
         tols = SUP_TOL["bfloat16"]
-        loss_err = [abs(r["ce_loss"] - q["ce_loss"]) / (tols[min(i, 2)][1]
+
+        def over_tol(log: list, against: list) -> list:
+            return [abs(r["ce_loss"] - q["ce_loss"]) / (tols[min(i, 2)][1]
                                                         + tols[min(i, 2)][0] * abs(q["ce_loss"]))
-                    for i, (r, q) in enumerate(zip(res_log, ref_log))]
+                    for i, (r, q) in enumerate(zip(log, against))]
+
+        loss_err = over_tol(res_log, det_log)
         if not all(math.isfinite(r["ce_loss"]) for r in res_log) or max(loss_err) > 1.0:
-            raise AssertionError(f"cli_supervised: resumed {res_log} vs {ref_log}")
+            raise AssertionError(f"cli_supervised: resumed {res_log} vs {det_log}")
+        default_err = over_tol(ref_log, det_log)
         scores = launch("testing", ["--testing"] + base + dirs("res"), derived(0, val_batches))
         score_err = {k: abs(scores[k] - last_val[k]) for k in ("miou", "pixel_acc")}
         pngs = [f for f in os.listdir(os.path.join(tmp, "res", "res")) if f.startswith("pred_")]
@@ -2531,7 +2623,9 @@ def phase_cli_supervised(smi: str) -> dict:
            "prefetch_share_of_train_loop": secs["input_wait"] / secs["train"],
            "validation_pass_s": secs["validation"] / 2,
            "losses_resumed": [r["ce_loss"] for r in res_log],
-           "losses_uninterrupted": [r["ce_loss"] for r in ref_log], "loss_err_over_tol": loss_err,
+           "losses_uninterrupted": [r["ce_loss"] for r in det_log], "loss_err_over_tol": loss_err,
+           "losses_default_mode": [r["ce_loss"] for r in ref_log],
+           "default_mode_err_over_tol": default_err,
            "last_validation": last_val, "testing_scores": {k: scores[k] for k in score_err},
            "testing_err": score_err, "testing_pngs": len(pngs),
            "tile_flip_scales": {"flags": " ".join(CLI_SUP_TTA),
@@ -2547,14 +2641,486 @@ def phase_cli_supervised(smi: str) -> dict:
     return rec
 
 
-def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None) -> dict:
+# --------------------------------------------------------------------------
+# serve_full: export from a checkpoint through the CLI, every serving option.
+SERVE_CANVAS = 512
+SERVE_SCALES = (0.75, 1.0, 1.25)
+# The generators' bar (docs/PARITY.md), of the largest |value|: the generate
+# head's float32 kernel path against its plain seams.
+GEN_TOL = 5e-5
+# .pt size over the float32 artifact's: int8 and bf16 weights are 1/4 and
+# 1/2 of float32 and nearly every ResNet-9 tensor is one they quantise.
+QUANT_SIZE_MAX = {"int8": 0.3, "bf16": 0.55}
+CFG1_SERVE = {"unet_128": ("unet_128", "instance"),
+              "resnet_6blocks_bn": ("resnet_6blocks", "batch")}
+CFG1_CROP = 128
+
+
+def serve_windows(canvas: int, window: int, scales) -> list:
+    """Windows a tiled canvas gives an image at each scale: the arithmetic
+    of tta.snapped_dims and eval_tile.tiled_logits (50% overlap, the last
+    window pinned to the edge)."""
+    from cyclegan_tpu_torch.eval_tile import window_positions
+    from cyclegan_tpu_torch.tta import snapped_dims
+
+    out = []
+    for s in scales:
+        hs, ws = snapped_dims(canvas, canvas, s)
+        out.append(len(window_positions(hs, window, window // 2))
+                   * len(window_positions(ws, window, window // 2)))
+    return out
+
+
+def serving_launches(net, forwards: int) -> dict:
+    """Wrapper and C-entry launches of ``forwards`` eval forwards of
+    ``net``: net_forward_launches, each fused block making 2 convolutions
+    and 2 norms; every other counter 0."""
+    d = net_forward_launches(net, forwards)
+    return {"instance_norm_act": d["instance_norm_act"],
+            "residual_block_fused": d["residual_block_fused"],
+            "cg_instance_norm_act": d["instance_norm_act"] + 2 * d["residual_block_fused"],
+            "cg_conv3x3_reflect": 2 * d["residual_block_fused"]}
+
+
+def _held_counts(counters: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in counters.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {got} != derived {want}")
+
+
+def serve_kernel_records(n: int, forwards: int, randn, fail_if) -> dict:
+    """Kernels #1 and #3 (and the forward convolution alone) at the serving
+    path's shapes for a stack of ``n`` windows (bf16): each against its plain
+    version, timed beside it, one library call and the bound; per call, and
+    ``calls_per_forward`` of each in one generator forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+    from cyclegan_tpu_torch.kernels import resblock as RB
+
+    recs = {"instance_norm_act": [], "residual_block_fused": [], "conv3x3_reflect": []}
+    for shape, per in (((n, CROP, CROP, NGF), 2), ((n, CROP // 2, CROP // 2, NGF * 2), 2),
+                       ((n, CROP // 4, CROP // 4, NGF * 4), 1)):
+        x = randn(shape, torch.bfloat16, 2.0, 0.5)
+        res = compare("instance_norm_act", IN.instance_norm_act(x, None, 1e-5, "relu"),
+                      IN.instance_norm_act_plain(x, None, 1e-5, "relu"), "bfloat16")
+        b_ms, b_by = bound(2 * x.numel() * 2, 8.0 * x.numel(), "float32")
+        rec = {"phase": "serve_full", "kernel": "instance_norm_act", "shape": list(shape),
+               "dtype": "bfloat16", "act": "relu", **res,
+               "ms": time_ms(lambda: IN.instance_norm_act(x, None, 1e-5, "relu"), 5),
+               "plain_ms": time_ms(lambda: IN.instance_norm_act_plain(x, None, 1e-5, "relu"), 2),
+               "library_ms": time_ms(lambda: torch.relu(F.instance_norm(
+                   x.permute(0, 3, 1, 2), eps=1e-5)), 5),
+               "bound_ms": b_ms, "bound_by": b_by, "calls_per_forward": per,
+               "calls_in_run": per * forwards}
+        fail_if(not res["ok"], "instance_norm_act", rec)
+        recs["instance_norm_act"].append(rec)
+        del x
+        torch.cuda.empty_cache()
+    c = NGF * 4
+    shape = (n, CROP // 4, CROP // 4, c)
+    x = randn(shape, torch.bfloat16)
+    w1, w2 = randn((3, 3, c, c), torch.bfloat16, 0.02), randn((3, 3, c, c), torch.bfloat16, 0.02)
+    b1, b2 = randn((c,), torch.bfloat16, 0.01), randn((c,), torch.bfloat16, 0.01)
+    W1, W2 = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              for w in (w1, w2)]
+
+    def lib_rb():
+        xn = x.permute(0, 3, 1, 2)
+        h = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), W1, b1)
+        h = torch.relu(F.instance_norm(h, eps=1e-5))
+        h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), W2, b2)
+        return xn + F.instance_norm(h, eps=1e-5)
+
+    m = n * shape[1] * shape[2]
+    conv = 2.0 * m * 9 * c * c
+    res = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
+                  RB.residual_block_plain(x, w1, b1, w2, b2), "bfloat16")
+    b_ms, b_by = bound((2 * x.numel() + 2 * w1.numel() + 2 * c) * 2, 2 * conv, "bfloat16")
+    rec = {"phase": "serve_full", "kernel": "residual_block_fused", "shape": list(shape),
+           "dtype": "bfloat16", **res,
+           "ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 5),
+           "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 2),
+           "library_ms": time_ms(lib_rb, 5), "bound_ms": b_ms, "bound_by": b_by,
+           "gflop": 2 * conv / 1e9, "calls_per_forward": N_BLOCKS,
+           "calls_in_run": N_BLOCKS * forwards}
+    fail_if(not res["ok"], "residual_block_fused", rec)
+    recs["residual_block_fused"].append(rec)
+    ref = RB._conv3x3_plain(x, w1, b1)
+    out = torch.empty(ref.shape, device="cuda")
+    RB.conv3x3_reflect(x, w1, b1, out)
+    torch.cuda.synchronize()
+    res = compare("conv3x3_reflect", out, ref, "bfloat16")
+    xpl = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
+        memory_format=torch.channels_last)
+    b_ms, b_by = bound(x.numel() * 2 + w1.numel() * 2 + c * 2 + m * c * 4, conv, "bfloat16")
+    plan = RB.conv_plan(*shape, c)
+    rec = {"phase": "serve_full", "kernel": "conv3x3_reflect", "shape": list(shape),
+           "cout": c, "dtype": "bfloat16", **res, "plan": list(plan),
+           "blocks": RB.conv_blocks(plan, *shape[:3], c),
+           "ms": time_ms(lambda: RB.conv3x3_reflect(x, w1, b1, out), 5),
+           "plain_ms": time_ms(lambda: RB._conv3x3_plain(x, w1, b1), 2),
+           "library_ms": time_ms(lambda: F.conv2d(xpl, W1, b1), 5),
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": conv / 1e9,
+           "calls_per_forward": 2 * N_BLOCKS, "calls_in_run": 2 * N_BLOCKS * forwards}
+    fail_if(not res["ok"], "conv3x3_reflect", rec)
+    recs["conv3x3_reflect"].append(rec)
+    del x, w1, w2, b1, b2, W1, W2, ref, out, xpl
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _pngs(out_dir: str, names: list):
+    import numpy as np
+    from PIL import Image
+
+    return {n: np.asarray(Image.open(os.path.join(out_dir, os.path.splitext(n)[0]
+                                                  + "_pred.png"))) for n in names}
+
+
+def phase_serve_full(tmp: str, smi: str) -> dict:
+    """Serving at full width (voc_semisup_256: ResNet-9, ngf 64, 21 classes,
+    256x256 window, bf16) from a checkpoint the port writes: every head and
+    quantisation exported through the CLI's --export, then run_serve on a
+    512x512 canvas with flip and scales 0.75 / 1.0 / 1.25 (window stacks of
+    N = 32, 72 and 128), the quantised artifacts on the same canvas, the
+    generate head, HTTP with the same options, --serve_dp, config 1's
+    unet_128 and --norm batch artifacts, and the quantisation tool."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cyclegan_tpu_torch import export, serve
+    from cyclegan_tpu_torch.http_serve import make_server
+    from cyclegan_tpu_torch.main import main as cli
+    from cyclegan_tpu_torch.models.generators import define_Gen
+    from cyclegan_tpu_torch.train.checkpoint import CheckpointManager, state_payload
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device="cuda", generator=g) * scale + shift).to(dtype)
+
+    def fail_if(bad: bool, what: str, rec: dict):
+        emit(rec)
+        if bad:
+            raise AssertionError(f"serve_full: {what} disagrees with its plain version")
+
+    root = os.path.join(tmp, "serve_full")
+    ck = os.path.join(root, "ck")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    cfg = preset(TRAIN_PRESET).replace(checkpoint_dir=ck)
+    trainer = CycleGANTrainer(cfg, NUM_CLASSES, 3, steps_per_epoch=VOC_STEPS_PER_EPOCH,
+                              device="cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    state.step = VOC_STEPS_PER_EPOCH
+    CheckpointManager(ck).save(0, state_payload(trainer, state))
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # --export through the CLI, every head and quantisation.
+    base = ["--preset", TRAIN_PRESET, "--checkpoint_dir", ck]
+    arts = {}
+    for name, extra in (("logits", ["--export_what", "logits"]), ("segment", []),
+                        ("segment_u8", ["--export_input", "uint8"]),
+                        ("generate", ["--export_what", "generate"]),
+                        ("generate_f32", ["--export_what", "generate", "--no_bf16"]),
+                        ("logits_int8", ["--export_what", "logits", "--export_quantize", "int8"]),
+                        ("logits_bf16", ["--export_what", "logits", "--export_quantize", "bf16"])):
+        cli(["--export", os.path.join(root, name), *base, *extra])
+        arts[name] = os.path.join(root, name + ".pt")
+    export_s = time.perf_counter() - t0
+    f32_bytes = os.path.getsize(arts["logits"])
+
+    def weight_bytes(art) -> tuple:
+        G = export.build_module(art, torch.device("cuda"))
+        sd = G.state_dict()
+        return G, sd, sum(t.numel() * t.element_size() for t in sd.values())
+
+    quant = {"float32": {"bytes": f32_bytes,
+                         "weight_bytes_on_card": weight_bytes(export.load_artifact(
+                             arts["logits"])[0])[2]}}
+    for mode in ("int8", "bf16"):
+        art, manifest = export.load_artifact(arts[f"logits_{mode}"])
+        host = export.dequantize_state(art["state_dict"], art["scales"])
+        _, sd, wb = weight_bytes(art)
+        dtype = export.DTYPES[art["config"]["dtype"]]
+        bitwise = all(torch.equal(sd[k].cpu(), v.to(dtype)) for k, v in host.items())
+        stored = sum(t.numel() * t.element_size() for t in art["state_dict"].values())
+        ratio = os.path.getsize(arts[f"logits_{mode}"]) / f32_bytes
+        quant[mode] = {"bytes": os.path.getsize(arts[f"logits_{mode}"]), "size_ratio": ratio,
+                       "stored_weight_bytes": stored, "weight_bytes_on_card": wb,
+                       "manifest_quantize": manifest.get("quantize"),
+                       "quantised_tensors": sum(t.dtype != torch.float32
+                                                for t in art["state_dict"].values()),
+                       "loaded_bitwise_equal_host_dequant": bitwise}
+        if not bitwise or ratio > QUANT_SIZE_MAX[mode] or \
+                manifest.get("quantize") != f"{mode}_weight_only":
+            raise AssertionError(f"serve_full: {mode} artifact {quant[mode]}")
+    with open(os.path.join(root, "generate.json")) as f:
+        gen_manifest = json.load(f)
+    if gen_manifest["trained_steps"] != VOC_STEPS_PER_EPOCH or gen_manifest["head"] != "generate":
+        raise AssertionError(f"serve_full: generate manifest {gen_manifest}")
+
+    img_dir, gt_dir = _write_inputs(root)
+    names = sorted(os.listdir(img_dir))
+    canvas = (SERVE_CANVAS, SERVE_CANVAS)
+    opts = dict(canvas_hw=canvas, flip=True, scales=SERVE_SCALES)
+    wins = serve_windows(SERVE_CANVAS, CROP, SERVE_SCALES)
+    batches = math.ceil(N_IMAGES / BATCH)
+    forwards = batches * 2 * len(SERVE_SCALES)   # flip doubles the calls
+    G_i2l = define_Gen(3, NUM_CLASSES, NGF, "resnet_9blocks", head="none")
+    want = serving_launches(G_i2l, forwards)
+
+    # The main path: counts set to 0 just before, read just after.
+    out_dir = os.path.join(root, "preds")
+    _zero_counters()
+    summary = serve.run_serve(arts["logits"], img_dir, out_dir, batch_size=BATCH,
+                              gt_dir=gt_dir, device="cuda", **opts)
+    launches = _read_counters()
+    _held_counts(launches, want, "serve_full run_serve")
+    preds = _pngs(out_dir, names)
+    for n, p in preds.items():
+        if p.shape != canvas or p.max() >= NUM_CLASSES:
+            raise AssertionError(f"serve_full {n}: shape {p.shape}, max class {p.max()}")
+    with open(os.path.join(out_dir, "scores.json")) as f:
+        scores = json.load(f)
+    if scores["scored"] != N_IMAGES or not 0.0 <= scores["miou"] <= 1.0:
+        raise AssertionError(f"serve_full scores.json: {scores}")
+
+    # The end-to-end rate (run_serve's clock: decode, tiled + TTA predict,
+    # colorize, PNG write, GT scoring), warm: the run above paid the first
+    # batch's set-up, which its 2 batches cannot amortise.
+    rate_img, rate_gt = _write_inputs(os.path.join(root, "rate"), SERVE_RATE_IMAGES)
+    rates = []
+    for i in range(SERVE_RATE_REPEATS):
+        r = serve.run_serve(arts["logits"], rate_img, os.path.join(root, f"preds_rate{i}"),
+                            batch_size=BATCH, gt_dir=rate_gt, device="cuda", **opts)
+        if r["scored"] != SERVE_RATE_IMAGES:
+            raise AssertionError(f"serve_full rate run {i}: {r}")
+        rates.append(r)
+
+    # Kernel path against the plain seams on one batch of the same TTA
+    # (window stacks of N = 32, 72 and 128), and its device time.
+    fn, _, _ = export.load_head(arts["logits"], "cuda")
+    logits_fn = serve.served_logits(fn, (CROP, CROP), **opts)
+    first = names[:BATCH]
+    x = torch.from_numpy(np.stack([serve.load_image(os.path.join(img_dir, n), canvas, 3,
+                                                    "resize") for n in first])).cuda()
+    with torch.inference_mode():
+        lk = logits_fn(x)
+        with plain_forward_seams():
+            lp = logits_fn(x)
+        batch_ms = time_ms(lambda: logits_fn(x).argmax(-1), 3)
+    decisive = _decisive(lp, "bfloat16")
+    agree = lk.argmax(-1) == lp.argmax(-1)
+    paths = {"all": float(agree.float().mean()),
+             "decisive": float(agree[decisive].float().mean()),
+             "decisive_share": float(decisive.float().mean()),
+             "max_abs_logit_diff": float((lk - lp).abs().max()),
+             "max_abs_logit": float(lp.abs().max())}
+    served_equal = float(np.mean(np.stack([preds[n] for n in first])
+                                 == lk.argmax(-1).cpu().numpy()))
+    keep = dict(zip(first, _decisive(lk, "bfloat16").cpu().numpy()))
+    del lk, lp, x
+    torch.cuda.empty_cache()
+    if paths["decisive"] < ARGMAX_AGREEMENT_MIN:
+        raise AssertionError(f"serve_full: argmax kernel vs plain {paths}")
+    recs = serve_kernel_records(BATCH * max(wins), 2 * batches, randn, fail_if)
+
+    # The quantised artifacts on the same canvas.
+    q_serve = {}
+    for mode in ("int8", "bf16"):
+        d = os.path.join(root, f"preds_{mode}")
+        res = serve.run_serve(arts[f"logits_{mode}"], img_dir, d, batch_size=BATCH,
+                              gt_dir=gt_dir, device="cuda", **opts)
+        qp = _pngs(d, names)
+        q_serve[mode] = {"miou": res["miou"], "pixel_acc": res["pixel_acc"],
+                         "argmax_agreement_with_float32": float(np.mean(
+                             [np.mean(qp[n] == preds[n]) for n in names])),
+                         "argmax_agreement_with_float32_off_ties": float(np.mean(
+                             [np.mean(qp[n][keep[n]] == preds[n][keep[n]]) for n in first])),
+                         "img_per_s": res["img_per_s"]}
+
+    # The uint8-input segment artifact: the float32 one's PNGs, bitwise.
+    for name in ("segment", "segment_u8"):
+        serve.run_serve(arts[name], img_dir, os.path.join(root, f"preds_{name}"),
+                        batch_size=BATCH, device="cuda")
+    u8_equal = all(
+        open(os.path.join(root, "preds_segment", f"{os.path.splitext(n)[0]}_pred.png"),
+             "rb").read() == open(os.path.join(root, "preds_segment_u8",
+                                               f"{os.path.splitext(n)[0]}_pred.png"),
+                                  "rb").read() for n in names)
+    if not u8_equal:
+        raise AssertionError("serve_full: the uint8-input artifact's PNGs differ")
+
+    # The generate head: label maps -> images; float32 kernel vs plain.
+    labels = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(gt_dir, n)))
+                                        for n in first]).astype(np.int32)).cuda()
+    G_l2i = define_Gen(NUM_CLASSES, 3, NGF, "resnet_9blocks", head="tanh")
+    gen = {}
+    for name in ("generate", "generate_f32"):
+        gfn, gcfg, _ = export.load_head(arts[name], "cuda")
+        _zero_counters()
+        img = gfn(labels).float()
+        torch.cuda.synchronize()
+        counts = _read_counters()
+        _held_counts(counts, serving_launches(G_l2i, 1), f"serve_full {name}")
+        ok = tuple(img.shape) == (BATCH, CROP, CROP, 3) and bool(torch.isfinite(img).all()) \
+            and float(img.abs().max()) <= 1.0
+        gen[name] = {"dtype": gcfg["dtype"], "shape": list(img.shape), "ok": ok,
+                     "max_abs": float(img.abs().max()), "launches": counts}
+        if name == "generate_f32":
+            with plain_forward_seams():
+                ref = gfn(labels).float()
+            err = float((img - ref).abs().max())
+            gen[name].update(max_abs_err=err, bar=GEN_TOL * float(ref.abs().max()))
+            ok = ok and err <= GEN_TOL * float(ref.abs().max())
+            gen[name]["ok"] = ok
+            gen[name]["ms"] = time_ms(lambda: gfn(labels), 3)
+        if not ok:
+            raise AssertionError(f"serve_full: generate head {gen[name]}")
+        del img
+    torch.cuda.empty_cache()
+
+    # HTTP with the same options: /info, 8 concurrent POST /predict.
+    server = make_server(arts["logits"], port=0, device="cuda", max_batch=BATCH, **opts)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base_url + "/info", timeout=60) as r:
+            info = json.load(r)
+
+        def post(name: str):
+            with open(os.path.join(img_dir, name), "rb") as f:
+                req = urllib.request.Request(f"{base_url}/predict?format=mask", data=f.read())
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return name, r.status, r.read(), time.perf_counter() - t
+
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            answers = list(ex.map(post, first))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    want_tta = {"flip": True, "scales": list(SERVE_SCALES), "canvas_hw": list(canvas),
+                "data_parallel": False, "max_batch": BATCH}
+    http_agree = []
+    for name, status, data, _ in answers:
+        got = np.asarray(Image.open(io.BytesIO(data)))
+        if status != 200 or got.shape != canvas:
+            raise AssertionError(f"serve_full HTTP {name}: {status} {got.shape}")
+        http_agree.append(float(np.mean(got[keep[name]] == preds[name][keep[name]])))
+    if info.get("tta") != want_tta or min(http_agree) < HTTP_AGREEMENT_MIN:
+        raise AssertionError(f"serve_full HTTP: /info tta {info.get('tta')}, agreement off "
+                             f"ties {http_agree}")
+    lat = sorted(a[3] for a in answers)
+
+    # --serve_dp through the CLI: on one card the single-device path, bitwise.
+    dp_dir = os.path.join(root, "preds_dp")
+    cli(["--serve", arts["logits"], "--serve_input", img_dir, "--serve_output", dp_dir,
+         "--serve_batch", str(BATCH), "--serve_canvas_height", str(SERVE_CANVAS),
+         "--serve_canvas_width", str(SERVE_CANVAS), "--serve_flip", "--serve_scales",
+         ",".join(map(str, SERVE_SCALES)), "--serve_dp"])
+    dp_equal = all(
+        open(os.path.join(dp_dir, f"{os.path.splitext(n)[0]}_pred.png"), "rb").read()
+        == open(os.path.join(out_dir, f"{os.path.splitext(n)[0]}_pred.png"), "rb").read()
+        for n in names)
+    if not dp_equal:
+        raise AssertionError("serve_full: --serve_dp differs from the single-device path")
+
+    # Config 1's unet_128 and --norm batch artifacts at 128x128.
+    cfg1 = {}
+    for name, (gen_net, norm) in CFG1_SERVE.items():
+        G = define_Gen(3, NUM_CLASSES, NGF, gen_net, norm=norm, head="none",
+                       generator=torch.Generator().manual_seed(1))
+        if norm == "batch":  # running averages away from their initial 0 / 1
+            r = torch.Generator().manual_seed(2)
+            for mod in G.modules():
+                if hasattr(mod, "running_mean"):
+                    mod.running_mean.normal_(0.0, 0.05, generator=r)
+                    mod.running_var.uniform_(0.5, 1.5, generator=r)
+        art = export.export_generator(G, os.path.join(root, name), gen_net=gen_net, ngf=NGF,
+                                      num_classes=NUM_CLASSES, in_channels=3,
+                                      crop_hw=(CFG1_CROP, CFG1_CROP), dtype="bfloat16",
+                                      head="logits", norm=norm)
+        d = os.path.join(root, f"preds_{name}")
+        _zero_counters()
+        serve.run_serve(art, img_dir, d, batch_size=BATCH, device="cuda")
+        counts = _read_counters()
+        _held_counts(counts, serving_launches(G, batches), f"serve_full {name}")
+        fn1, _, _ = export.load_head(art, "cuda")
+        x1 = torch.from_numpy(np.stack([serve.load_image(
+            os.path.join(img_dir, n), (CFG1_CROP, CFG1_CROP), 3, "resize") for n in first])).cuda()
+        with torch.inference_mode():
+            k1 = fn1(x1).float()
+            with plain_forward_seams():
+                p1 = fn1(x1).float()
+        dec = _decisive(p1, "bfloat16")
+        agree1 = (k1.argmax(-1) == p1.argmax(-1))[dec].float().mean()
+        served1 = _pngs(d, first)
+        cfg1[name] = {"launches": counts, "argmax_kernel_vs_plain_decisive": float(agree1),
+                      "decisive_share": float(dec.float().mean()),
+                      "finite": bool(torch.isfinite(k1).all()),
+                      "served_equal_kernel_argmax": float(np.mean(
+                          np.stack([served1[n] for n in first])
+                          == k1.argmax(-1).cpu().numpy()))}
+        if agree1 < ARGMAX_AGREEMENT_MIN or not cfg1[name]["finite"]:
+            raise AssertionError(f"serve_full {name}: {cfg1[name]}")
+
+    # The quantisation tool at its defaults, in its own process.
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools",
+                                                        "torch_quantize_miou_run.py")],
+                          capture_output=True, text=True, timeout=600, check=True)
+    tool = json.loads(proc.stdout.strip().splitlines()[-1])
+    tool_s = time.perf_counter() - t
+    print(json.dumps(tool), flush=True)
+    for k in ("miou_f32", "miou_int8", "miou_bf16", "bytes_int8", "bytes_bf16"):
+        if k not in tool:
+            raise AssertionError(f"torch_quantize_miou_run: no {k} in {tool}")
+
+    rec = {"phase": "serve_full", "preset": TRAIN_PRESET, "canvas": list(canvas),
+           "scales": list(SERVE_SCALES), "flip": True, "batch": BATCH, "images": N_IMAGES,
+           "windows_per_image_by_scale": wins,
+           "window_stacks": [BATCH * w for w in wins], "forwards": forwards,
+           "launches": launches, "derived_launches": want,
+           "run_serve_img_per_s": [r["img_per_s"] for r in rates],
+           "run_serve_s_per_image": [r["elapsed_s"] / SERVE_RATE_IMAGES for r in rates],
+           "run_serve_rate_images": SERVE_RATE_IMAGES,
+           "run_serve_first_call": {"images": N_IMAGES, "elapsed_s": summary["elapsed_s"],
+                                    "img_per_s": summary["img_per_s"]},
+           "device_ms_per_batch_of_8": batch_ms,
+           "device_img_per_s": BATCH / batch_ms * 1e3, "miou": scores["miou"],
+           "argmax_kernel_vs_plain": paths, "agreement_with_served_pngs": served_equal,
+           "export_s": export_s, "quantised": quant, "quantised_serving": q_serve,
+           "uint8_input_pngs_bitwise_equal": u8_equal, "generate": gen,
+           "http": {"tta": info["tta"], "p50_latency_s": statistics.median(lat),
+                    "max_latency_s": lat[-1], "min_agreement_off_ties": min(http_agree)},
+           "serve_dp_bitwise_equal": dp_equal, "config1": cfg1,
+           "quantize_tool": tool, "quantize_tool_s": tool_s,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(rec)
+    return {"records": recs, "launches": launches, "record": rec}
+
+
+def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
+                 serve_full: dict | None = None) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
     ``launches`` from the run (3 steps) of the path that runs the kernel
     (``runs``: path -> phase_train's or phase_train_supervised's result).
     ``on_paths``: the same numbers for each supervised path that runs the
     kernel, at its shapes (``sup_recs``: kernels_supervised's records), and
-    ``max_abs_err`` the largest over every shape held."""
+    for tiled + TTA serving (``serve_full``: phase_serve_full's result) at
+    its largest window stack, per generator forward; ``max_abs_err`` the
+    largest over every shape held."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -2604,7 +3170,22 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None) -> dict:
                 "shapes": sorted({str(r["shape"]) for r in srs}),
                 "per": f"one train step ({SUP_PRESET}, {dict(SUP_PATHS[sup_path])}, 128x128, "
                        f"batch 2, bf16): {sum(r['calls_per_step'] for r in srs)} calls"}
-        every = rs + [r for v in (sup_recs or {}).values() for r in v.get(name, [])]
+        frs = (serve_full or {}).get("records", {}).get(name, [])
+        if frs:
+            n_win = frs[0]["shape"][0]
+            on_paths["serve_full"] = {
+                "launches": serve_full["launches"][counter_of.get(name, name)],
+                "max_abs_err": max(r["max_abs_err"] for r in frs),
+                **{k: sum(r[k] * r["calls_per_forward"] for r in frs)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "shapes": [r["shape"] for r in frs],
+                "per": f"one generator forward of a stack of {n_win} windows "
+                       f"({TRAIN_PRESET}, {CROP}x{CROP} windows of a {SERVE_CANVAS}x"
+                       f"{SERVE_CANVAS} canvas at scale {max(SERVE_SCALES)}, bf16): "
+                       f"{sum(r['calls_per_forward'] for r in frs)} calls",
+                "launches_over": f"run_serve of {N_IMAGES} images at batch {BATCH}, tiled, "
+                                 f"flip, scales {list(SERVE_SCALES)}"}
+        every = rs + frs + [r for v in (sup_recs or {}).values() for r in v.get(name, [])]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": runs[path]["launches"][counter_of.get(name, name)],
@@ -2645,10 +3226,14 @@ def main() -> int:
     runs.update((path, phase_train_supervised(smi, path)) for path in SUP_PATHS)
     phase_remat(smi)
     phase_cli_supervised(smi)
+    t_serve = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_full = phase_serve_full(tmp, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
-          "supervised_phases_seconds": time.perf_counter() - t_sup})
+          "supervised_phases_seconds": t_serve - t_sup,
+          "serve_full_seconds": time.perf_counter() - t_serve})
     print(smi, flush=True)
-    emit(kernels_line(recs, runs, sup_recs))
+    emit(kernels_line(recs, runs, sup_recs, serve_full))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

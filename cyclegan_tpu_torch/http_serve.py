@@ -7,7 +7,9 @@ starts a stdlib HTTP server that answers segmentation requests on the card.
 Endpoints:
 
 - ``GET /healthz``: ``{"status": "ok", "requests": N}``.
-- ``GET /info``: manifest, window shape, class count, device, batch cap.
+- ``GET /info``: manifest, window and load shapes, class count, device,
+  batch cap, and ``tta``: the canvas, flip, scales and data-parallel
+  options the server was built with.
 - ``GET /metrics``: Prometheus text (request counters, latency histogram).
 - ``POST /predict[?format=png|mask|json]``: the body is an encoded image;
   ``png`` (default) answers the VOC-palette prediction, ``mask`` the raw
@@ -272,6 +274,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "in_channels": info["in_channels"], "eval_resize": info["eval_resize"],
                 "input_dtype": info["input_dtype"], "device": info["device"],
                 "max_batch": self.server.batcher.max_batch,
+                "tta": self.server.tta_options,
             })
             return
         self._json(404, {"error": f"unknown path {path!r} (GET /healthz, /info, "
@@ -330,16 +333,22 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def make_server(artifact_path: str, *, host: str = "127.0.0.1", port: int = 0,
-                eval_resize: str = "resize", warmup: bool = True, max_batch: int = 8,
+                eval_resize: str = "resize", canvas_hw: tuple[int, int] | None = None,
+                flip: bool = False, scales: tuple[float, ...] | None = None,
+                warmup: bool = True, max_batch: int = 8, data_parallel: bool = False,
                 device=None, verbose: bool = False) -> ThreadingHTTPServer:
     """Build (and warm up) the HTTP server on ``device`` (default CUDA).
 
     ``port=0`` binds an ephemeral port (``server.server_address[1]``).
-    ``warmup`` runs one zero batch per micro-batch bucket, which also builds
-    the kernels. Call ``serve_forever()`` on the result (or
-    :func:`run_http_serve`).
+    ``canvas_hw``, ``flip``, ``scales`` and ``data_parallel`` are
+    ``serve.build_predictor``'s (tiled serving, TTA, one replica per card);
+    ``/info`` reports them under ``tta``. ``warmup`` runs one zero batch per
+    micro-batch bucket at the load size, which also builds the kernels.
+    Call ``serve_forever()`` on the result (or :func:`run_http_serve`).
     """
-    predict, info = build_predictor(artifact_path, eval_resize=eval_resize, device=device)
+    predict, info = build_predictor(artifact_path, eval_resize=eval_resize, device=device,
+                                    canvas_hw=canvas_hw, data_parallel=data_parallel,
+                                    flip=flip, scales=scales)
     if info["num_classes"] > 255:
         raise ValueError(f"--serve_http supports at most 255 classes (artifact has "
                          f"{info['num_classes']}): the PNG responses are 8-bit")
@@ -350,6 +359,10 @@ def make_server(artifact_path: str, *, host: str = "127.0.0.1", port: int = 0,
     server.metrics = _Metrics()
     server.batcher = _MicroBatcher(predict, max_batch, server.metrics)
     server.verbose = verbose
+    server.tta_options = {"flip": bool(flip), "scales": list(scales) if scales else None,
+                          "canvas_hw": list(canvas_hw) if canvas_hw else None,
+                          "data_parallel": bool(data_parallel),
+                          "max_batch": server.batcher.max_batch}
     if warmup:
         h, w = info["load_hw"]
         for b in server.batcher.buckets():

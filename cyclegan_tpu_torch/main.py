@@ -16,12 +16,18 @@ Usage:
       --preset voc_supervised_128 --eval_resize tile --resize_height 192 \
       --resize_width 192 --eval_flip true --eval_scales 0.75,1.0,1.25
   python -m cyclegan_tpu_torch.main --testing --dataset synthetic
-  # artifact from a Flax G_i2l param tree saved as a '/'-keyed .npz
+  # artifact of the newest checkpoint under --checkpoint_dir (the run's flags)
+  python -m cyclegan_tpu_torch.main --export model --preset voc_semisup_256 \
+      --checkpoint_dir ./checkpoints [--export_what segment|logits|generate] \
+      [--export_quantize int8|bf16] [--export_input uint8]
+  # ... or from a Flax G_i2l param tree saved as a '/'-keyed .npz
   python -m cyclegan_tpu_torch.main --export model --weights_npz g_i2l.npz
-  # ... or from random N(0, 0.02) weights drawn from --seed (smoke runs)
-  python -m cyclegan_tpu_torch.main --export model
   python -m cyclegan_tpu_torch.main --serve model.pt --serve_input imgs/ \
       --serve_output preds/ [--serve_gt masks/]
+  # tiled canvas + flip + multi-scale TTA (a logits artifact), every card
+  python -m cyclegan_tpu_torch.main --serve logits.pt --serve_input imgs/ \
+      --serve_canvas_height 512 --serve_canvas_width 512 --serve_flip \
+      --serve_scales 0.75,1.0,1.25 [--serve_dp]
   python -m cyclegan_tpu_torch.main --serve model.pt --serve_http 8000
 """
 
@@ -31,8 +37,6 @@ import argparse
 import dataclasses
 import types
 import typing
-
-import torch
 
 from cyclegan_tpu_torch.utils.config import Config, preset
 
@@ -53,16 +57,26 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--platform", choices=["cuda", "gpu", "cpu"], default=None,
                    help="the JAX CLI's flag: an alias of --device (gpu = cuda)")
     p.add_argument("--export", type=str, default=None, metavar="PATH",
-                   help="write the artifact PATH.pt + PATH.json")
-    p.add_argument("--export_what", choices=["segment", "logits"], default="segment")
+                   help="write the artifact PATH.pt + PATH.json of the newest "
+                        "checkpoint under --checkpoint_dir")
+    p.add_argument("--export_what", choices=["segment", "logits", "generate"],
+                   default="segment",
+                   help="generate = the label->image generator (semi-supervised "
+                        "checkpoints)")
+    p.add_argument("--export_quantize", choices=["int8", "bf16"], default=None,
+                   help="weight-only quantisation of the artifact: int8 per output "
+                        "channel (~4x smaller) or bf16 (~2x)")
     p.add_argument("--export_input", choices=["float32", "uint8"], default="float32",
                    help="uint8 = the artifact takes raw shaped pixels and "
                         "normalizes them on the device")
     p.add_argument("--weights_npz", type=str, default=None, metavar="PATH",
-                   help="Flax G_i2l param tree with '/'-joined keys; without it "
-                        "--export draws N(0, 0.02) weights from --seed")
-    p.add_argument("--num_classes", type=int, default=21, help="of the --export generator")
-    p.add_argument("--in_channels", type=int, default=3, help="of the --export generator")
+                   help="export a Flax G_i2l param tree with '/'-joined keys "
+                        "(params/... and batch_stats/... under --norm batch) "
+                        "instead of a checkpoint")
+    p.add_argument("--num_classes", type=int, default=None,
+                   help="of the --export generator (default: the dataset's)")
+    p.add_argument("--in_channels", type=int, default=None,
+                   help="of the --export generator (default: the dataset's)")
     p.add_argument("--serve", type=str, default=None, metavar="ARTIFACT",
                    help="serve an exported artifact (PATH or PATH.pt)")
     p.add_argument("--serve_input", type=str, default=None, metavar="DIR")
@@ -71,6 +85,18 @@ def get_args(argv=None) -> argparse.Namespace:
                    help="ground-truth masks with the images' stems (.png): "
                         "enables scoring")
     p.add_argument("--serve_batch", type=int, default=8)
+    p.add_argument("--serve_canvas_height", type=int, default=None,
+                   help="tiled serving: load images at this canvas and slide the "
+                        "artifact's window over it, averaging logits (a logits "
+                        "artifact; pass both canvas flags)")
+    p.add_argument("--serve_canvas_width", type=int, default=None)
+    p.add_argument("--serve_flip", action="store_true",
+                   help="horizontal-flip TTA (a logits artifact; or --eval_flip true)")
+    p.add_argument("--serve_scales", type=str, default=None,
+                   help="multi-scale TTA, e.g. 0.75,1.0,1.25 (needs the canvas "
+                        "flags; or --eval_scales)")
+    p.add_argument("--serve_dp", action="store_true",
+                   help="split each batch over every visible CUDA device")
     p.add_argument("--serve_http", type=int, default=None, metavar="PORT")
     p.add_argument("--serve_host", type=str, default="127.0.0.1")
     p.add_argument("--serve_http_batch", type=int, default=8,
@@ -116,22 +142,41 @@ def build_config(args: argparse.Namespace) -> Config:
                           if getattr(args, f.name, None) is not None})
 
 
-def _export(args, cfg: Config) -> None:
-    from cyclegan_tpu_torch.export import export_generator
-    from cyclegan_tpu_torch.models.generators import define_Gen
-    from cyclegan_tpu_torch.weights import load_flax_module, load_npz
+def _export(args, cfg: Config) -> str:
+    from cyclegan_tpu_torch.export import run_export
 
-    G = define_Gen(args.in_channels, args.num_classes, cfg.ngf, cfg.gen_net,
-                   head="none", generator=torch.Generator().manual_seed(cfg.seed))
-    if args.weights_npz:
-        load_flax_module(G, load_npz(args.weights_npz))
-    path = export_generator(
-        G, args.export, gen_net=cfg.gen_net, ngf=cfg.ngf, num_classes=args.num_classes,
-        in_channels=args.in_channels, crop_hw=cfg.crop_hw,
-        dtype="bfloat16" if cfg.bf16 else "float32", head=args.export_what,
-        input_dtype=args.export_input, dataset=cfg.dataset)
-    src = args.weights_npz or f"random N(0, 0.02) weights, seed {cfg.seed}"
-    print(f"exported {args.export_what} head ({src}) -> {path}", flush=True)
+    return run_export(cfg, args.export, semisupervised=args.model == "semisupervised",
+                      what=args.export_what, quantize=args.export_quantize,
+                      input_dtype=args.export_input, device=args.device,
+                      num_classes=args.num_classes, in_channels=args.in_channels,
+                      weights_npz=args.weights_npz)
+
+
+def _serve(args, cfg: Config):
+    from cyclegan_tpu_torch.tta import parse_scales
+
+    canvas = None
+    if args.serve_canvas_height or args.serve_canvas_width:
+        if not (args.serve_canvas_height and args.serve_canvas_width):
+            raise SystemExit("pass BOTH --serve_canvas_height and --serve_canvas_width")
+        canvas = (args.serve_canvas_height, args.serve_canvas_width)
+    # A training config with eval_resize=tile maps to canvas serving; the
+    # image-load convention on the canvas is a plain resize.
+    resize = "resize" if (cfg.eval_resize == "tile" and canvas) else cfg.eval_resize
+    opts = dict(eval_resize=resize, canvas_hw=canvas, data_parallel=args.serve_dp,
+                flip=args.serve_flip or cfg.eval_flip,
+                scales=parse_scales(args.serve_scales or cfg.eval_scales), device=args.device)
+    if args.serve_http is not None:
+        from cyclegan_tpu_torch.http_serve import run_http_serve
+
+        return run_http_serve(args.serve, host=args.serve_host, port=args.serve_http,
+                              max_batch=args.serve_http_batch, **opts)
+    if not args.serve_input:
+        raise SystemExit("--serve needs --serve_input DIR (or --serve_http PORT)")
+    from cyclegan_tpu_torch.serve import run_serve
+
+    return run_serve(args.serve, args.serve_input, args.serve_output,
+                     batch_size=args.serve_batch, gt_dir=args.serve_gt, **opts)
 
 
 def main(argv=None):
@@ -140,19 +185,7 @@ def main(argv=None):
     args = get_args(argv)
     cfg = build_config(args)
     if args.serve:
-        if args.serve_http is not None:
-            from cyclegan_tpu_torch.http_serve import run_http_serve
-
-            return run_http_serve(args.serve, host=args.serve_host, port=args.serve_http,
-                                  eval_resize=cfg.eval_resize,
-                                  max_batch=args.serve_http_batch, device=args.device)
-        if not args.serve_input:
-            raise SystemExit("--serve needs --serve_input DIR (or --serve_http PORT)")
-        from cyclegan_tpu_torch.serve import run_serve
-
-        return run_serve(args.serve, args.serve_input, args.serve_output,
-                         batch_size=args.serve_batch, gt_dir=args.serve_gt,
-                         eval_resize=cfg.eval_resize, device=args.device)
+        return _serve(args, cfg)
     if args.export:
         return _export(args, cfg)
     from cyclegan_tpu_torch.train import runner

@@ -6,8 +6,11 @@ predictor on the card, write VOC-palette ``<stem>_pred.png`` files and,
 given same-stem ground-truth masks, score them into ``scores.json``.
 
 CLI: ``python -m cyclegan_tpu_torch.main --serve model.pt --serve_input
-imgs/ --serve_output preds/ [--serve_gt masks/]``. Tiled serving, flip and
-multi-scale TTA and data-parallel serving are not ported yet.
+imgs/ --serve_output preds/ [--serve_gt masks/]
+[--serve_canvas_height H --serve_canvas_width W] [--serve_flip]
+[--serve_scales 0.75,1.0,1.25] [--serve_dp]`` (the canvas, flip and scales
+need a logits-head artifact; ``--serve_dp`` splits each batch over every
+visible card).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from functools import partial
 from typing import Callable, Iterable
 
 import numpy as np
@@ -23,8 +27,11 @@ import torch
 from cyclegan_tpu_torch.data.datasets import class_names
 from cyclegan_tpu_torch.data.palette import encode_colormap, save_prediction_png
 from cyclegan_tpu_torch.data.transforms import eval_transform
-from cyclegan_tpu_torch.export import load_head, resolve_device
+from cyclegan_tpu_torch.eval_tile import tiled_logits
+from cyclegan_tpu_torch.export import (build_module, head_fn, load_artifact, resolve_device,
+                                       uint8_output)
 from cyclegan_tpu_torch.train import metrics as metrics_lib
+from cyclegan_tpu_torch.tta import flip_avg, scale_avg, validate_tile_scales
 from cyclegan_tpu_torch.utils.pipeline import InferencePipeline
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
@@ -80,6 +87,79 @@ def _chunks(seq: list, n: int) -> Iterable[list]:
         yield seq[i:i + n]
 
 
+def data_parallel_predictor(replicas: list[Callable[[np.ndarray], torch.Tensor]]
+                  ) -> Callable[[np.ndarray], torch.Tensor]:
+    """One predictor over ``replicas`` (one per device): the batch is
+    zero-padded to a multiple of their count and split in order, each part
+    goes to its replica, and the parts' outputs are joined on the first
+    replica's device and cut back to the batch (the JAX package's
+    ``--serve_dp``). One replica is returned as it is."""
+    if len(replicas) == 1:
+        return replicas[0]
+    n = len(replicas)
+
+    def predict(batch: np.ndarray) -> torch.Tensor:
+        b = batch.shape[0]
+        pad = (-b) % n
+        if pad:
+            batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
+        outs = [fn(part) for fn, part in zip(replicas, np.split(batch, n))]
+        dev = outs[0].device
+        return torch.cat([o.to(dev, non_blocking=True) for o in outs])[:b]
+
+    return predict
+
+
+def served_logits(logits_fn: Callable[[torch.Tensor], torch.Tensor], window_hw: tuple[int, int],
+                  *, canvas_hw: tuple[int, int] | None = None, flip: bool = False,
+                  scales: tuple[float, ...] | None = None
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The logits a logits artifact serves, in the JAX package's order:
+    tiled over the canvas (``eval_tile.tiled_logits``), flip around that
+    (``tta.flip_avg``), the scales around both (``tta.scale_avg``)."""
+    if canvas_hw is not None:
+        logits_fn = partial(tiled_logits, logits_fn, crop_hw=tuple(window_hw))
+    if flip:
+        logits_fn = flip_avg(logits_fn)
+    if scales:
+        logits_fn = scale_avg(logits_fn, tuple(scales))
+    return logits_fn
+
+
+def _check_options(cfg: dict, eval_resize: str, canvas_hw, flip: bool, scales) -> None:
+    """Refuse what the JAX ``build_predictor`` refuses, in its order."""
+    if eval_resize not in ("resize", "center_crop"):
+        # "tile" is the framework-eval spelling; serving spells it
+        # --serve_canvas_height/width (with a logits-head artifact).
+        raise ValueError(f"serving supports eval_resize resize|center_crop, got "
+                         f"{eval_resize!r} (for tiled serving pass --serve_canvas_height/"
+                         f"--serve_canvas_width with a logits-head artifact)")
+    head = cfg["head"]
+    if head not in ("segment", "logits"):
+        raise ValueError(f"artifact head is {head!r}; --serve drives the image->label segment "
+                         f"or logits head (the generate head consumes label maps: call "
+                         f"export.load_head() directly)")
+    if scales and cfg["input_dtype"] == "uint8":
+        raise ValueError("--serve_scales resamples the input canvas in float; multi-scale "
+                         "TTA needs a float32-input artifact (this one takes uint8)")
+    if flip and head != "logits":
+        raise ValueError(f"--serve_flip averages LOGITS of the image and its mirror; export "
+                         f"with --export_what logits (this artifact's head is {head!r})")
+    if scales and canvas_hw is None:
+        raise ValueError("--serve_scales needs tiled serving (--serve_canvas_height/"
+                         "--serve_canvas_width + a logits-head artifact): the artifact's "
+                         "window is fixed-shape, so multi-scale works by re-tiling rescaled "
+                         "canvases")
+    if canvas_hw is not None:
+        if head != "logits":
+            raise ValueError(f"tiled serving averages window LOGITS; export with "
+                             f"--export_what logits (this artifact's head is {head!r})")
+        (ch, cw), (h, w) = canvas_hw, cfg["crop_hw"]
+        if ch < h or cw < w:
+            raise ValueError(f"serve canvas {ch}x{cw} smaller than the artifact window "
+                             f"{h}x{w}")
+
+
 def build_predictor(artifact_path: str, *, eval_resize: str = "resize",
                     device: str | torch.device | None = None,
                     canvas_hw: tuple[int, int] | None = None,
@@ -95,35 +175,58 @@ def build_predictor(artifact_path: str, *, eval_resize: str = "resize",
     ``info['load_hw']``, to an ``(N, H, W)`` tensor of class indices that
     stays on the device until the caller fetches it. Both heads serve class
     maps (``logits`` artifacts through an argmax here).
+
+    ``canvas_hw``: tiled serving of a logits artifact: images are loaded
+    at this canvas and the artifact's window slides over it with 50%
+    overlap, all windows of a batch in one call (``eval_tile.tiled_logits``).
+    ``flip``: the logits averaged with the mirrored logits of the mirror
+    image (``tta.flip_avg``; logits head). ``scales``: the logits at each
+    scale of the canvas, resized back and averaged (``tta.scale_avg``;
+    needs ``canvas_hw`` and a float32-input artifact). Flip wraps the tiled
+    function and the scales wrap both, as in the JAX package.
+    ``data_parallel``: one replica per visible CUDA device, each batch split
+    over them (:func:`data_parallel_predictor`); with one device (or on the CPU) the
+    single-device path.
     """
-    if canvas_hw is not None or scales:
-        raise NotImplementedError("tiled and multi-scale serving are not ported "
-                                  "to cyclegan_tpu_torch yet")
-    if flip:
-        raise NotImplementedError("flip TTA is not ported to cyclegan_tpu_torch yet")
-    if data_parallel:
-        raise NotImplementedError("data-parallel serving (--serve_dp) is not ported "
-                                  "to cyclegan_tpu_torch yet")
-    if eval_resize not in ("resize", "center_crop"):
-        raise ValueError(f"serving supports eval_resize resize|center_crop, got "
-                         f"{eval_resize!r}")
     dev = resolve_device(device)
-    fn, cfg, manifest = load_head(artifact_path, dev)
-    if cfg["head"] == "logits":
-        head_fn = fn
-        fn = lambda x: torch.argmax(head_fn(x), dim=-1)  # noqa: E731
-    in_dtype = cfg["input_dtype"]
-
-    def predict_batch(batch: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.dtype(in_dtype)))
-        if dev.type == "cuda":
-            # Pinned memory makes the copy asynchronous: the host does not
-            # wait for the kernels already queued ahead of it.
-            x = x.pin_memory().to(dev, non_blocking=True)
-        return fn(x)
-
+    art, manifest = load_artifact(artifact_path)
+    cfg = art["config"]
+    _check_options(cfg, eval_resize, canvas_hw, flip, scales)
     h, w = cfg["crop_hw"]
-    info = {"load_hw": (h, w), "window_hw": (h, w), "in_channels": cfg["in_channels"],
+    if scales:
+        validate_tile_scales(canvas_hw, (h, w), tuple(scales))
+    in_dtype = cfg["input_dtype"]
+    if data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [dev]
+
+    def replica(d: torch.device) -> Callable[[np.ndarray], torch.Tensor]:
+        fn = head_fn(build_module(art, d), cfg, d)
+        if cfg["head"] == "logits":
+            logits_fn = served_logits(fn, (h, w), canvas_hw=canvas_hw, flip=flip,
+                                      scales=scales)
+            fn = lambda x: torch.argmax(logits_fn(x), dim=-1)  # noqa: E731
+            if cfg["num_classes"] <= 255:
+                fn = uint8_output(fn)
+        fn = torch.inference_mode()(fn)
+
+        def predict(batch: np.ndarray) -> torch.Tensor:
+            x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.dtype(in_dtype)))
+            if d.type != "cuda":
+                return fn(x)
+            # Pinned memory makes the copy asynchronous: the host does not
+            # wait for the kernels already queued ahead of it. The kernels
+            # launch on the current device, so each replica makes its own
+            # device current.
+            with torch.cuda.device(d):
+                return fn(x.pin_memory().to(d, non_blocking=True))
+
+        return predict
+
+    predict_batch = data_parallel_predictor([replica(d) for d in devices])
+    info = {"load_hw": tuple(canvas_hw) if canvas_hw is not None else (h, w),
+            "window_hw": (h, w), "in_channels": cfg["in_channels"],
             "num_classes": cfg["num_classes"], "head": cfg["head"],
             "manifest": manifest, "eval_resize": eval_resize, "input_dtype": in_dtype,
             "device": str(dev)}
@@ -137,7 +240,10 @@ def run_serve(artifact_path: str, input_dir: str, output_dir: str, *,
               flip: bool = False, scales: tuple[float, ...] | None = None) -> dict:
     """Run an artifact over ``input_dir``: one ``<stem>_pred.png`` per image
     in ``output_dir``; with ``gt_dir`` holding same-stem masks, accumulate the
-    confusion matrix and write ``scores.json``. Returns the summary dict."""
+    confusion matrix and write ``scores.json``. Returns the summary dict.
+    ``canvas_hw``, ``flip``, ``scales`` and ``data_parallel`` are
+    :func:`build_predictor`'s; with a canvas, images and masks are loaded at
+    it and the PNGs are canvas-sized."""
     predict_batch, info = build_predictor(
         artifact_path, eval_resize=eval_resize, device=device, canvas_hw=canvas_hw,
         data_parallel=data_parallel, flip=flip, scales=scales)

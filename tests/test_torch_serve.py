@@ -142,14 +142,6 @@ def test_manifest_keys(setup):
     assert manifest["class_names"] == [f"class_{i}" for i in range(N_CLASSES)]
 
 
-def test_unported_serving_options_raise(setup):
-    art = str(setup["root"] / "f32.pt")
-    for opts in ({"flip": True}, {"scales": (1.0, 1.5)}, {"canvas_hw": (64, 64)},
-                 {"data_parallel": True}):
-        with pytest.raises(NotImplementedError):
-            serve.build_predictor(art, device="cpu", **opts)
-
-
 def test_http_endpoint_matches_run_serve(setup):
     server = make_server(str(setup["root"] / "f32.pt"), port=0, device="cpu", max_batch=4)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
