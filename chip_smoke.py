@@ -116,7 +116,19 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    (/info's ``tta``, p50 latency of 8 concurrent requests); ``--serve_dp``
    bitwise the single-device path; config 1's ``unet_128`` and ``--norm
    batch`` artifacts kernel against plain; ``tools/torch_quantize_miou_run.py``
-   at its defaults, its line printed.
+   at its defaults, its line printed;
+15. dp: data parallelism (``parallel/``): (a) ``runner.run_cyclegan`` of
+   ``voc_semisup_256`` for 3 steps on an NCCL group of one rank, bitwise
+   equal to the same run with no group, both under deterministic
+   algorithms; (b) two gloo ranks sharing the card (NCCL refuses two ranks
+   on one device), one row each of a global batch of 2, 3 steps on the
+   kernels against one process at batch 2 within the train phase's bf16
+   bars, each rank's launch counters equal to the counts derived at batch
+   1; (c) BASELINE config 5 (``voc_dp8_bf16``) cut from 8 devices to 2
+   gloo ranks on the card and from a global batch of 64 to 16 (its 8 rows
+   a device kept), bf16: steps/s over 5 timed steps, each rank's peak
+   memory and the all-reduces' share of a step, with the card's name and
+   power limit.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -3110,8 +3122,263 @@ def phase_serve_full(tmp: str, smi: str) -> dict:
     return {"records": recs, "launches": launches, "record": rec}
 
 
+# The data-parallel phase (parallel/): (a) NCCL at world 1 through the
+# runner, bitwise the run without a group; (b) two gloo ranks sharing the
+# card at full width, 1 row a rank, against one process at the global
+# batch 2; (c) the shape of BASELINE config 5 (voc_dp8_bf16: 8 devices, a
+# global batch of 64 = 8 a device, bf16) cut to 2 ranks on one card.
+DP_STEPS = 3          # (a), (b)
+DP_TIMED_STEPS = 5    # (c), after one warm-up step
+DP_PROBE_STEPS = 2    # (c), all-reduces timed alone
+DP5_PRESET = "voc_dp8_bf16"
+DP5_RANKS = 2
+
+
+def _dp_batch(cfg, rows: int, steps: int, seed: int = 0) -> list:
+    """Global host batches of ``rows`` synthetic 256x256 samples with a void
+    border and injected pool decisions ((rows,) vectors of the global
+    batch): the same in every process that makes them."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, _synthetic_sample
+    from cyclegan_tpu_torch.data.transforms import normalize
+
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    imgs, labs = [], []
+    for i in range(2 * rows):
+        img, lab = _synthetic_sample(i, cfg.crop_hw, n_cls, in_ch)
+        imgs.append(normalize(img))
+        labs.append(lab.astype(np.int64))
+    lab = np.stack(labs[:rows])
+    lab[:, :2], lab[:, :, :2] = 255, 255
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        use_new = rng.random((2, rows)) > 0.5
+        swap = rng.integers(0, cfg.pool_size, (2, rows))
+        out.append({"lab_image": np.stack(imgs[:rows]), "unlab_image": np.stack(imgs[rows:]),
+                    "lab_label": lab, "pool_use_new_img": use_new[0],
+                    "pool_idx_img": swap[0], "pool_use_new_lab": use_new[1],
+                    "pool_idx_lab": swap[1]})
+    return out
+
+
+def _dp_trainer(cfg, mesh):
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS
+    from cyclegan_tpu_torch.parallel.mesh import replicate_state
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    with resblock_env("fused"):
+        t = CycleGANTrainer(cfg, n_cls, in_ch, VOC_STEPS_PER_EPOCH, mesh=mesh)
+    return t, replicate_state(t, t.init_state(torch.Generator().manual_seed(0)), mesh)
+
+
+def _dp_rank(out_dir: str) -> dict:
+    """One rank of (b) and (c): its record in ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.utils.config import preset
+
+    mesh = M.make_mesh(device="cuda:0")
+    rec = {"rank": mesh.rank, "world": mesh.world, "backend": dist.get_backend()}
+    # (b) voc_semisup_256 at a global batch of 2, this rank's row.
+    cfg = preset(TRAIN_PRESET).replace(batch_size=2)
+    t, st = _dp_trainer(cfg, mesh)
+    want = expected_launches(t, DP_STEPS)
+    batches = _dp_batch(cfg, 2, DP_STEPS)
+    _zero_counters()
+    losses = []
+    for b in batches:
+        st, m = t.train_step(st, M.shard_batch(b, mesh))
+        losses.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    got = _read_counters()
+    rec.update(losses=losses, launches=got, expected_launches=want,
+               launches_as_derived={k: got.get(k, 0) for k in want} == want)
+    del t, st
+    torch.cuda.empty_cache()
+    # (c) config 5's per-device share: batch 8 a rank, bf16.
+    cfg5 = preset(DP5_PRESET).replace(batch_size=8 * mesh.world, num_devices=mesh.world)
+    t, st = _dp_trainer(cfg5, mesh)
+    batches = _dp_batch(cfg5, cfg5.batch_size, 1 + DP_TIMED_STEPS + DP_PROBE_STEPS, seed=1)
+    local = [M.shard_batch(b, mesh) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, _ = t.train_step(st, local[0])  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for b in local[1:1 + DP_TIMED_STEPS]:
+        st, m = t.train_step(st, b)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DP_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # The all-reduces timed alone: every collective of the step synchronised
+    # before and after (the probe steps run slower than the timed ones).
+    spent, real = [0.0, 0], dist.all_reduce
+
+    def timed_all_reduce(tensor, *a, **k):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        w = real(tensor, *a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - ta
+        spent[1] += tensor.numel() * tensor.element_size()
+        return w
+
+    M.dist.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in local[1 + DP_TIMED_STEPS:]:
+            st, _ = t.train_step(st, b)
+        torch.cuda.synchronize()
+        probe_s = (time.perf_counter() - t0) / DP_PROBE_STEPS
+    finally:
+        M.dist.all_reduce = real
+    rec.update(config5={
+        "steps_per_s": 1.0 / step_s, "step_ms": step_s * 1e3,
+        "global_batch": cfg5.batch_size, "rows_per_rank": cfg5.batch_size // mesh.world,
+        "images_per_s": cfg5.batch_size / step_s, "peak_mem_gb": peak,
+        "losses_last_timed_step": {k: float(v) for k, v in m.items()},
+        "probe_step_ms": probe_s * 1e3,
+        "all_reduce_ms_per_step": spent[0] / DP_PROBE_STEPS * 1e3,
+        "all_reduce_share_of_probe_step": spent[0] / DP_PROBE_STEPS / probe_s,
+        "all_reduce_mb_per_step": spent[1] / DP_PROBE_STEPS / 1e6})
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
+def phase_dp(smi: str) -> dict:
+    """(a) the runner on an NCCL group of one rank against the runner with
+    no group: 3 steps of ``voc_semisup_256`` from the synthetic dataset under
+    deterministic algorithms, the checkpoints bitwise equal; (b) two gloo
+    ranks on the card (NCCL refuses two ranks on one device), a row each,
+    3 steps on the kernels against one process at batch 2 within the train
+    phase's bf16 bars (TRAIN_TOL), each rank's launch counters equal to the
+    counts derived at batch 1; (c) config 5's shape: 2 gloo ranks of 8 rows
+    (global batch 16), bf16, 5 timed steps: steps/s, each rank's peak
+    memory and the all-reduces' share of a step."""
+    import torch
+    import torch.distributed as dist
+
+    from cyclegan_tpu_torch.parallel import distributed
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.train import checkpoint as ck
+    from cyclegan_tpu_torch.train import runner
+    from cyclegan_tpu_torch.utils.config import preset
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    # (a)
+    base = preset(TRAIN_PRESET).replace(dataset="synthetic", dataset_size=CLI_SIZE,
+                                        validation_every=0, log_every=1, epochs=2)
+
+    def run_a(name: str) -> dict:
+        cfg = base.replace(checkpoint_dir=os.path.join(tmp, name, "ckpt"),
+                           results_dir=os.path.join(tmp, name, "res"))
+        with resblock_env("fused"), deterministic_algorithms():
+            runner.run_cyclegan(cfg, max_steps=DP_STEPS, device="cuda")
+        payload, _ = ck.CheckpointManager(cfg.checkpoint_dir).restore()
+        return payload
+
+    alone = run_a("alone")
+    distributed.maybe_initialize(None, "cuda", rank=0, world=1,
+                                 init_method=f"file://{os.path.join(tmp, 'store_a')}")
+    try:
+        backend = dist.get_backend()
+        mesh_a = M.make_mesh(device="cuda")
+        grouped = run_a("nccl")
+    finally:
+        dist.destroy_process_group()
+    diffs = []
+
+    def same(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                diffs.append(path)
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{path}[{i}]")
+        elif a != b:
+            diffs.append(path)
+
+    same(alone, grouped)
+    if backend != "nccl" or mesh_a.world != 1 or diffs or grouped["step"] != DP_STEPS:
+        raise AssertionError(f"dp (a): backend {backend}, world {mesh_a.world}, step "
+                             f"{grouped['step']}, differing entries {diffs[:10]}")
+    t_a = time.perf_counter()
+
+    # (b) and (c) in two spawned ranks; (b)'s reference in this process.
+    world = DP5_RANKS
+    ranks = distributed.launch_local(_dp_rank, (tmp,), nprocs=world, world=world,
+                                     device="cuda:0", backend="gloo",
+                                     init_method=f"file://{os.path.join(tmp, 'store_b')}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    if ranks["rank"] != 0 or [r["backend"] for r in recs] != ["gloo"] * world:
+        raise AssertionError(f"dp: ranks {[(r['rank'], r['backend']) for r in recs]}")
+    t_ranks = time.perf_counter()
+    cfg = preset(TRAIN_PRESET).replace(batch_size=2)
+    t, st = _dp_trainer(cfg, M.Mesh(torch.device("cuda")))
+    ref = []
+    for b in _dp_batch(cfg, 2, DP_STEPS):
+        st, m = t.train_step(st, M.shard_batch(b, t.mesh))
+        ref.append({k: float(v) for k, v in m.items()})
+    del t, st
+    torch.cuda.empty_cache()
+    worst = {}
+    for key, tols in TRAIN_TOL["bfloat16"].items():
+        for r in recs:
+            errs = [abs(g[key] - p[key]) / (atol + rtol * abs(p[key]))
+                    for g, p, (rtol, atol) in zip(r["losses"], ref, tols)]
+            worst.setdefault(key, []).append(max(errs))
+            if not all(math.isfinite(g[key]) for g in r["losses"]) or max(errs) > 1.0:
+                raise AssertionError(f"dp (b) rank {r['rank']} {key}: {r['losses']} vs one "
+                                     f"process at batch 2 {ref}")
+        if any(r["losses"] != recs[0]["losses"] for r in recs):
+            raise AssertionError(f"dp (b): the ranks report different losses")
+    for r in recs:
+        if not r["launches_as_derived"]:
+            raise AssertionError(f"dp (b) rank {r['rank']}: launch counters {r['launches']} "
+                                 f"!= derived at batch 1 {r['expected_launches']}")
+    c5 = [r["config5"] for r in recs]
+    rec = {"phase": "dp", "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+           "a_nccl_world1": {"backend": backend, "steps": DP_STEPS, "bitwise_equal": True,
+                             "deterministic_algorithms": True,
+                             "seconds": t_a - t_phase},
+           "b_gloo_two_ranks": {"preset": TRAIN_PRESET, "global_batch": 2, "rows_per_rank": 1,
+                                "losses_rank0": recs[0]["losses"], "losses_one_process": ref,
+                                "loss_err_over_tol": worst, "tol": TRAIN_TOL["bfloat16"],
+                                "launches_per_rank": [r["launches"] for r in recs],
+                                "expected_launches": recs[0]["expected_launches"]},
+           "c_config5": {"preset": DP5_PRESET, "ranks": world, "backend": "gloo",
+                         "reduced": {"devices": f"8 -> {world} ranks on one card",
+                                     "global_batch": f"64 -> {8 * world}"},
+                         "per_rank": c5, "steps_per_s": min(c["steps_per_s"] for c in c5),
+                         "images_per_s": min(c["images_per_s"] for c in c5)},
+           "ranks_seconds": t_ranks - t_a}
+    emit(rec)
+    print(f"dp (c) {DP5_PRESET} cut to {world} gloo ranks on one card, global batch "
+          f"{8 * world}, bf16: {rec['c_config5']['steps_per_s']:.3f} steps/s, peak memory "
+          f"{[round(c['peak_mem_gb'], 3) for c in c5]} GB a rank, all-reduce share "
+          f"{[round(c['all_reduce_share_of_probe_step'], 3) for c in c5]}; {smi}", flush=True)
+    return {"launches": recs[0]["launches"], "record": rec}
+
+
 def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
-                 serve_full: dict | None = None) -> dict:
+                 serve_full: dict | None = None, dp: dict | None = None) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
     ``launches`` from the run (3 steps) of the path that runs the kernel
@@ -3119,8 +3386,9 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
     ``on_paths``: the same numbers for each supervised path that runs the
     kernel, at its shapes (``sup_recs``: kernels_supervised's records), and
     for tiled + TTA serving (``serve_full``: phase_serve_full's result) at
-    its largest window stack, per generator forward; ``max_abs_err`` the
-    largest over every shape held."""
+    its largest window stack, per generator forward; ``dp``: rank 0's
+    launches over the dp phase's 3 steps (phase_dp's result); ``max_abs_err``
+    the largest over every shape held."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -3185,6 +3453,11 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                        f"{sum(r['calls_per_forward'] for r in frs)} calls",
                 "launches_over": f"run_serve of {N_IMAGES} images at batch {BATCH}, tiled, "
                                  f"flip, scales {list(SERVE_SCALES)}"}
+        dp_launches = (dp or {}).get("launches", {}).get(counter_of.get(name, name), 0)
+        if dp_launches:
+            on_paths["dp"] = {"launches": dp_launches,
+                              "launches_over": f"{DP_STEPS} train steps of rank 0 of 2 gloo "
+                                               f"ranks ({TRAIN_PRESET}, global batch 2)"}
         every = rs + frs + [r for v in (sup_recs or {}).values() for r in v.get(name, [])]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3229,11 +3502,13 @@ def main() -> int:
     t_serve = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         serve_full = phase_serve_full(tmp, smi)
+    t_dp = time.perf_counter()
+    dp = phase_dp(smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "supervised_phases_seconds": t_serve - t_sup,
-          "serve_full_seconds": time.perf_counter() - t_serve})
+          "serve_full_seconds": t_dp - t_serve, "dp_seconds": time.perf_counter() - t_dp})
     print(smi, flush=True)
-    emit(kernels_line(recs, runs, sup_recs, serve_full))
+    emit(kernels_line(recs, runs, sup_recs, serve_full, dp))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

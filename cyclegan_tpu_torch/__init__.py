@@ -18,7 +18,9 @@ and the semi-supervised CycleGAN train step:
   pool, metrics) and ``utils.config`` (``Config`` and the presets);
 - ``weights`` (Flax param trees -> modules), ``export`` (the port's
   artifact), ``serve`` / ``http_serve`` (directory and HTTP serving) and
-  ``main`` (the serving CLI).
+  ``main`` (the CLI);
+- ``parallel`` (data parallelism on ``torch.distributed``: one rank a
+  device, the step that of the global batch).
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

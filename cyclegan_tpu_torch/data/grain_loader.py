@@ -7,7 +7,8 @@ order and each sample's global position are computed here, each worker
 augments a sample with ``np.random.default_rng((seed, epoch, position))``,
 and the DataLoader hands the samples back in order (``batch_size=None``:
 the batches are stacked here, never inside a worker, so the stream does
-not depend on the worker count). It yields the same batches as ``Loader``.
+not depend on the worker count). It yields the same batches as ``Loader``,
+also under ``process_shard``.
 Workers start with the ``spawn`` method, once an epoch.
 """
 
@@ -19,7 +20,8 @@ import numpy as np
 import torch.utils.data
 
 from cyclegan_tpu_torch.data.datasets import SegmentationDataset
-from cyclegan_tpu_torch.data.loader import EVAL_MODES, check_process_shard, epoch_jobs, pad_batch
+from cyclegan_tpu_torch.data.loader import (EVAL_MODES, empty_batch, epoch_jobs, pad_batch,
+                                            shard_rows)
 from cyclegan_tpu_torch.data.transforms import eval_transform, train_transform
 
 
@@ -62,9 +64,10 @@ class GrainLoader:
                  eval_mode: str = "resize"):
         if eval_mode not in EVAL_MODES:
             raise ValueError(f"unknown eval_mode {eval_mode!r} (resize|center_crop)")
-        check_process_shard(process_shard)
         self.ds = ds
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # the global batch
+        self.process_shard = process_shard
+        self._rows = shard_rows(batch_size, process_shard)[1]
         self.crop_hw = crop_hw
         self.train = train
         self.seed = seed
@@ -85,7 +88,7 @@ class GrainLoader:
         e = self._epoch if epoch is None else epoch
         self._epoch = e + 1
         jobs = epoch_jobs(len(self.ds), self.batch_size, train=self.train, seed=self.seed,
-                          epoch=e, drop_last=self.drop_last)
+                          epoch=e, drop_last=self.drop_last, process_shard=self.process_shard)
         if not jobs:
             return
         samples = _EpochSamples(
@@ -100,10 +103,13 @@ class GrainLoader:
         try:
             for idxs, _ in jobs:
                 recs = [next(it) for _ in idxs]
+                if not recs:  # a rank's share of a ragged last batch: padding only
+                    yield pad_batch(empty_batch(self.crop_hw, self.ds.in_channels), self._rows)
+                    continue
                 batch = {"image": np.stack([img for img, _ in recs])}
                 if all(lab is not None for _, lab in recs):
                     batch["label"] = np.stack([lab for _, lab in recs])
-                yield pad_batch(batch, self.batch_size)
+                yield pad_batch(batch, self._rows)
         finally:
             # Dropping the iterator shuts its worker processes down now.
             del it

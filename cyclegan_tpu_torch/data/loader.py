@@ -6,6 +6,11 @@ The epoch's order is ``np.random.default_rng((seed, epoch))`` and each
 sample's augment draws come from ``np.random.default_rng((seed, epoch,
 position))``, so the stream is bit-identical to the JAX package's loader
 for the same seed, and a resumed epoch replays its suffix exactly.
+
+``process_shard=(rank, world)``: ``batch_size`` is the global batch and each
+rank builds only its contiguous ``batch_size / world`` rows of every global
+batch; the positions stay global, so the ranks' rows put together are
+bitwise the one-process batch.
 """
 
 from __future__ import annotations
@@ -24,12 +29,16 @@ from cyclegan_tpu_torch.data.transforms import (draw_train_params, eval_transfor
 EVAL_MODES = ("resize", "center_crop")
 
 
-def check_process_shard(process_shard: tuple[int, int] | None) -> None:
-    """The port runs one process: any shard other than (0, 1) raises."""
-    if process_shard not in (None, (0, 1)):
-        raise NotImplementedError(
-            f"process_shard {process_shard}: multi-process loading arrives with the "
-            f"parallel slice of the port (ROADMAP Queue 1 item 11)")
+def shard_rows(batch_size: int, process_shard: tuple[int, int] | None) -> tuple[int, int]:
+    """(first row, rows) of a rank's share of every global batch."""
+    rank, world = process_shard or (0, 1)
+    if not 0 <= rank < world:
+        raise ValueError(f"process_shard {process_shard}: rank outside [0, {world})")
+    if batch_size % world:
+        raise ValueError(f"global batch_size {batch_size} not divisible by the "
+                         f"{world} ranks of process_shard")
+    rows = batch_size // world
+    return rank * rows, rows
 
 
 def empty_batch(crop_hw: tuple[int, int], in_channels: int) -> dict:
@@ -57,12 +66,19 @@ def pad_batch(batch: dict, rows: int) -> dict:
 
 
 def epoch_jobs(n: int, batch_size: int, *, train: bool, seed: int, epoch: int,
-               drop_last: bool) -> list[tuple[np.ndarray, np.ndarray]]:
-    """(dataset indices, global positions) of each batch of one epoch."""
+               drop_last: bool, process_shard: tuple[int, int] | None = None
+               ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(dataset indices, global positions) of this rank's rows of each
+    global batch of one epoch."""
     idxs = np.random.default_rng((seed, epoch)).permutation(n) if train else np.arange(n)
     nb = n // batch_size if drop_last else -(-n // batch_size)
-    return [(idxs[k * batch_size:(k + 1) * batch_size],
-             np.arange(k * batch_size, min((k + 1) * batch_size, n))) for k in range(nb)]
+    lo, rows = shard_rows(batch_size, process_shard)
+    jobs = []
+    for k in range(nb):
+        start = k * batch_size + lo
+        glob = idxs[start:start + rows]
+        jobs.append((glob, np.arange(start, start + len(glob))))
+    return jobs
 
 
 class Loader:
@@ -80,9 +96,10 @@ class Loader:
         if eval_mode not in EVAL_MODES:
             # Fail here: inside the prefetch thread it would deadlock the consumer.
             raise ValueError(f"unknown eval_mode {eval_mode!r} (resize|center_crop)")
-        check_process_shard(process_shard)
         self.ds = ds
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # the global batch
+        self.process_shard = process_shard
+        self._rows = shard_rows(batch_size, process_shard)[1]
         self.crop_hw = crop_hw
         self.train = train
         self.seed = seed
@@ -119,7 +136,7 @@ class Loader:
                                                                    self.ds.in_channels)
         if labs:
             batch["label"] = np.stack(labs)
-        return pad_batch(batch, self.batch_size)
+        return pad_batch(batch, self._rows)
 
     def _make_batch_native(self, idxs: np.ndarray, positions: np.ndarray, epoch: int) -> dict:
         """The native crop + flip + normalize: the same parameter draws as
@@ -150,7 +167,7 @@ class Loader:
         e = self._epoch if epoch is None else epoch
         self._epoch = e + 1
         jobs = epoch_jobs(len(self.ds), self.batch_size, train=self.train, seed=self.seed,
-                          epoch=e, drop_last=self.drop_last)
+                          epoch=e, drop_last=self.drop_last, process_shard=self.process_shard)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         error: list[BaseException] = []

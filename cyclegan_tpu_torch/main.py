@@ -29,15 +29,33 @@ Usage:
       --serve_canvas_height 512 --serve_canvas_width 512 --serve_flip \
       --serve_scales 0.75,1.0,1.25 [--serve_dp]
   python -m cyclegan_tpu_torch.main --serve model.pt --serve_http 8000
+  # data parallel: one rank a device, the global batch split over them
+  python -m cyclegan_tpu_torch.main --training --num_devices 4 --batch_size 8
+  python -m cyclegan_tpu_torch.main --training --device cpu --num_devices 2 \
+      --dataset synthetic --batch_size 2           # two gloo ranks on the CPU
+  torchrun --nproc_per_node 8 -m cyclegan_tpu_torch.main --training \
+      --preset voc_dp8_bf16 --data_root /data/VOC2012
+
+``--num_devices k`` (``--gpu_ids 0,1,..`` names k devices) is the GLOBAL
+device count, as in the JAX CLI: one launch starts k ranks, one a visible
+CUDA device (gloo ranks with ``--device cpu``); None means every visible
+CUDA device, and 1 on the CPU. With ``--coordinator_address`` each of
+``--num_processes`` processes starts ``num_devices / num_processes`` ranks,
+of global rank ``process_id * local + i``; under torchrun each process is
+one rank.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shutil
+import tempfile
 import types
 import typing
 
+from cyclegan_tpu_torch.parallel import distributed
 from cyclegan_tpu_torch.utils.config import Config, preset
 
 
@@ -101,6 +119,9 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--serve_host", type=str, default="127.0.0.1")
     p.add_argument("--serve_http_batch", type=int, default=8,
                    help="micro-batching cap of the HTTP endpoint")
+    p.add_argument("--gpu_ids", type=str, default=None,
+                   help="the reference's flag: '0,1,2' selects 3 devices (an alias of "
+                        "--num_devices)")
     for name, arg_type in config_flag_types().items():
         if name == "bf16":
             p.add_argument("--no_bf16", dest="bf16", action="store_false", default=None,
@@ -138,8 +159,66 @@ def config_flag_types() -> dict[str, type]:
 
 def build_config(args: argparse.Namespace) -> Config:
     cfg = preset(args.preset) if args.preset else Config()
-    return cfg.replace(**{f.name: getattr(args, f.name) for f in dataclasses.fields(Config)
-                          if getattr(args, f.name, None) is not None})
+    overrides = {f.name: getattr(args, f.name) for f in dataclasses.fields(Config)
+                 if getattr(args, f.name, None) is not None}
+    if getattr(args, "gpu_ids", None) and "num_devices" not in overrides:
+        overrides["num_devices"] = len([g for g in args.gpu_ids.split(",") if g.strip()])
+    return cfg.replace(**overrides)
+
+
+def _local_ranks(cfg: Config, device: str) -> tuple[int, int, int]:
+    """(ranks this launch starts, world, first rank) of a --training or
+    --testing run; (1, world, rank) where this process is one rank itself
+    (torchrun, or a coordinator with one device a process)."""
+    import torch
+
+    if distributed.distributed_launch_pending(cfg, os.environ) \
+            and not cfg.coordinator_address:
+        return 1, int(os.environ.get("WORLD_SIZE", "1")), int(os.environ.get("RANK", "0"))
+    visible = torch.cuda.device_count() if device == "cuda" else 1
+    world = cfg.num_devices or max(visible, 1)
+    nproc = max(int(cfg.num_processes or 1), 1) if cfg.coordinator_address else 1
+    if world % nproc:
+        raise ValueError(f"num_devices {world} does not divide over {nproc} processes")
+    local = world // nproc
+    if device == "cuda" and local > max(visible, 1):
+        raise ValueError(f"{local} ranks a process need {local} CUDA devices; "
+                         f"{visible} visible")
+    return local, world, int(cfg.process_id or 0) * local
+
+
+def _run(args: argparse.Namespace, cfg: Config):
+    from cyclegan_tpu_torch.train import runner
+
+    semisup = args.model == "semisupervised"
+    if args.testing:
+        return runner.run_test(cfg, semisupervised=semisup, device=args.device)
+    if not semisup:
+        return runner.run_supervised(cfg, max_steps=args.max_steps, device=args.device)
+    return runner.run_cyclegan(cfg, max_steps=args.max_steps, device=args.device)
+
+
+def _launch(args: argparse.Namespace, cfg: Config):
+    """Run --training / --testing, in this process or in the ranks of a
+    data-parallel launch (what rank 0 returns)."""
+    from cyclegan_tpu_torch.train import runner
+
+    runner._check_single_device(cfg)  # refuse before any rank starts
+    local, world, first = _local_ranks(cfg, args.device)
+    if local == 1:
+        return _run(args, cfg)
+    cfg = cfg.replace(num_devices=world)
+    if cfg.coordinator_address:
+        return distributed.launch_local(_run, (args, cfg), nprocs=local, world=world,
+                                        first_rank=first, device=args.device,
+                                        init_method=f"tcp://{cfg.coordinator_address}")
+    store = tempfile.mkdtemp(prefix="cgtpu_dist_")
+    try:
+        return distributed.launch_local(_run, (args, cfg), nprocs=local, world=world,
+                                        device=args.device,
+                                        init_method=f"file://{os.path.join(store, 'store')}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def _export(args, cfg: Config) -> str:
@@ -188,15 +267,8 @@ def main(argv=None):
         return _serve(args, cfg)
     if args.export:
         return _export(args, cfg)
-    from cyclegan_tpu_torch.train import runner
-
-    semisup = args.model == "semisupervised"
-    if args.testing:
-        return runner.run_test(cfg, semisupervised=semisup, device=args.device)
-    if args.training:
-        if not semisup:
-            return runner.run_supervised(cfg, max_steps=args.max_steps, device=args.device)
-        return runner.run_cyclegan(cfg, max_steps=args.max_steps, device=args.device)
+    if args.testing or args.training:
+        return _launch(args, cfg)
     raise SystemExit("pass --training, --testing, --export PATH or --serve ARTIFACT")
 
 

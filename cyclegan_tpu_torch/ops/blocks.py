@@ -40,6 +40,7 @@ from torch import nn
 from cyclegan_tpu_torch.kernels import (instance_norm_act, residual_block_chunked,
                                         residual_block_fused)
 from cyclegan_tpu_torch.ops import functional as F
+from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_grad
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -84,11 +85,16 @@ class BatchNorm(nn.Module):
     convention; ``nn.BatchNorm2d`` feeds the unbiased one, N/(N-1) larger).
     In eval mode it normalises with the running averages. ``frozen`` keeps
     the running averages as they are in train mode (a recomputed forward
-    under remat must not move them twice)."""
+    under remat must not move them twice). With a data ``mesh`` of more
+    than one rank (:func:`set_data_mesh`) the statistics are those of the
+    global batch, as under the JAX package's sharded jit: the sums and
+    sums of squares are added across the ranks by a differentiable
+    all-reduce, so the backward is global too."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
         super().__init__()
         self.momentum, self.eps, self.frozen = momentum, eps, False
+        self.mesh: Mesh | None = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -102,12 +108,21 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def _batch_moments(self, x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(E[x], E[x^2]) per channel over the batch: this rank's, or the
+        global batch's across the mesh."""
+        if self.mesh is None or self.mesh.world == 1:
+            return x32.mean(dim=(0, 2, 3)), torch.square(x32).mean(dim=(0, 2, 3))
+        sums = torch.stack([x32.sum(dim=(0, 2, 3)), torch.square(x32).sum(dim=(0, 2, 3))])
+        sums = all_reduce_sum_grad(sums, self.mesh)
+        count = x32.numel() // x32.shape[1] * self.mesh.world
+        return sums[0] / count, sums[1] / count
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3)) - torch.square(mean),
-                                  0.0)
+            mean, mean_sq = self._batch_moments(x32)
+            var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
             if not self.frozen:
                 with torch.no_grad():
                     m = self.momentum
@@ -133,6 +148,18 @@ def frozen_running_stats(module: nn.Module, frozen: bool = True):
     finally:
         for m, f in zip(norms, saved):
             m.frozen = f
+
+
+def set_data_mesh(module: nn.Module, mesh: Mesh | None, rows: int | None = None) -> None:
+    """Give every :class:`BatchNorm` and :class:`Dropout` of ``module`` the
+    data mesh its train-mode forward spans (None: this rank alone), and the
+    dropouts the rows of one batch on this rank (the global batch size over
+    the ranks)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+        elif isinstance(m, Dropout):
+            m.mesh, m.rows = mesh, rows
 
 
 def get_norm(norm: str) -> Callable[[int], nn.Module | None]:
@@ -237,6 +264,21 @@ def dropout_keep(shape: tuple[int, ...], p: float, generator: torch.Generator) -
     return torch.rand(shape, generator=generator, device=generator.device) >= p
 
 
+def dropout_keep_rows(shape: tuple[int, ...], p: float, generator: torch.Generator,
+                      mesh: Mesh, rows: int) -> torch.Tensor:
+    """A data-parallel rank's keep-mask of NHWC ``shape``: ``shape[0] /
+    rows`` segments of ``rows`` rows (a concatenation of batches of
+    ``rows``). The mask of the global batch is drawn (every segment
+    ``mesh.world`` times longer; the generator is seeded alike on every
+    rank) and this rank's rows of each segment are taken, so the ranks drop
+    what one device drops on the global batch."""
+    segs = shape[0] // rows
+    if segs * rows != shape[0]:
+        raise ValueError(f"{shape[0]} rows are no whole number of batches of {rows}")
+    full = dropout_keep((segs * mesh.world * rows, *shape[1:]), p, generator)
+    return full.view(segs, mesh.world, rows, *shape[1:])[:, mesh.rank].reshape(shape)
+
+
 class Dropout(nn.Module):
     """Inverted dropout (``nn.Dropout`` semantics: kept values scaled by
     1 / (1 - p)). It drops only in train mode and only when the caller
@@ -246,6 +288,10 @@ class Dropout(nn.Module):
     def __init__(self, p: float = 0.5) -> None:
         super().__init__()
         self.p = p
+        # The data mesh and the rows of one batch on this rank
+        # (set_data_mesh): the masks are then the global batch's.
+        self.mesh: Mesh | None = None
+        self.rows: int | None = None
 
     def keep_mask(self, shape: tuple[int, ...],
                   generator: torch.Generator | None) -> torch.Tensor | None:
@@ -255,7 +301,11 @@ class Dropout(nn.Module):
         if not self.training or generator is None:
             return None
         n, c, h, w = shape
-        return dropout_keep((n, h, w, c), self.p, generator).permute(0, 3, 1, 2)
+        if self.mesh is None or self.mesh.world == 1:
+            keep = dropout_keep((n, h, w, c), self.p, generator)
+        else:
+            keep = dropout_keep_rows((n, h, w, c), self.p, generator, self.mesh, self.rows)
+        return keep.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor,
                 drop: torch.Generator | torch.Tensor | None = None) -> torch.Tensor:

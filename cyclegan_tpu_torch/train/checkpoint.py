@@ -19,6 +19,9 @@ and its state on the trainer's device. Pools are restored at the STORED capacity
 type, so a resume or ``--testing`` works across ``pool_size`` and
 precision changes; a stored empty pool (a ``pool_size`` 0 run) refuses a
 run that wants one, as the JAX package does.
+
+In a data-parallel run only the primary rank writes (the others' ``save``
+does nothing) and every rank restores, straight onto its own device.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import re
 
 import torch
 
+from cyclegan_tpu_torch.parallel.distributed import is_primary
 from cyclegan_tpu_torch.train.pool import PoolState
 from cyclegan_tpu_torch.train.supervised import SupervisedState
 
@@ -82,28 +86,38 @@ def _restore_pool(stored: dict, pool: PoolState, name: str, device) -> PoolState
     return PoolState(buffer, int(stored["count"]))
 
 
+def _load_opt(opt: torch.optim.Optimizer, stored: dict) -> None:
+    """Load an optimizer state dict read onto any device: Adam's step
+    counts stay host tensors (on the device each update would read one
+    back)."""
+    for st in stored["state"].values():
+        if isinstance(st.get("step"), torch.Tensor):
+            st["step"] = st["step"].cpu()
+    opt.load_state_dict(stored)
+
+
 def load_state(trainer, state, payload: dict):
     """Load a :func:`state_payload` into ``trainer`` and ``state`` (in
     place, every tensor on the trainer's device); returns ``state``."""
     if isinstance(state, SupervisedState):
         trainer.model.load_state_dict(payload["nets"]["model"])
-        state.opt.load_state_dict(payload["opt"])
+        _load_opt(state.opt, payload["opt"])
         state.sched.load_state_dict(payload["sched"])
-        state.dropout.set_state(payload["dropout"])
+        state.dropout.set_state(payload["dropout"].cpu())
         state.step = int(payload["step"])
         return state
     for n in NETS:
         getattr(trainer, n).load_state_dict(payload["nets"][n])
-    state.g_opt.load_state_dict(payload["g_opt"])
-    state.d_opt.load_state_dict(payload["d_opt"])
+    _load_opt(state.g_opt, payload["g_opt"])
+    _load_opt(state.d_opt, payload["d_opt"])
     state.g_sched.load_state_dict(payload["g_sched"])
     state.d_sched.load_state_dict(payload["d_sched"])
     state.pool_img = _restore_pool(payload["pool_img"], state.pool_img, "pool_img",
                                    trainer.device)
     state.pool_lab = _restore_pool(payload["pool_lab"], state.pool_lab, "pool_lab",
                                    trainer.device)
-    state.generator.set_state(payload["generator"])
-    state.dropout.set_state(payload["dropout"])
+    state.generator.set_state(payload["generator"].cpu())
+    state.dropout.set_state(payload["dropout"].cpu())
     state.step = int(payload["step"])
     return state
 
@@ -112,11 +126,12 @@ class CheckpointManager:
     """Step-keyed checkpoints in one directory, the newest ``max_to_keep``
     kept. Saves are synchronous: ``async_save`` is accepted for the JAX
     package's signature and changes nothing, so :meth:`wait` and
-    :meth:`close` have nothing to do."""
+    :meth:`close` have nothing to do. Only the primary rank writes."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 2, async_save: bool = True):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.primary = is_primary()
 
     def _path(self, step: int, ext: str) -> str:
         return os.path.join(self._dir, f"{step}.{ext}")
@@ -129,7 +144,9 @@ class CheckpointManager:
 
     def save(self, step: int, payload: dict) -> None:
         """Write ``payload`` (a state payload, or a dict that holds one
-        under ``state``) as checkpoint ``step``."""
+        under ``state``) as checkpoint ``step`` (on the primary rank)."""
+        if not self.primary:
+            return
         os.makedirs(self._dir, exist_ok=True)
         inner = payload.get("state", payload)
         meta = {"keys": sorted(payload), "step": inner.get("step")}
@@ -169,13 +186,15 @@ class CheckpointManager:
     def restore(self, trainer=None, state=None, *, epoch: int | None = None):
         """``(payload, epoch + 1)`` of checkpoint ``epoch`` (default the
         newest), or None if there is none. Given ``trainer`` and ``state``,
-        the payload is loaded into them (:func:`load_state`) and the state
-        takes its place (under ``state`` for a dict that holds one).
-        Errors of reading the file propagate as themselves."""
+        the payload is read onto the trainer's device and loaded into them
+        (:func:`load_state`), and the state takes its place (under
+        ``state`` for a dict that holds one); without, it is read onto the
+        CPU. Errors of reading the file propagate as themselves."""
         step = self.latest_epoch() if epoch is None else epoch
         if step is None:
             return None
-        payload = torch.load(self._path(step, "pt"), map_location="cpu", weights_only=True)
+        device = "cpu" if trainer is None else trainer.device
+        payload = torch.load(self._path(step, "pt"), map_location=device, weights_only=True)
         if trainer is not None:
             if "state" in payload:
                 payload["state"] = load_state(trainer, state, payload["state"])

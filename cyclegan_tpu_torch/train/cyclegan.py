@@ -37,6 +37,15 @@ averages). Batches use the JAX package's layout: images (B, H, W, C)
 float32, labels (B, H, W) integers. Modules are NCHW over channels_last
 memory. The metrics come from the pre-update parameters, as detached
 float32 tensors.
+
+With a data ``mesh`` of k ranks (``parallel.mesh``) each rank steps on its
+B/k rows of the global batch of B = ``cfg.batch_size``, and the step is the
+one-device step on the global batch, as the JAX step under a sharded jit
+is: the cross-entropies divide by the global batch's valid pixels, the
+gradients and metrics are averaged over the ranks, batch norms take global
+statistics, dropout masks are the global batch's rows, and the fakes of
+the global batch go through every rank's copy of the pools with the same
+decisions (injected ones are (B,) vectors of the global batch).
 """
 
 from __future__ import annotations
@@ -49,7 +58,10 @@ from torch import nn
 
 from cyclegan_tpu_torch.export import resolve_device
 from cyclegan_tpu_torch.models import define_Dis, define_Gen
+from cyclegan_tpu_torch.ops.blocks import set_data_mesh
 from cyclegan_tpu_torch.ops.init import init_weights
+from cyclegan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean, all_reduce_sum,
+                                              gather_rows, local_rows, mean_metrics)
 from cyclegan_tpu_torch.train import losses, metrics, schedule
 from cyclegan_tpu_torch.train.pool import (PoolState, init_pool, pool_query,
                                            pool_query_with_decisions)
@@ -103,6 +115,34 @@ def _stack_size(batches: dict) -> int:
     return int(next(iter(batches.values())).shape[0])
 
 
+def data_mesh(cfg: Config, device, mesh: Mesh | None) -> Mesh:
+    """The trainer's mesh: ``mesh``, or this device alone. Its ranks must
+    divide the global batch."""
+    mesh = mesh or Mesh(resolve_device(device))
+    if cfg.batch_size % mesh.world:
+        raise ValueError(f"batch_size {cfg.batch_size} (the global batch) does not divide "
+                         f"over {mesh.world} ranks")
+    return mesh
+
+
+def check_rows(rows: int, cfg: Config, mesh: Mesh) -> None:
+    """A rank steps on its share of the global batch, no other size."""
+    if mesh.world > 1 and rows * mesh.world != cfg.batch_size:
+        raise ValueError(f"a rank's batch has {rows} rows; the global batch_size "
+                         f"{cfg.batch_size} over {mesh.world} ranks gives "
+                         f"{cfg.batch_size // mesh.world}")
+
+
+def ce_count(labels: torch.Tensor, mesh: Mesh, ignore_index: int) -> torch.Tensor | None:
+    """A rank's cross-entropy divisor: the global batch's valid pixels (at
+    least 1) over the ranks, so that the ranks' mean is the global mean;
+    None (the batch's own count) at world 1."""
+    if mesh.world == 1:
+        return None
+    valid = all_reduce_sum((labels != ignore_index).sum(), mesh)
+    return valid.clamp_min(1) / mesh.world
+
+
 def _accumulate(sums: dict, metrics_: dict) -> None:
     """Add detached float32 metrics into ``sums``, key by key."""
     for key, v in metrics_.items():
@@ -112,15 +152,18 @@ def _accumulate(sums: dict, metrics_: dict) -> None:
 
 class CycleGANTrainer:
     """Builds the four networks on ``device`` (default: the CUDA device;
-    without one this raises rather than run on the CPU)."""
+    without one this raises rather than run on the CPU), or on the device
+    of ``mesh``, this rank's place in a data-parallel group."""
 
     def __init__(self, cfg: Config, num_classes: int, in_channels: int,
-                 steps_per_epoch: int, device: str | torch.device | None = None):
+                 steps_per_epoch: int, device: str | torch.device | None = None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
+        self.mesh = data_mesh(cfg, device, mesh)
+        self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
         d = self.dtype
         self.G_i2l = define_Gen(in_channels, num_classes, cfg.ngf, cfg.gen_net, cfg.norm,
@@ -135,6 +178,7 @@ class CycleGANTrainer:
                                 cfg.norm, dtype=d)
         for net in self.nets():
             net.to(self.device, memory_format=torch.channels_last).train()
+            set_data_mesh(net, self.mesh, cfg.batch_size // self.mesh.world)
         self.ignore_index = 255
         self.lamda = cfg.lamda
         self.lamda_lab = cfg.lamda if cfg.lamda_lab is None else cfg.lamda_lab
@@ -183,6 +227,8 @@ class CycleGANTrainer:
     def _g_loss(self, batch: dict, real_lab_oh: torch.Tensor,
                 drop: torch.Generator | None):
         b = batch["unlab_image"].shape[0]
+        check_rows(b, self.cfg, self.mesh)
+        count = ce_count(batch["lab_label"], self.mesh, self.ignore_index)
         sup_logits = None
         if self.cfg.norm != "batch":
             seg_out = self.G_i2l(_nchw(torch.cat([batch["unlab_image"],
@@ -201,11 +247,12 @@ class CycleGANTrainer:
         cyc_img = losses.l1_loss(_nhwc(rec_img), batch["unlab_image"]) * self.lamda
         rec_lab_logits = self.G_i2l(fake_img, drop)
         cyc_lab = losses.cross_entropy_loss(_nhwc(rec_lab_logits), batch["lab_label"],
-                                            ignore_index=self.ignore_index) * self.lamda_lab
+                                            ignore_index=self.ignore_index,
+                                            count=count) * self.lamda_lab
         if sup_logits is None:  # batch norm: after the label cycle, as the reference
             sup_logits = self.G_i2l(_nchw(batch["lab_image"]), drop)
         sup = losses.cross_entropy_loss(_nhwc(sup_logits), batch["lab_label"],
-                                        ignore_index=self.ignore_index)
+                                        ignore_index=self.ignore_index, count=count)
         total = adv_lab + adv_img + cyc_img + cyc_lab + sup
         aux = {"g_adv": adv_lab + adv_img, "g_cycle_img": cyc_img, "g_cycle_lab": cyc_lab,
                "g_sup": sup, "g_total": total}
@@ -237,6 +284,9 @@ class CycleGANTrainer:
                              f"{POOL_KEYS}; got only {given}")
         if self.cfg.pool_size == 0:
             return fake_img, fake_lab
+        # Every rank queries its copy of the pools with the global batch and
+        # the same decisions, then keeps its rows.
+        fake_img, fake_lab = gather_rows(fake_img, self.mesh), gather_rows(fake_lab, self.mesh)
         if given:
             state.pool_img, fake_img = pool_query_with_decisions(
                 state.pool_img, fake_img, batch["pool_use_new_img"], batch["pool_idx_img"])
@@ -245,11 +295,11 @@ class CycleGANTrainer:
         else:
             state.pool_img, fake_img = pool_query(state.pool_img, fake_img, state.generator)
             state.pool_lab, fake_lab = pool_query(state.pool_lab, fake_lab, state.generator)
-        return fake_img, fake_lab
+        return local_rows(fake_img, self.mesh), local_rows(fake_lab, self.mesh)
 
-    @staticmethod
-    def _update(params: list[nn.Parameter], grads, opt, sched) -> None:
-        for p, g in zip(params, grads):
+    def _update(self, params: list[nn.Parameter], grads, opt, sched) -> None:
+        """Apply ``grads`` (averaged over the ranks first) in one step."""
+        for p, g in zip(params, all_reduce_mean(list(grads), self.mesh)):
             p.grad = g
         opt.step()
         sched.step()
@@ -274,7 +324,7 @@ class CycleGANTrainer:
                      state.d_opt, state.d_sched)
         state.step += 1
         metrics_.update((k, v.detach()) for k, v in d_aux.items())
-        return state, metrics_
+        return state, mean_metrics(metrics_, self.mesh)
 
     def multi_step(self, state: CycleGANState, batches: dict) -> tuple[CycleGANState, dict]:
         """K chained train steps (``Config.steps_per_call``): ``batches``
@@ -321,7 +371,7 @@ class CycleGANTrainer:
             _accumulate(sums, d_aux)
         self._update(d_params, [g / k for g in d_sum], state.d_opt, state.d_sched)
         state.step += 1
-        return state, {key: v / k for key, v in sums.items()}
+        return state, mean_metrics({key: v / k for key, v in sums.items()}, self.mesh)
 
     @torch.no_grad()
     def logits(self, image: torch.Tensor) -> torch.Tensor:

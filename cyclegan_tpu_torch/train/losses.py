@@ -23,10 +23,13 @@ def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
-                       ignore_index: int | None = 255) -> torch.Tensor:
+                       ignore_index: int | None = 255,
+                       count: torch.Tensor | None = None) -> torch.Tensor:
     """Pixel cross-entropy of channels-last logits (N, H, W, K) against
     (N, H, W) integer labels: the mean over the pixels that are not
-    ``ignore_index``, with a count of at least 1 (an all-void batch gives 0)."""
+    ``ignore_index``, with a count of at least 1 (an all-void batch gives 0).
+    ``count`` replaces that count as the divisor (a data-parallel rank
+    divides by the global batch's valid pixels over the ranks)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
     if ignore_index is not None:
@@ -37,4 +40,4 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
         safe = labels
     picked = log_probs.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     picked = torch.where(valid, picked, 0.0)
-    return -picked.sum() / valid.sum().clamp_min(1)
+    return -picked.sum() / (valid.sum().clamp_min(1) if count is None else count)

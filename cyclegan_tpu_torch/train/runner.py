@@ -12,10 +12,18 @@ log interval late, and the next two batches are copied to the device
 ``run_supervised`` trains the supervised segmenter (configuration 1),
 ``run_cyclegan`` the semi-supervised CycleGAN (configurations 2-4); both
 evaluate with ``--eval_resize tile`` and the ``--eval_flip`` /
-``--eval_scales`` TTA when asked (``eval_tile.py``, ``tta.py``). More than
-one device, spatial shards or processes raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 11. The XLA and gloo machinery of the JAX
-runner (``_aligned_jit``, the phase barriers) has no counterpart.
+``--eval_scales`` TTA when asked (``eval_tile.py``, ``tta.py``).
+
+Data parallelism (``parallel/``): each rank runs these loops on its device
+with a data :class:`~cyclegan_tpu_torch.parallel.mesh.Mesh`. Its loaders
+build only its rows of every global batch, the trainers make the step the
+global batch's, evaluation sums the ranks' confusion matrices (the ragged
+last batch padded with masked rows), the primary rank alone writes
+checkpoints, sample dumps and logs (barriers after each save), every rank
+restores, and a preemption is agreed by all ranks at the save boundaries.
+Spatial shards raise ``NotImplementedError`` naming ROADMAP Queue 1 item
+15. The XLA machinery of the JAX runner (``_aligned_jit``) has no
+counterpart.
 
 Divergences from the JAX runner, on purpose:
 - a run cut by ``--max_steps`` inside an epoch saves a mid-epoch checkpoint
@@ -44,6 +52,10 @@ from cyclegan_tpu_torch import eval_tile, tta
 from cyclegan_tpu_torch.data.datasets import DATASET_SPECS, class_names, make_dataset, split_labeled
 from cyclegan_tpu_torch.data.loader import Loader, paired_iterator, paired_steps_per_epoch
 from cyclegan_tpu_torch.data.palette import save_prediction_png
+from cyclegan_tpu_torch.export import resolve_device
+from cyclegan_tpu_torch.parallel import distributed
+from cyclegan_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, make_mesh, replicate_state,
+                                              select_step)
 from cyclegan_tpu_torch.train import checkpoint as checkpoint_lib
 from cyclegan_tpu_torch.train import metrics as metrics_lib
 from cyclegan_tpu_torch.train.checkpoint import CheckpointManager, load_state, state_payload
@@ -65,15 +77,22 @@ def _dataset_spec(cfg: Config) -> tuple[int, int]:
 
 
 def _check_single_device(cfg: Config) -> None:
-    """The port runs one process on one device."""
-    multi = {"num_devices": (cfg.num_devices or 1) > 1, "spatial_shards": cfg.spatial_shards > 1,
-             "num_processes": (cfg.num_processes or 1) > 1,
-             "coordinator_address": cfg.coordinator_address is not None}
-    asked = [k for k, v in multi.items() if v]
-    if asked:
+    """The data axis is ported; the spatial axis is not."""
+    if cfg.spatial_shards > 1:
         raise NotImplementedError(
-            f"{', '.join(asked)}: data/spatial parallelism and multi-process runs arrive with "
-            f"the parallel slice of the port (ROADMAP Queue 1 item 11)")
+            f"spatial_shards={cfg.spatial_shards}: the spatial axis needs a halo exchange "
+            f"and cross-rank instance-norm statistics around the port's whole-plane kernels "
+            f"(ROADMAP Queue 1 item 15)")
+
+
+def _mesh(cfg: Config, device) -> Mesh:
+    """This rank's data mesh: the process group brought up when the config
+    or the environment asks for one (a group already up is used), checked
+    against ``num_devices``."""
+    _check_single_device(cfg)
+    device = resolve_device(device)  # no card raises here, before any group
+    distributed.maybe_initialize(cfg, device)
+    return make_mesh(cfg.num_devices, device=device)
 
 
 def _stacking(cfg: Config) -> tuple[int, int]:
@@ -127,20 +146,6 @@ def _eval_shaping(cfg: Config) -> tuple[tuple[int, int], str]:
     return (cfg.resize_height, cfg.resize_width), "resize"
 
 
-def select_step(trainer, steps_per_call: int = 1, grad_accum: int = 1) -> Callable:
-    """The trainer step for a (steps_per_call, grad_accum) setting: the
-    plain ``train_step``, ``multi_step`` (K optimizer steps a call) or
-    ``accum_step`` (ONE update from K microbatches). The stacked forms take
-    leading-K batch stacks and exclude each other (counterpart of
-    ``cyclegan_tpu/parallel/mesh.py::select_step``)."""
-    if steps_per_call > 1 and grad_accum > 1:
-        raise ValueError(f"steps_per_call={steps_per_call} and grad_accum={grad_accum} are "
-                         f"mutually exclusive (both consume the leading batch-stack axis)")
-    if grad_accum > 1:
-        return trainer.accum_step
-    return trainer.train_step if steps_per_call <= 1 else trainer.multi_step
-
-
 def _make_eval_fns(cfg: Config, trainer) -> tuple[Callable, Callable]:
     """(eval_fn(batch) -> confusion matrix, predict(image) -> class map),
     class maps as uint8 when the classes fit (a quarter of the bytes to
@@ -182,15 +187,18 @@ def _make_eval_fns(cfg: Config, trainer) -> tuple[Callable, Callable]:
     return eval_fn, predict
 
 
-def _make_loader(cfg: Config, ds, *, train: bool, seed: int, drop_last: bool = True):
+def _make_loader(cfg: Config, ds, *, train: bool, seed: int, mesh: Mesh,
+                 drop_last: bool = True):
     """The native loader (a prefetch thread and the native pixel library)
-    or, with ``--loader grain``, the worker-process loader."""
+    or, with ``--loader grain``, the worker-process loader; it builds this
+    rank's rows of every global batch."""
     resize_hw = None
     if train and cfg.resize_height is not None:
         resize_hw = (cfg.resize_height, cfg.resize_width or cfg.resize_height)
     target_hw, eval_mode = (cfg.crop_hw, "resize") if train else _eval_shaping(cfg)
     kw = dict(batch_size=cfg.batch_size, crop_hw=target_hw, train=train, seed=seed,
-              drop_last=drop_last, resize_hw=resize_hw, eval_mode=eval_mode)
+              drop_last=drop_last, resize_hw=resize_hw, eval_mode=eval_mode,
+              process_shard=(mesh.rank, mesh.world))
     if cfg.loader == "grain":
         from cyclegan_tpu_torch.data.grain_loader import GrainLoader
 
@@ -215,8 +223,23 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _global_hist(hist: torch.Tensor | None, mesh: Mesh, num_classes: int,
+                 device) -> torch.Tensor | None:
+    """The confusion matrix of the whole split: the ranks' matrices summed
+    (None where no rank saw a label)."""
+    if mesh.world == 1:
+        return hist
+    local = torch.zeros((num_classes + 1, num_classes), dtype=torch.int64, device=device)
+    if hist is not None:
+        local[:num_classes] = hist
+        local[num_classes, 0] = 1
+    total = all_reduce_sum(local, mesh)
+    return total[:num_classes] if int(total[num_classes, 0]) else None
+
+
 def _evaluate(trainer, val_loader, eval_fn) -> dict:
-    """Accumulate the confusion matrix over the val split on the device."""
+    """Accumulate the confusion matrix over the val split on the device
+    (this rank's rows; the ranks' matrices are summed)."""
     hist = None
     it = val_loader.epoch(0)
     try:
@@ -227,6 +250,7 @@ def _evaluate(trainer, val_loader, eval_fn) -> dict:
             hist = h if hist is None else hist + h
     finally:
         it.close()
+    hist = _global_hist(hist, trainer.mesh, trainer.num_classes, trainer.device)
     if hist is None:
         return {}
     return {k: float(v) for k, v in metrics_lib.scores(hist.cpu()).items() if v.ndim == 0}
@@ -274,7 +298,9 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
     ga = max(int(cfg.grad_accum or 1), 1)
     step_fn = select_step(trainer, spc, ga)
     eval_fn, _ = _make_eval_fns(cfg, trainer)
-    device = trainer.device
+    device, mesh = trainer.device, trainer.mesh
+    primary = mesh.rank == 0
+    say = print if primary else (lambda *a, **k: None)
     logger = MetricsLogger(cfg.results_dir)
     profiler = StepProfiler(cfg.profile_dir)
 
@@ -283,7 +309,7 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
     restored = ckpt.restore(trainer, state)
     if restored is not None:
         state, start_epoch = restored
-        print(f"resumed from epoch {start_epoch - 1}", flush=True)
+        say(f"resumed from epoch {start_epoch - 1}", flush=True)
 
     # Mid-epoch checkpoints {state, epoch, pos, gstep, spc, ga} under
     # <checkpoint_dir>/mid: every `save_every_steps` steps, on preemption,
@@ -310,8 +336,10 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
                 f"with the writer's values (or delete the mid/ dir to restart the epoch)")
         state = load_state(trainer, state, w["state"])
         start_epoch, skip_calls = int(w["epoch"]), int(w["pos"])
-        print(f"resumed mid-epoch {start_epoch} at call {skip_calls}", flush=True)
+        say(f"resumed mid-epoch {start_epoch} at call {skip_calls}", flush=True)
     del w
+    # Every rank has read what it resumes from before the primary writes.
+    distributed.phase_barrier("restored")
 
     # Best-val-mIoU checkpoint under <checkpoint_dir>/best; its score in
     # best_metric.json beside it, so a resumed run cannot overwrite a
@@ -332,6 +360,19 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
     if mid_every and threading.current_thread() is threading.main_thread():
         prev_handler = signal.signal(signal.SIGTERM, lambda *_: preempt.set())
     preempt_at = int(os.environ.get("CYCLEGAN_TPU_PREEMPT_AT_STEP", "0") or 0)
+
+    def agreed_preempt() -> bool:
+        """Does any rank stop? Asked of every rank at the same save
+        boundary (a SIGTERM reaches each rank at its own time)."""
+        flag = torch.tensor([int(preempt.is_set())], device=device)
+        return bool(int(all_reduce_sum(flag, mesh)))
+
+    def save(mngr: CheckpointManager, step: int, payload: Callable[[], dict]) -> None:
+        """Write on the primary (only it builds the payload's host copies);
+        the ranks go on when the file is whole."""
+        if primary:
+            mngr.save(step, payload())
+        distributed.phase_barrier("save")
 
     def stacked(gen):
         """Group K consecutive host batches into one leading-K stack; a
@@ -404,9 +445,14 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
                     if mid_every:
                         if preempt_at and gstep >= preempt_at:
                             preempt.set()
-                        preempted = preempt.is_set()
-                        if gstep - last_mid >= mid_every or preempted:
-                            mid_ckpt.save(gstep, _wrap(epoch, epoch_base + calls, gstep))
+                        boundary = gstep - last_mid >= mid_every
+                        if mesh.world == 1:
+                            preempted = preempt.is_set()
+                        elif boundary:
+                            preempted = agreed_preempt()
+                        if boundary or preempted:
+                            save(mid_ckpt, gstep,
+                                 lambda: _wrap(epoch, epoch_base + calls, gstep))
                             last_mid = gstep
                         if preempted:
                             break
@@ -418,30 +464,32 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
                 # The epoch is incomplete: no epoch checkpoint (a resume
                 # would skip the rest of its data); the mid checkpoint just
                 # saved holds the position.
-                print(f"[preempt] saved mid-epoch checkpoint at step {last_mid}; exiting",
-                      flush=True)
+                say(f"[preempt] saved mid-epoch checkpoint at step {last_mid}; exiting",
+                    flush=True)
                 break
             if stop and pos < calls_per_epoch:
                 gstep = gstep0 + total_steps
-                mid_ckpt.save(gstep, _wrap(epoch, pos, gstep))
-                print(f"[max_steps] stopped in epoch {epoch} at call {pos} of "
-                      f"{calls_per_epoch}; saved a mid-epoch checkpoint at step {gstep}",
-                      flush=True)
+                save(mid_ckpt, gstep, lambda: _wrap(epoch, pos, gstep))
+                say(f"[max_steps] stopped in epoch {epoch} at call {pos} of "
+                    f"{calls_per_epoch}; saved a mid-epoch checkpoint at step {gstep}",
+                    flush=True)
                 break
             if cfg.validation_every > 0 and (epoch + 1) % cfg.validation_every == 0:
                 tv = time.perf_counter()
                 result = _evaluate(trainer, val_loader, eval_fn)
                 seconds["validation"] += time.perf_counter() - tv
-                print(f"[epoch {epoch}] val {result}", flush=True)
+                say(f"[epoch {epoch}] val {result}", flush=True)
                 if best_ckpt is not None and result.get("miou", -1.0) > best_miou:
                     best_miou = float(result["miou"])
-                    best_ckpt.save(epoch, state_payload(trainer, state))
-                    with open(best_metric_path, "w") as f:
-                        json.dump({"miou": best_miou, "epoch": epoch}, f)
-                    print(f"[epoch {epoch}] new best miou {best_miou:.4f} -> best/", flush=True)
-                if on_validate is not None:
+                    if primary:
+                        best_ckpt.save(epoch, state_payload(trainer, state))
+                        with open(best_metric_path, "w") as f:
+                            json.dump({"miou": best_miou, "epoch": epoch}, f)
+                    distributed.phase_barrier("save")
+                    say(f"[epoch {epoch}] new best miou {best_miou:.4f} -> best/", flush=True)
+                if on_validate is not None and primary:
                     on_validate(state, epoch)
-            ckpt.save(epoch, state_payload(trainer, state))
+            save(ckpt, epoch, lambda: state_payload(trainer, state))
             if stop:
                 break
         flush_pending()
@@ -465,19 +513,20 @@ def run_supervised(cfg: Config, *, max_steps: int | None = None, device=None) ->
     (default the CUDA device): one generator trained on the labeled train
     split with pixel cross-entropy, validated every ``validation_every``
     epochs."""
-    _check_single_device(cfg)
+    mesh = _mesh(cfg, device)
     num_classes, in_ch = _dataset_spec(cfg)
     train_ds = make_dataset(cfg.dataset, cfg.data_root, split="train", size=cfg.dataset_size)
     val_ds = make_dataset(cfg.dataset, cfg.data_root, split="val")
-    train_loader = _make_loader(cfg, train_ds, train=True, seed=cfg.seed)
-    val_loader = _make_loader(cfg, val_ds, train=False, seed=0, drop_last=False)
+    train_loader = _make_loader(cfg, train_ds, train=True, seed=cfg.seed, mesh=mesh)
+    val_loader = _make_loader(cfg, val_ds, train=False, seed=0, drop_last=False, mesh=mesh)
     steps_per_epoch = train_loader.steps_per_epoch()
     if steps_per_epoch == 0:
         raise ValueError(f"empty epoch: {len(train_ds)} training images < batch_size "
                          f"{cfg.batch_size} — lower batch_size or raise dataset_size")
     trainer = SupervisedTrainer(cfg, num_classes, in_ch,
-                                _effective_steps_per_epoch(cfg, steps_per_epoch), device=device)
-    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+                                _effective_steps_per_epoch(cfg, steps_per_epoch), mesh=mesh)
+    state = replicate_state(trainer, trainer.init_state(torch.Generator().manual_seed(cfg.seed)),
+                            mesh)
     return _train_loop(cfg, trainer, state, train_loader.epoch, val_loader,
                        calls_per_epoch=steps_per_epoch // _stacking(cfg)[0],
                        max_steps=max_steps)
@@ -486,23 +535,24 @@ def run_supervised(cfg: Config, *, max_steps: int | None = None, device=None) ->
 def run_cyclegan(cfg: Config, *, max_steps: int | None = None, device=None) -> dict:
     """The semi-supervised CycleGAN run (configurations 2-4) on ``device``
     (default the CUDA device)."""
-    _check_single_device(cfg)
+    mesh = _mesh(cfg, device)
     num_classes, in_ch = _dataset_spec(cfg)
     train_ds = make_dataset(cfg.dataset, cfg.data_root, split="train", size=cfg.dataset_size)
     lab_ds, unlab_ds = split_labeled(train_ds, cfg.labeled_fraction, cfg.seed)
     val_ds = make_dataset(cfg.dataset, cfg.data_root, split="val")
-    lab_loader = _make_loader(cfg, lab_ds, train=True, seed=cfg.seed)
-    unlab_loader = _make_loader(cfg, unlab_ds, train=True, seed=cfg.seed + 1)
-    val_loader = _make_loader(cfg, val_ds, train=False, seed=0, drop_last=False)
+    lab_loader = _make_loader(cfg, lab_ds, train=True, seed=cfg.seed, mesh=mesh)
+    unlab_loader = _make_loader(cfg, unlab_ds, train=True, seed=cfg.seed + 1, mesh=mesh)
+    val_loader = _make_loader(cfg, val_ds, train=False, seed=0, drop_last=False, mesh=mesh)
     steps_per_epoch = paired_steps_per_epoch(lab_loader, unlab_loader, cfg.pairing)
     if steps_per_epoch == 0:
         raise ValueError(f"empty paired epoch: labeled split has "
                          f"{lab_loader.steps_per_epoch()} batches of size {cfg.batch_size} "
                          f"— lower batch_size, raise labeled_fraction, or use --pairing cycle")
     trainer = CycleGANTrainer(cfg, num_classes, in_ch,
-                              _effective_steps_per_epoch(cfg, steps_per_epoch), device=device)
+                              _effective_steps_per_epoch(cfg, steps_per_epoch), mesh=mesh)
     _, predict = _make_eval_fns(cfg, trainer)
-    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    state = replicate_state(trainer, trainer.init_state(torch.Generator().manual_seed(cfg.seed)),
+                            mesh)
 
     def batches(epoch: int) -> Iterator[dict]:
         pairs = paired_iterator(lab_loader, unlab_loader, epoch, mode=cfg.pairing)
@@ -559,36 +609,38 @@ def run_test(cfg: Config, *, semisupervised: bool = True, device=None) -> dict:
     """Restore the newest checkpoint, predict the val split, write its
     palette PNGs to ``results_dir`` and report mIoU, pixel accuracy and the
     per-class IoU. One forward a batch gives both the PNGs and the scores;
-    batch k+1 is enqueued before batch k is fetched (InferencePipeline)."""
-    _check_single_device(cfg)
+    batch k+1 is enqueued before batch k is fetched (InferencePipeline).
+    Under a data mesh each rank predicts and writes its rows of every batch
+    and the scores are the summed confusion matrix's."""
+    mesh = _mesh(cfg, device)
     target_hw, eval_mode = _eval_shaping(cfg)
     trainer, _, num_classes, _ = checkpoint_lib.restore_for_inference(
-        cfg, semisupervised=semisupervised, device=device)
+        cfg, semisupervised=semisupervised, device=mesh.device)
     _, predict = _make_eval_fns(cfg, trainer)
     val_ds = make_dataset(cfg.dataset, cfg.data_root, split="val")
     val_loader = Loader(val_ds, batch_size=cfg.batch_size, crop_hw=target_hw, train=False,
-                        drop_last=False, eval_mode=eval_mode)
+                        drop_last=False, eval_mode=eval_mode,
+                        process_shard=(mesh.rank, mesh.world))
     os.makedirs(cfg.results_dir, exist_ok=True)
     hist = None
-    idx = 0
+    rows = cfg.batch_size // mesh.world
     n_total = len(val_ds)
 
-    def consume(_, pred: np.ndarray) -> None:
-        nonlocal idx
-        for p in pred:
-            if idx >= n_total:
+    def consume(k: int, pred: np.ndarray) -> None:
+        first = k * cfg.batch_size + mesh.rank * rows  # global index of row 0
+        for j, p in enumerate(pred):
+            if first + j >= n_total:
                 break  # padding rows of the last batch
             save_prediction_png(p.astype(np.uint8),
-                                os.path.join(cfg.results_dir, f"pred_{idx:05d}.png"))
-            idx += 1
+                                os.path.join(cfg.results_dir, f"pred_{first + j:05d}.png"))
 
     pipe = InferencePipeline(consume)
     it = val_loader.epoch(0)
     try:
-        for batch in it:
+        for k, batch in enumerate(it):
             dev = to_device(batch, trainer.device)
             pred = predict(dev["image"])
-            pipe.put(None, pred)
+            pipe.put(k, pred)
             if "label" in dev:
                 h = metrics_lib.confusion_matrix(pred, dev["label"], num_classes,
                                                  ignore_index=trainer.ignore_index)
@@ -596,14 +648,17 @@ def run_test(cfg: Config, *, semisupervised: bool = True, device=None) -> dict:
     finally:
         it.close()
     pipe.flush()
+    hist = _global_hist(hist, mesh, num_classes, trainer.device)
     out: dict = {}
     if hist is not None:
         s = metrics_lib.scores(hist.cpu())
         out = {k: float(v) for k, v in s.items() if v.ndim == 0}
         names = class_names(cfg.dataset, num_classes)
         out["per_class_iou"] = {nm: float(v) for nm, v in zip(names, s["per_class_iou"])}
-        print(f"test scores: { {k: v for k, v in out.items() if k != 'per_class_iou'} }",
-              flush=True)
-        for nm, v in out["per_class_iou"].items():
-            print(f"  iou[{nm}]: {v:.4f}", flush=True)
+        if mesh.rank == 0:
+            print(f"test scores: { {k: v for k, v in out.items() if k != 'per_class_iou'} }",
+                  flush=True)
+            for nm, v in out["per_class_iou"].items():
+                print(f"  iou[{nm}]: {v:.4f}", flush=True)
+    distributed.phase_barrier("test")  # every rank's PNGs are written
     return out

@@ -8,7 +8,9 @@ the batch's statistics with its running averages moved by the forward
 (the JAX step's ``batch_stats`` write-back). ``logits``, ``eval_step`` and
 ``predict`` run it in eval mode. Batches use the JAX package's layout:
 images (B, H, W, C) float32, labels (B, H, W) integers; the metrics come
-from the pre-update parameters, as detached float32 tensors.
+from the pre-update parameters, as detached float32 tensors. With a data
+``mesh`` of k ranks each steps on its B/k rows and the update is the
+one-device update on the global batch (as ``train/cyclegan.py`` says).
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ import dataclasses
 import torch
 from torch import nn
 
-from cyclegan_tpu_torch.export import resolve_device
 from cyclegan_tpu_torch.models import define_Gen
+from cyclegan_tpu_torch.ops.blocks import set_data_mesh
 from cyclegan_tpu_torch.ops.init import init_weights
+from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_mean, mean_metrics
 from cyclegan_tpu_torch.train import losses, metrics, schedule
-from cyclegan_tpu_torch.train.cyclegan import _nchw, _nhwc, _stack_size, eval_mode
+from cyclegan_tpu_torch.train.cyclegan import (_nchw, _nhwc, _stack_size, ce_count,
+                                               check_rows, data_mesh, eval_mode)
 from cyclegan_tpu_torch.utils.config import Config
 
 
@@ -39,20 +43,24 @@ class SupervisedState:
 
 class SupervisedTrainer:
     """Builds the segmentation net on ``device`` (default: the CUDA device;
-    without one this raises rather than run on the CPU)."""
+    without one this raises rather than run on the CPU), or on the device
+    of ``mesh``, this rank's place in a data-parallel group."""
 
     def __init__(self, cfg: Config, num_classes: int, in_channels: int,
-                 steps_per_epoch: int, device: str | torch.device | None = None):
+                 steps_per_epoch: int, device: str | torch.device | None = None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
+        self.mesh = data_mesh(cfg, device, mesh)
+        self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
         self.model = define_Gen(in_channels, num_classes, cfg.ngf, cfg.gen_net, cfg.norm,
                                 head="none", dtype=self.dtype, use_dropout=cfg.use_dropout,
                                 remat=cfg.remat)
         self.model.to(self.device, memory_format=torch.channels_last).train()
+        set_data_mesh(self.model, self.mesh, cfg.batch_size // self.mesh.world)
         self.ignore_index = 255
 
     def nets(self) -> tuple[nn.Module]:
@@ -75,13 +83,16 @@ class SupervisedTrainer:
                                dropout=torch.Generator(device=self.device).manual_seed(drop_seed))
 
     def _loss(self, state: SupervisedState, batch: dict) -> torch.Tensor:
+        check_rows(batch["image"].shape[0], self.cfg, self.mesh)
         drop = state.dropout if self.cfg.use_dropout else None
+        count = ce_count(batch["label"], self.mesh, self.ignore_index)
         logits = self.model(_nchw(batch["image"]), drop)
         return losses.cross_entropy_loss(_nhwc(logits), batch["label"],
-                                         ignore_index=self.ignore_index)
+                                         ignore_index=self.ignore_index, count=count)
 
     def _update(self, state: SupervisedState, grads) -> None:
-        for p, g in zip(self.params(), grads):
+        """Apply ``grads`` (averaged over the ranks first) in one step."""
+        for p, g in zip(self.params(), all_reduce_mean(list(grads), self.mesh)):
             p.grad = g
         state.opt.step()
         state.sched.step()
@@ -94,7 +105,7 @@ class SupervisedTrainer:
         {"ce_loss": ...})``."""
         loss = self._loss(state, batch)
         self._update(state, torch.autograd.grad(loss, self.params()))
-        return state, {"ce_loss": loss.detach()}
+        return state, mean_metrics({"ce_loss": loss.detach()}, self.mesh)
 
     def multi_step(self, state: SupervisedState, batches: dict) -> tuple[SupervisedState, dict]:
         """K chained train steps (``Config.steps_per_call``; ``batches``
@@ -119,7 +130,7 @@ class SupervisedTrainer:
             g_sum = list(grads) if g_sum is None else [s.add_(g) for s, g in zip(g_sum, grads)]
             l_sum = loss.detach() if l_sum is None else l_sum + loss.detach()
         self._update(state, [g / k for g in g_sum])
-        return state, {"ce_loss": l_sum / k}
+        return state, mean_metrics({"ce_loss": l_sum / k}, self.mesh)
 
     @torch.no_grad()
     def logits(self, image: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,8 @@ Counterpart of ``cyclegan_tpu/utils/observability.py``:
   (CUDA activity included when there is a card), once a run;
 - :func:`enable_debug_flags` turns on autograd's anomaly mode with its NaN
   checks when asked (``--debug_nans``).
+
+In a data-parallel run only the primary rank logs and traces.
 """
 
 from __future__ import annotations
@@ -21,15 +23,19 @@ from typing import Any
 import numpy as np
 import torch
 
+from cyclegan_tpu_torch.parallel.distributed import is_primary
+
 
 class MetricsLogger:
     """Prints human-readable lines and appends JSON lines to
-    ``<log_dir>/<prefix>_metrics.jsonl``."""
+    ``<log_dir>/<prefix>_metrics.jsonl``; off on ranks other than the
+    primary."""
 
     def __init__(self, log_dir: str | None, *, prefix: str = "train"):
         self._file = None
         self._tb = None
-        if log_dir:
+        self.enabled = is_primary()
+        if log_dir and self.enabled:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, f"{prefix}_metrics.jsonl"), "a",
                               buffering=1)
@@ -45,6 +51,8 @@ class MetricsLogger:
     def log(self, *, step: int, epoch: int, metrics: dict[str, Any],
             steps_per_sec: float | None = None) -> None:
         """``metrics`` may hold device tensors: each is read here (a sync)."""
+        if not self.enabled:
+            return
         scalars = {k: float(v) for k, v in metrics.items() if np.ndim(v) == 0}
         parts = " ".join(f"{k}={v:.4f}" for k, v in sorted(scalars.items()))
         sps = f" steps/sec={steps_per_sec:.3f}" if steps_per_sec else ""
@@ -70,10 +78,11 @@ class MetricsLogger:
 
 class StepProfiler:
     """Traces steps [start, stop) of training with ``torch.profiler`` into
-    ``profile_dir`` (a TensorBoard-readable Chrome trace), one window a run."""
+    ``profile_dir`` (a TensorBoard-readable Chrome trace), one window a run,
+    on the primary rank."""
 
     def __init__(self, profile_dir: str | None, start: int = 10, stop: int = 15):
-        self.dir = profile_dir
+        self.dir = profile_dir if is_primary() else None
         self.start_step = start
         self.stop_step = stop
         self._prof = None

@@ -77,11 +77,13 @@ def test_cityscapes_cli_train_test(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported_and_a_missing_card(tmp_path, monkeypatch):
     flags = _flags(tmp_path, 32, 32) + ["--dataset", "synthetic", "--dataset_size", "4"]
+    # The data axis is ported (tests/test_torch_multiprocess.py); the
+    # spatial axis raises before any rank starts.
     for mode in ("--training", "--testing"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            main([mode, "--model", "supervised", "--num_devices", "2"] + flags)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        main(["--training", "--preset", "voc_dp8_bf16"] + flags)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            main([mode, "--model", "supervised", "--spatial_shards", "2"] + flags)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        main(["--training", "--preset", "voc_dp8_bf16", "--spatial_shards", "2"] + flags)
     # No --device: the card, and without one the CLI refuses.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

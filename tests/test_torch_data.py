@@ -213,8 +213,11 @@ def test_grain_loader_equals_loader(case, workers):
 def test_loaders_refuse_other_process_shards_and_eval_modes(make):
     ds = tds.make_dataset("synthetic", size=4)
     make(ds, batch_size=2, crop_hw=(8, 8), process_shard=(0, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make(ds, batch_size=2, crop_hw=(8, 8), process_shard=(1, 2))
+    make(ds, batch_size=2, crop_hw=(8, 8), process_shard=(1, 2))  # tests/test_torch_parallel.py
+    with pytest.raises(ValueError, match="not divisible"):
+        make(ds, batch_size=3, crop_hw=(8, 8), process_shard=(1, 2))
+    with pytest.raises(ValueError, match="rank outside"):
+        make(ds, batch_size=2, crop_hw=(8, 8), process_shard=(2, 2))
     with pytest.raises(ValueError, match="eval_mode"):
         make(ds, batch_size=2, crop_hw=(8, 8), eval_mode="tile")
 

@@ -1,9 +1,12 @@
 """Hygiene of the PyTorch port: it imports no JAX stack and nothing of the
-JAX package, and its entry points run on the CUDA device unless the caller
-asks for the CPU."""
+JAX package (the data-parallel modules included), its entry points run on
+the CUDA device unless the caller asks for the CPU, and no test that starts
+ranks leaves a child process behind."""
 
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -69,3 +72,36 @@ def test_kernel_wrappers_refuse_other_devices():
         instance_norm_act(x, None, 1e-5, "relu")
     with pytest.raises(ValueError, match="no kernel"):
         residual_block_fused(x, w, b, w, b)
+
+
+def test_parallel_modules_import_without_jax():
+    """The data-parallel modules import with the JAX stack poisoned."""
+    code = r"""
+import sys
+for name in ("jax", "flax", "optax", "orbax"):
+    sys.modules[name] = None
+import cyclegan_tpu_torch.parallel
+from cyclegan_tpu_torch.parallel import distributed, mesh
+assert not [k for k in sys.modules if k == "cyclegan_tpu" or k.startswith("cyclegan_tpu.")]
+print("OK", mesh.make_mesh(device="cpu").world, distributed.process_info())
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and r.stdout.split() == ["OK", "1", "(0,", "1)"], r.stderr[-2000:]
+
+
+SPAWNS_RANKS = ("launch_local(", '"--num_devices", "2"', '"--gpu_ids"')
+
+
+def test_files_that_spawn_ranks_check_no_child_is_left():
+    """Every port test file that starts ranks checks, after each of its
+    tests, that no child process of the test is still alive."""
+    tests = Path(__file__).resolve().parent
+    spawning = [p for p in sorted(tests.glob("test_torch_*.py")) if p != Path(__file__).resolve()
+                and any(s in p.read_text() for s in SPAWNS_RANKS)]
+    assert {p.name for p in spawning} >= {"test_torch_parallel.py", "test_torch_multiprocess.py"}
+    for p in spawning:
+        text = p.read_text()
+        assert re.search(r"@pytest\.fixture\(autouse=True\)\ndef _no_child_left_behind\(\):\n"
+                         r"    yield\n    assert multiprocessing\.active_children\(\) == \[\]",
+                         text), p.name

@@ -202,13 +202,15 @@ def test_stacked_and_grain_runs_train_and_log(tmp_path, extra):
 
 
 def test_unported_options_raise_naming_their_queue_item(tmp_path):
-    """Only the parallel options (item 11) are left; tile eval and TTA
-    (item 8) now validate their settings instead."""
+    """Only the spatial axis (item 15) is left: the data axis is ported
+    (item 11), and a runner asked for more devices than its process group
+    has ranks refuses; tile eval and TTA (item 8) validate their settings."""
     cfg = _cfg(tmp_path, "u")
-    for bad in (dict(num_devices=2), dict(spatial_shards=2), dict(num_processes=2)):
-        for run in (runner.run_cyclegan, runner.run_supervised):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                run(cfg.replace(**bad), device="cpu")
+    for run in (runner.run_cyclegan, runner.run_supervised):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            run(cfg.replace(spatial_shards=2), device="cpu")
+        with pytest.raises(ValueError, match="num_devices=2"):
+            run(cfg.replace(num_devices=2), device="cpu")
     with pytest.raises(ValueError, match="resize_height"):
         runner.run_cyclegan(cfg.replace(eval_resize="tile"), device="cpu")
     with pytest.raises(ValueError, match="eval_scales"):
