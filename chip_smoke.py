@@ -128,7 +128,25 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    gloo ranks on the card and from a global batch of 64 to 16 (its 8 rows
    a device kept), bf16: steps/s over 5 timed steps, each rank's peak
    memory and the all-reduces' share of a step, with the card's name and
-   power limit.
+   power limit;
+16. configs: BASELINE configs 3 (``cityscapes_semisup_512x256``: 256x512,
+   19 classes) on the default path and path A and 4 (``acdc_semisup``:
+   256x256, 1 channel, 4 classes) on the default path, at their published
+   widths, unsharded: the kernels alone at config 3's non-square planes
+   against their plain versions; 3 float32 and 3 bf16 steps on the kernels
+   against the plain seams (TRAIN_TOL), launch counters against the
+   derived counts, the median step and peak memory;
+17. spatial: (a) config 3 at ``spatial_shards`` 2 as two gloo ranks on the
+   card, a 128x512 slab a rank: 3 steps against the unsharded run of phase
+   16 at the bf16 bars, every rank's losses equal, each rank's counters as
+   derived (#1/#2 through their slab entries, #8 on every trunk
+   convolution, no #3-#7), the step time, peak memory a rank and the halo
+   and norm-partial collectives' share of a step; (b) ``runner.
+   run_cyclegan`` and ``run_test`` at --num_devices 2 --spatial_shards 2
+   (float32), the class maps equal to one process's --testing of the same
+   checkpoint on every pixel that is no tie; (c) the slab entries alone at
+   config 3's stem and trunk slabs against their plain versions and the
+   one-launch kernel on the whole plane, timed.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -1097,10 +1115,12 @@ def chunked_norm_halves(randn, x, dy) -> dict:
     return rec
 
 
-def kernels_train_chunked_dw(randn, fail_if) -> dict:
+def kernels_train_chunked_dw(randn, fail_if, cases=None, phase: str = "kernels_train") -> dict:
     """TPU kernels #6 and #7 (the chunked block, path A) and #8 (conv_dw,
     path B) against their plain versions at the train step's trunk shapes,
-    float32 and bf16, timed, with bitwise repeatability of their dw."""
+    float32 and bf16, timed, with bitwise repeatability of their dw.
+    ``cases``: (dtype, trunk shape, chunked calls a step, conv_dw calls a
+    step) to hold instead of the voc_semisup_256 step's."""
     import torch
     import torch.nn.functional as F
 
@@ -1109,12 +1129,14 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
 
     recs = {"residual_block_chunked": [], "residual_block_chunked_bwd": [], "conv_dw": []}
     c = NGF * 4
-    # (dtype, batch, chunked calls per step, conv_dw calls per step): the
+    # (dtype, shape, chunked calls per step, conv_dw calls per step): the
     # generator applies at batch 2 and 1 (see train_in_cases).
-    for dtype, b, rc_calls, dw_calls in ((torch.float32, 2, 0, 0), (torch.bfloat16, 2, 18, 36),
-                                         (torch.bfloat16, 1, 9, 18)):
+    trunk = (CROP // 4, CROP // 4, c)
+    for dtype, shape, rc_calls, dw_calls in cases or (
+            (torch.float32, (2, *trunk), 0, 0), (torch.bfloat16, (2, *trunk), 18, 36),
+            (torch.bfloat16, (1, *trunk), 9, 18)):
         dname = str(dtype).split(".")[1]
-        shape = (b, CROP // 4, CROP // 4, c)
+        b = shape[0]
         x, dy = randn(shape, dtype), randn(shape, dtype)
         w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
         b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
@@ -1198,7 +1220,7 @@ def kernels_train_chunked_dw(randn, fail_if) -> dict:
                 ("conv_dw", dwc, t_dw, xp.numel() * elt + act_b + w1.numel() * 4,
                  {"bfloat16": dw_passes * conv}, {dname: conv}, dw_calls)):
             b_ms, b_by = bound(nb, work)
-            rec = {"phase": "kernels_train", "kernel": name, "shape": list(shape),
+            rec = {"phase": phase, "kernel": name, "shape": list(shape),
                    "dtype": dname, **res, **t, "bound_ms": b_ms, "bound_by": b_by,
                    "gflop": sum(work.values()) / 1e9, "calls_per_step": calls, "hc": HC}
             if old_work is not None:
@@ -1679,6 +1701,8 @@ def _zero_counters() -> None:
 
     IN.launches = IN.bwd_launches = RB.launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
     RC.launches = RC.bwd_launches = CD.launches = 0
+    IN.slab_launches = IN.slab_apply_launches = IN.slab_bwd_launches = 0
+    IN.slab_bwd_apply_launches = 0
     _build.launches.clear()
 
 
@@ -1693,6 +1717,10 @@ def _read_counters() -> dict:
             "residual_block_fused": RB.launches, "residual_block_bwd_dx": RB.bwd_dx_launches,
             "residual_block_bwd_dw": RB.bwd_dw_launches, "residual_block_chunked": RC.launches,
             "residual_block_chunked_bwd": RC.bwd_launches, "conv_dw": CD.launches,
+            "instance_norm_slab_partials": IN.slab_launches,
+            "instance_norm_slab_apply": IN.slab_apply_launches,
+            "instance_norm_slab_bwd_partials": IN.slab_bwd_launches,
+            "instance_norm_slab_bwd_apply": IN.slab_bwd_apply_launches,
             **dict(_build.launches)}
 
 
@@ -3377,8 +3405,534 @@ def phase_dp(smi: str) -> dict:
     return {"launches": recs[0]["launches"], "record": rec}
 
 
+# BASELINE configs 3 and 4 at their published widths (ngf 64, ndf 64,
+# resnet_9blocks, two 70x70 PatchGANs, bf16 over float32, batch 1, pools of
+# 50), each trainer built with its preset's dataset spec: Cityscapes 256x512
+# with 19 classes (its 64x128 trunk plane the first non-square one through
+# conv_plan, in_plan and chunk_plan) on the default path and on path A, and
+# ACDC 256x256 with 1 channel and 4 classes on the default path.
+CONFIG_RUNS = (("cityscapes_semisup_512x256", "fused"), ("cityscapes_semisup_512x256", "chunked"),
+               ("acdc_semisup", "fused"))
+CONFIG_TIMED_STEPS = 3
+
+
+def _config_trainer(cfg, route: str, mesh):
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS
+    from cyclegan_tpu_torch.parallel.mesh import replicate_state
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    n_cls, in_ch, _ = DATASET_SPECS[cfg.dataset]
+    with resblock_env(route):
+        t = CycleGANTrainer(cfg, n_cls, in_ch, VOC_STEPS_PER_EPOCH, mesh=mesh)
+    return t, replicate_state(t, t.init_state(torch.Generator().manual_seed(0)), mesh)
+
+
+def _bf16_agree(name: str, got: list, ref: list) -> dict:
+    """Per-step losses within the train phase's bf16 bars; the worst of
+    each loss over the steps (err over its bar)."""
+    worst = {}
+    for key, tols in TRAIN_TOL["bfloat16"].items():
+        errs = [abs(g[key] - p[key]) / (atol + rtol * abs(p[key]))
+                for g, p, (rtol, atol) in zip(got, ref, tols)]
+        worst[key] = max(errs)
+        if not all(math.isfinite(g[key]) for g in got) or max(errs) > 1.0:
+            raise AssertionError(f"{name} {key}: {got} vs {ref}")
+    return worst
+
+
+def config_plane_checks() -> list:
+    """The kernels alone at config 3's non-square planes (batch 1): #1/#2 at
+    the stem (256x512x64), down (128x256x128) and trunk (64x128x256)
+    planes, #3-#5 (the fused block's VJP on the kernel path's relu mask) and
+    #6-#8 at the trunk plane, float32 and bf16, each against its plain
+    version at the kernels_train bars: the check of conv_plan, in_plan and
+    chunk_plan on a plane whose H differs from its W (at float32 the
+    chunked norms' second pass reads its inputs from memory: 64x128x32
+    float32 pairs do not fit the shared-memory tile)."""
+    import torch
+
+    # float32 references without TF32, as phase_kernels sets them.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device="cuda", generator=g) * scale + shift).to(dtype)
+
+    out = []
+
+    def fail_if(bad: bool, what: str, rec: dict):
+        out.append({k: rec.get(k) for k in ("kernel", "shape", "dtype", "act",
+                                            "worst_err_over_tol", "max_abs_err")})
+        if bad:
+            raise AssertionError(f"configs: {what} disagrees with its plain version at a "
+                                 f"non-square plane: {rec}")
+
+    trunk = (1, 64, 128, 256)
+    for shape, act in (((1, 256, 512, 64), "relu"), ((1, 128, 256, 128), "relu"),
+                       (trunk, "none")):
+        in_case(shape, act, 0, randn, fail_if, phase="configs")
+    for dtype in (torch.float32, torch.bfloat16):
+        rb_case(dtype, trunk, 0, randn, fail_if, phase="configs")
+    kernels_train_chunked_dw(randn, fail_if, phase="configs",
+                             cases=((torch.float32, trunk, 0, 0), (torch.bfloat16, trunk, 0, 0)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_configs(smi: str) -> dict:
+    """Configs 3 and 4 (CONFIG_RUNS) on the card, unsharded: the kernels at
+    config 3's non-square planes (config_plane_checks); for each run 3
+    float32 steps on the kernels against 3 on the plain seams at the train
+    phase's float32 bars (rounding cannot hide a wrong gradient there), then
+    3 bf16 steps on the kernels against 3 on the plain seams from the same
+    weights, batch and pool decisions, at its bf16 bars; the launch
+    counters against the counts derived for these shapes (path A: 27
+    chunked blocks a step, no fused one); then CONFIG_TIMED_STEPS timed
+    steps, their median and the peak memory. Returns each run's losses and
+    counters."""
+    import torch
+
+    from cyclegan_tpu_torch.data.datasets import DATASET_SPECS
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.utils.config import preset
+
+    t_phase = time.perf_counter()
+    planes = config_plane_checks()
+    mesh = M.Mesh(torch.device("cuda"))
+    out, recs = {}, []
+    for name, route in CONFIG_RUNS:
+        cfg = preset(name)
+        f32 = cfg.replace(bf16=False)
+        losses32 = {}
+        for tag, seams in (("kernel", contextlib.nullcontext), ("plain", plain_seams)):
+            t, st = _config_trainer(f32, route, mesh)
+            losses32[tag] = []
+            with seams():
+                for b in _dp_batch(f32, 1, TRAIN_STEPS):
+                    st, m = t.train_step(st, M.shard_batch(b, mesh))
+                    losses32[tag].append({k: float(v) for k, v in m.items()})
+            del t, st
+            torch.cuda.empty_cache()
+        worst32 = {}
+        for key, tols in TRAIN_TOL["float32"].items():
+            errs = [abs(k_[key] - p_[key]) / (atol + rtol * abs(p_[key]))
+                    for k_, p_, (rtol, atol) in zip(losses32["kernel"], losses32["plain"], tols)]
+            worst32[key] = max(errs)
+            if max(errs) > 1.0 or not all(math.isfinite(k_[key]) for k_ in losses32["kernel"]):
+                raise AssertionError(f"configs {name} {route} float32 {key}: {losses32}")
+        batches = [M.shard_batch(b, mesh) for b in
+                   _dp_batch(cfg, cfg.batch_size, TRAIN_STEPS + CONFIG_TIMED_STEPS)]
+        t, st = _config_trainer(cfg, route, mesh)
+        want = expected_launches(t, TRAIN_STEPS)
+        for k, per_step in PATH_COUNTS.get("chunked" if route == "chunked" else "", {}).items():
+            want[k] = per_step * TRAIN_STEPS
+        _zero_counters()
+        k_losses = []
+        for b in batches[:TRAIN_STEPS]:
+            st, m = t.train_step(st, b)
+            k_losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        if {k: launches.get(k, 0) for k in want} != want:
+            raise AssertionError(f"configs {name} {route}: launch counters {launches} != "
+                                 f"derived {want}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for b in batches[TRAIN_STEPS:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = t.train_step(st, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del t, st
+        torch.cuda.empty_cache()
+        pt, ps = _config_trainer(cfg, route, mesh)
+        p_losses = []
+        with plain_seams():
+            for b in batches[:TRAIN_STEPS]:
+                ps, m = pt.train_step(ps, b)
+                p_losses.append({k: float(v) for k, v in m.items()})
+        del pt, ps
+        torch.cuda.empty_cache()
+        worst = _bf16_agree(f"configs {name} {route}", k_losses, p_losses)
+        rec = {"preset": name, "route": route, "crop": list(cfg.crop_hw),
+               "classes_channels": list(DATASET_SPECS[cfg.dataset][:2]),
+               "losses_kernel_path": k_losses, "losses_plain_path": p_losses,
+               "loss_err_over_tol": worst, "float32_losses": losses32,
+               "float32_loss_err_over_tol": worst32, "launches_over_3_steps": launches,
+               "expected_launches": want, "step_ms_kernel": ms,
+               "median_step_ms_kernel": statistics.median(ms), "peak_mem_gb": peak}
+        recs.append(rec)
+        out[(name, route)] = {"losses": k_losses, "launches": launches, "peak_mem_gb": peak,
+                              "median_step_ms": statistics.median(ms)}
+    emit({"phase": "configs", "nvidia_smi": smi, "runs": recs, "tol": TRAIN_TOL,
+          "plane_checks": planes, "seconds": time.perf_counter() - t_phase})
+    for r in recs:
+        print(f"configs {r['preset']} ({r['route']}), {r['crop'][0]}x{r['crop'][1]} b1 bf16: "
+              f"median {r['median_step_ms_kernel']:.2f} ms, peak {r['peak_mem_gb']:.3f} GB; "
+              f"{smi}", flush=True)
+    return out
+
+
+# The spatial axis (parallel/spatial.py): config 3 at spatial_shards 2 as two
+# gloo ranks sharing the card (NCCL refuses two ranks on one device), a
+# 128x512 slab a rank of the global batch of 1.
+SPATIAL_PRESET = "cityscapes_semisup_512x256"
+SPATIAL_RANKS = 2
+SPATIAL_TIMED_STEPS = 3
+SLAB_COUNTERS = ("instance_norm_slab_partials", "instance_norm_slab_apply",
+                 "instance_norm_slab_bwd_partials", "instance_norm_slab_bwd_apply",
+                 "cg_instance_norm_partials", "cg_instance_norm_slab_apply",
+                 "cg_instance_norm_bwd_partials", "cg_instance_norm_bwd_slab_apply")
+WHOLE_PLANE_COUNTERS = ("instance_norm_act", "instance_norm_act_bwd", "residual_block_fused",
+                        "residual_block_bwd_dx", "residual_block_bwd_dw",
+                        "residual_block_chunked", "residual_block_chunked_bwd",
+                        "cg_instance_norm_act", "cg_instance_norm_act_bwd",
+                        "cg_conv3x3_reflect", "cg_conv3x3_reflect_dgrad",
+                        "cg_chunked_in_fwd", "cg_chunked_in_vjp")
+
+
+def spatial_launches(trainer, steps: int) -> dict:
+    """Launch counts of ``steps`` train steps on H slabs: every instance
+    norm (the trunk blocks' too: they run unfused) through the slab entries,
+    forward and VJP, one launch of each entry a call; conv_dw for every
+    trunk convolution; no whole-plane norm or residual-block kernel."""
+    g, d = net_counts(trainer.G_i2l), net_counts(trainer.D_img)
+    if g["fused"] or g["chunked"]:
+        raise AssertionError(f"spatial: whole trunk blocks {g}")
+    norms, dw = (3 * g["norms"] + 4 * d["norms"]) * steps, 3 * g["dw"] * steps
+    out = {k: norms for k in SLAB_COUNTERS}
+    out.update({k: 0 for k in WHOLE_PLANE_COUNTERS})
+    out.update(conv_dw=dw, cg_conv_dw=dw)
+    return out
+
+
+def _spatial_rank(out_dir: str) -> dict:
+    """One rank of the spatial phase: (a) config 3 at spatial 2, 3 steps
+    counted, 3 timed, 1 with its collectives timed alone; (b) the runner at
+    --num_devices 2 --spatial_shards 2, 3 steps and --testing. Its record in
+    ``out_dir/spatial<r>.json``."""
+    import sys as _sys
+
+    import torch
+    import torch.distributed as dist
+
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.train import runner
+    from cyclegan_tpu_torch.utils.config import preset
+
+    torch.backends.cudnn.allow_tf32 = False  # as in the parent (phase_kernels)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.make_mesh(spatial=SPATIAL_RANKS, device="cuda:0")
+    rec = {"rank": mesh.rank, "world": mesh.world, "spatial": mesh.spatial,
+           "backend": dist.get_backend()}
+    cfg = preset(SPATIAL_PRESET).replace(spatial_shards=SPATIAL_RANKS,
+                                         num_devices=SPATIAL_RANKS)
+    t, st = _config_trainer(cfg, "fused", mesh)
+    routes = {b.route for net in (t.G_i2l, t.G_l2i) for b in net.trunk}
+    batches = [M.shard_batch(b, mesh) for b in
+               _dp_batch(cfg, 1, TRAIN_STEPS + SPATIAL_TIMED_STEPS + 1)]
+    rec["slab_shape"] = list(batches[0]["unlab_image"].shape)
+    want = spatial_launches(t, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    losses = []
+    for b in batches[:TRAIN_STEPS]:
+        st, m = t.train_step(st, b)
+        losses.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    got = _read_counters()
+    ms = []
+    for b in batches[TRAIN_STEPS:TRAIN_STEPS + SPATIAL_TIMED_STEPS]:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        st, _ = t.train_step(st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # The collectives timed alone, by what makes them: the halo exchanges
+    # (parallel/spatial.py's RowGather), the norms' partials (gather_slots),
+    # the gradients (all_reduce_mean) and the metrics and counts.
+    real = dist.all_reduce
+    spent: dict = {}
+
+    def timed_all_reduce(tensor, *a, **k):
+        who = _sys._getframe(1).f_code.co_name
+        kind = {"forward": "halo", "backward": "halo", "gather_slots": "norm_partials",
+                "all_reduce_mean": "gradients"}.get(who, "metrics_and_counts")
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        w = real(tensor, *a, **k)
+        torch.cuda.synchronize()
+        e = spent.setdefault(kind, [0.0, 0, 0])
+        e[0] += time.perf_counter() - ta
+        e[1] += 1
+        e[2] += tensor.numel() * tensor.element_size()
+        return w
+
+    M.dist.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = t.train_step(st, batches[-1])
+        torch.cuda.synchronize()
+        probe_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        M.dist.all_reduce = real
+    rec["a"] = {"losses": losses, "launches": got, "expected_launches": want,
+                "launches_as_derived": {k: got.get(k, 0) for k in want} == want,
+                "trunk_routes": sorted(routes), "step_ms": ms,
+                "median_step_ms": statistics.median(ms), "peak_mem_gb": peak,
+                "probe_step_ms": probe_ms,
+                "collectives_ms": {k: v[0] * 1e3 for k, v in spent.items()},
+                "collectives_calls": {k: v[1] for k, v in spent.items()},
+                "collectives_mb": {k: v[2] / 1e6 for k, v in spent.items()},
+                "halo_and_norm_share_of_probe_step":
+                    sum(spent.get(k, [0.0])[0] for k in ("halo", "norm_partials"))
+                    / (probe_ms / 1e3)}
+    del t, st, batches
+    torch.cuda.empty_cache()
+    # (b) the runner on the synthetic dataset at config 3's shape, in float32
+    # (bf16 rounds the slabs' unfused trunk and the one process's fused
+    # kernels apart: ~0.6% of the class maps differ, spread over every row).
+    rcfg = preset(SPATIAL_PRESET).replace(
+        dataset="synthetic", dataset_size=CLI_SIZE, validation_every=0, log_every=1, epochs=2,
+        bf16=False,
+        num_devices=SPATIAL_RANKS, spatial_shards=SPATIAL_RANKS,
+        checkpoint_dir=os.path.join(out_dir, "runner", "ckpt"),
+        results_dir=os.path.join(out_dir, "runner", "res"))
+    with resblock_env("fused"):
+        runner.run_cyclegan(rcfg, max_steps=TRAIN_STEPS, device="cuda:0")
+        test = runner.run_test(rcfg.replace(results_dir=os.path.join(out_dir, "runner", "test2")),
+                               device="cuda:0")
+    rec["b"] = {"test": test}
+    with open(os.path.join(out_dir, f"spatial{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
+def slab_kernel_records(randn, fail_if) -> dict:
+    """The slab entries alone at config 3's stem and trunk slab shapes
+    (bf16, batch 1, two slabs of a 256x512 and of a 64x128 plane): each
+    slab's partials and apply (forward) and the VJP's, against their plain
+    versions on the same inputs, and against the one-launch kernels on the
+    whole plane's rows; ms of the pair for one slab, the plain pair's, the
+    library's instance norm (+ act) on the slab and its autograd VJP, and
+    the bound (each input read once, each output written once)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+
+    out = {"instance_norm_act_slab": [], "instance_norm_act_slab_bwd": []}
+    d = torch.bfloat16
+    tol = TOL[("instance_norm_act", "bfloat16")]
+    btol = BWD_TOL[("instance_norm_act_bwd", "bfloat16")]
+    # Calls a step at these planes: the stem and up2 (64 channels) of 3
+    # generator applies, the 9 trunk blocks' two norms of 3 applies.
+    for shape, act, calls in (((1, 256, 512, 64), "relu", 6), ((1, 64, 128, 256), "relu", 27),
+                              ((1, 64, 128, 256), "none", 27)):
+        n, h, w, c = shape
+        x = randn(shape, d)
+        dy = randn(shape, d)
+        hs = h // SPATIAL_RANKS
+        slabs = [x[:, i * hs:(i + 1) * hs].contiguous() for i in range(SPATIAL_RANKS)]
+        dys = [dy[:, i * hs:(i + 1) * hs].contiguous() for i in range(SPATIAL_RANKS)]
+        parts = torch.stack([IN._slab_partials_cuda(t) for t in slabs])
+        parts_p = torch.stack([IN.slab_partials_plain(t) for t in slabs])
+        y, mean, rstd, count = IN._slab_apply_cuda(slabs[0], None, parts, 1e-5, act)
+        y_p = IN.slab_apply_plain(slabs[0], None, parts_p, 1e-5, act)[0]
+        whole = torch.empty_like(x)
+        wm, wr = IN.launch(x, None, whole, 1e-5, act)
+        sums = torch.stack([IN._slab_bwd_partials_cuda(t, g, mean, rstd, act)
+                            for t, g in zip(slabs, dys)])
+        dx = IN._slab_bwd_apply_cuda(slabs[0], dys[0], mean, rstd, sums, count, act)
+        dx_p = IN.slab_bwd_apply_plain(slabs[0], dys[0], mean, rstd, sums, count, act)
+        dx_whole = torch.empty_like(x)
+        IN.launch_bwd(x, dy, wm, wr, dx_whole, act)
+        torch.cuda.synchronize()
+        checks = {"vs_plain": compare("instance_norm_act", y, y_p, "bfloat16"),
+                  "vs_whole_plane": compare("instance_norm_act", y, whole[:, :hs], "bfloat16"),
+                  "stats_vs_whole_plane": float(max((mean - wm).abs().max(),
+                                                    ((rstd - wr) / wr).abs().max()))}
+        bchecks = {"vs_plain": compare_bwd("instance_norm_act_bwd", dx, dx_p, "bfloat16"),
+                   "vs_whole_plane": compare_bwd("instance_norm_act_bwd", dx,
+                                                 dx_whole[:, :hs], "bfloat16")}
+        fail_if(not all(v["ok"] for v in (checks["vs_plain"], checks["vs_whole_plane"],
+                                          *bchecks.values()))
+                or checks["stats_vs_whole_plane"] > 1e-4,
+                f"slab IN {shape} {act}: {checks} {bchecks}")
+        xs, g0 = slabs[0], dys[0]
+        elt = xs.element_size()
+        part_bytes = 4 * n * c * 3
+        ms = time_ms(lambda: IN._slab_apply_cuda(xs, None, torch.stack(
+            [IN._slab_partials_cuda(xs), parts[1]]), 1e-5, act), 20)
+        plain = time_ms(lambda: IN.slab_apply_plain(xs, None, torch.stack(
+            [IN.slab_partials_plain(xs), parts_p[1]]), 1e-5, act), 5)
+        lib = time_ms(lambda: _lib_act(TF.instance_norm(
+            xs.permute(0, 3, 1, 2)), act), 20)
+        nbytes = 2 * xs.numel() * elt + SPATIAL_RANKS * part_bytes + 4 * n * c * 2
+        b_ms, b_by = bound(nbytes, 10 * xs.numel(), "float32")
+        out["instance_norm_act_slab"].append({
+            "shape": list(xs.shape), "plane": list(shape), "act": act, "calls_per_step": calls,
+            "max_abs_err": checks["vs_plain"]["max_abs_err"], "checks": checks,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        ms = time_ms(lambda: IN._slab_bwd_apply_cuda(xs, g0, mean, rstd, torch.stack(
+            [IN._slab_bwd_partials_cuda(xs, g0, mean, rstd, act), sums[1]]), count, act), 20)
+        plain = time_ms(lambda: IN.slab_bwd_apply_plain(xs, g0, mean, rstd, torch.stack(
+            [IN.slab_bwd_partials_plain(xs, g0, mean, rstd, act), sums[1]]), count, act), 5)
+        xl = xs.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        yl = _lib_act(TF.instance_norm(xl), act)
+        gl = g0.permute(0, 3, 1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(yl, xl, gl, retain_graph=True), 20)
+        nbytes = 3 * xs.numel() * elt + SPATIAL_RANKS * 4 * n * c * 2 + 4 * n * c * 2
+        b_ms, b_by = bound(nbytes, 12 * xs.numel(), "float32")
+        out["instance_norm_act_slab_bwd"].append({
+            "shape": list(xs.shape), "plane": list(shape), "act": act, "calls_per_step": calls,
+            "max_abs_err": bchecks["vs_plain"]["max_abs_err"], "checks": bchecks,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def phase_spatial(smi: str, configs: dict) -> dict:
+    """(a) config 3 at spatial_shards 2, two gloo ranks on the card: 3 steps
+    on the kernels against the unsharded config-3 run of the configs phase
+    (the same weights, batches and pool decisions) at the bf16 bars, every
+    rank the same losses, each rank's counters as derived (#1/#2 through
+    the slab entries, #8 on every trunk convolution, no #3-#7), the step
+    time, each rank's peak memory against the unsharded run's, and the
+    halo and norm-partial collectives' share of a step; (b) the runner at
+    --num_devices 2 --spatial_shards 2 for 3 float32 steps and --testing,
+    whose class maps must equal one process's --testing of the same
+    checkpoint on every pixel where the one process's logits are no tie
+    (so the confusion matrices agree but for ties); (c) the slab entries
+    alone (slab_kernel_records)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cyclegan_tpu_torch.data.datasets import make_dataset
+    from cyclegan_tpu_torch.data.loader import Loader
+    from cyclegan_tpu_torch.parallel import distributed
+    from cyclegan_tpu_torch.train import checkpoint as ck
+    from cyclegan_tpu_torch.train import runner
+    from cyclegan_tpu_torch.utils.config import preset
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    distributed.launch_local(_spatial_rank, (tmp,), nprocs=SPATIAL_RANKS, world=SPATIAL_RANKS,
+                             device="cuda:0", backend="gloo",
+                             init_method=f"file://{os.path.join(tmp, 'store')}")
+    recs = []
+    for r in range(SPATIAL_RANKS):
+        with open(os.path.join(tmp, f"spatial{r}.json")) as f:
+            recs.append(json.load(f))
+    t_ranks = time.perf_counter()
+    ref = configs[(SPATIAL_PRESET, "fused")]
+    worst = _bf16_agree("spatial (a)", recs[0]["a"]["losses"], ref["losses"])
+    if any(r["a"]["losses"] != recs[0]["a"]["losses"] for r in recs):
+        raise AssertionError("spatial (a): the ranks report different losses")
+    for r in recs:
+        if not r["a"]["launches_as_derived"] or r["a"]["trunk_routes"] != ["unfused"]:
+            raise AssertionError(f"spatial (a) rank {r['rank']}: routes {r['a']['trunk_routes']}"
+                                 f", counters {r['a']['launches']} != derived "
+                                 f"{r['a']['expected_launches']}")
+    # (b): one process's --testing of the same checkpoint.
+    rcfg = preset(SPATIAL_PRESET).replace(
+        dataset="synthetic", dataset_size=CLI_SIZE, validation_every=0, epochs=2, bf16=False,
+        checkpoint_dir=os.path.join(tmp, "runner", "ckpt"),
+        results_dir=os.path.join(tmp, "runner", "test1"))
+    with resblock_env("fused"):
+        one = runner.run_test(rcfg, device="cuda")
+        trainer = ck.restore_for_inference(rcfg, semisupervised=True, device="cuda")[0]
+    two = recs[0]["b"]["test"]
+    # The two runs' class maps (their PNGs) may differ only where the one
+    # process's float32 logits tie: a top-2 gap within twice the generator
+    # bar (GEN_TOL), as the slabs run the unfused trunk on cuDNN and the one
+    # process the fused kernels. On every other pixel the maps, and so the
+    # confusion matrices, must be equal.
+    val = Loader(make_dataset(rcfg.dataset, split="val"), batch_size=1, crop_hw=rcfg.crop_hw,
+                 train=False, drop_last=False)
+    pixels = flips = decisive_flips = 0
+    for k, batch in enumerate(val.epoch(0)):
+        logits = trainer.logits(torch.from_numpy(batch["image"]).cuda()).float()[0]
+        maps = [np.asarray(Image.open(os.path.join(tmp, "runner", d, f"pred_{k:05d}.png")))
+                for d in ("test1", "test2")]
+        top2 = logits.topk(2, dim=-1).values
+        decisive = ((top2[..., 0] - top2[..., 1]) > 2 * GEN_TOL).cpu().numpy()
+        if (decisive & (logits.argmax(-1).cpu().numpy() != maps[0])).any():
+            raise AssertionError(f"spatial (b): image {k}: one process's PNG is not its argmax")
+        diff = maps[0] != maps[1]
+        pixels += diff.size
+        flips += int(diff.sum())
+        decisive_flips += int((diff & decisive).sum())
+    conf_diff = int(np.abs(np.asarray(one["confusion"]) - np.asarray(two["confusion"])).sum())
+    if decisive_flips or not one["confusion"] or k + 1 != len(val.ds):
+        raise AssertionError(f"spatial (b): {decisive_flips} decisive pixels of {pixels} differ "
+                             f"between the runner at spatial 2 and one process ({flips} in "
+                             f"all)")
+    del trainer
+    torch.cuda.empty_cache()
+    # (c)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    failures = []
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def fail_if(bad, msg):
+        if bad:
+            failures.append(msg)
+
+    kern = slab_kernel_records(randn, fail_if)
+    if failures:
+        raise AssertionError(f"spatial (c): {failures}")
+    a0 = recs[0]["a"]
+    rec = {"phase": "spatial", "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+           "ranks_seconds": t_ranks - t_phase,
+           "a_config3_spatial2": {
+               "preset": SPATIAL_PRESET, "ranks": SPATIAL_RANKS, "backend": recs[0]["backend"],
+               "slab_shape": recs[0]["slab_shape"], "losses_rank0": a0["losses"],
+               "losses_unsharded": ref["losses"], "loss_err_over_tol": worst,
+               "tol": TRAIN_TOL["bfloat16"], "launches_per_rank": [r["a"]["launches"]
+                                                                   for r in recs],
+               "expected_launches": a0["expected_launches"],
+               "median_step_ms": [r["a"]["median_step_ms"] for r in recs],
+               "unsharded_median_step_ms": ref["median_step_ms"],
+               "peak_mem_gb_per_rank": [r["a"]["peak_mem_gb"] for r in recs],
+               "unsharded_peak_mem_gb": ref["peak_mem_gb"],
+               "probe_step_ms": [r["a"]["probe_step_ms"] for r in recs],
+               "collectives_ms": [r["a"]["collectives_ms"] for r in recs],
+               "collectives_calls": a0["collectives_calls"],
+               "collectives_mb": a0["collectives_mb"],
+               "halo_and_norm_share_of_probe_step":
+                   [r["a"]["halo_and_norm_share_of_probe_step"] for r in recs]},
+           "b_runner": {"steps": TRAIN_STEPS, "val_images": k + 1, "pixels": pixels,
+                        "pixels_differing": flips, "decisive_pixels_differing": 0,
+                        "confusion_abs_diff_sum": conf_diff,
+                        "confusion_equal": conf_diff == 0, "dtype": "float32",
+                        "tie_gap": 2 * GEN_TOL,
+                        "miou": [one["miou"], two["miou"]],
+                        "pixel_acc": [one["pixel_acc"], two["pixel_acc"]]},
+           "c_slab_kernels": kern}
+    emit(rec)
+    print(f"spatial (a) {SPATIAL_PRESET} at spatial_shards {SPATIAL_RANKS} (gloo ranks on one "
+          f"card): median {[round(x, 2) for x in rec['a_config3_spatial2']['median_step_ms']]} "
+          f"ms a step (unsharded {ref['median_step_ms']:.2f}), peak "
+          f"{[round(r['a']['peak_mem_gb'], 3) for r in recs]} GB a rank (unsharded "
+          f"{ref['peak_mem_gb']:.3f}); {smi}", flush=True)
+    return {"launches": recs[0]["a"]["launches"], "records": kern, "record": rec}
+
+
 def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
-                 serve_full: dict | None = None, dp: dict | None = None) -> dict:
+                 serve_full: dict | None = None, dp: dict | None = None,
+                 spatial: dict | None = None) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
     ``launches`` from the run (3 steps) of the path that runs the kernel
@@ -3388,7 +3942,10 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
     for tiled + TTA serving (``serve_full``: phase_serve_full's result) at
     its largest window stack, per generator forward; ``dp``: rank 0's
     launches over the dp phase's 3 steps (phase_dp's result); ``max_abs_err``
-    the largest over every shape held."""
+    the largest over every shape held. ``spatial`` (phase_spatial's result)
+    adds the slab entries of #1 and #2: launches of both entries over rank
+    0's 3 steps of config 3 at spatial 2, times summed over the calls of one
+    such step at its stem and trunk slab shapes."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -3469,6 +4026,26 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
             "launches_over": f"{TRAIN_STEPS} train steps, path {path}", "on_paths": on_paths})
+    slab_meta = {"instance_norm_act_slab": ("instance_norm_slab_partials",
+                                            "instance_norm_slab_apply", 126),
+                 "instance_norm_act_slab_bwd": ("instance_norm_slab_bwd_partials",
+                                                "instance_norm_slab_bwd_apply", 146)}
+    for name, (c1, c2, line) in slab_meta.items() if spatial else ():
+        rs = spatial["records"][name]
+        entries.append({
+            "name": name, "route": "cuda", "source": "cyclegan_tpu_torch/csrc/instance_norm.cu",
+            "replaces": f"cyclegan_tpu/kernels/instance_norm.py:{line}",
+            "launches": spatial["launches"][c1] + spatial["launches"][c2],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            **{k: sum(r[k] * r["calls_per_step"] for r in rs)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
+            "per": f"one train step of {SPATIAL_PRESET} at spatial_shards {SPATIAL_RANKS} "
+                   f"(bf16, batch 1), a rank's {sum(r['calls_per_step'] for r in rs)} calls "
+                   f"at its stem and trunk slabs (partials + apply; library: the instance "
+                   f"norm of the slab alone)",
+            "launches_over": f"{TRAIN_STEPS} train steps of rank 0 of {SPATIAL_RANKS}, both "
+                             f"entries"})
     return {"kernels": entries}
 
 
@@ -3504,11 +4081,17 @@ def main() -> int:
         serve_full = phase_serve_full(tmp, smi)
     t_dp = time.perf_counter()
     dp = phase_dp(smi)
+    t_configs = time.perf_counter()
+    configs = phase_configs(smi)
+    t_spatial = time.perf_counter()
+    spatial = phase_spatial(smi, configs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "supervised_phases_seconds": t_serve - t_sup,
-          "serve_full_seconds": t_dp - t_serve, "dp_seconds": time.perf_counter() - t_dp})
+          "serve_full_seconds": t_dp - t_serve, "dp_seconds": t_configs - t_dp,
+          "configs_seconds": t_spatial - t_configs,
+          "spatial_seconds": time.perf_counter() - t_spatial})
     print(smi, flush=True)
-    emit(kernels_line(recs, runs, sup_recs, serve_full, dp))
+    emit(kernels_line(recs, runs, sup_recs, serve_full, dp, spatial))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -59,6 +59,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cgrp = cooperative_groups;
@@ -402,7 +404,10 @@ __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
 }
 
 // One warp per (sample, channel) pair i: lane l merges the partials of row
-// tiles l, l + 32, ... in order, then the lanes merge in a fixed tree.
+// tiles l, l + 32, ... in order, then the lanes merge in a fixed tree. kRaw
+// (a slab's partials): out[3 i ..] = (count, mean, M2) of the merge;
+// else stats = mean (N * C), then rstd (N * C).
+template <bool kRaw = false>
 __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
                                           float* __restrict__ stats, const Plan& p,
                                           float eps) {
@@ -434,8 +439,14 @@ __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
       if (lane < off) chan_merge<1>(n, &m, &m2, nb, &mb, &m2b);
     }
     if (lane == 0) {
-      stats[i] = m;
-      stats[NC + i] = rsqrtf(m2 / (float)p.HW + eps);
+      if constexpr (kRaw) {
+        stats[3 * i] = n;
+        stats[3 * i + 1] = m;
+        stats[3 * i + 2] = m2;
+      } else {
+        stats[i] = m;
+        stats[NC + i] = rsqrtf(m2 / (float)p.HW + eps);
+      }
     }
   }
 }
@@ -547,6 +558,8 @@ __device__ __forceinline__ void bwd_partial(const TX* __restrict__ x, const TDY*
 
 // One warp per (sample, channel): lane l adds row tiles l, l + 32, ... in
 // order, the lanes add in a fixed tree; the sums become means over H*W.
+// kRaw (a slab's partials): gm[2 i ..] = the two sums, not divided.
+template <bool kRaw = false>
 __device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float* __restrict__ gm,
                                           const Plan& p) {
   const size_t NC = (size_t)p.N * p.C, NCT = NC * p.row_tiles;
@@ -578,8 +591,13 @@ __device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float*
       }
     }
     if (lane == 0) {
-      gm[i] = a / (float)p.HW;
-      gm[NC + i] = b / (float)p.HW;
+      if constexpr (kRaw) {
+        gm[2 * i] = a;
+        gm[2 * i + 1] = b;
+      } else {
+        gm[i] = a / (float)p.HW;
+        gm[NC + i] = b / (float)p.HW;
+      }
     }
   }
 }
@@ -657,6 +675,104 @@ in_bwd(const TX* __restrict__ x, const TDY* __restrict__ dy, const float* __rest
   for (int k = mine - 1; k >= 0; --k)
     bwd_apply<TX, TDY, V>(x, dy, mean, rstd, gm, dx, p, blockIdx.x + k * gridDim.x, act, sh,
                           staged);
+}
+
+// ------------------------------------------------------ slabs (spatial axis)
+//
+// A sample whose H axis is split over S ranks (the spatial axis of the mesh,
+// cyclegan_tpu_torch/parallel/spatial.py) has its statistics over the whole
+// plane. Each direction then takes two launches with a gather of the S
+// ranks' partials between them (the wrapper's, over the spatial group):
+//   partials: phase 1 and the tile-order merge of this slab, written as
+//             (N, C, 3) float32 (count, mean, M2) forward, (N, C, 2) (sum g,
+//             sum g * xhat) for the VJP;
+//   apply:    phase 2 from the S slabs' partials (S, N, C, .), merged in rank
+//             order by one thread a (sample, channel), a grid barrier, and
+//             phase 3 over this slab.
+// Every rank of a spatial group merges the same gathered partials in the
+// same order with the same code, so each gets bitwise the same mean and rstd
+// (and VJP means); slabs of uneven height weigh by their counts.
+
+template <typename TIn, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_fwd_partials(const TIn* __restrict__ x, float* __restrict__ out, float* __restrict__ part,
+                Plan p) {
+  __shared__ float sh[(2 * V + 1) * kThreads];
+  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
+  for (int k = 0; k < mine; ++k)
+    fwd_partial<TIn, V>(x, part, p, blockIdx.x + k * gridDim.x, sh);
+  grid_barrier();
+  fwd_merge<true>(part, out, p, 0.f);
+}
+
+// stats: mean (N * C), rstd (N * C), then the merged count (one float, read
+// by the VJP's apply).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_fwd_slab_apply(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ y,
+                  float* __restrict__ stats, const float* __restrict__ slabs, int S, Plan p,
+                  float eps, int act) {
+  __shared__ float sh[(2 * V + 1) * kThreads];
+  const size_t NC = (size_t)p.N * p.C;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < NC;
+       i += (size_t)gridDim.x * kThreads) {
+    float n = 0.f, m = 0.f, m2 = 0.f;
+    for (int q = 0; q < S; ++q) {
+      const float* r = slabs + ((size_t)q * NC + i) * 3;
+      chan_merge<1>(n, &m, &m2, __ldg(r), r + 1, r + 2);
+    }
+    stats[i] = m;
+    stats[NC + i] = rsqrtf(m2 / n + eps);
+    if (i == 0) stats[2 * NC] = n;
+  }
+  grid_barrier();
+  int staged = -1;
+  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
+  for (int k = 0; k < mine; ++k)
+    fwd_apply<T, T, V>(x, skip, y, stats, p, blockIdx.x + k * gridDim.x, act, sh, staged);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_bwd_partials(const T* __restrict__ x, const T* __restrict__ dy,
+                const float* __restrict__ mean, const float* __restrict__ rstd,
+                float* __restrict__ out, float* __restrict__ part, Plan p, int act) {
+  __shared__ float sh[2 * V * kThreads];
+  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
+  for (int k = 0; k < mine; ++k)
+    bwd_partial<T, T, V>(x, dy, mean, rstd, part, p, blockIdx.x + k * gridDim.x, act, sh);
+  grid_barrier();
+  bwd_merge<true>(part, out, p);
+}
+
+// count: the plane's merged count (stats[2 N C] of the forward's apply); gm:
+// scratch of 2 * N * C float32 for the two means.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_bwd_slab_apply(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ mean, const float* __restrict__ rstd,
+                  T* __restrict__ dx, const float* __restrict__ slabs, int S,
+                  const float* __restrict__ count, float* __restrict__ gm, Plan p, int act) {
+  __shared__ float sh[2 * V * kThreads];
+  const size_t NC = (size_t)p.N * p.C;
+  const float n = __ldg(count);
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < NC;
+       i += (size_t)gridDim.x * kThreads) {
+    float a = 0.f, b = 0.f;
+    for (int q = 0; q < S; ++q) {
+      const float* r = slabs + ((size_t)q * NC + i) * 2;
+      a += __ldg(r);
+      b += __ldg(r + 1);
+    }
+    gm[i] = a / n;
+    gm[NC + i] = b / n;
+  }
+  grid_barrier();
+  int staged = -1;
+  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
+  for (int k = 0; k < mine; ++k)
+    bwd_apply<T, T, V>(x, dy, mean, rstd, gm, dx, p, blockIdx.x + k * gridDim.x, act, sh,
+                       staged);
 }
 
 // ------------------------------------------------------------------- host
@@ -755,6 +871,80 @@ cudaError_t bwd_vec(int vec, const void* x, const void* dy, const float* mean, c
   return cudaErrorInvalidValue;
 }
 
+// One cooperative launch of `kernel` (each instantiation its own cache).
+template <typename Kernel>
+cudaError_t coop(Kernel kernel, int (&cache)[CG_MAX_DEVICES], const Plan& p, void** args,
+                 cudaStream_t stream) {
+  int max_blocks = 0;
+  cudaError_t e = coresident(kernel, cache, &max_blocks);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid_of(p, max_blocks), kThreads,
+                                     args, 0, stream);
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd_partials(const void* x, float* out, float* part, const Plan& p,
+                                cudaStream_t s) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto xp = static_cast<const T*>(x);
+  Plan plan = p;
+  void* args[] = {&xp, &out, &part, &plan};
+  return coop(in_fwd_partials<T, V>, cache, p, args, s);
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd_slab_apply(const void* x, const void* skip, void* y, float* stats,
+                                  const float* slabs, int S, const Plan& p, float eps, int act,
+                                  cudaStream_t s) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto xp = static_cast<const T*>(x);
+  auto sp = static_cast<const T*>(skip);
+  auto yp = static_cast<T*>(y);
+  Plan plan = p;
+  void* args[] = {&xp, &sp, &yp, &stats, &slabs, &S, &plan, &eps, &act};
+  return coop(in_fwd_slab_apply<T, V>, cache, p, args, s);
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd_partials(const void* x, const void* dy, const float* mean,
+                                const float* rstd, float* out, float* part, const Plan& p,
+                                int act, cudaStream_t s) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto xp = static_cast<const T*>(x);
+  auto dyp = static_cast<const T*>(dy);
+  Plan plan = p;
+  void* args[] = {&xp, &dyp, &mean, &rstd, &out, &part, &plan, &act};
+  return coop(in_bwd_partials<T, V>, cache, p, args, s);
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd_slab_apply(const void* x, const void* dy, const float* mean,
+                                  const float* rstd, void* dx, const float* slabs, int S,
+                                  const float* count, float* gm, const Plan& p, int act,
+                                  cudaStream_t s) {
+  static int cache[CG_MAX_DEVICES] = {};
+  auto xp = static_cast<const T*>(x);
+  auto dyp = static_cast<const T*>(dy);
+  auto dxp = static_cast<T*>(dx);
+  Plan plan = p;
+  void* args[] = {&xp, &dyp, &mean, &rstd, &dxp, &slabs, &S, &count, &gm, &plan, &act};
+  return coop(in_bwd_slab_apply<T, V>, cache, p, args, s);
+}
+
+// The slab entries take one element type for every tensor (float32 or
+// bf16) and a vec of 16 bytes or 1; `F` is called with the instantiation.
+template <typename F>
+cudaError_t by_type(int dtype, int vec, F&& f) {
+  if (dtype == CG_F32) {
+    if (vec == 4) return f(float{}, std::integral_constant<int, 4>{});
+    if (vec == 1) return f(float{}, std::integral_constant<int, 1>{});
+  } else if (dtype == CG_BF16) {
+    if (vec == 8) return f(bf16{}, std::integral_constant<int, 8>{});
+    if (vec == 1) return f(bf16{}, std::integral_constant<int, 1>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x: (N, HW, C) of in_dtype; skip (or NULL) and y (or NULL: statistics
@@ -807,4 +997,82 @@ extern "C" int cg_instance_norm_act_bwd(const void* x, const void* dy, const voi
   if (x_dtype == CG_BF16 && dy_dtype == CG_F32)
     return (int)bwd_vec<bf16, float>(vec, x, dy, mu, rs, dx, pt, p, act, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------- slab entries
+// A sample split over S ranks' H slabs (see "slabs" above). x, skip (or
+// NULL), y, dy, dx: this slab's (N, HW, C), all of `dtype`; the plan is
+// in_plan's for the slab. One cooperative launch each; each returns its CUDA
+// error code (0 on success).
+
+// out: (N, C, 3) float32 (count, mean, M2) of this slab; part: scratch of
+// 2 * N * C * ceil(HW / rows) float32.
+extern "C" int cg_instance_norm_partials(const void* x, void* out, void* part, int N, int HW,
+                                         int C, int rows, int vec, int lanes, int tiles,
+                                         int dtype, void* stream) {
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p)) return (int)cudaErrorInvalidValue;
+  auto o = static_cast<float*>(out), pt = static_cast<float*>(part);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)by_type(dtype, vec, [&](auto t, auto v) {
+    return launch_fwd_partials<decltype(t), decltype(v)::value>(x, o, pt, p, s);
+  });
+}
+
+// slabs: (S, N, C, 3) float32, the S slabs' partials in rank order; stats:
+// (2 * N * C + 1) float32 output, mean, rstd, then the plane's count.
+extern "C" int cg_instance_norm_slab_apply(const void* x, const void* skip, void* y,
+                                           void* stats, const void* slabs, int S, int N,
+                                           int HW, int C, int rows, int vec, int lanes,
+                                           int tiles, float eps, int act, int dtype,
+                                           void* stream) {
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2 || S < 1 ||
+      y == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<float*>(stats);
+  auto sl = static_cast<const float*>(slabs);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)by_type(dtype, vec, [&](auto t, auto v) {
+    return launch_fwd_slab_apply<decltype(t), decltype(v)::value>(x, skip, y, st, sl, S, p,
+                                                                  eps, act, s);
+  });
+}
+
+// mean, rstd: (N, C) float32 of the forward's apply; out: (N, C, 2) float32
+// (sum g, sum g * xhat) of this slab; part as cg_instance_norm_partials'.
+extern "C" int cg_instance_norm_bwd_partials(const void* x, const void* dy, const void* mean,
+                                             const void* rstd, void* out, void* part, int N,
+                                             int HW, int C, int rows, int vec, int lanes,
+                                             int tiles, int act, int dtype, void* stream) {
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
+  auto o = static_cast<float*>(out), pt = static_cast<float*>(part);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)by_type(dtype, vec, [&](auto t, auto v) {
+    return launch_bwd_partials<decltype(t), decltype(v)::value>(x, dy, mu, rs, o, pt, p, act,
+                                                                s);
+  });
+}
+
+// slabs: (S, N, C, 2) float32 in rank order; count: the plane's count (one
+// float32 on the device); gm: scratch of 2 * N * C float32.
+extern "C" int cg_instance_norm_bwd_slab_apply(const void* x, const void* dy, const void* mean,
+                                               const void* rstd, void* dx, const void* slabs,
+                                               int S, const void* count, void* gm, int N,
+                                               int HW, int C, int rows, int vec, int lanes,
+                                               int tiles, int act, int dtype, void* stream) {
+  Plan p;
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
+  auto sl = static_cast<const float*>(slabs), n = static_cast<const float*>(count);
+  auto g = static_cast<float*>(gm);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)by_type(dtype, vec, [&](auto t, auto v) {
+    return launch_bwd_slab_apply<decltype(t), decltype(v)::value>(x, dy, mu, rs, dx, sl, S, n,
+                                                                  g, p, act, s);
+  });
 }

@@ -8,7 +8,7 @@ augments a sample with ``np.random.default_rng((seed, epoch, position))``,
 and the DataLoader hands the samples back in order (``batch_size=None``:
 the batches are stacked here, never inside a worker, so the stream does
 not depend on the worker count). It yields the same batches as ``Loader``,
-also under ``process_shard``.
+also under ``process_shard`` and ``spatial_shard``.
 Workers start with the ``spawn`` method, once an epoch.
 """
 
@@ -21,7 +21,7 @@ import torch.utils.data
 
 from cyclegan_tpu_torch.data.datasets import SegmentationDataset
 from cyclegan_tpu_torch.data.loader import (EVAL_MODES, empty_batch, epoch_jobs, pad_batch,
-                                            shard_rows)
+                                            shard_rows, take_slab)
 from cyclegan_tpu_torch.data.transforms import eval_transform, train_transform
 
 
@@ -61,12 +61,13 @@ class GrainLoader:
                  crop_hw: tuple[int, int], train: bool = True, seed: int = 0,
                  resize_hw: tuple[int, int] | None = None, drop_last: bool = True,
                  num_workers: int = 0, process_shard: tuple[int, int] | None = None,
-                 eval_mode: str = "resize"):
+                 eval_mode: str = "resize", spatial_shard: tuple[int, int] | None = None):
         if eval_mode not in EVAL_MODES:
             raise ValueError(f"unknown eval_mode {eval_mode!r} (resize|center_crop)")
         self.ds = ds
         self.batch_size = batch_size  # the global batch
         self.process_shard = process_shard
+        self.spatial_shard = spatial_shard
         self._rows = shard_rows(batch_size, process_shard)[1]
         self.crop_hw = crop_hw
         self.train = train
@@ -104,12 +105,14 @@ class GrainLoader:
             for idxs, _ in jobs:
                 recs = [next(it) for _ in idxs]
                 if not recs:  # a rank's share of a ragged last batch: padding only
-                    yield pad_batch(empty_batch(self.crop_hw, self.ds.in_channels), self._rows)
-                    continue
-                batch = {"image": np.stack([img for img, _ in recs])}
-                if all(lab is not None for _, lab in recs):
-                    batch["label"] = np.stack([lab for _, lab in recs])
-                yield pad_batch(batch, self._rows)
+                    batch = pad_batch(empty_batch(self.crop_hw, self.ds.in_channels),
+                                      self._rows)
+                else:
+                    batch = {"image": np.stack([img for img, _ in recs])}
+                    if all(lab is not None for _, lab in recs):
+                        batch["label"] = np.stack([lab for _, lab in recs])
+                    batch = pad_batch(batch, self._rows)
+                yield take_slab(batch, self.spatial_shard)
         finally:
             # Dropping the iterator shuts its worker processes down now.
             del it

@@ -10,7 +10,10 @@ for the same seed, and a resumed epoch replays its suffix exactly.
 ``process_shard=(rank, world)``: ``batch_size`` is the global batch and each
 rank builds only its contiguous ``batch_size / world`` rows of every global
 batch; the positions stay global, so the ranks' rows put together are
-bitwise the one-process batch.
+bitwise the one-process batch. ``spatial_shard=(index, size)`` (the spatial
+axis of the mesh): each batch is then cut to the index-th of ``size``
+equal H slabs, after the same augment draws, so a slab is bitwise those
+rows of the one-process batch.
 """
 
 from __future__ import annotations
@@ -39,6 +42,19 @@ def shard_rows(batch_size: int, process_shard: tuple[int, int] | None) -> tuple[
                          f"{world} ranks of process_shard")
     rows = batch_size // world
     return rank * rows, rows
+
+
+def take_slab(batch: dict, spatial_shard: tuple[int, int] | None) -> dict:
+    """The ``index``-th of ``size`` equal H slabs of a batch's images
+    (B, H, W, C) and labels (B, H, W)."""
+    if spatial_shard is None or spatial_shard[1] == 1:
+        return batch
+    index, size = spatial_shard
+    h = batch["image"].shape[1]
+    if h % size:
+        raise ValueError(f"H {h} does not divide into {size} slabs")
+    lo, hi = index * h // size, (index + 1) * h // size
+    return {k: np.ascontiguousarray(v[:, lo:hi]) for k, v in batch.items()}
 
 
 def empty_batch(crop_hw: tuple[int, int], in_channels: int) -> dict:
@@ -92,13 +108,14 @@ class Loader:
                  crop_hw: tuple[int, int], train: bool = True, seed: int = 0,
                  resize_hw: tuple[int, int] | None = None, drop_last: bool = True,
                  prefetch: int = 4, process_shard: tuple[int, int] | None = None,
-                 eval_mode: str = "resize"):
+                 eval_mode: str = "resize", spatial_shard: tuple[int, int] | None = None):
         if eval_mode not in EVAL_MODES:
             # Fail here: inside the prefetch thread it would deadlock the consumer.
             raise ValueError(f"unknown eval_mode {eval_mode!r} (resize|center_crop)")
         self.ds = ds
         self.batch_size = batch_size  # the global batch
         self.process_shard = process_shard
+        self.spatial_shard = spatial_shard
         self._rows = shard_rows(batch_size, process_shard)[1]
         self.crop_hw = crop_hw
         self.train = train
@@ -177,7 +194,7 @@ class Loader:
                 for b, pos in jobs:
                     if stop.is_set():
                         return
-                    q.put(self._make_batch(b, pos, e))
+                    q.put(take_slab(self._make_batch(b, pos, e), self.spatial_shard))
             except Exception as exc:  # handed to the consumer below
                 error.append(exc)
             q.put(None)

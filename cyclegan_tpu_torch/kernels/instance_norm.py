@@ -19,6 +19,15 @@ its forward and backward launch the hand-written kernels of
 ``csrc/instance_norm.cu`` or raise; on a CPU tensor they run the plain
 PyTorch versions (:func:`instance_norm_act_plain`,
 :func:`instance_norm_act_bwd_plain`) through the same Function.
+
+:func:`instance_norm_act_slab` is the same function of a sample whose H
+axis is split over the ranks of a spatial group (``parallel.spatial``):
+each direction makes this slab's partials (forward: (count, mean, M2) per
+(sample, channel); VJP: the sums of g and g * xhat), gathers the ranks'
+partials with a slot a rank, and merges them in rank order before it
+applies (:class:`InstanceNormActSlab`; the kernels' slab entries, or
+:func:`slab_partials_plain`, :func:`slab_apply_plain`,
+:func:`slab_bwd_partials_plain`, :func:`slab_bwd_apply_plain`).
 """
 
 from __future__ import annotations
@@ -38,6 +47,11 @@ LEAKY_SLOPE = 0.2
 # instance-norm launches are counted by its wrapper, not here).
 launches = 0
 bwd_launches = 0
+# Launches of the slab entries (instance_norm_act_slab), by wrapper.
+slab_launches = 0
+slab_apply_launches = 0
+slab_bwd_launches = 0
+slab_bwd_apply_launches = 0
 
 
 def _act(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -287,3 +301,192 @@ def instance_norm_act_reference(x: torch.Tensor, skip: torch.Tensor | None = Non
     compare the kernels with. The port's modules never call it."""
     _check_args(x, act)
     return InstanceNormAct.apply(x, skip, eps, act, True)
+
+
+# ------------------------------------------------------- slabs (spatial axis)
+def chan_merge_plain(parts: torch.Tensor) -> torch.Tensor:
+    """(S, N, C, 3) float32 (count, mean, M2) of S slabs -> (N, C, 3) of the
+    whole plane: Chan's pairwise merge in slab order, the kernels' formula
+    (the weight nb / max(n, 1))."""
+    n, m, m2 = (t.clone() for t in parts[0].unbind(-1))
+    for nb, mb, m2b in (p.unbind(-1) for p in parts[1:]):
+        tot = n + nb
+        r = nb / tot.clamp_min(1.0)
+        d = mb - m
+        m = m + d * r
+        m2 = m2 + m2b + d * d * (n * r)
+        n = tot
+    return torch.stack([n, m, m2], dim=-1)
+
+
+def slab_partials_plain(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, 3) float32 (count, mean, M2) of NHWC ``x`` over its H*W."""
+    n, h, w, c = x.shape
+    x32 = x.float()
+    if h * w == 0:
+        return torch.zeros((n, c, 3), dtype=torch.float32, device=x.device)
+    mean = x32.mean(dim=(1, 2))
+    m2 = torch.square(x32 - mean[:, None, None]).sum(dim=(1, 2))
+    return torch.stack([torch.full_like(mean, float(h * w)), mean, m2], dim=-1)
+
+
+def slab_apply_plain(x: torch.Tensor, skip: torch.Tensor | None, slabs: torch.Tensor,
+                     eps: float = 1e-5, act: str = "none"
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``act(IN(x)) [+ skip]`` of this slab from the (S, N, C, 3) partials of
+    the plane's S slabs: ``(y, mean, rstd, count)``, the statistics float32
+    (N, C) and the plane's count a 1-element float32 tensor."""
+    n, m, m2 = chan_merge_plain(slabs).unbind(-1)
+    rstd = torch.rsqrt(m2 / n + eps)
+    y = _act((x.float() - m[:, None, None]) * rstd[:, None, None], act)
+    if skip is not None:
+        y = y + skip.float()
+    return y.to(x.dtype), m, rstd, n[:1, 0].clone()
+
+
+def slab_bwd_partials_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """(N, C, 2) float32 (sum g, sum g * xhat) of this slab, g = act'(xhat) dy."""
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    g = dy.float() * _act_grad(xhat, act)
+    return torch.stack([g.sum(dim=(1, 2)), (g * xhat).sum(dim=(1, 2))], dim=-1)
+
+
+def slab_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor, slabs: torch.Tensor, count: torch.Tensor,
+                         act: str = "none") -> torch.Tensor:
+    """dx of this slab from the (S, N, C, 2) sums of the plane's S slabs,
+    added in slab order, over the plane's ``count``."""
+    a, b = slabs[0, ..., 0].clone(), slabs[0, ..., 1].clone()
+    for p in slabs[1:]:
+        a, b = a + p[..., 0], b + p[..., 1]
+    m, r = mean[:, None, None], rstd[:, None, None]
+    xhat = (x.float() - m) * r
+    g = dy.float() * _act_grad(xhat, act)
+    gm, gxm = (a / count)[:, None, None], (b / count)[:, None, None]
+    return (r * (g - gm - xhat * gxm)).to(x.dtype)
+
+
+def _slab_plan(x: torch.Tensor, *tensors: torch.Tensor) -> InPlan:
+    n, h, w, c = x.shape
+    plan = in_plan(h * w, c, x.element_size())
+    _check("instance_norm_act_slab", plan.vec, x, *tensors)
+    if any(t.dtype != x.dtype or t.shape != x.shape for t in tensors):
+        raise ValueError("instance_norm_act_slab: skip/dy/out must be x's shape and type")
+    return plan
+
+
+def _slab_partials_cuda(x: torch.Tensor) -> torch.Tensor:
+    global slab_launches
+    n, h, w, c = x.shape
+    if h * w == 0:  # a rank that owns no row of the plane: nothing to launch
+        return slab_partials_plain(x)
+    plan = _slab_plan(x)
+    out = torch.empty((n, c, 3), dtype=torch.float32, device=x.device)
+    stream = _build.stream_ptr(x)
+    part = _build.scratch_ptr(8 * n * c * plan.row_tiles, x, stream)
+    _build.call("instance_norm", "cg_instance_norm_partials", x.data_ptr(), out.data_ptr(),
+                part, n, h * w, c, plan.rows, plan.vec, plan.lanes, plan.tiles,
+                _build.DTYPE_CODES[x.dtype], stream)
+    slab_launches += 1
+    return out
+
+
+def _slab_apply_cuda(x, skip, slabs, eps, act):
+    global slab_apply_launches
+    n, h, w, c = x.shape
+    if h * w == 0:
+        return slab_apply_plain(x, skip, slabs, eps, act)
+    plan = _slab_plan(x, *(() if skip is None else (skip,)))
+    _check("instance_norm_act_slab", 1, slabs)
+    if slabs.dtype != torch.float32 or slabs.shape[1:] != (n, c, 3):
+        raise ValueError(f"instance_norm_act_slab: slab partials {tuple(slabs.shape)}, "
+                         f"want (S, {n}, {c}, 3) float32")
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    stats = torch.empty(2 * n * c + 1, dtype=torch.float32, device=x.device)
+    _build.call("instance_norm", "cg_instance_norm_slab_apply", x.data_ptr(),
+                None if skip is None else skip.data_ptr(), y.data_ptr(), stats.data_ptr(),
+                slabs.data_ptr(), slabs.shape[0], n, h * w, c, plan.rows, plan.vec,
+                plan.lanes, plan.tiles, float(eps), ACTS[act], _build.DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x))
+    slab_apply_launches += 1
+    return y, stats[:n * c].view(n, c), stats[n * c:2 * n * c].view(n, c), stats[2 * n * c:]
+
+
+def _slab_bwd_partials_cuda(x, dy, mean, rstd, act):
+    global slab_bwd_launches
+    n, h, w, c = x.shape
+    if h * w == 0:
+        return slab_bwd_partials_plain(x, dy, mean, rstd, act)
+    plan = _slab_plan(x, dy)
+    out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    stream = _build.stream_ptr(x)
+    part = _build.scratch_ptr(8 * n * c * plan.row_tiles, x, stream)
+    _build.call("instance_norm", "cg_instance_norm_bwd_partials", x.data_ptr(), dy.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), part, n, h * w, c, plan.rows,
+                plan.vec, plan.lanes, plan.tiles, ACTS[act], _build.DTYPE_CODES[x.dtype],
+                stream)
+    slab_bwd_launches += 1
+    return out
+
+
+def _slab_bwd_apply_cuda(x, dy, mean, rstd, slabs, count, act):
+    global slab_bwd_apply_launches
+    n, h, w, c = x.shape
+    if h * w == 0:
+        return slab_bwd_apply_plain(x, dy, mean, rstd, slabs, count, act)
+    plan = _slab_plan(x, dy)
+    _check("instance_norm_act_slab_bwd", 1, slabs, count)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    stream = _build.stream_ptr(x)
+    gm = _build.scratch_ptr(8 * n * c, x, stream)
+    _build.call("instance_norm", "cg_instance_norm_bwd_slab_apply", x.data_ptr(),
+                dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                slabs.data_ptr(), slabs.shape[0], count.data_ptr(), gm, n, h * w, c,
+                plan.rows, plan.vec, plan.lanes, plan.tiles, ACTS[act],
+                _build.DTYPE_CODES[x.dtype], stream)
+    slab_bwd_apply_launches += 1
+    return dx
+
+
+class InstanceNormActSlab(torch.autograd.Function):
+    """The seam of a slab: ``gather`` maps this rank's partials (N, C, k) to
+    the spatial group's (S, N, C, k) in rank order (a collective every rank
+    of the group makes, forward and backward alike); ``plain`` as in
+    :class:`InstanceNormAct`."""
+
+    @staticmethod
+    def forward(ctx, x, skip, eps, act, plain, gather):
+        part = (slab_partials_plain if plain else _slab_partials_cuda)(x)
+        apply = slab_apply_plain if plain else _slab_apply_cuda
+        y, mean, rstd, count = apply(x, skip, gather(part), eps, act)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x, mean, rstd, count)
+            ctx.act, ctx.plain, ctx.gather = act, plain, gather
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, count = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dy_c = dy.contiguous()
+            partials = slab_bwd_partials_plain if ctx.plain else _slab_bwd_partials_cuda
+            apply = slab_bwd_apply_plain if ctx.plain else _slab_bwd_apply_cuda
+            sums = ctx.gather(partials(x, dy_c, mean, rstd, ctx.act))
+            dx = apply(x, dy_c, mean, rstd, sums, count, ctx.act)
+        dskip = dy if ctx.needs_input_grad[1] else None
+        return dx, dskip, None, None, None, None
+
+
+def instance_norm_act_slab(x: torch.Tensor, skip: torch.Tensor | None, eps: float,
+                           act: str, gather) -> torch.Tensor:
+    """:func:`instance_norm_act` of this rank's H slab of NHWC ``x`` with the
+    statistics of the whole plane, whose S slabs' partials ``gather``
+    collects (see :class:`InstanceNormActSlab`). CUDA tensors go through
+    the kernels' slab entries, CPU tensors through the plain versions."""
+    _check_args(x, act)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"instance_norm_act_slab: no kernel for device {x.device}")
+    return InstanceNormActSlab.apply(x, skip, eps, act, x.device.type == "cpu", gather)
+

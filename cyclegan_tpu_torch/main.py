@@ -35,6 +35,9 @@ Usage:
       --dataset synthetic --batch_size 2           # two gloo ranks on the CPU
   torchrun --nproc_per_node 8 -m cyclegan_tpu_torch.main --training \
       --preset voc_dp8_bf16 --data_root /data/VOC2012
+  # spatial axis: each image's H split over 2 ranks (2 data rows x 2 slabs)
+  python -m cyclegan_tpu_torch.main --training --preset cityscapes_semisup_512x256 \
+      --num_devices 4 --spatial_shards 2 --batch_size 2 --data_root /data/cityscapes
 
 ``--num_devices k`` (``--gpu_ids 0,1,..`` names k devices) is the GLOBAL
 device count, as in the JAX CLI: one launch starts k ranks, one a visible
@@ -42,7 +45,9 @@ CUDA device (gloo ranks with ``--device cpu``); None means every visible
 CUDA device, and 1 on the CPU. With ``--coordinator_address`` each of
 ``--num_processes`` processes starts ``num_devices / num_processes`` ranks,
 of global rank ``process_id * local + i``; under torchrun each process is
-one rank.
+one rank. ``--spatial_shards s`` makes them k / s data rows of s ranks that
+each hold an H slab of the row's images (``crop_height`` a multiple of
+4 s).
 """
 
 from __future__ import annotations
@@ -203,7 +208,7 @@ def _launch(args: argparse.Namespace, cfg: Config):
     data-parallel launch (what rank 0 returns)."""
     from cyclegan_tpu_torch.train import runner
 
-    runner._check_single_device(cfg)  # refuse before any rank starts
+    runner.check_mesh_config(cfg)  # refuse before any rank starts
     local, world, first = _local_ranks(cfg, args.device)
     if local == 1:
         return _run(args, cfg)

@@ -19,9 +19,23 @@ from cyclegan_tpu_torch.ops.blocks import ConvBlock
 from cyclegan_tpu_torch.ops.init import init_weights
 
 
+def _blocks_forward(blocks, x: torch.Tensor, spatial_size: int) -> torch.Tensor:
+    """The blocks in turn; under a spatial axis each is told the global H
+    of its input (the rows run 256 -> 128 -> 64 -> 32 -> 31 -> 30 in the
+    PatchGAN at H = 256: the last two layers split unevenly)."""
+    rows = x.shape[2] * spatial_size if spatial_size > 1 else None
+    for block in blocks:
+        x = block(x, rows=rows)
+        rows = block.out_rows(rows)
+    return x
+
+
 class NLayerDiscriminator(nn.Module):
     """PatchGAN; ``n_layers=3`` gives the 70x70 receptive field. ``blocks[k]``
-    is the Flax ``ConvBlock_k``."""
+    is the Flax ``ConvBlock_k``. ``spatial_size``: ranks of a spatial axis,
+    each with an equal H slab of the input."""
+
+    spatial_size = 1
 
     def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
                  norm: str = "instance", dtype: torch.dtype = torch.float32,
@@ -40,13 +54,19 @@ class NLayerDiscriminator(nn.Module):
         init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _blocks_forward(self.blocks, x, self.spatial_size)
+
+    def out_rows(self, rows: int) -> int:
+        """The global H of the score map for an input of global H ``rows``."""
         for block in self.blocks:
-            x = block(x)
-        return x
+            rows = block.out_rows(rows)
+        return rows
 
 
 class PixelDiscriminator(nn.Module):
     """1x1 per-pixel discriminator; ``blocks[k]`` is ``ConvBlock_k``."""
+
+    spatial_size = 1
 
     def __init__(self, input_nc: int, ndf: int = 64, norm: str = "instance",
                  dtype: torch.dtype = torch.float32,
@@ -60,9 +80,10 @@ class PixelDiscriminator(nn.Module):
         init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x)
-        return x
+        return _blocks_forward(self.blocks, x, self.spatial_size)
+
+    def out_rows(self, rows: int) -> int:
+        return rows
 
 
 def define_Dis(input_nc: int, ndf: int = 64, netD: str = "n_layers", n_layers_D: int = 3,

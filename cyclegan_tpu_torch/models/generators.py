@@ -9,7 +9,12 @@ it drops only in train mode and only when ``forward`` is given the masks'
 generator. ``resblock`` / ``resblock_hc`` pick the trunk blocks' route (see
 ``ops.blocks``; None: the environment's choice when the blocks are built).
 ``remat`` recomputes each trunk block in the backward
-(``torch.utils.checkpoint``) instead of keeping its activations.
+(``torch.utils.checkpoint``) instead of keeping its activations; under a
+spatial axis (``ops.blocks.set_data_mesh``) the recomputed forward makes
+its halo exchanges and norm gathers again, inside the backward, on every
+rank alike. The ResNet generator takes H slabs (``spatial_size`` ranks
+each hold one, the blocks told the global H of their input); the U-Nets
+do not.
 
 The U-Net generators (``unet_128``: 7 levels, ``unet_256``: 8): nested
 skip-connection levels, each a LeakyReLU(0.2) + 4x4 stride-2 convolution
@@ -35,7 +40,7 @@ from cyclegan_tpu_torch.ops.init import init_weights
 
 
 def _remat_block(block: ResidualBlock, h: torch.Tensor,
-                 dropout: torch.Generator | None) -> torch.Tensor:
+                 dropout: torch.Generator | None, rows: int | None = None) -> torch.Tensor:
     """``block(h, dropout)`` under ``torch.utils.checkpoint``: the dropout
     mask is drawn here, once, and handed to both passes (the checkpoint's
     RNG preservation covers the global generators only, and the block draws
@@ -47,7 +52,7 @@ def _remat_block(block: ResidualBlock, h: torch.Tensor,
     def run(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
         passes[0] += 1
         with frozen_running_stats(block, passes[0] > 1):
-            return block(x, keep)
+            return block(x, keep, rows)
 
     return checkpoint(run, h, keep, use_reentrant=False, preserve_rng_state=False)
 
@@ -57,6 +62,10 @@ class ResnetGenerator(nn.Module):
     ``down1``, ``down2``, ``trunk[i]``, ``up1``, ``up2``, ``head`` (the Flax
     names are ConvBlock_0..2, ResidualBlock_i, DeconvBlock_0..1 and
     ConvBlock_3; see ``cyclegan_tpu_torch.weights``)."""
+
+    # Ranks of the spatial axis that each hold an equal H slab of the input
+    # (ops.blocks.set_data_mesh).
+    spatial_size = 1
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 64, n_blocks: int = 9,
                  norm: str = "instance", head: str = "tanh",
@@ -87,11 +96,19 @@ class ResnetGenerator(nn.Module):
                 dropout: torch.Generator | None = None) -> torch.Tensor:
         """``dropout``: the generator of this forward's dropout masks (a
         fresh mask per block and call), or None for no dropout."""
-        h = self.down2(self.down1(self.stem(x)))
+        rows = x.shape[2] * self.spatial_size if self.spatial_size > 1 else None
+        h = self.stem(x, rows=rows)
+        h = self.down1(h, rows=rows)
+        rows = self.down1.out_rows(rows)
+        h = self.down2(h, rows=rows)
+        rows = self.down2.out_rows(rows)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.trunk:
-            h = _remat_block(block, h, dropout) if remat else block(h, dropout)
-        h = self.head(self.up2(self.up1(h)))
+            h = _remat_block(block, h, dropout, rows) if remat else block(h, dropout, rows)
+        h = self.up1(h, rows=rows)
+        rows = self.up1.out_rows(rows)
+        h = self.up2(h, rows=rows)
+        h = self.head(h, rows=self.up2.out_rows(rows))
         return torch.tanh(h) if self.head_act == "tanh" else h
 
 
@@ -102,6 +119,8 @@ class UnetLevel(nn.Module):
     convolution). The inner levels norm both convolutions' outputs (the
     innermost only ``up``'s), the middle ones drop after ``up``'s norm, and
     every level but the outermost returns ``cat([x, up], channels)``."""
+
+    takes_slabs = False  # its 4x4 convolutions run on whole planes only
 
     def __init__(self, outer_nc: int, inner_nc: int, input_nc: int | None = None,
                  sub: "UnetLevel | None" = None, outermost: bool = False,

@@ -26,6 +26,19 @@ The residual block's route follows the JAX package's variables, read once
 when the module is built: ``CYCLEGAN_TPU_RESBLOCK=chunked`` selects the
 chunked block with ``CYCLEGAN_TPU_RESBLOCK_HC`` rows a chunk (default 8);
 any other value keeps the port's default, the fused block.
+
+Under the spatial axis of a mesh (:func:`set_data_mesh` with ``spatial >
+1``) each rank holds an H slab of every activation, and the modules take
+``rows``, the global H of their input: ``ConvBlock`` and ``DeconvBlock``
+gather their halo rows and pad through ``parallel.spatial`` (the trunk's
+3x3 convolutions keep kernel #8 on the halo-padded slab, whose weight
+gradient is then this rank's part of the sum the trainers all-reduce),
+``InstanceNorm`` goes through ``kernels.instance_norm_act_slab``,
+``BatchNorm`` sums its statistics over every rank, and ``Dropout`` keeps
+this slab of the global plane's mask. The residual blocks take their
+``unfused`` route there (the fused and chunked kernels take whole planes,
+as the JAX package runs its spatial axis with Pallas off); an explicit
+fused or chunked route raises.
 """
 
 from __future__ import annotations
@@ -39,8 +52,10 @@ from torch import nn
 
 from cyclegan_tpu_torch.kernels import (instance_norm_act, residual_block_chunked,
                                         residual_block_fused)
+from cyclegan_tpu_torch.kernels.instance_norm import instance_norm_act_slab
 from cyclegan_tpu_torch.ops import functional as F
-from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_grad
+from cyclegan_tpu_torch.parallel import spatial as S
+from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_grad, gather_slots
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -62,15 +77,26 @@ def hwio(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     """``InstanceNorm2d`` without affine or running stats (biased variance,
     eps 1e-5), with the following activation and residual add fused:
-    ``act(IN(x)) [+ skip]`` through ``kernels.instance_norm_act``."""
+    ``act(IN(x)) [+ skip]`` through ``kernels.instance_norm_act``, or on an
+    H slab (``spatial``) through ``kernels.instance_norm_act_slab`` with the
+    whole plane's statistics."""
 
     def __init__(self, eps: float = 1e-5) -> None:
         super().__init__()
         self.eps = eps
+        self.spatial: S.Spatial | None = None
+
+    def _gather(self, part: torch.Tensor) -> torch.Tensor:
+        """The spatial group's partials (S, N, C, k) from this rank's."""
+        sp = self.spatial
+        return gather_slots(part[None], sp.group, sp.index, sp.size)
 
     def forward(self, x: torch.Tensor, act: str = "none",
                 skip: torch.Tensor | None = None) -> torch.Tensor:
         skip = to_nhwc(skip.to(x.dtype)) if skip is not None else None
+        if self.spatial is not None:
+            return to_nchw(instance_norm_act_slab(to_nhwc(x), skip, self.eps, act,
+                                                  self._gather))
         return to_nchw(instance_norm_act(to_nhwc(x), skip, self.eps, act))
 
 
@@ -113,10 +139,15 @@ class BatchNorm(nn.Module):
         global batch's across the mesh."""
         if self.mesh is None or self.mesh.world == 1:
             return x32.mean(dim=(0, 2, 3)), torch.square(x32).mean(dim=(0, 2, 3))
-        sums = torch.stack([x32.sum(dim=(0, 2, 3)), torch.square(x32).sum(dim=(0, 2, 3))])
-        sums = all_reduce_sum_grad(sums, self.mesh)
-        count = x32.numel() // x32.shape[1] * self.mesh.world
-        return sums[0] / count, sums[1] / count
+        sums = [x32.sum(dim=(0, 2, 3)), torch.square(x32).sum(dim=(0, 2, 3))]
+        if self.mesh.spatial == 1:
+            sums = all_reduce_sum_grad(torch.stack(sums), self.mesh)
+            count = x32.numel() // x32.shape[1] * self.mesh.world
+            return sums[0] / count, sums[1] / count
+        # H slabs may differ in height: the counts are summed too.
+        sums.append(torch.full_like(sums[0], float(x32.numel() // x32.shape[1])))
+        sums = all_reduce_sum_grad(torch.stack(sums), self.mesh)
+        return sums[0] / sums[2], sums[1] / sums[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -150,16 +181,38 @@ def frozen_running_stats(module: nn.Module, frozen: bool = True):
             m.frozen = f
 
 
+# The Queue 1 item of the ROADMAP that holds what the spatial axis does
+# not take yet.
+SPATIAL_TODO = "ROADMAP Queue 1 item 16"
+
+
 def set_data_mesh(module: nn.Module, mesh: Mesh | None, rows: int | None = None) -> None:
     """Give every :class:`BatchNorm` and :class:`Dropout` of ``module`` the
-    data mesh its train-mode forward spans (None: this rank alone), and the
+    mesh its train-mode forward spans (None: this rank alone), and the
     dropouts the rows of one batch on this rank (the global batch size over
-    the ranks)."""
+    the data ranks). Under a spatial axis (``mesh.spatial > 1``) every
+    module that sees H takes its slab: the instance norms, convolutions
+    and transposed convolutions get the spatial group, the residual blocks
+    their unfused route (an explicit fused or chunked route raises), and a
+    module the axis does not take (a U-Net level) raises."""
+    sp = None
+    if mesh is not None and mesh.spatial > 1:
+        sp = S.Spatial(mesh.spatial, mesh.spatial_index, mesh.spatial_group)
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.mesh = mesh
         elif isinstance(m, Dropout):
             m.mesh, m.rows = mesh, rows
+        elif isinstance(m, (InstanceNorm, ConvBlock, DeconvBlock)):
+            m.spatial = sp
+        elif isinstance(m, ResidualBlock):
+            m.set_spatial(sp is not None)
+        elif sp is not None and getattr(m, "takes_slabs", True) is False:
+            raise NotImplementedError(
+                f"spatial_shards={mesh.spatial}: the U-Net's 4x4 levels take no H slabs "
+                f"({SPATIAL_TODO})")
+        if hasattr(m, "spatial_size"):
+            m.spatial_size = sp.size if sp is not None else 1
 
 
 def get_norm(norm: str) -> Callable[[int], nn.Module | None]:
@@ -200,9 +253,20 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r} (relu|leaky|none)")
 
 
+def _empty_rows(xp: torch.Tensor, w: torch.Tensor, c_out: int, w_out: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The output of a rank that owns no row of a layer: (N, c_out, 0,
+    w_out), still wired to the gathered input and the weight, so that the
+    rank's backward makes the layer's collectives too."""
+    tie = (xp.float().sum() + w.float().sum()) * 0
+    return tie.to(dtype) + xp.new_zeros((xp.shape[0], c_out, 0, w_out), dtype=dtype)
+
+
 class ConvBlock(nn.Module):
     """[reflect|zero]-pad -> conv -> norm -> activation (reference
-    ``conv_norm_relu``); ``skip`` is added after norm + activation."""
+    ``conv_norm_relu``); ``skip`` is added after norm + activation. Under a
+    spatial axis (``spatial``) ``rows`` is the global H of ``x``, of which
+    ``x`` is this rank's slab."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
                  pad: int = 0, pad_mode: str = "reflect", norm: str = "instance",
@@ -217,9 +281,35 @@ class ConvBlock(nn.Module):
         # The trunk's 3x3 convolutions: weight gradient from TPU kernel #8.
         self.dw_fused = pad_mode == "reflect" and F.use_dw_fused(in_ch, features, kernel,
                                                                  stride)
+        self.spatial: S.Spatial | None = None
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
+    def out_rows(self, rows: int | None) -> int | None:
+        """The global H of the output for an input of global H ``rows``."""
+        if rows is None:
+            return None
+        return S.conv_out_rows(rows, self.conv.kernel_size[0], self.conv.stride[0], self.pad)
+
+    def _slab_forward(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The convolution of this rank's rows: halo-padded slab, then a
+        VALID convolution (kernel #8's weight gradient where it applies)."""
+        c, d = self.conv, self.dtype
+        k, stride = c.kernel_size[0], c.stride[0]
+        xp = S.conv_input(x, rows, k, stride, self.pad, self.pad_mode, self.spatial)
+        if xp.shape[2] == 0:
+            w_out = (xp.shape[3] - k) // stride + 1
+            return _empty_rows(xp, c.weight, c.out_channels, w_out, d)
+        if self.dw_fused:
+            y = F.conv2d_valid_dw_fused(xp.to(d), c.weight.to(d))
+            return y if c.bias is None else y + c.bias.to(d).view(1, -1, 1, 1)
+        return F.conv2d(xp, c.weight, c.bias, stride=stride, compute_dtype=d)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None,
+                rows: int | None = None) -> torch.Tensor:
         stride = self.conv.stride[0]
+        if self.spatial is not None:
+            if rows is None:
+                raise ValueError("ConvBlock on an H slab needs rows, the global H of its input")
+            return apply_norm(self.norm, self._slab_forward(x, rows), self.act, skip)
         if self.dw_fused:
             d, b = self.dtype, self.conv.bias
             x = F.conv2d_valid_dw_fused(F.reflect_pad(x, self.pad).to(d),
@@ -236,7 +326,10 @@ class ConvBlock(nn.Module):
 
 class DeconvBlock(nn.Module):
     """Transposed conv (torch geometry, k3 s2 p1 op1 doubles H and W) ->
-    norm -> activation (reference ``dconv_norm_relu``)."""
+    norm -> activation (reference ``dconv_norm_relu``). Under a spatial
+    axis ``rows`` is the global H of ``x``: the rank gathers the input rows
+    that reach its output rows (one halo row from below at k3 s2 p1) and
+    crops the transposed convolution of them to its rows."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 2,
                  padding: int = 1, output_padding: int = 1, norm: str = "instance",
@@ -248,9 +341,31 @@ class DeconvBlock(nn.Module):
                                        bias=use_bias)
         self.act, self.dtype = act, dtype
         self.norm = get_norm(norm)(features)
+        self.spatial: S.Spatial | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_rows(self, rows: int | None) -> int | None:
+        if rows is None:
+            return None
         c = self.conv
+        return S.deconv_out_rows(rows, c.kernel_size[0], c.stride[0], c.padding[0],
+                                 c.output_padding[0])
+
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        c = self.conv
+        if self.spatial is not None:
+            if rows is None:
+                raise ValueError("DeconvBlock on an H slab needs rows, the global H of its "
+                                 "input")
+            k, st, pad, op = c.kernel_size[0], c.stride[0], c.padding[0], c.output_padding[0]
+            xg, first, count = S.deconv_input(x, rows, k, st, pad, op, self.spatial)
+            if count == 0:
+                w_out = S.deconv_out_rows(x.shape[3], k, st, pad, op)
+                x = _empty_rows(xg, c.weight, c.out_channels, w_out, self.dtype)
+            else:
+                x = F.conv2d_transpose(xg, c.weight, c.bias, stride=st, padding=(0, pad),
+                                       output_padding=(0, op), compute_dtype=self.dtype)
+                x = x[:, :, first:first + count]
+            return apply_norm(self.norm, x, self.act)
         x = F.conv2d_transpose(x, c.weight, c.bias, stride=c.stride[0],
                                padding=c.padding[0], output_padding=c.output_padding[0],
                                compute_dtype=self.dtype)
@@ -269,14 +384,18 @@ def dropout_keep_rows(shape: tuple[int, ...], p: float, generator: torch.Generat
     """A data-parallel rank's keep-mask of NHWC ``shape``: ``shape[0] /
     rows`` segments of ``rows`` rows (a concatenation of batches of
     ``rows``). The mask of the global batch is drawn (every segment
-    ``mesh.world`` times longer; the generator is seeded alike on every
-    rank) and this rank's rows of each segment are taken, so the ranks drop
-    what one device drops on the global batch."""
+    ``mesh.dp`` times longer, and under a spatial axis the whole H, of
+    ``mesh.spatial`` equal slabs; the generator is seeded alike on every
+    rank) and this rank's rows of each segment, and its slab, are taken,
+    so the ranks drop what one device drops on the global batch."""
     segs = shape[0] // rows
     if segs * rows != shape[0]:
         raise ValueError(f"{shape[0]} rows are no whole number of batches of {rows}")
-    full = dropout_keep((segs * mesh.world * rows, *shape[1:]), p, generator)
-    return full.view(segs, mesh.world, rows, *shape[1:])[:, mesh.rank].reshape(shape)
+    n, h, *rest = shape
+    full = dropout_keep((segs * mesh.dp * rows, h * mesh.spatial, *rest), p, generator)
+    full = full.view(segs, mesh.dp, rows, h * mesh.spatial, *rest)[:, mesh.data_index]
+    p0 = mesh.spatial_index * h
+    return full[:, :, p0:p0 + h].reshape(shape)
 
 
 class Dropout(nn.Module):
@@ -346,12 +465,28 @@ class ResidualBlock(nn.Module):
                                dtype=dtype)
         self.dropout = Dropout() if use_dropout else None
         env_route, env_hc = resblock_route_from_env()
+        chosen = route is not None or env_route == "chunked"
         route = env_route if route is None else route
         if route not in ("fused", "chunked"):
             raise ValueError(f"unknown residual-block route {route!r} (fused|chunked)")
-        self.route = "unfused" if norm != "instance" or use_dropout else route
+        # The route a whole block takes, and whether the caller (or the
+        # environment) chose it: under a spatial axis a chosen whole route
+        # raises, the default gives way to the unfused one.
+        self.whole_route = "unfused" if norm != "instance" or use_dropout else route
+        self.route_chosen = chosen
+        self.route = self.whole_route
         self.hc = env_hc if hc is None else hc
         self.dtype = dtype
+
+    def set_spatial(self, on: bool) -> None:
+        """Take the unfused route under a spatial axis (``on``): kernels #3-#7
+        take whole planes."""
+        if on and self.whole_route != "unfused" and self.route_chosen:
+            raise ValueError(
+                f"residual-block route {self.whole_route!r} takes whole planes; under "
+                f"spatial_shards > 1 the block runs unfused (leave the route and "
+                f"CYCLEGAN_TPU_RESBLOCK unset)")
+        self.route = "unfused" if on else self.whole_route
 
     def keep_mask(self, x: torch.Tensor,
                   generator: torch.Generator | None) -> torch.Tensor | None:
@@ -363,15 +498,16 @@ class ResidualBlock(nn.Module):
         return self.dropout.keep_mask(tuple(x.shape), generator)
 
     def forward(self, x: torch.Tensor,
-                dropout: torch.Generator | torch.Tensor | None = None) -> torch.Tensor:
+                dropout: torch.Generator | torch.Tensor | None = None,
+                rows: int | None = None) -> torch.Tensor:
         """``dropout``: the generator of the dropout masks, or the keep-mask
         of :meth:`keep_mask` (train mode only; None or eval mode never
-        drops)."""
+        drops); ``rows``: the global H under a spatial axis."""
         if self.route == "unfused":
-            h = self.conv0(x)
+            h = self.conv0(x, rows=rows)
             if self.dropout is not None:
                 h = self.dropout(h, dropout)
-            return self.conv1(h, skip=x)
+            return self.conv1(h, skip=x, rows=rows)
         d = self.dtype
         c0, c1 = self.conv0.conv, self.conv1.conv
         args = (to_nhwc(x.to(d)), hwio(c0.weight, d), c0.bias.to(d),

@@ -1,10 +1,13 @@
-"""Data parallelism (counterpart of ``cyclegan_tpu/parallel``).
+"""Data and spatial parallelism (counterpart of ``cyclegan_tpu/parallel``).
 
-The JAX package shards the batch over a ``jax.sharding.Mesh`` and lets XLA
-insert the gradient ``psum`` inside one jitted step. The port runs one rank
-a device under ``torch.distributed`` (NCCL on the card, gloo on the CPU)
-and makes the same global-batch program explicit: gradients averaged,
-batch-norm statistics and pools global, evaluation summed.
+The JAX package shards the batch (and, on its ``spatial`` axis, each
+image's H) over a ``jax.sharding.Mesh`` and lets XLA insert the gradient
+``psum``, the halo exchanges and the norms' reductions inside one jitted
+step. The port runs one rank a device under ``torch.distributed`` (NCCL on
+the card, gloo on the CPU) and makes the same global-batch program
+explicit: gradients averaged, batch-norm statistics and pools global,
+halo rows and instance-norm partials exchanged (``parallel.spatial``),
+evaluation summed.
 """
 
 from cyclegan_tpu_torch.parallel.distributed import (is_primary, launch_local,

@@ -33,6 +33,7 @@ import re
 import torch
 
 from cyclegan_tpu_torch.parallel.distributed import is_primary
+from cyclegan_tpu_torch.parallel.mesh import gather_slab, local_slab
 from cyclegan_tpu_torch.train.pool import PoolState
 from cyclegan_tpu_torch.train.supervised import SupervisedState
 
@@ -52,14 +53,19 @@ def _cpu(x):
     return x
 
 
-def _pool_payload(pool: PoolState) -> dict:
+def _pool_payload(pool: PoolState, mesh=None) -> dict:
     # Rows at and past `count` are never read before they are written.
-    return {"buffer": _cpu(pool.buffer[:pool.count]), "count": pool.count,
-            "size": pool.buffer.shape[0]}
+    # Under a spatial axis each rank holds H slabs of the pooled images:
+    # they are gathered (every rank of the group takes part).
+    rows = pool.buffer[:pool.count]
+    if mesh is not None and mesh.spatial > 1:
+        rows = gather_slab(rows.contiguous(), mesh)
+    return {"buffer": _cpu(rows), "count": pool.count, "size": pool.buffer.shape[0]}
 
 
 def state_payload(trainer, state) -> dict:
-    """Everything of ``(trainer, state)`` a resume needs, as CPU copies."""
+    """Everything of ``(trainer, state)`` a resume needs, as CPU copies.
+    Under a spatial axis it gathers the pools' slabs: every rank calls it."""
     if isinstance(state, SupervisedState):
         return {"nets": {"model": _cpu(trainer.model.state_dict())},
                 "opt": _cpu(state.opt.state_dict()), "sched": state.sched.state_dict(),
@@ -67,13 +73,13 @@ def state_payload(trainer, state) -> dict:
     return {"nets": {n: _cpu(getattr(trainer, n).state_dict()) for n in NETS},
             "g_opt": _cpu(state.g_opt.state_dict()), "d_opt": _cpu(state.d_opt.state_dict()),
             "g_sched": state.g_sched.state_dict(), "d_sched": state.d_sched.state_dict(),
-            "pool_img": _pool_payload(state.pool_img),
-            "pool_lab": _pool_payload(state.pool_lab),
+            "pool_img": _pool_payload(state.pool_img, trainer.mesh),
+            "pool_lab": _pool_payload(state.pool_lab, trainer.mesh),
             "generator": state.generator.get_state(), "dropout": state.dropout.get_state(),
             "step": int(state.step)}
 
 
-def _restore_pool(stored: dict, pool: PoolState, name: str, device) -> PoolState:
+def _restore_pool(stored: dict, pool: PoolState, name: str, device, mesh=None) -> PoolState:
     if stored["size"] == 0:
         if pool.buffer.shape[0]:
             raise ValueError(f"checkpoint stored an EMPTY {name} (pool_size 0 run) but this "
@@ -81,6 +87,8 @@ def _restore_pool(stored: dict, pool: PoolState, name: str, device) -> PoolState
                              f"--pool_size 0")
         return pool
     rows = stored["buffer"]
+    if mesh is not None:  # this rank's H slab of the whole images
+        rows = local_slab(rows, mesh)
     buffer = torch.zeros((stored["size"], *rows.shape[1:]), dtype=rows.dtype, device=device)
     buffer[:stored["count"]] = rows.to(device)
     return PoolState(buffer, int(stored["count"]))
@@ -113,9 +121,9 @@ def load_state(trainer, state, payload: dict):
     state.g_sched.load_state_dict(payload["g_sched"])
     state.d_sched.load_state_dict(payload["d_sched"])
     state.pool_img = _restore_pool(payload["pool_img"], state.pool_img, "pool_img",
-                                   trainer.device)
+                                   trainer.device, trainer.mesh)
     state.pool_lab = _restore_pool(payload["pool_lab"], state.pool_lab, "pool_lab",
-                                   trainer.device)
+                                   trainer.device, trainer.mesh)
     state.generator.set_state(payload["generator"].cpu())
     state.dropout.set_state(payload["dropout"].cpu())
     state.step = int(payload["step"])
@@ -228,8 +236,9 @@ def newest_checkpoint(checkpoint_dir: str) -> tuple[CheckpointManager, int] | No
 
 
 def restore_for_inference(cfg, *, semisupervised: bool, num_classes: int | None = None,
-                          in_channels: int | None = None, device=None):
-    """Build the trainer for ``cfg`` on ``device`` and restore the newest
+                          in_channels: int | None = None, device=None, mesh=None):
+    """Build the trainer for ``cfg`` on ``device`` (or this rank's ``mesh``)
+    and restore the newest
     checkpoint under ``cfg.checkpoint_dir`` (:func:`newest_checkpoint`):
     the entry of ``--testing``. Returns ``(trainer, state, num_classes,
     in_channels)``; raises FileNotFoundError when there is no checkpoint."""
@@ -241,7 +250,7 @@ def restore_for_inference(cfg, *, semisupervised: bool, num_classes: int | None 
     num_classes = num_classes or spec_nc
     in_ch = in_channels or spec_ic
     make = CycleGANTrainer if semisupervised else SupervisedTrainer
-    trainer = make(cfg, num_classes, in_ch, steps_per_epoch=1, device=device)
+    trainer = make(cfg, num_classes, in_ch, steps_per_epoch=1, device=device, mesh=mesh)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
     newest = newest_checkpoint(cfg.checkpoint_dir)
     if newest is None:

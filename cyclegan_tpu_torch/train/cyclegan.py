@@ -46,6 +46,16 @@ gradients and metrics are averaged over the ranks, batch norms take global
 statistics, dropout masks are the global batch's rows, and the fakes of
 the global batch go through every rank's copy of the pools with the same
 decisions (injected ones are (B,) vectors of the global batch).
+
+Under a spatial axis of s ranks (``mesh.spatial``) each rank of a data row
+holds an equal H slab of its rows: the nets run on slabs
+(``ops.blocks.set_data_mesh``), every mean (the LSGAN patch maps, whose
+slabs may differ in height, and the L1 cycle) divides this slab's sum by
+the whole plane's count, the cross-entropies divide by the global batch's
+valid pixels over the data ranks, the gradients and metrics are summed
+over the world and divided by the data ranks, and each rank's pools hold
+its slabs of every pooled image (every rank takes the same decisions; the
+rows of the global batch are gathered over the data group).
 """
 
 from __future__ import annotations
@@ -116,31 +126,42 @@ def _stack_size(batches: dict) -> int:
 
 
 def data_mesh(cfg: Config, device, mesh: Mesh | None) -> Mesh:
-    """The trainer's mesh: ``mesh``, or this device alone. Its ranks must
-    divide the global batch."""
+    """The trainer's mesh: ``mesh``, or this device alone. Its data ranks
+    must divide the global batch."""
     mesh = mesh or Mesh(resolve_device(device))
-    if cfg.batch_size % mesh.world:
+    if cfg.batch_size % mesh.dp:
         raise ValueError(f"batch_size {cfg.batch_size} (the global batch) does not divide "
-                         f"over {mesh.world} ranks")
+                         f"over {mesh.dp} ranks")
     return mesh
 
 
 def check_rows(rows: int, cfg: Config, mesh: Mesh) -> None:
     """A rank steps on its share of the global batch, no other size."""
-    if mesh.world > 1 and rows * mesh.world != cfg.batch_size:
+    if mesh.dp > 1 and rows * mesh.dp != cfg.batch_size:
         raise ValueError(f"a rank's batch has {rows} rows; the global batch_size "
-                         f"{cfg.batch_size} over {mesh.world} ranks gives "
-                         f"{cfg.batch_size // mesh.world}")
+                         f"{cfg.batch_size} over {mesh.dp} ranks gives "
+                         f"{cfg.batch_size // mesh.dp}")
 
 
 def ce_count(labels: torch.Tensor, mesh: Mesh, ignore_index: int) -> torch.Tensor | None:
     """A rank's cross-entropy divisor: the global batch's valid pixels (at
-    least 1) over the ranks, so that the ranks' mean is the global mean;
-    None (the batch's own count) at world 1."""
+    least 1) over the data ranks, so that the ranks' losses sum over each
+    spatial group and average over the data axis to the global mean; None
+    (the batch's own count) at world 1."""
     if mesh.world == 1:
         return None
     valid = all_reduce_sum((labels != ignore_index).sum(), mesh)
-    return valid.clamp_min(1) / mesh.world
+    return valid.clamp_min(1) / mesh.dp
+
+
+def plane_count(mesh: Mesh, t: torch.Tensor, rows: int | None = None) -> int | None:
+    """The divisor of a mean over NCHW ``t`` on an H slab: the elements of
+    this rank's rows of the whole plane of ``rows`` global rows (default:
+    ``t``'s equal slabs); None (``t``'s own count) without a spatial axis."""
+    if mesh.spatial == 1:
+        return None
+    n, c, h, w = t.shape
+    return n * c * w * (h * mesh.spatial if rows is None else rows)
 
 
 def _accumulate(sums: dict, metrics_: dict) -> None:
@@ -178,7 +199,7 @@ class CycleGANTrainer:
                                 cfg.norm, dtype=d)
         for net in self.nets():
             net.to(self.device, memory_format=torch.channels_last).train()
-            set_data_mesh(net, self.mesh, cfg.batch_size // self.mesh.world)
+            set_data_mesh(net, self.mesh, cfg.batch_size // self.mesh.dp)
         self.ignore_index = 255
         self.lamda = cfg.lamda
         self.lamda_lab = cfg.lamda if cfg.lamda_lab is None else cfg.lamda_lab
@@ -205,7 +226,7 @@ class CycleGANTrainer:
                      steps_per_epoch=self.steps_per_epoch)
         g_opt = schedule.make_adam(self.g_params(), cfg.lr)
         d_opt = schedule.make_adam(self.d_params(), cfg.lr)
-        h, w = cfg.crop_height, cfg.crop_width
+        h, w = cfg.crop_height // self.mesh.spatial, cfg.crop_width  # this rank's slab
         pool = dict(dtype=self.dtype, device=self.device)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
@@ -223,6 +244,12 @@ class CycleGANTrainer:
         valid = labels != self.ignore_index
         oh = nn.functional.one_hot(torch.where(valid, labels, 0).long(), self.num_classes)
         return oh.float() * valid.unsqueeze(-1)
+
+    def _adv(self, D: nn.Module, x: torch.Tensor, real: bool) -> torch.Tensor:
+        """LSGAN of D on NCHW ``x``, a mean over the whole score map."""
+        scores = D(x)
+        rows = D.out_rows(x.shape[2] * self.mesh.spatial) if self.mesh.spatial > 1 else None
+        return losses.lsgan_loss(scores, real, plane_count(self.mesh, scores, rows))
 
     def _g_loss(self, batch: dict, real_lab_oh: torch.Tensor,
                 drop: torch.Generator | None):
@@ -242,9 +269,10 @@ class CycleGANTrainer:
             fake_lab = torch.softmax(self.G_i2l(_nchw(batch["unlab_image"]), drop), dim=1)
             fake_img = self.G_l2i(_nchw(real_lab_oh), drop)
             rec_img = self.G_l2i(fake_lab.float(), drop)
-        adv_lab = losses.lsgan_loss(self.D_lab(fake_lab), True)
-        adv_img = losses.lsgan_loss(self.D_img(fake_img), True)
-        cyc_img = losses.l1_loss(_nhwc(rec_img), batch["unlab_image"]) * self.lamda
+        adv_lab = self._adv(self.D_lab, fake_lab, True)
+        adv_img = self._adv(self.D_img, fake_img, True)
+        cyc_img = losses.l1_loss(_nhwc(rec_img), batch["unlab_image"],
+                                 plane_count(self.mesh, rec_img)) * self.lamda
         rec_lab_logits = self.G_i2l(fake_img, drop)
         cyc_lab = losses.cross_entropy_loss(_nhwc(rec_lab_logits), batch["lab_label"],
                                             ignore_index=self.ignore_index,
@@ -263,6 +291,7 @@ class CycleGANTrainer:
         img = batch["unlab_image"]
         b = img.shape[0]
         d_losses = []
+        rows = None
         for D, real, fake in ((self.D_img, img, pooled_fake_img),
                               (self.D_lab, real_lab_oh, pooled_fake_lab)):
             if self.cfg.norm != "batch":
@@ -270,8 +299,11 @@ class CycleGANTrainer:
                 s_real, s_fake = s[:b], s[b:]
             else:
                 s_real, s_fake = D(_nchw(real)), D(_nchw(fake))
-            d_losses.append(0.5 * (losses.lsgan_loss(s_real, True)
-                                   + losses.lsgan_loss(s_fake, False)))
+            if self.mesh.spatial > 1:
+                rows = D.out_rows(img.shape[1] * self.mesh.spatial)
+            d_losses.append(0.5 * (
+                losses.lsgan_loss(s_real, True, plane_count(self.mesh, s_real, rows))
+                + losses.lsgan_loss(s_fake, False, plane_count(self.mesh, s_fake, rows))))
         d_img_loss, d_lab_loss = d_losses
         total = d_img_loss + d_lab_loss
         return total, {"d_img": d_img_loss, "d_lab": d_lab_loss, "d_total": total}
@@ -284,8 +316,8 @@ class CycleGANTrainer:
                              f"{POOL_KEYS}; got only {given}")
         if self.cfg.pool_size == 0:
             return fake_img, fake_lab
-        # Every rank queries its copy of the pools with the global batch and
-        # the same decisions, then keeps its rows.
+        # Every rank queries its copy of the pools with the global batch (of
+        # its slab) and the same decisions, then keeps its rows.
         fake_img, fake_lab = gather_rows(fake_img, self.mesh), gather_rows(fake_lab, self.mesh)
         if given:
             state.pool_img, fake_img = pool_query_with_decisions(

@@ -4,7 +4,9 @@ Counterpart of ``cyclegan_tpu/train/losses.py``: LSGAN adversarial = MSE
 against constant 0/1 targets; cycle consistency = L1; supervised
 segmentation = pixel cross-entropy masking the ignore index (VOC's 255
 border). All in float32, all means. Logits are channels-last ``(..., K)``,
-the JAX package's layout.
+the JAX package's layout. ``count`` replaces a mean's divisor: a rank
+holding an H slab (or rows) of a larger batch divides its sum by the
+count of the whole, so that the ranks' losses add up to its mean.
 """
 
 from __future__ import annotations
@@ -12,14 +14,19 @@ from __future__ import annotations
 import torch
 
 
-def lsgan_loss(scores: torch.Tensor, target_is_real: bool) -> torch.Tensor:
+def _mean(t: torch.Tensor, count: float | None) -> torch.Tensor:
+    return t.mean() if count is None else t.sum() / count
+
+
+def lsgan_loss(scores: torch.Tensor, target_is_real: bool,
+               count: float | None = None) -> torch.Tensor:
     """MSE against an all-ones (real) or all-zeros (fake) target map."""
     scores = scores.float()
-    return torch.square(scores - (1.0 if target_is_real else 0.0)).mean()
+    return _mean(torch.square(scores - (1.0 if target_is_real else 0.0)), count)
 
 
-def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a.float() - b.float()).abs().mean()
+def l1_loss(a: torch.Tensor, b: torch.Tensor, count: float | None = None) -> torch.Tensor:
+    return _mean((a.float() - b.float()).abs(), count)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -14,16 +14,20 @@ log interval late, and the next two batches are copied to the device
 evaluate with ``--eval_resize tile`` and the ``--eval_flip`` /
 ``--eval_scales`` TTA when asked (``eval_tile.py``, ``tta.py``).
 
-Data parallelism (``parallel/``): each rank runs these loops on its device
-with a data :class:`~cyclegan_tpu_torch.parallel.mesh.Mesh`. Its loaders
-build only its rows of every global batch, the trainers make the step the
-global batch's, evaluation sums the ranks' confusion matrices (the ragged
-last batch padded with masked rows), the primary rank alone writes
-checkpoints, sample dumps and logs (barriers after each save), every rank
-restores, and a preemption is agreed by all ranks at the save boundaries.
-Spatial shards raise ``NotImplementedError`` naming ROADMAP Queue 1 item
-15. The XLA machinery of the JAX runner (``_aligned_jit``) has no
-counterpart.
+Data and spatial parallelism (``parallel/``): each rank runs these loops
+on its device with a (data, spatial)
+:class:`~cyclegan_tpu_torch.parallel.mesh.Mesh`. Its loaders build only
+its rows of every global batch, cut to its H slab under a spatial axis
+(``--spatial_shards s``: ``--num_devices k`` ranks are k / s data rows of
+s slabs each), the trainers make the step the global batch's, evaluation
+predicts on slabs and sums the ranks' confusion matrices (the ragged last
+batch padded with masked rows), the primary rank alone writes checkpoints,
+sample dumps and logs (barriers after each save; the pools' and the dumps'
+slabs gathered first), every rank restores, and a preemption is agreed by
+all ranks at the save boundaries. Under a spatial axis the tiled and
+multi-scale evaluations and the U-Net generators raise, naming ROADMAP
+Queue 1 item 16. The XLA machinery of the JAX runner (``_aligned_jit``) has
+no counterpart.
 
 Divergences from the JAX runner, on purpose:
 - a run cut by ``--max_steps`` inside an epoch saves a mid-epoch checkpoint
@@ -54,8 +58,9 @@ from cyclegan_tpu_torch.data.loader import Loader, paired_iterator, paired_steps
 from cyclegan_tpu_torch.data.palette import save_prediction_png
 from cyclegan_tpu_torch.export import resolve_device
 from cyclegan_tpu_torch.parallel import distributed
-from cyclegan_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, make_mesh, replicate_state,
-                                              select_step)
+from cyclegan_tpu_torch.ops.blocks import SPATIAL_TODO
+from cyclegan_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, gather_slab, make_mesh,
+                                              replicate_state, select_step)
 from cyclegan_tpu_torch.train import checkpoint as checkpoint_lib
 from cyclegan_tpu_torch.train import metrics as metrics_lib
 from cyclegan_tpu_torch.train.checkpoint import CheckpointManager, load_state, state_payload
@@ -76,23 +81,42 @@ def _dataset_spec(cfg: Config) -> tuple[int, int]:
     return num_classes, in_ch
 
 
-def _check_single_device(cfg: Config) -> None:
-    """The data axis is ported; the spatial axis is not."""
-    if cfg.spatial_shards > 1:
+def check_mesh_config(cfg: Config) -> None:
+    """What the spatial axis (``spatial_shards`` s > 1) takes, checked
+    before any rank starts: s must divide ``num_devices``; the crop's H
+    must divide into s slabs of a multiple of 4 rows (the generators' two
+    stride-2 convolutions then keep every slab edge on an even row: the
+    JAX package needs only H % s); the tiled and multi-scale evaluations
+    and the U-Nets have no slab form yet."""
+    s = cfg.spatial_shards
+    if s < 1:
+        raise ValueError(f"spatial_shards={s}: at least 1")
+    if s == 1:
+        return
+    if cfg.num_devices is not None and cfg.num_devices % s:
+        raise ValueError(f"num_devices={cfg.num_devices} not divisible by spatial_shards={s}")
+    if cfg.crop_height % (4 * s):
+        raise ValueError(
+            f"crop_height={cfg.crop_height} must divide by 4 * spatial_shards = {4 * s}: each "
+            f"rank's H slab must stay a whole number of rows through the generators' two "
+            f"stride-2 convolutions")
+    if cfg.eval_resize == "tile" or tta.parse_scales(cfg.eval_scales):
         raise NotImplementedError(
-            f"spatial_shards={cfg.spatial_shards}: the spatial axis needs a halo exchange "
-            f"and cross-rank instance-norm statistics around the port's whole-plane kernels "
-            f"(ROADMAP Queue 1 item 15)")
+            f"spatial_shards={s} with --eval_resize tile or --eval_scales: the windows and "
+            f"the rescaled canvases cross the H slabs ({SPATIAL_TODO})")
+    if cfg.gen_net.startswith("unet"):
+        raise NotImplementedError(f"spatial_shards={s} with --gen_net {cfg.gen_net}: the "
+                                  f"U-Nets take no H slabs ({SPATIAL_TODO})")
 
 
 def _mesh(cfg: Config, device) -> Mesh:
-    """This rank's data mesh: the process group brought up when the config
-    or the environment asks for one (a group already up is used), checked
-    against ``num_devices``."""
-    _check_single_device(cfg)
+    """This rank's (data, spatial) mesh: the process group brought up when
+    the config or the environment asks for one (a group already up is
+    used), checked against ``num_devices`` and ``spatial_shards``."""
+    check_mesh_config(cfg)
     device = resolve_device(device)  # no card raises here, before any group
     distributed.maybe_initialize(cfg, device)
-    return make_mesh(cfg.num_devices, device=device)
+    return make_mesh(cfg.num_devices, spatial=cfg.spatial_shards, device=device)
 
 
 def _stacking(cfg: Config) -> tuple[int, int]:
@@ -198,7 +222,8 @@ def _make_loader(cfg: Config, ds, *, train: bool, seed: int, mesh: Mesh,
     target_hw, eval_mode = (cfg.crop_hw, "resize") if train else _eval_shaping(cfg)
     kw = dict(batch_size=cfg.batch_size, crop_hw=target_hw, train=train, seed=seed,
               drop_last=drop_last, resize_hw=resize_hw, eval_mode=eval_mode,
-              process_shard=(mesh.rank, mesh.world))
+              process_shard=(mesh.data_index, mesh.dp),
+              spatial_shard=(mesh.spatial_index, mesh.spatial))
     if cfg.loader == "grain":
         from cyclegan_tpu_torch.data.grain_loader import GrainLoader
 
@@ -368,10 +393,13 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
         return bool(int(all_reduce_sum(flag, mesh)))
 
     def save(mngr: CheckpointManager, step: int, payload: Callable[[], dict]) -> None:
-        """Write on the primary (only it builds the payload's host copies);
-        the ranks go on when the file is whole."""
-        if primary:
-            mngr.save(step, payload())
+        """Write on the primary (only it builds the payload's host copies,
+        except under a spatial axis, where every rank gathers the pools'
+        slabs); the ranks go on when the file is whole."""
+        if primary or mesh.spatial > 1:
+            built = payload()
+            if primary:
+                mngr.save(step, built)
         distributed.phase_barrier("save")
 
     def stacked(gen):
@@ -481,14 +509,13 @@ def _train_loop(cfg: Config, trainer, state, batches_of_epoch: Callable[[int], I
                 say(f"[epoch {epoch}] val {result}", flush=True)
                 if best_ckpt is not None and result.get("miou", -1.0) > best_miou:
                     best_miou = float(result["miou"])
+                    save(best_ckpt, epoch, lambda: state_payload(trainer, state))
                     if primary:
-                        best_ckpt.save(epoch, state_payload(trainer, state))
                         with open(best_metric_path, "w") as f:
                             json.dump({"miou": best_miou, "epoch": epoch}, f)
-                    distributed.phase_barrier("save")
                     say(f"[epoch {epoch}] new best miou {best_miou:.4f} -> best/", flush=True)
-                if on_validate is not None and primary:
-                    on_validate(state, epoch)
+                if on_validate is not None and (primary or mesh.spatial > 1):
+                    on_validate(state, epoch)  # a slab's forward needs its whole group
             save(ckpt, epoch, lambda: state_payload(trainer, state))
             if stop:
                 break
@@ -572,29 +599,37 @@ def run_cyclegan(cfg: Config, *, max_steps: int | None = None, device=None) -> d
 def _dump_samples(cfg: Config, trainer: CycleGANTrainer, val_loader, epoch: int, n: int = 4,
                   predict=None) -> None:
     """Sample dumps: the input image, the coloured ground truth and
-    prediction, and the label->image generator's synthesis."""
+    prediction, and the label->image generator's synthesis. Under a
+    spatial axis every rank runs the forwards on its slab and the slabs are
+    gathered; the primary writes."""
     from PIL import Image
 
-    os.makedirs(cfg.results_dir, exist_ok=True)
+    mesh = trainer.mesh
     # One batch; the epoch generator is closed here so its thread stops now.
     it = val_loader.epoch(0)
     try:
         batch = next(it)
     finally:
         it.close()
-    imgs = batch["image"][:n]
     if predict is None:
         _, predict = _make_eval_fns(cfg, trainer)
-    pred = predict(to_device({"image": imgs}, trainer.device)["image"]).cpu().numpy()
+    dev = to_device({k: v[:n] for k, v in batch.items()}, trainer.device)
+    pred = gather_slab(predict(dev["image"]), mesh)
+    gen = None
+    if "label" in batch:
+        gen = gather_slab(trainer.generate_image(dev["label"]).float(), mesh).cpu().numpy()
+    batch = {k: gather_slab(v, mesh).cpu().numpy() for k, v in dev.items()}
+    if mesh.rank != 0:
+        return
+    imgs, pred = batch["image"], pred.cpu().numpy()
+    os.makedirs(cfg.results_dir, exist_ok=True)
 
     def to_u8(x):  # [-1, 1] float -> uint8 RGB or gray
         u = np.clip((np.asarray(x) + 1.0) * 127.5, 0, 255).astype(np.uint8)
         return u[..., 0] if u.shape[-1] == 1 else u
 
-    gen = None
-    if "label" in batch:
-        labels = to_device({"label": batch["label"][:n]}, trainer.device)["label"]
-        gen = to_u8(trainer.generate_image(labels).float().cpu().numpy())
+    if gen is not None:
+        gen = to_u8(gen)
     for i in range(min(n, pred.shape[0])):
         stem = os.path.join(cfg.results_dir, f"epoch{epoch}_sample{i}")
         Image.fromarray(to_u8(imgs[i])).save(f"{stem}_input.png")
@@ -608,26 +643,32 @@ def _dump_samples(cfg: Config, trainer: CycleGANTrainer, val_loader, epoch: int,
 def run_test(cfg: Config, *, semisupervised: bool = True, device=None) -> dict:
     """Restore the newest checkpoint, predict the val split, write its
     palette PNGs to ``results_dir`` and report mIoU, pixel accuracy and the
-    per-class IoU. One forward a batch gives both the PNGs and the scores;
+    per-class IoU (and the ``confusion`` matrix, as lists of ints). One
+    forward a batch gives both the PNGs and the scores;
     batch k+1 is enqueued before batch k is fetched (InferencePipeline).
     Under a data mesh each rank predicts and writes its rows of every batch
-    and the scores are the summed confusion matrix's."""
+    and the scores are the summed confusion matrix's; under a spatial axis
+    each rank predicts its slab, the slabs are gathered, and the first rank
+    of each spatial group writes its rows."""
     mesh = _mesh(cfg, device)
     target_hw, eval_mode = _eval_shaping(cfg)
     trainer, _, num_classes, _ = checkpoint_lib.restore_for_inference(
-        cfg, semisupervised=semisupervised, device=mesh.device)
+        cfg, semisupervised=semisupervised, device=mesh.device, mesh=mesh)
     _, predict = _make_eval_fns(cfg, trainer)
     val_ds = make_dataset(cfg.dataset, cfg.data_root, split="val")
     val_loader = Loader(val_ds, batch_size=cfg.batch_size, crop_hw=target_hw, train=False,
                         drop_last=False, eval_mode=eval_mode,
-                        process_shard=(mesh.rank, mesh.world))
+                        process_shard=(mesh.data_index, mesh.dp),
+                        spatial_shard=(mesh.spatial_index, mesh.spatial))
     os.makedirs(cfg.results_dir, exist_ok=True)
     hist = None
-    rows = cfg.batch_size // mesh.world
+    rows = cfg.batch_size // mesh.dp
     n_total = len(val_ds)
 
     def consume(k: int, pred: np.ndarray) -> None:
-        first = k * cfg.batch_size + mesh.rank * rows  # global index of row 0
+        if mesh.spatial_index:
+            return  # the group's first rank writes the gathered maps
+        first = k * cfg.batch_size + mesh.data_index * rows  # global index of row 0
         for j, p in enumerate(pred):
             if first + j >= n_total:
                 break  # padding rows of the last batch
@@ -640,7 +681,7 @@ def run_test(cfg: Config, *, semisupervised: bool = True, device=None) -> dict:
         for k, batch in enumerate(it):
             dev = to_device(batch, trainer.device)
             pred = predict(dev["image"])
-            pipe.put(k, pred)
+            pipe.put(k, gather_slab(pred, mesh))
             if "label" in dev:
                 h = metrics_lib.confusion_matrix(pred, dev["label"], num_classes,
                                                  ignore_index=trainer.ignore_index)
@@ -655,8 +696,10 @@ def run_test(cfg: Config, *, semisupervised: bool = True, device=None) -> dict:
         out = {k: float(v) for k, v in s.items() if v.ndim == 0}
         names = class_names(cfg.dataset, num_classes)
         out["per_class_iou"] = {nm: float(v) for nm, v in zip(names, s["per_class_iou"])}
+        out["confusion"] = hist.cpu().tolist()
         if mesh.rank == 0:
-            print(f"test scores: { {k: v for k, v in out.items() if k != 'per_class_iou'} }",
+            print(f"test scores: "
+                  f"{ {k: v for k, v in out.items() if k not in ('per_class_iou', 'confusion')} }",
                   flush=True)
             for nm, v in out["per_class_iou"].items():
                 print(f"  iou[{nm}]: {v:.4f}", flush=True)

@@ -9,8 +9,9 @@ the batch's statistics with its running averages moved by the forward
 ``predict`` run it in eval mode. Batches use the JAX package's layout:
 images (B, H, W, C) float32, labels (B, H, W) integers; the metrics come
 from the pre-update parameters, as detached float32 tensors. With a data
-``mesh`` of k ranks each steps on its B/k rows and the update is the
-one-device update on the global batch (as ``train/cyclegan.py`` says).
+``mesh`` of k ranks each steps on its B/k rows (and, under a spatial axis,
+its H slab of them) and the update is the one-device update on the global
+batch (as ``train/cyclegan.py`` says).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ class SupervisedTrainer:
                                 head="none", dtype=self.dtype, use_dropout=cfg.use_dropout,
                                 remat=cfg.remat)
         self.model.to(self.device, memory_format=torch.channels_last).train()
-        set_data_mesh(self.model, self.mesh, cfg.batch_size // self.mesh.world)
+        set_data_mesh(self.model, self.mesh, cfg.batch_size // self.mesh.dp)
         self.ignore_index = 255
 
     def nets(self) -> tuple[nn.Module]:

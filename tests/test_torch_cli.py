@@ -77,13 +77,18 @@ def test_cityscapes_cli_train_test(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported_and_a_missing_card(tmp_path, monkeypatch):
     flags = _flags(tmp_path, 32, 32) + ["--dataset", "synthetic", "--dataset_size", "4"]
-    # The data axis is ported (tests/test_torch_multiprocess.py); the
-    # spatial axis raises before any rank starts.
+    # The data and spatial axes are ported (tests/test_torch_multiprocess.py);
+    # what the spatial axis does not take raises before any rank starts:
+    # a U-Net (Queue 1 item 16), a crop whose slabs lose rows through the
+    # generators' strides, a device count the axis does not divide.
     for mode in ("--training", "--testing"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            main([mode, "--model", "supervised", "--spatial_shards", "2"] + flags)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        main(["--training", "--preset", "voc_dp8_bf16", "--spatial_shards", "2"] + flags)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+            main([mode, "--model", "supervised", "--spatial_shards", "2"] + flags
+                 + ["--gen_net", "unet_128"])
+        with pytest.raises(ValueError, match="must divide by 4 \\* spatial_shards"):
+            main([mode, "--model", "supervised", "--spatial_shards", "3"] + flags)
+    with pytest.raises(ValueError, match="not divisible by spatial_shards=3"):
+        main(["--training", "--preset", "voc_dp8_bf16", "--spatial_shards", "3"] + flags)
     # No --device: the card, and without one the CLI refuses.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

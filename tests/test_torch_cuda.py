@@ -63,6 +63,56 @@ def test_instance_norm_act_matches_plain(card, shape, act, skip, dtype):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,skip", [("relu", False), ("none", True), ("leaky", False)])
+@pytest.mark.parametrize("shape,cuts", [((2, 16, 12, 64), (8,)), ((1, 31, 7, 40), (16,)),
+                                        ((1, 12, 10, 96), (3, 7, 9))])
+def test_instance_norm_slab_entries_match_plain_and_the_whole_plane(card, shape, cuts, act,
+                                                                    skip, dtype):
+    """The slab entries (spatial axis): each slab's partials, merged in slab
+    order by the apply, give its rows of the one-launch kernel on the whole
+    plane and of the plain slab versions, forward and VJP; uneven slabs
+    weigh by their counts; one launch a call of each entry."""
+    x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(dtype)
+    s = torch.randn(shape, device="cuda", generator=card).to(dtype) if skip else None
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    edges = [0, *cuts, shape[1]]
+    rows = [slice(a, b) for a, b in zip(edges, edges[1:])]
+    xs = [x[:, r].contiguous() for r in rows]
+    dys = [dy[:, r].contiguous() for r in rows]
+    before = dict(_build.launches)
+    parts = torch.stack([IN._slab_partials_cuda(t) for t in xs])
+    whole = IN.instance_norm_act_plain(x, s, 1e-5, act)
+    mean, rstd = IN.instance_norm_stats_plain(x)
+    dx_whole = IN.instance_norm_act_bwd_plain(x, dy, mean, rstd, act)
+    outs, sums = [], []
+    for r, t in zip(rows, xs):
+        y, m, rs, count = IN._slab_apply_cuda(t, None if s is None else s[:, r].contiguous(),
+                                              parts, 1e-5, act)
+        outs.append((y, m, rs, count))
+    torch.testing.assert_close(outs[0][1], mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(outs[0][2], rstd, atol=1e-5, rtol=1e-5)
+    assert float(outs[0][3]) == shape[1] * shape[2]
+    sums = torch.stack([IN._slab_bwd_partials_cuda(t, g, outs[0][1], outs[0][2], act)
+                        for t, g in zip(xs, dys)])
+    for r, t, g, (y, m, rs, count) in zip(rows, xs, dys, outs):
+        assert torch.equal(m, outs[0][1]) and torch.equal(rs, outs[0][2])  # every slab alike
+        torch.testing.assert_close(y.float(), whole[:, r].float(), **TOL[dtype])
+        plain = IN.slab_apply_plain(t, None if s is None else s[:, r].contiguous(),
+                                    parts, 1e-5, act)[0]
+        torch.testing.assert_close(y.float(), plain.float(), **TOL[dtype])
+        dx = IN._slab_bwd_apply_cuda(t, g, m, rs, sums, count, act)
+        tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(dx.float(), dx_whole[:, r].float(), **tol)
+    torch.cuda.synchronize()
+    n = len(rows)
+    assert {k: _build.launches[k] - before.get(k, 0) for k in (
+        "cg_instance_norm_partials", "cg_instance_norm_slab_apply",
+        "cg_instance_norm_bwd_partials", "cg_instance_norm_bwd_slab_apply")} == \
+        {"cg_instance_norm_partials": n, "cg_instance_norm_slab_apply": n,
+         "cg_instance_norm_bwd_partials": n, "cg_instance_norm_bwd_slab_apply": n}
+
+
 def test_instance_norm_float32_in_bf16_out(card):
     """The residual block's use: float32 convolution output, bf16 result."""
     x = torch.randn((2, 8, 8, 64), device="cuda", generator=card) * 4

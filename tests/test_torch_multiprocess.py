@@ -12,8 +12,12 @@ store):
   the last batch holds 4, rank 1's share one image and two padding rows)
   gives the one-device confusion matrix's scores and the same PNGs;
 - the supervised segmenter under ``--norm batch`` trains and tests;
-- ``--gpu_ids`` maps to ``--num_devices``, and ``--spatial_shards`` still
-  raises before any rank starts, naming its ROADMAP item.
+- ``--num_devices 2 --spatial_shards 2`` (one image's H over two ranks)
+  trains with validation and sample dumps, checkpoints the pools whole,
+  and ``--testing`` of its checkpoint on the two ranks gives the scores and
+  PNGs of one process;
+- ``--gpu_ids`` maps to ``--num_devices``, and a ``--spatial_shards`` that
+  does not divide the devices raises before any rank starts.
 
 No rank outlives its test.
 """
@@ -144,13 +148,32 @@ def test_dp2_supervised_batch_norm_cli_trains_and_tests(tmp_path):
         res["miou"], abs=1e-6)
 
 
+def test_spatial2_cli_trains_and_tests_as_one_process(tmp_path):
+    flags = _flags(tmp_path, "p", "--epochs", "1", "--validation_every", "1")
+    res = cli.main(["--training", "--num_devices", "2", "--spatial_shards", "2"] + flags)
+    assert np.isfinite(res["miou"])
+    assert [s for s, _ in _logged(tmp_path, "p")] == [1, 2]
+    assert len(list((tmp_path / "p" / "out").glob("epoch0_sample*_pred.png"))) == 2
+    pool = _final(tmp_path, "p")["pool_img"]
+    assert tuple(pool["buffer"].shape) == (4, 32, 32, 3)  # the slabs gathered
+    scores = {}
+    for n, extra in ((1, ()), (2, ("--spatial_shards", "2"))):
+        out = str(tmp_path / f"test{n}")
+        scores[n] = cli.main(["--testing", "--num_devices", str(n), *extra] + flags
+                             + ["--results_dir", out])
+        assert len(list((tmp_path / f"test{n}").glob("pred_*.png"))) == 40
+    assert scores[2] == scores[1] and scores[1]["miou"] > 0
+    for png in (tmp_path / "test1").glob("pred_*.png"):
+        assert png.read_bytes() == (tmp_path / "test2" / png.name).read_bytes()
+
+
 def test_gpu_ids_and_the_spatial_refusal(tmp_path):
     args = cli.get_args(["--training", "--gpu_ids", "0,1,2"])
     assert cli.build_config(args).num_devices == 3
     args = cli.get_args(["--training", "--gpu_ids", "0,1", "--num_devices", "4"])
     assert cli.build_config(args).num_devices == 4
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["--training", "--preset", "voc_dp8_bf16", "--spatial_shards", "2"]
+    with pytest.raises(ValueError, match="not divisible by spatial_shards=3"):
+        cli.main(["--training", "--preset", "voc_dp8_bf16", "--spatial_shards", "3"]
                  + _flags(tmp_path, "x"))
     assert cli._local_ranks(cli.build_config(cli.get_args(["--num_devices", "2"])),
                             "cpu") == (2, 2, 0)

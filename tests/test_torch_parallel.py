@@ -274,7 +274,8 @@ def test_mesh_at_world_one_and_its_refusals():
     assert tmesh.make_mesh(1, device="cpu") == m
     with pytest.raises(ValueError, match="num_devices=2"):
         tmesh.make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # The spatial axis must divide the ranks, as the JAX make_mesh's.
+    with pytest.raises(ValueError, match="not divisible by spatial=2"):
         tmesh.make_mesh(spatial=2, device="cpu")
     x = torch.arange(6.0)
     assert tmesh.gather_rows(x, m) is x and tmesh.local_rows(x, m) is x

@@ -202,12 +202,19 @@ def test_stacked_and_grain_runs_train_and_log(tmp_path, extra):
 
 
 def test_unported_options_raise_naming_their_queue_item(tmp_path):
-    """Only the spatial axis (item 15) is left: the data axis is ported
-    (item 11), and a runner asked for more devices than its process group
-    has ranks refuses; tile eval and TTA (item 8) validate their settings."""
+    """The data and spatial axes are ported (items 11 and 15); under the
+    spatial axis the tiled and multi-scale evaluations are not (item 16). A
+    runner asked for more devices, or for more spatial ranks, than its
+    process group has refuses; tile eval and TTA (item 8) validate their
+    settings."""
     cfg = _cfg(tmp_path, "u")
     for run in (runner.run_cyclegan, runner.run_supervised):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            run(cfg.replace(spatial_shards=2, eval_resize="tile", resize_height=64,
+                            resize_width=64), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 16"):
+            run(cfg.replace(spatial_shards=2, eval_scales="0.75,1.0"), device="cpu")
+        with pytest.raises(ValueError, match="not divisible by spatial=2"):
             run(cfg.replace(spatial_shards=2), device="cpu")
         with pytest.raises(ValueError, match="num_devices=2"):
             run(cfg.replace(num_devices=2), device="cpu")
