@@ -25,6 +25,9 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    agree with the plain path's on one batch;
 4. http: ``http_serve.make_server`` in a thread, /healthz and 8 POST
    /predict from 4 threads in the three formats, checked against step 3;
+   http_bench: ``tools/torch_http_bench.py`` on the same artifact, 8
+   clients x 24 requests at max_batch 8: req/s and p50/p90/p99 latency,
+   kernels #1 and #3 launched as the server's forwards derive;
 5. kernels_train: every kernel of the train step, forward and backward
    (the chunked block and the dropout trunk's weight gradient included),
    against its plain version at the train step's shapes, with its time, the
@@ -70,6 +73,12 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    default run's loss gap to the deterministic one recorded); --testing of
    the final checkpoint (one PNG per val image, mIoU and pixel accuracy
    within 1e-4 of the last validation); one epoch each of --steps_per_call 2 and --grad_accum 2.
+   ckpt_bridge: ``tools/torch_export_checkpoint.py`` writes the resumed
+   run's checkpoint as the reference's latest.ckpt and
+   ``tools/torch_import_checkpoint.py`` reads it into a fresh directory
+   (every tensor, Adam moment and the step bitwise); --training resumes
+   from it for one step; ``tools/torch_reference.py``'s nets on the
+   exported state dicts within GEN_TOL of the port's float32 forward.
    Every launch runs with the counters at 0 and must show kernels #1-#5
    launched as often as the modules derive for its train steps and eval
    forwards; steps/s from the logger, the loop's input wait and the
@@ -146,7 +155,19 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    (float32), the class maps equal to one process's --testing of the same
    checkpoint on every pixel that is no tie; (c) the slab entries alone at
    config 3's stem and trunk slabs against their plain versions and the
-   one-launch kernel on the whole plane, timed.
+   one-launch kernel on the whole plane, timed;
+18. spatial_unet: config 3 with ``unet_256`` generators (ngf 64, bf16) at
+   spatial 2 on the same two ranks, 3 steps against the same model
+   unsharded in one process at the bf16 bars, both ranks' losses equal,
+   each rank's counters as derived (13 slab norms a generator forward),
+   the rows each rank owns at every plane (the innermost: 1 and 0), the
+   step time and peak memory a rank against the unsharded run's;
+19. spatial_eval: the runner's --testing of (b)'s checkpoint at
+   --num_devices 2 --spatial_shards 2 with --eval_resize tile (a 512x1024
+   canvas, 256x512 windows), --eval_flip and --eval_scales 0.75,1.0,1.25,
+   the class maps equal to one process's --testing with the same flags on
+   every pixel that is no tie there, each rank's slab counters as
+   derived.
 
 Then the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -678,7 +699,7 @@ def phase_serve(tmp: str) -> dict:
     emit(rec)
     decisive = dict(zip(names, masks["bfloat16"].cpu().numpy()))
     return {"artifact": artifact, "img_dir": img_dir, "preds": preds, "decisive": decisive,
-            "launches": launches, "record": rec}
+            "launches": launches, "record": rec, "G": G}
 
 
 def phase_http(served: dict) -> dict:
@@ -2099,6 +2120,7 @@ def phase_cli(smi: str) -> dict:
         if [r["step"] for r in c_logs["--steps_per_call"]] != [2, 4] or \
                 [r["step"] for r in c_logs["--grad_accum"]] != [1, 2]:
             raise AssertionError(f"cli (c): logged steps {c_logs}")
+        phase_ckpt_bridge(tmp, base, launch, derived, smi)
     finally:
         import shutil
 
@@ -2132,6 +2154,96 @@ def phase_cli(smi: str) -> dict:
           f"{rec['prefetch_share_of_train_loop']:.4f} of the loop; resumed "
           f"{'bitwise equal' if bitwise else f'max weight diff {max_w:.3g}'}; {smi}",
           flush=True)
+    return rec
+
+
+def phase_ckpt_bridge(tmp: str, base: list, launch, derived, smi: str) -> dict:
+    """The reference-checkpoint bridge on the cli phase's resumed run
+    (``voc_semisup_256``, epoch 1, step 6): tools/torch_export_checkpoint.py
+    writes its latest.ckpt, tools/torch_import_checkpoint.py reads it into a
+    fresh directory: every net tensor, Adam moment and step bitwise the
+    original; --training resumes there for one step (launches as derived,
+    logged step 7 of epoch 2); tools/torch_reference.py's nets load the
+    exported state dicts, and their float32 forward on the card is within
+    GEN_TOL (of the largest magnitude) of the port's, on the kernels."""
+    import torch
+
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.utils.config import preset
+    from tools import torch_export_checkpoint as exp_tool
+    from tools import torch_import_checkpoint as imp_tool
+
+    t_phase = time.perf_counter()
+    src = os.path.join(tmp, "res", "ckpt")
+    out = os.path.join(tmp, "bridge", "latest.ckpt")
+    back = os.path.join(tmp, "bridge", "ckpt")
+    os.makedirs(os.path.dirname(out))
+    flags = ["--preset", TRAIN_PRESET, "--dataset", "synthetic", "--epochs", "3"]
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        exp_tool.main([src, out] + flags)
+        imp_tool.main([out, back] + flags)
+    t_tools = time.perf_counter() - t_phase
+    a = torch.load(os.path.join(src, "1.pt"), weights_only=True)
+    b = torch.load(os.path.join(back, "1.pt"), weights_only=True)
+    tensors = [(f"nets/{n}/{k}", v, b["nets"][n][k]) for n, sd in a["nets"].items()
+               for k, v in sd.items()]
+    for opt in ("g_opt", "d_opt"):
+        if a[opt]["state"].keys() != b[opt]["state"].keys():
+            raise AssertionError(f"ckpt_bridge: {opt} states {sorted(b[opt]['state'])}")
+        tensors += [(f"{opt}/{i}/{f}", v, b[opt]["state"][i][f])
+                    for i, st in a[opt]["state"].items() for f, v in st.items()]
+    unequal = [name for name, x, y in tensors if not torch.equal(x, y)]
+    if unequal or a["step"] != b["step"]:
+        raise AssertionError(f"ckpt_bridge: not bitwise after export + import: {unequal[:5]}, "
+                             f"step {a['step']} -> {b['step']}")
+    # The imported run resumes from the CLI: one step of epoch 2.
+    res = os.path.join(tmp, "bridge", "res")
+    launch("ckpt_bridge_resume", ["--training", "--dataset_size", str(CLI_SIZE), "--epochs",
+                                  "3", "--max_steps", "1", "--validation_every", "0",
+                                  "--checkpoint_dir", back, "--results_dir", res] + base,
+           derived(1))
+    with open(os.path.join(res, "train_metrics.jsonl")) as f:
+        resumed = [json.loads(line) for line in f]
+    if [(r["step"], r["epoch"]) for r in resumed] != [(a["step"] + 1, 2)] or \
+            not math.isfinite(resumed[0]["g_total"]):
+        raise AssertionError(f"ckpt_bridge: the imported run logged {resumed}")
+    # The reference nets on the exported state dicts against the port's.
+    ckpt = torch.load(out, map_location="cuda", weights_only=False)
+    cfg = preset(TRAIN_PRESET).replace(bf16=False)
+    with resblock_env("fused"):
+        t = CycleGANTrainer(cfg, NUM_CLASSES, 3, 1, device="cuda")
+    refs = {"Gsi": exp_tool.reference_generator(cfg, 3, NUM_CLASSES, tanh=False),
+            "Gis": exp_tool.reference_generator(cfg, NUM_CLASSES, 3, tanh=True),
+            "Di": exp_tool.reference_discriminator(cfg, 3),
+            "Ds": exp_tool.reference_discriminator(cfg, NUM_CLASSES)}
+    batch = _dp_batch(cfg, 1, 1)[0]
+    x = torch.from_numpy(batch["lab_image"]).cuda().permute(0, 3, 1, 2).contiguous()
+    lab = torch.from_numpy(batch["lab_label"]).cuda().clamp(max=NUM_CLASSES - 1)
+    oh = torch.nn.functional.one_hot(lab, NUM_CLASSES).permute(0, 3, 1, 2).float()
+    forward = {}
+    for (name, ref), port, inp in zip(refs.items(), ("G_i2l", "G_l2i", "D_img", "D_lab"),
+                                      (x, oh, x, oh)):
+        net = getattr(t, port)
+        net.load_state_dict(b["nets"][port])
+        ref.load_state_dict(ckpt[name])
+        ref.cuda().eval()
+        with torch.no_grad():
+            want = ref(inp)
+            got = net(inp.contiguous(memory_format=torch.channels_last))
+        err = float((got.float() - want).abs().max())
+        bar = GEN_TOL * float(want.abs().max())
+        forward[name] = {"max_abs_err": err, "bar": bar, "shape": list(want.shape)}
+        if not err <= bar:
+            raise AssertionError(f"ckpt_bridge: {name} of the reference nets vs the port: "
+                                 f"{forward[name]}")
+    del t, refs, ckpt, a, b
+    torch.cuda.empty_cache()
+    rec = {"phase": "ckpt_bridge", "preset": TRAIN_PRESET, "epoch": 1,
+           "step": resumed[0]["step"] - 1, "tensors_bitwise": len(tensors),
+           "tools_seconds": t_tools, "tools_said": said.getvalue().splitlines(),
+           "resumed_log": resumed, "reference_forward_float32": forward, "tol": GEN_TOL,
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(rec)
     return rec
 
 
@@ -2694,6 +2806,35 @@ QUANT_SIZE_MAX = {"int8": 0.3, "bf16": 0.55}
 CFG1_SERVE = {"unet_128": ("unet_128", "instance"),
               "resnet_6blocks_bn": ("resnet_6blocks", "batch")}
 CFG1_CROP = 128
+
+
+HTTP_BENCH = dict(clients=8, requests=24, max_batch=BATCH, fmt="mask")
+
+
+def phase_http_bench(served: dict, smi: str) -> dict:
+    """tools/torch_http_bench.py on the serve phase's artifact (ResNet-9,
+    256x256, bf16): HTTP_BENCH's clients and requests, req/s and latency
+    percentiles; its launch counters (the server's warm-up forwards and its
+    device calls) as derived: #1 and #3 (forward convolution and norms)."""
+    from tools import torch_http_bench
+
+    _zero_counters()
+    rec = torch_http_bench.bench(served["artifact"], device="cuda", **HTTP_BENCH)
+    got = _read_counters()
+    want = serving_launches(served["G"], rec["device_calls"] + rec["warmup_calls"])
+    _held_counts(got, want, "http_bench")
+    n = HTTP_BENCH["clients"] * HTTP_BENCH["requests"]
+    if rec["req_per_s"] <= 0 or not rec["mean_batch"] >= 1.0 or \
+            rec["device_calls"] > n or rec["device"] != "cuda":
+        raise AssertionError(f"http_bench: {rec}")
+    out = {"phase": "http_bench", **rec, "launches": got, "derived": want, "nvidia_smi": smi}
+    emit(out)
+    lat = rec["latency_ms"]
+    print(f"http_bench ({TRAIN_PRESET}'s G_i2l, {CROP}x{CROP} bf16, {HTTP_BENCH['clients']} "
+          f"clients x {HTTP_BENCH['requests']} requests, max_batch {BATCH}): "
+          f"{rec['req_per_s']:.2f} req/s, p50 {lat['p50']:.1f} / p90 {lat['p90']:.1f} / p99 "
+          f"{lat['p99']:.1f} ms, mean batch {rec['mean_batch']:.2f}; {smi}", flush=True)
+    return out
 
 
 def serve_windows(canvas: int, window: int, scales) -> list:
@@ -3596,6 +3737,15 @@ WHOLE_PLANE_COUNTERS = ("instance_norm_act", "instance_norm_act_bwd", "residual_
                         "cg_chunked_in_fwd", "cg_chunked_in_vjp")
 
 
+# spatial_unet: config 3's crops with U-Net generators; spatial_eval: the
+# spatial phase's runner checkpoint tested tiled on a 512x1024 canvas with
+# 256x512 windows, flipped and at three scales.
+UNET_GEN = "unet_256"
+UNET_TIMED_STEPS = 2
+SPATIAL_EVAL = dict(eval_resize="tile", resize_height=512, resize_width=1024, eval_flip=True,
+                    eval_scales="0.75,1.0,1.25")
+
+
 def spatial_launches(trainer, steps: int) -> dict:
     """Launch counts of ``steps`` train steps on H slabs: every instance
     norm (the trunk blocks' too: they run unfused) through the slab entries,
@@ -3712,8 +3862,79 @@ def _spatial_rank(out_dir: str) -> dict:
         test = runner.run_test(rcfg.replace(results_dir=os.path.join(out_dir, "runner", "test2")),
                                device="cuda:0")
     rec["b"] = {"test": test}
+    # spatial_unet: config 3 with unet_256 generators at spatial 2.
+    rec["unet"] = _spatial_unet_rank(mesh)
+    # spatial_eval: --testing of (b)'s checkpoint, tiled, flipped and scaled.
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    with resblock_env("fused"):
+        test = runner.run_test(rcfg.replace(
+            results_dir=os.path.join(out_dir, "runner", "eval2"), **SPATIAL_EVAL),
+            device="cuda:0")
+    torch.cuda.synchronize()
+    rec["eval"] = {"test": test, "seconds": time.perf_counter() - t0,
+                   "launches": _read_counters()}
     with open(os.path.join(out_dir, f"spatial{mesh.rank}.json"), "w") as f:
         json.dump(rec, f)
+    return rec
+
+
+def unet_plane_rows(h: int, downs: int, s: int) -> list:
+    """The rows each of ``s`` ranks owns of every plane of a U-Net of
+    ``downs`` levels over an input of ``h`` rows (parallel.spatial.slab):
+    the input, then each level's down output, to the innermost."""
+    from cyclegan_tpu_torch.parallel import spatial as S
+
+    out = []
+    for _ in range(downs + 1):
+        out.append({"rows": h, "per_rank": [b - a for a, b in (S.slab(h, s, p)
+                                                               for p in range(s))]})
+        h = S.conv_out_rows(h, 4, 2, 1)
+    return out
+
+
+def _spatial_unet_rank(mesh) -> dict:
+    """spatial_unet on one rank: config 3 with UNET_GEN generators at
+    spatial 2, TRAIN_STEPS steps counted from the weights, batches and pool
+    decisions of the unsharded run, then UNET_TIMED_STEPS timed; the peak
+    memory of the rank over them."""
+    import torch
+    import torch.distributed as dist
+
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.utils.config import preset
+
+    cfg = preset(SPATIAL_PRESET).replace(gen_net=UNET_GEN, spatial_shards=SPATIAL_RANKS,
+                                         num_devices=SPATIAL_RANKS)
+    t, st = _config_trainer(cfg, "fused", mesh)
+    batches = [M.shard_batch(b, mesh) for b in
+               _dp_batch(cfg, 1, TRAIN_STEPS + UNET_TIMED_STEPS)]
+    want = spatial_launches(t, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    losses = []
+    for b in batches[:TRAIN_STEPS]:
+        st, m = t.train_step(st, b)
+        losses.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    got = _read_counters()
+    ms = []
+    for b in batches[TRAIN_STEPS:]:
+        dist.barrier()
+        t0 = time.perf_counter()
+        st, _ = t.train_step(st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"losses": losses, "launches": got, "expected_launches": want,
+           "launches_as_derived": {k: got.get(k, 0) for k in want} == want,
+           "norms_a_generator_forward": net_counts(t.G_i2l)["norms"],
+           "slab_shape": list(batches[0]["unlab_image"].shape), "step_ms": ms,
+           "median_step_ms": statistics.median(ms),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del t, st, batches
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3877,8 +4098,10 @@ def phase_spatial(smi: str, configs: dict) -> dict:
         raise AssertionError(f"spatial (b): {decisive_flips} decisive pixels of {pixels} differ "
                              f"between the runner at spatial 2 and one process ({flips} in "
                              f"all)")
+    spatial_eval = phase_spatial_eval(recs, rcfg, trainer, tmp, smi)
     del trainer
     torch.cuda.empty_cache()
+    spatial_unet = phase_spatial_unet(recs, smi)
     # (c)
     g = torch.Generator(device="cuda").manual_seed(12)
     failures = []
@@ -3927,12 +4150,181 @@ def phase_spatial(smi: str, configs: dict) -> dict:
           f"ms a step (unsharded {ref['median_step_ms']:.2f}), peak "
           f"{[round(r['a']['peak_mem_gb'], 3) for r in recs]} GB a rank (unsharded "
           f"{ref['peak_mem_gb']:.3f}); {smi}", flush=True)
-    return {"launches": recs[0]["a"]["launches"], "records": kern, "record": rec}
+    return {"launches": recs[0]["a"]["launches"], "records": kern, "record": rec,
+            "unet": spatial_unet, "eval": spatial_eval}
+
+
+def phase_spatial_unet(recs: list, smi: str) -> dict:
+    """spatial_unet: the ranks' U-Net steps (``_spatial_unet_rank``) against
+    the same model unsharded in this process from the same weights, batches
+    and pool decisions, at the bf16 bars; both ranks' losses equal; each
+    rank's counters as derived (#1/#2 only through the slab entries: 13
+    norms a unet_256 forward, 3 generator and 4 discriminator applies a
+    step); the step time and each rank's peak memory against the unsharded
+    run's."""
+    import torch
+
+    from cyclegan_tpu_torch.parallel import mesh as M
+    from cyclegan_tpu_torch.utils.config import preset
+
+    t_phase = time.perf_counter()
+    cfg = preset(SPATIAL_PRESET).replace(gen_net=UNET_GEN)
+    mesh = M.Mesh(torch.device("cuda"))
+    t, st = _config_trainer(cfg, "fused", mesh)
+    batches = [M.shard_batch(b, mesh) for b in
+               _dp_batch(cfg, 1, TRAIN_STEPS + UNET_TIMED_STEPS)]
+    want = expected_launches(t, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    ref = []
+    for b in batches[:TRAIN_STEPS]:
+        st, m = t.train_step(st, b)
+        ref.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    got = _read_counters()
+    _held_counts(got, want, "spatial_unet, unsharded")
+    ms = []
+    for b in batches[TRAIN_STEPS:]:
+        t0 = time.perf_counter()
+        st, _ = t.train_step(st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    norms = net_counts(t.G_i2l)["norms"]
+    del t, st, batches
+    torch.cuda.empty_cache()
+    u = [r["unet"] for r in recs]
+    worst = _bf16_agree("spatial_unet", u[0]["losses"], ref)
+    if any(r["losses"] != u[0]["losses"] for r in u):
+        raise AssertionError("spatial_unet: the ranks report different losses")
+    for r, rank in zip(u, recs):
+        if not r["launches_as_derived"] or r["norms_a_generator_forward"] != norms \
+                or norms != 13:
+            raise AssertionError(f"spatial_unet rank {rank['rank']}: counters "
+                                 f"{r['launches']} != derived {r['expected_launches']} "
+                                 f"({r['norms_a_generator_forward']} norms a forward)")
+    rec = {"phase": "spatial_unet", "preset": SPATIAL_PRESET, "gen_net": UNET_GEN,
+           "ranks": SPATIAL_RANKS, "slab_shape": u[0]["slab_shape"],
+           "rows_per_rank_by_plane": unet_plane_rows(cfg.crop_height, 8, SPATIAL_RANKS),
+           "losses_rank0": u[0]["losses"], "losses_unsharded": ref,
+           "loss_err_over_tol": worst, "tol": TRAIN_TOL["bfloat16"],
+           "norms_a_generator_forward": norms,
+           "launches_per_rank": [r["launches"] for r in u],
+           "expected_launches": u[0]["expected_launches"], "launches_unsharded": got,
+           "median_step_ms": [r["median_step_ms"] for r in u],
+           "unsharded_median_step_ms": statistics.median(ms), "unsharded_step_ms": ms,
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in u],
+           "unsharded_peak_mem_gb": peak, "nvidia_smi": smi,
+           "seconds_here": time.perf_counter() - t_phase}
+    emit(rec)
+    print(f"spatial_unet ({SPATIAL_PRESET}, {UNET_GEN}) at spatial_shards {SPATIAL_RANKS}: "
+          f"median {[round(r['median_step_ms'], 2) for r in u]} ms a step (unsharded "
+          f"{statistics.median(ms):.2f}), peak {[round(r['peak_mem_gb'], 3) for r in u]} GB a "
+          f"rank (unsharded {peak:.3f}); {smi}", flush=True)
+    return {"launches": u[0]["launches"], "record": rec}
+
+
+def canvas_logits_fn(trainer, cfg):
+    """The runner's composition of --eval_resize tile, --eval_flip and
+    --eval_scales around ``trainer.logits`` on one process: tiles
+    innermost, the flip inside the scales."""
+    from cyclegan_tpu_torch import eval_tile, tta
+
+    def tiled(image):
+        return eval_tile.tiled_logits(trainer.logits, image, cfg.crop_hw)
+
+    return tta.scale_avg(tta.flip_avg(tiled), tta.parse_scales(cfg.eval_scales))
+
+
+def phase_spatial_eval(recs: list, rcfg, trainer, tmp: str, smi: str) -> dict:
+    """spatial_eval: the ranks' --testing at --num_devices 2
+    --spatial_shards 2 with SPATIAL_EVAL against one process's --testing of
+    the same checkpoint with the same flags: the class maps equal on every
+    pixel where the one process's canvas logits are no tie (a top-2 gap
+    within twice GEN_TOL, read from its canvas logits of each image whose
+    maps differ), so the confusion matrices agree but for ties;
+    each rank's counters as derived (#1 through its slab entries only: 23
+    norms of a ResNet-9 forward, one forward a scale and mirror of each
+    image)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cyclegan_tpu_torch.data.datasets import make_dataset
+    from cyclegan_tpu_torch.data.loader import Loader
+    from cyclegan_tpu_torch.ops.blocks import InstanceNorm
+    from cyclegan_tpu_torch.train import runner
+
+    cfg = rcfg.replace(results_dir=os.path.join(tmp, "runner", "eval1"), **SPATIAL_EVAL)
+    t0 = time.perf_counter()
+    with resblock_env("fused"):
+        one = runner.run_test(cfg, device="cuda")
+    one_s = time.perf_counter() - t0
+    ds = make_dataset(cfg.dataset, split="val")
+    scales = SPATIAL_EVAL["eval_scales"].split(",")
+    forwards = len(ds) * len(scales) * 2
+    norms = sum(isinstance(m, InstanceNorm) for m in trainer.G_i2l.modules())
+    want = {k: forwards * norms if k in SLAB_COUNTERS[:2] + SLAB_COUNTERS[4:6] else 0
+            for k in SLAB_COUNTERS + WHOLE_PLANE_COUNTERS}
+    for r in recs:
+        got = {k: r["eval"]["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"spatial_eval rank {r['rank']}: counters {got} != {want}")
+    # The canvas logits of one process, on each image whose maps differ
+    # (elsewhere there is nothing to explain).
+    canvas = canvas_logits_fn(trainer, cfg)
+    val = Loader(ds, batch_size=1, crop_hw=(cfg.resize_height, cfg.resize_width), train=False,
+                 drop_last=False)
+    pixels = flips = decisive_flips = ties = 0
+    differing_images = []
+    with torch.no_grad():
+        for k, batch in enumerate(val.epoch(0)):
+            maps = [np.asarray(Image.open(os.path.join(tmp, "runner", d, f"pred_{k:05d}.png")))
+                    for d in ("eval1", "eval2")]
+            diff = maps[0] != maps[1]
+            pixels += diff.size
+            if not diff.any():
+                continue
+            differing_images.append(k)
+            logits = canvas(torch.from_numpy(batch["image"]).cuda()).float()[0]
+            top2 = logits.topk(2, dim=-1).values
+            decisive = ((top2[..., 0] - top2[..., 1]) > 2 * GEN_TOL).cpu().numpy()
+            if (decisive & (logits.argmax(-1).cpu().numpy() != maps[0])).any():
+                raise AssertionError(f"spatial_eval: image {k}: one process's PNG is not its "
+                                     f"canvas argmax")
+            ties += int((~decisive).sum())
+            flips += int(diff.sum())
+            decisive_flips += int((diff & decisive).sum())
+    two = recs[0]["eval"]["test"]
+    conf_diff = int(np.abs(np.asarray(one["confusion"]) - np.asarray(two["confusion"])).sum())
+    if decisive_flips or k + 1 != len(ds) or pixels != len(ds) * 512 * 1024:
+        raise AssertionError(f"spatial_eval: {decisive_flips} decisive pixels of {pixels} "
+                             f"differ between --testing at spatial 2 and one process ({flips} "
+                             f"in all)")
+    rec = {"phase": "spatial_eval", "flags": SPATIAL_EVAL, "window": list(rcfg.crop_hw),
+           "val_images": len(ds), "pixels": pixels, "pixels_differing": flips,
+           "decisive_pixels_differing": decisive_flips, "images_differing": differing_images,
+           "tie_pixels_of_those_images": ties,
+           "tie_gap": 2 * GEN_TOL, "dtype": "float32",
+           "confusion_abs_diff_sum": conf_diff, "confusion_equal": conf_diff == 0,
+           "miou": [one["miou"], two["miou"]], "pixel_acc": [one["pixel_acc"],
+                                                             two["pixel_acc"]],
+           "net_forwards_per_rank": forwards, "launches_per_rank": [
+               {k: r["eval"]["launches"].get(k, 0) for k in SLAB_COUNTERS[:2]} for r in recs],
+           "seconds_spatial2": [r["eval"]["seconds"] for r in recs],
+           "seconds_one_process": one_s, "nvidia_smi": smi}
+    emit(rec)
+    print(f"spatial_eval (tile 512x1024 / 256x512, flip, scales {SPATIAL_EVAL['eval_scales']}) "
+          f"at spatial 2: {flips} of {pixels} pixels differ from one process ({decisive_flips}"
+          f" decisive), {rec['seconds_spatial2'][0]:.1f} s against {one_s:.1f} s; {smi}",
+          flush=True)
+    return {"launches": recs[0]["eval"]["launches"], "record": rec}
 
 
 def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                  serve_full: dict | None = None, dp: dict | None = None,
-                 spatial: dict | None = None) -> dict:
+                 spatial: dict | None = None, http_bench: dict | None = None) -> dict:
     """One entry per kernel of the train step: bf16 (the path's type), per
     call times summed over the calls of one train step at 256x256, batch 1;
     ``launches`` from the run (3 steps) of the path that runs the kernel
@@ -3945,7 +4337,9 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
     the largest over every shape held. ``spatial`` (phase_spatial's result)
     adds the slab entries of #1 and #2: launches of both entries over rank
     0's 3 steps of config 3 at spatial 2, times summed over the calls of one
-    such step at its stem and trunk slab shapes."""
+    such step at its stem and trunk slab shapes, and their launches on the
+    spatial_unet and spatial_eval paths; ``http_bench`` (phase_http_bench's
+    result) the serving kernels' launches under the HTTP load bench."""
     meta = {
         "instance_norm_act": ("cyclegan_tpu_torch/csrc/instance_norm.cu",
                               "cyclegan_tpu/kernels/instance_norm.py:126"),
@@ -4010,6 +4404,13 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                        f"{sum(r['calls_per_forward'] for r in frs)} calls",
                 "launches_over": f"run_serve of {N_IMAGES} images at batch {BATCH}, tiled, "
                                  f"flip, scales {list(SERVE_SCALES)}"}
+        hb = (http_bench or {}).get("launches", {}).get(counter_of.get(name, name), 0)
+        if hb:
+            on_paths["http_bench"] = {
+                "launches": hb,
+                "launches_over": f"tools/torch_http_bench.py, {HTTP_BENCH['clients']} clients x "
+                                 f"{HTTP_BENCH['requests']} requests, max_batch {BATCH}, and the "
+                                 f"server's warm-up"}
         dp_launches = (dp or {}).get("launches", {}).get(counter_of.get(name, name), 0)
         if dp_launches:
             on_paths["dp"] = {"launches": dp_launches,
@@ -4032,6 +4433,15 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                                                 "instance_norm_slab_bwd_apply", 146)}
     for name, (c1, c2, line) in slab_meta.items() if spatial else ():
         rs = spatial["records"][name]
+        on_paths = {}
+        for path, over in (("spatial_unet", f"{TRAIN_STEPS} train steps of rank 0 of "
+                                            f"{SPATIAL_RANKS} ({SPATIAL_PRESET}, {UNET_GEN})"),
+                           ("spatial_eval", f"--testing of rank 0 of {SPATIAL_RANKS} (tile, "
+                                            f"flip, scales {SPATIAL_EVAL['eval_scales']})")):
+            n = spatial[path.split("_")[1]]["launches"]
+            if n.get(c1, 0) + n.get(c2, 0):
+                on_paths[path] = {"launches": n.get(c1, 0) + n.get(c2, 0),
+                                  "launches_over": f"{over}, both entries"}
         entries.append({
             "name": name, "route": "cuda", "source": "cyclegan_tpu_torch/csrc/instance_norm.cu",
             "replaces": f"cyclegan_tpu/kernels/instance_norm.py:{line}",
@@ -4045,7 +4455,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                    f"at its stem and trunk slabs (partials + apply; library: the instance "
                    f"norm of the slab alone)",
             "launches_over": f"{TRAIN_STEPS} train steps of rank 0 of {SPATIAL_RANKS}, both "
-                             f"entries"})
+                             f"entries", "on_paths": on_paths})
     return {"kernels": entries}
 
 
@@ -4066,6 +4476,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)
         phase_http(served)
+        http_bench = phase_http_bench(served, smi)
+        del served
     recs = phase_kernels_train()
     runs = {path: phase_train(smi, path) for path in TRAIN_PATHS}
     emit({"phase": "graph_capture", "instance_norm": in_graph_capture(),
@@ -4091,7 +4503,7 @@ def main() -> int:
           "configs_seconds": t_spatial - t_configs,
           "spatial_seconds": time.perf_counter() - t_spatial})
     print(smi, flush=True)
-    emit(kernels_line(recs, runs, sup_recs, serve_full, dp, spatial))
+    emit(kernels_line(recs, runs, sup_recs, serve_full, dp, spatial, http_bench))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,9 +12,12 @@ generator. ``resblock`` / ``resblock_hc`` pick the trunk blocks' route (see
 (``torch.utils.checkpoint``) instead of keeping its activations; under a
 spatial axis (``ops.blocks.set_data_mesh``) the recomputed forward makes
 its halo exchanges and norm gathers again, inside the backward, on every
-rank alike. The ResNet generator takes H slabs (``spatial_size`` ranks
-each hold one, the blocks told the global H of their input); the U-Nets
-do not.
+rank alike. Both generators take H slabs (``spatial_size`` ranks each
+hold one, every layer told the global H of its input): ``forward``'s
+``rows`` is the global H of the input (default: ``spatial_size`` equal
+slabs), and each layer's rows follow the ceil rule of
+``parallel.spatial.slab``, so a plane of any height splits, down to a
+U-Net's 1-row innermost plane, where a rank may own no row.
 
 The U-Net generators (``unet_128``: 7 levels, ``unet_256``: 8): nested
 skip-connection levels, each a LeakyReLU(0.2) + 4x4 stride-2 convolution
@@ -22,7 +25,11 @@ down, the inner levels, a ReLU + 4x4 stride-2 transposed convolution up,
 norms at the inner levels (instance norm through the kernel seam with no
 activation), dropout at the middle levels, and the level's input
 concatenated on the channel axis. As in the JAX package, they take no
-remat.
+remat. On H slabs the level's 4x4 stride-2 convolution and transposed
+convolution go through ``ops.blocks.slab_conv`` / ``slab_deconv``; the
+concatenation stays local, as the level's input and its transposed
+convolution's output have the same global H and so the same rows on
+every rank.
 """
 
 from __future__ import annotations
@@ -35,8 +42,10 @@ from torch.utils.checkpoint import checkpoint
 
 from cyclegan_tpu_torch.ops import functional as F
 from cyclegan_tpu_torch.ops.blocks import (ConvBlock, DeconvBlock, Dropout, ResidualBlock,
-                                           apply_norm, frozen_running_stats, get_norm)
+                                           apply_norm, frozen_running_stats, get_norm,
+                                           slab_conv, slab_deconv)
 from cyclegan_tpu_torch.ops.init import init_weights
+from cyclegan_tpu_torch.parallel import spatial as S
 
 
 def _remat_block(block: ResidualBlock, h: torch.Tensor,
@@ -46,7 +55,7 @@ def _remat_block(block: ResidualBlock, h: torch.Tensor,
     RNG preservation covers the global generators only, and the block draws
     from none of them), and the recomputed pass leaves the batch norms'
     running averages as the first pass left them."""
-    keep = block.keep_mask(h, dropout)
+    keep = block.keep_mask(h, dropout, rows)
     passes = [0]
 
     def run(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
@@ -55,6 +64,14 @@ def _remat_block(block: ResidualBlock, h: torch.Tensor,
             return block(x, keep, rows)
 
     return checkpoint(run, h, keep, use_reentrant=False, preserve_rng_state=False)
+
+
+def _global_rows(x: torch.Tensor, spatial_size: int, rows: int | None) -> int | None:
+    """The global H of NCHW ``x`` under a spatial axis of ``spatial_size``
+    ranks: ``rows``, or ``spatial_size`` equal slabs; None without one."""
+    if spatial_size == 1:
+        return None
+    return x.shape[2] * spatial_size if rows is None else rows
 
 
 class ResnetGenerator(nn.Module):
@@ -92,11 +109,12 @@ class ResnetGenerator(nn.Module):
                               dtype=dtype)
         init_weights(self, generator)
 
-    def forward(self, x: torch.Tensor,
-                dropout: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None,
+                rows: int | None = None) -> torch.Tensor:
         """``dropout``: the generator of this forward's dropout masks (a
-        fresh mask per block and call), or None for no dropout."""
-        rows = x.shape[2] * self.spatial_size if self.spatial_size > 1 else None
+        fresh mask per block and call), or None for no dropout; ``rows``:
+        the global H of ``x`` under a spatial axis."""
+        rows = _global_rows(x, self.spatial_size, rows)
         h = self.stem(x, rows=rows)
         h = self.down1(h, rows=rows)
         rows = self.down1.out_rows(rows)
@@ -118,9 +136,9 @@ class UnetLevel(nn.Module):
     level), the nested level ``sub``, ``up`` (ReLU, 4x4 stride-2 transposed
     convolution). The inner levels norm both convolutions' outputs (the
     innermost only ``up``'s), the middle ones drop after ``up``'s norm, and
-    every level but the outermost returns ``cat([x, up], channels)``."""
-
-    takes_slabs = False  # its 4x4 convolutions run on whole planes only
+    every level but the outermost returns ``cat([x, up], channels)``.
+    Under a spatial axis (``spatial``, set by ``ops.blocks.set_data_mesh``)
+    ``x`` is this rank's slab of a plane of ``rows`` global rows."""
 
     def __init__(self, outer_nc: int, inner_nc: int, input_nc: int | None = None,
                  sub: "UnetLevel | None" = None, outermost: bool = False,
@@ -137,22 +155,32 @@ class UnetLevel(nn.Module):
                                      stride=2, padding=1)
         self.up_norm = None if outermost else get_norm(norm)(outer_nc)
         self.dropout = Dropout() if use_dropout else None
+        self.spatial: S.Spatial | None = None
 
-    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None) -> torch.Tensor:
-        d, c = self.dtype, self.down
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None,
+                rows: int | None = None) -> torch.Tensor:
+        d, sp = self.dtype, self.spatial
         h = x if self.outermost else F.leaky_relu(x, 0.2)
-        h = F.conv2d(h, c.weight, c.bias, stride=2, padding=1, compute_dtype=d)
+        c = self.down
+        if sp is None:
+            h = F.conv2d(h, c.weight, c.bias, stride=2, padding=1, compute_dtype=d)
+        else:
+            h = slab_conv(h, rows, c, 1, "zero", d, sp)
         h = apply_norm(self.down_norm, h)
         if self.sub is not None:
-            h = self.sub(h, dropout)
+            h = self.sub(h, dropout, None if sp is None else S.conv_out_rows(rows, 4, 2, 1))
+        h = torch.relu(h)
         c = self.up
-        h = F.conv2d_transpose(torch.relu(h), c.weight, c.bias, stride=2, padding=1,
-                               output_padding=0, compute_dtype=d)
+        if sp is None:
+            h = F.conv2d_transpose(h, c.weight, c.bias, stride=2, padding=1, output_padding=0,
+                                   compute_dtype=d)
+        else:
+            h = slab_deconv(h, S.conv_out_rows(rows, 4, 2, 1), c, d, sp)
         if self.outermost:
             return h
         h = apply_norm(self.up_norm, h)
         if self.dropout is not None:
-            h = self.dropout(h, dropout)
+            h = self.dropout(h, dropout, rows)
         t = torch.result_type(x, h)
         return torch.cat([x.to(t), h.to(t)], dim=1)
 
@@ -161,6 +189,10 @@ class UnetGenerator(nn.Module):
     """U-Net generator (``unet_128``: ``num_downs`` 7, ``unet_256``: 8); the
     levels nest from ``root`` (outermost) down; :meth:`levels` lists them
     innermost first, the order of the Flax names ``_UnetBlock_0..``."""
+
+    # Ranks of the spatial axis that each hold an equal H slab of the input
+    # (ops.blocks.set_data_mesh).
+    spatial_size = 1
 
     def __init__(self, input_nc: int, output_nc: int, num_downs: int = 7, ngf: int = 64,
                  norm: str = "instance", head: str = "tanh",
@@ -188,9 +220,11 @@ class UnetGenerator(nn.Module):
             level = level.sub
         return out[::-1]
 
-    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None) -> torch.Tensor:
-        """``dropout``: the generator of this forward's dropout masks."""
-        h = self.root(x, dropout)
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None,
+                rows: int | None = None) -> torch.Tensor:
+        """``dropout``: the generator of this forward's dropout masks;
+        ``rows``: the global H of ``x`` under a spatial axis."""
+        h = self.root(x, dropout, _global_rows(x, self.spatial_size, rows))
         return torch.tanh(h) if self.head_act == "tanh" else h
 
 

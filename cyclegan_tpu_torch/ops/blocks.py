@@ -38,7 +38,8 @@ gradient is then this rank's part of the sum the trainers all-reduce),
 this slab of the global plane's mask. The residual blocks take their
 ``unfused`` route there (the fused and chunked kernels take whole planes,
 as the JAX package runs its spatial axis with Pallas off); an explicit
-fused or chunked route raises.
+fused or chunked route raises. :func:`slab_conv` and :func:`slab_deconv`
+are those slab convolutions, shared with the U-Net's levels.
 """
 
 from __future__ import annotations
@@ -181,36 +182,25 @@ def frozen_running_stats(module: nn.Module, frozen: bool = True):
             m.frozen = f
 
 
-# The Queue 1 item of the ROADMAP that holds what the spatial axis does
-# not take yet.
-SPATIAL_TODO = "ROADMAP Queue 1 item 16"
-
-
 def set_data_mesh(module: nn.Module, mesh: Mesh | None, rows: int | None = None) -> None:
     """Give every :class:`BatchNorm` and :class:`Dropout` of ``module`` the
     mesh its train-mode forward spans (None: this rank alone), and the
     dropouts the rows of one batch on this rank (the global batch size over
     the data ranks). Under a spatial axis (``mesh.spatial > 1``) every
-    module that sees H takes its slab: the instance norms, convolutions
-    and transposed convolutions get the spatial group, the residual blocks
-    their unfused route (an explicit fused or chunked route raises), and a
-    module the axis does not take (a U-Net level) raises."""
-    sp = None
-    if mesh is not None and mesh.spatial > 1:
-        sp = S.Spatial(mesh.spatial, mesh.spatial_index, mesh.spatial_group)
+    module that sees H takes its slab: the instance norms, convolutions,
+    transposed convolutions and U-Net levels (every module with a
+    ``spatial`` attribute) get the spatial group, and the residual blocks
+    their unfused route (an explicit fused or chunked route raises)."""
+    sp = S.from_mesh(mesh)
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.mesh = mesh
         elif isinstance(m, Dropout):
             m.mesh, m.rows = mesh, rows
-        elif isinstance(m, (InstanceNorm, ConvBlock, DeconvBlock)):
-            m.spatial = sp
         elif isinstance(m, ResidualBlock):
             m.set_spatial(sp is not None)
-        elif sp is not None and getattr(m, "takes_slabs", True) is False:
-            raise NotImplementedError(
-                f"spatial_shards={mesh.spatial}: the U-Net's 4x4 levels take no H slabs "
-                f"({SPATIAL_TODO})")
+        elif hasattr(m, "spatial"):
+            m.spatial = sp
         if hasattr(m, "spatial_size"):
             m.spatial_size = sp.size if sp is not None else 1
 
@@ -253,13 +243,50 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r} (relu|leaky|none)")
 
 
-def _empty_rows(xp: torch.Tensor, w: torch.Tensor, c_out: int, w_out: int,
+def _empty_rows(xp: torch.Tensor, conv: nn.Module, w_out: int,
                 dtype: torch.dtype) -> torch.Tensor:
-    """The output of a rank that owns no row of a layer: (N, c_out, 0,
-    w_out), still wired to the gathered input and the weight, so that the
-    rank's backward makes the layer's collectives too."""
-    tie = (xp.float().sum() + w.float().sum()) * 0
-    return tie.to(dtype) + xp.new_zeros((xp.shape[0], c_out, 0, w_out), dtype=dtype)
+    """The output of a rank that owns no row of a layer: (N, out channels,
+    0, w_out), still wired to the gathered input and the layer's weight and
+    bias (whose gradients are then dense zeros, which the trainers'
+    in-place all-reduce can take), so that the rank's backward makes the
+    layer's collectives too."""
+    tie = sum((t.float() * 0).sum() for t in (xp, *conv.parameters()))
+    return tie.to(dtype) + xp.new_zeros((xp.shape[0], conv.out_channels, 0, w_out),
+                                        dtype=dtype)
+
+
+def slab_conv(x: torch.Tensor, rows: int, conv: nn.Conv2d, pad: int, pad_mode: str,
+              dtype: torch.dtype, sp: S.Spatial, dw_fused: bool = False) -> torch.Tensor:
+    """The rows this rank owns of ``conv`` (``pad`` rows and columns of
+    ``pad_mode`` padding) over the global plane of ``rows`` rows, of which
+    ``x`` is this rank's slab: the halo-padded slab, then a VALID
+    convolution (kernel #8's weight gradient where ``dw_fused``)."""
+    k, stride = conv.kernel_size[0], conv.stride[0]
+    xp = S.conv_input(x, rows, k, stride, pad, pad_mode, sp)
+    if xp.shape[2] == 0:
+        w_out = (xp.shape[3] - k) // stride + 1
+        return _empty_rows(xp, conv, w_out, dtype)
+    if dw_fused:
+        y = F.conv2d_valid_dw_fused(xp.to(dtype), conv.weight.to(dtype))
+        return y if conv.bias is None else y + conv.bias.to(dtype).view(1, -1, 1, 1)
+    return F.conv2d(xp, conv.weight, conv.bias, stride=stride, compute_dtype=dtype)
+
+
+def slab_deconv(x: torch.Tensor, rows: int, conv: nn.ConvTranspose2d, dtype: torch.dtype,
+                sp: S.Spatial) -> torch.Tensor:
+    """The rows this rank owns of the transposed convolution ``conv`` over
+    the global plane of ``rows`` rows, of which ``x`` is this rank's slab:
+    the input rows that reach them gathered, transposed with no H padding,
+    and cropped to them."""
+    k, st, pad, op = (conv.kernel_size[0], conv.stride[0], conv.padding[0],
+                      conv.output_padding[0])
+    xg, first, count = S.deconv_input(x, rows, k, st, pad, op, sp)
+    if count == 0:
+        w_out = S.deconv_out_rows(x.shape[3], k, st, pad, op)
+        return _empty_rows(xg, conv, w_out, dtype)
+    y = F.conv2d_transpose(xg, conv.weight, conv.bias, stride=st, padding=(0, pad),
+                           output_padding=(0, op), compute_dtype=dtype)
+    return y[:, :, first:first + count]
 
 
 class ConvBlock(nn.Module):
@@ -289,27 +316,15 @@ class ConvBlock(nn.Module):
             return None
         return S.conv_out_rows(rows, self.conv.kernel_size[0], self.conv.stride[0], self.pad)
 
-    def _slab_forward(self, x: torch.Tensor, rows: int) -> torch.Tensor:
-        """The convolution of this rank's rows: halo-padded slab, then a
-        VALID convolution (kernel #8's weight gradient where it applies)."""
-        c, d = self.conv, self.dtype
-        k, stride = c.kernel_size[0], c.stride[0]
-        xp = S.conv_input(x, rows, k, stride, self.pad, self.pad_mode, self.spatial)
-        if xp.shape[2] == 0:
-            w_out = (xp.shape[3] - k) // stride + 1
-            return _empty_rows(xp, c.weight, c.out_channels, w_out, d)
-        if self.dw_fused:
-            y = F.conv2d_valid_dw_fused(xp.to(d), c.weight.to(d))
-            return y if c.bias is None else y + c.bias.to(d).view(1, -1, 1, 1)
-        return F.conv2d(xp, c.weight, c.bias, stride=stride, compute_dtype=d)
-
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None,
                 rows: int | None = None) -> torch.Tensor:
         stride = self.conv.stride[0]
         if self.spatial is not None:
             if rows is None:
                 raise ValueError("ConvBlock on an H slab needs rows, the global H of its input")
-            return apply_norm(self.norm, self._slab_forward(x, rows), self.act, skip)
+            y = slab_conv(x, rows, self.conv, self.pad, self.pad_mode, self.dtype,
+                          self.spatial, self.dw_fused)
+            return apply_norm(self.norm, y, self.act, skip)
         if self.dw_fused:
             d, b = self.dtype, self.conv.bias
             x = F.conv2d_valid_dw_fused(F.reflect_pad(x, self.pad).to(d),
@@ -356,16 +371,8 @@ class DeconvBlock(nn.Module):
             if rows is None:
                 raise ValueError("DeconvBlock on an H slab needs rows, the global H of its "
                                  "input")
-            k, st, pad, op = c.kernel_size[0], c.stride[0], c.padding[0], c.output_padding[0]
-            xg, first, count = S.deconv_input(x, rows, k, st, pad, op, self.spatial)
-            if count == 0:
-                w_out = S.deconv_out_rows(x.shape[3], k, st, pad, op)
-                x = _empty_rows(xg, c.weight, c.out_channels, w_out, self.dtype)
-            else:
-                x = F.conv2d_transpose(xg, c.weight, c.bias, stride=st, padding=(0, pad),
-                                       output_padding=(0, op), compute_dtype=self.dtype)
-                x = x[:, :, first:first + count]
-            return apply_norm(self.norm, x, self.act)
+            return apply_norm(self.norm, slab_deconv(x, rows, c, self.dtype, self.spatial),
+                              self.act)
         x = F.conv2d_transpose(x, c.weight, c.bias, stride=c.stride[0],
                                padding=c.padding[0], output_padding=c.output_padding[0],
                                compute_dtype=self.dtype)
@@ -380,22 +387,26 @@ def dropout_keep(shape: tuple[int, ...], p: float, generator: torch.Generator) -
 
 
 def dropout_keep_rows(shape: tuple[int, ...], p: float, generator: torch.Generator,
-                      mesh: Mesh, rows: int) -> torch.Tensor:
+                      mesh: Mesh, rows: int, plane: int | None = None) -> torch.Tensor:
     """A data-parallel rank's keep-mask of NHWC ``shape``: ``shape[0] /
     rows`` segments of ``rows`` rows (a concatenation of batches of
     ``rows``). The mask of the global batch is drawn (every segment
-    ``mesh.dp`` times longer, and under a spatial axis the whole H, of
-    ``mesh.spatial`` equal slabs; the generator is seeded alike on every
-    rank) and this rank's rows of each segment, and its slab, are taken,
-    so the ranks drop what one device drops on the global batch."""
+    ``mesh.dp`` times longer, and under a spatial axis the whole H:
+    ``plane`` rows, or ``mesh.spatial`` equal slabs when None; the
+    generator is seeded alike on every rank) and this rank's rows of each
+    segment, and its slab, are taken, so the ranks drop what one device
+    drops on the global batch."""
     segs = shape[0] // rows
     if segs * rows != shape[0]:
         raise ValueError(f"{shape[0]} rows are no whole number of batches of {rows}")
     n, h, *rest = shape
-    full = dropout_keep((segs * mesh.dp * rows, h * mesh.spatial, *rest), p, generator)
-    full = full.view(segs, mesh.dp, rows, h * mesh.spatial, *rest)[:, mesh.data_index]
-    p0 = mesh.spatial_index * h
-    return full[:, :, p0:p0 + h].reshape(shape)
+    plane = h * mesh.spatial if plane is None else plane
+    full = dropout_keep((segs * mesh.dp * rows, plane, *rest), p, generator)
+    full = full.view(segs, mesh.dp, rows, plane, *rest)[:, mesh.data_index]
+    lo, hi = S.slab(plane, mesh.spatial, mesh.spatial_index)
+    if hi - lo != h:
+        raise ValueError(f"a slab of {h} rows is not rank {mesh.spatial_index}'s of {plane}")
+    return full[:, :, lo:hi].reshape(shape)
 
 
 class Dropout(nn.Module):
@@ -412,26 +423,29 @@ class Dropout(nn.Module):
         self.mesh: Mesh | None = None
         self.rows: int | None = None
 
-    def keep_mask(self, shape: tuple[int, ...],
-                  generator: torch.Generator | None) -> torch.Tensor | None:
+    def keep_mask(self, shape: tuple[int, ...], generator: torch.Generator | None,
+                  plane: int | None = None) -> torch.Tensor | None:
         """The NCHW keep-mask of a forward on an input of NCHW ``shape``
         (drawn through :func:`dropout_keep` in NHWC), or None where this
-        forward would not drop."""
+        forward would not drop. ``plane``: the global H of which the input
+        is this rank's slab under a spatial axis (None: equal slabs)."""
         if not self.training or generator is None:
             return None
         n, c, h, w = shape
         if self.mesh is None or self.mesh.world == 1:
             keep = dropout_keep((n, h, w, c), self.p, generator)
         else:
-            keep = dropout_keep_rows((n, h, w, c), self.p, generator, self.mesh, self.rows)
+            keep = dropout_keep_rows((n, h, w, c), self.p, generator, self.mesh, self.rows,
+                                     plane)
         return keep.permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor,
-                drop: torch.Generator | torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: torch.Generator | torch.Tensor | None = None,
+                plane: int | None = None) -> torch.Tensor:
         """``drop``: the masks' generator, or a keep-mask of
-        :meth:`keep_mask` drawn before (a recomputed forward replays it)."""
+        :meth:`keep_mask` drawn before (a recomputed forward replays it);
+        ``plane``: :meth:`keep_mask`'s."""
         keep = drop if isinstance(drop, torch.Tensor) or drop is None \
-            else self.keep_mask(tuple(x.shape), drop)
+            else self.keep_mask(tuple(x.shape), drop, plane)
         if keep is None or not self.training:
             return x
         return torch.where(keep, x / (1 - self.p), torch.zeros((), dtype=x.dtype,
@@ -488,14 +502,15 @@ class ResidualBlock(nn.Module):
                 f"CYCLEGAN_TPU_RESBLOCK unset)")
         self.route = "unfused" if on else self.whole_route
 
-    def keep_mask(self, x: torch.Tensor,
-                  generator: torch.Generator | None) -> torch.Tensor | None:
-        """The dropout keep-mask a forward on ``x`` would draw from
-        ``generator`` (None where it would not drop): drawn ahead of a
-        recomputed forward, so both passes drop the same elements."""
+    def keep_mask(self, x: torch.Tensor, generator: torch.Generator | None,
+                  rows: int | None = None) -> torch.Tensor | None:
+        """The dropout keep-mask a forward on ``x`` (of global H ``rows``
+        under a spatial axis) would draw from ``generator`` (None where it
+        would not drop): drawn ahead of a recomputed forward, so both passes
+        drop the same elements."""
         if self.dropout is None:
             return None
-        return self.dropout.keep_mask(tuple(x.shape), generator)
+        return self.dropout.keep_mask(tuple(x.shape), generator, rows)
 
     def forward(self, x: torch.Tensor,
                 dropout: torch.Generator | torch.Tensor | None = None,
@@ -506,7 +521,7 @@ class ResidualBlock(nn.Module):
         if self.route == "unfused":
             h = self.conv0(x, rows=rows)
             if self.dropout is not None:
-                h = self.dropout(h, dropout)
+                h = self.dropout(h, dropout, rows)
             return self.conv1(h, skip=x, rows=rows)
         d = self.dtype
         c0, c1 = self.conv0.conv, self.conv1.conv

@@ -24,6 +24,13 @@ rows from a layer's global height alone:
 
 The columns are padded locally. A rank that owns no row of a layer still
 makes every collective of it, forward and backward.
+
+Evaluations that move rows across the slabs (the windows of a tiled
+canvas, a rescaled canvas) run on whole tensors on every rank alike:
+:func:`on_canvas_slabs` gathers the canvas, :func:`whole_from_slabs` runs
+a network on each rank's slab of a whole input of any height (the rows
+follow the ceil rule at every layer, so no height needs to divide) and
+gathers the output; every rank makes the same calls in the same order.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from cyclegan_tpu_torch.parallel.mesh import gather_slots
+
 
 @dataclasses.dataclass(frozen=True)
 class Spatial:
@@ -44,6 +53,14 @@ class Spatial:
     size: int
     index: int
     group: Any = None
+
+
+def from_mesh(mesh) -> Spatial | None:
+    """This rank's :class:`Spatial` of a ``parallel.mesh.Mesh``; None
+    without a spatial axis (no mesh, or one spatial rank)."""
+    if mesh is None or mesh.spatial == 1:
+        return None
+    return Spatial(mesh.spatial, mesh.spatial_index, mesh.spatial_group)
 
 
 def slab(h: int, s: int, p: int) -> tuple[int, int]:
@@ -251,3 +268,46 @@ def deconv_input(x: torch.Tensor, h: int, k: int, stride: int, pad: int, out_pad
     rows = fetch_rows(
         x, h, lambda q: deconv_source_rows(h, k, stride, pad, out_pad, sp.size, q)[0], sp)
     return rows, first, count
+
+
+def gather_slabs(y: torch.Tensor, h: int, sp: Spatial, axis: int = 1) -> torch.Tensor:
+    """The whole axis of ``h`` rows from every rank's slab ``y`` of it
+    (:func:`slab` rows: full slots of ``ceil(h / s)`` rows but for the last
+    ranks, fewer or none): each slab zero-filled to a slot and the slots
+    gathered in rank order (``mesh.gather_slots``), the padding at the end."""
+    c = -(-h // sp.size)
+    lo, hi = slab(h, sp.size, sp.index)
+    if y.shape[axis] != hi - lo:
+        raise ValueError(f"a slab of {y.shape[axis]} rows is not rank {sp.index}'s "
+                         f"{hi - lo} of {h}")
+    pad = [0, 0] * (y.ndim - 1 - axis) + [0, c - (hi - lo)]
+    return gather_slots(F.pad(y, pad), sp.group, sp.index, sp.size, axis).narrow(axis, 0, h)
+
+
+def whole_from_slabs(slab_fn, sp: Spatial):
+    """``slab_fn(x_slab, rows)``, a network that maps this rank's slab of a
+    global NHWC input of ``rows`` rows to its slab of the output (of the
+    same height), as a function of the whole input: each rank runs its
+    slab and the output's slabs are gathered, so every rank returns the
+    whole output."""
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        h = x.shape[1]
+        lo, hi = slab(h, sp.size, sp.index)
+        return gather_slabs(slab_fn(x[:, lo:hi].contiguous(), h), h, sp)
+
+    return fn
+
+
+def on_canvas_slabs(canvas_fn, sp: Spatial):
+    """``canvas_fn`` (whole NHWC canvas -> whole NHWC output of its height)
+    on this rank's slab of the canvas: the canvas is gathered over the
+    spatial group, every rank runs ``canvas_fn`` on it (the same calls in
+    the same order), and each keeps its rows of the output."""
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        h = x.shape[1] * sp.size  # the loaders' equal slabs
+        lo, hi = slab(h, sp.size, sp.index)
+        return canvas_fn(gather_slabs(x, h, sp))[:, lo:hi]
+
+    return fn

@@ -406,10 +406,12 @@ class CycleGANTrainer:
         return state, mean_metrics({key: v / k for key, v in sums.items()}, self.mesh)
 
     @torch.no_grad()
-    def logits(self, image: torch.Tensor) -> torch.Tensor:
-        """Raw class logits (B, H, W, K) of G_i2l for images (B, H, W, C)."""
+    def logits(self, image: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        """Raw class logits (B, H, W, K) of G_i2l for images (B, H, W, C);
+        under a spatial axis, this rank's slab of images of ``rows`` global
+        rows (default: equal slabs)."""
         with eval_mode(self.G_i2l):
-            return _nhwc(self.G_i2l(_nchw(image)))
+            return _nhwc(self.G_i2l(_nchw(image), rows=rows))
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:

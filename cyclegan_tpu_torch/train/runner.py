@@ -25,9 +25,10 @@ batch padded with masked rows), the primary rank alone writes checkpoints,
 sample dumps and logs (barriers after each save; the pools' and the dumps'
 slabs gathered first), every rank restores, and a preemption is agreed by
 all ranks at the save boundaries. Under a spatial axis the tiled and
-multi-scale evaluations and the U-Net generators raise, naming ROADMAP
-Queue 1 item 16. The XLA machinery of the JAX runner (``_aligned_jit``) has
-no counterpart.
+multi-scale evaluations gather each canvas over the spatial group and run
+the network on every rank's slab of each window stack or rescaled canvas
+(``parallel.spatial.on_canvas_slabs`` / ``whole_from_slabs``). The XLA
+machinery of the JAX runner (``_aligned_jit``) has no counterpart.
 
 Divergences from the JAX runner, on purpose:
 - a run cut by ``--max_steps`` inside an epoch saves a mid-epoch checkpoint
@@ -58,7 +59,7 @@ from cyclegan_tpu_torch.data.loader import Loader, paired_iterator, paired_steps
 from cyclegan_tpu_torch.data.palette import save_prediction_png
 from cyclegan_tpu_torch.export import resolve_device
 from cyclegan_tpu_torch.parallel import distributed
-from cyclegan_tpu_torch.ops.blocks import SPATIAL_TODO
+from cyclegan_tpu_torch.parallel import spatial as spatial_lib
 from cyclegan_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, gather_slab, make_mesh,
                                               replicate_state, select_step)
 from cyclegan_tpu_torch.train import checkpoint as checkpoint_lib
@@ -84,10 +85,12 @@ def _dataset_spec(cfg: Config) -> tuple[int, int]:
 def check_mesh_config(cfg: Config) -> None:
     """What the spatial axis (``spatial_shards`` s > 1) takes, checked
     before any rank starts: s must divide ``num_devices``; the crop's H
-    must divide into s slabs of a multiple of 4 rows (the generators' two
-    stride-2 convolutions then keep every slab edge on an even row: the
-    JAX package needs only H % s); the tiled and multi-scale evaluations
-    and the U-Nets have no slab form yet."""
+    must divide into s slabs of a multiple of 4 rows, so that every plane
+    of the ResNet generators splits evenly (the JAX package needs only
+    H % s); a tile canvas's H must
+    divide into s equal slabs. The windows and rescaled canvases of the
+    evaluations need no rule (their rows follow the ceil rule of
+    ``parallel.spatial.slab`` at every layer)."""
     s = cfg.spatial_shards
     if s < 1:
         raise ValueError(f"spatial_shards={s}: at least 1")
@@ -100,13 +103,9 @@ def check_mesh_config(cfg: Config) -> None:
             f"crop_height={cfg.crop_height} must divide by 4 * spatial_shards = {4 * s}: each "
             f"rank's H slab must stay a whole number of rows through the generators' two "
             f"stride-2 convolutions")
-    if cfg.eval_resize == "tile" or tta.parse_scales(cfg.eval_scales):
-        raise NotImplementedError(
-            f"spatial_shards={s} with --eval_resize tile or --eval_scales: the windows and "
-            f"the rescaled canvases cross the H slabs ({SPATIAL_TODO})")
-    if cfg.gen_net.startswith("unet"):
-        raise NotImplementedError(f"spatial_shards={s} with --gen_net {cfg.gen_net}: the "
-                                  f"U-Nets take no H slabs ({SPATIAL_TODO})")
+    if cfg.eval_resize == "tile" and cfg.resize_height and cfg.resize_height % s:
+        raise ValueError(f"tile canvas height {cfg.resize_height} must divide by "
+                         f"spatial_shards={s}: each rank loads an equal slab of it")
 
 
 def _mesh(cfg: Config, device) -> Mesh:
@@ -177,20 +176,31 @@ def _make_eval_fns(cfg: Config, trainer) -> tuple[Callable, Callable]:
     wrap the canvas-level logits in the JAX runner's order: the tiling
     innermost (a mirrored or rescaled canvas is tiled again), the flip
     inside the scaling (the average runs over scales x mirror). Without
-    them the trainer's own eval step and predict run."""
+    them the trainer's own eval step and predict run.
+
+    Under a spatial axis, tiles and scales move rows across the slabs: the
+    composition runs on the whole canvas, gathered on every rank, with the
+    network run on each rank's slab of every window stack or rescaled
+    canvas and its logits gathered; each rank keeps its rows of the
+    result. The flip alone stays on the slabs (it mirrors W)."""
     _eval_shaping(cfg)
+    scales = tta.parse_scales(cfg.eval_scales)
+    sp = spatial_lib.from_mesh(trainer.mesh)
+    across = sp is not None and (cfg.eval_resize == "tile" or bool(scales))
+    net = spatial_lib.whole_from_slabs(trainer.logits, sp) if across else trainer.logits
     canvas_logits = None
     if cfg.eval_resize == "tile":
         def canvas_logits(image: torch.Tensor) -> torch.Tensor:
-            return eval_tile.tiled_logits(trainer.logits, image, cfg.crop_hw)
+            return eval_tile.tiled_logits(net, image, cfg.crop_hw)
     if cfg.eval_flip:
-        canvas_logits = tta.flip_avg(canvas_logits or trainer.logits)
-    scales = tta.parse_scales(cfg.eval_scales)
+        canvas_logits = tta.flip_avg(canvas_logits or net)
     if scales and cfg.eval_resize == "tile":
         # At set-up, not at the first validation (after a training epoch).
         tta.validate_tile_scales((cfg.resize_height, cfg.resize_width), cfg.crop_hw, scales)
     if scales:
-        canvas_logits = tta.scale_avg(canvas_logits or trainer.logits, scales)
+        canvas_logits = tta.scale_avg(canvas_logits or net, scales)
+    if across:
+        canvas_logits = spatial_lib.on_canvas_slabs(canvas_logits, sp)
 
     def u8(pred: torch.Tensor) -> torch.Tensor:
         return pred.to(torch.uint8) if trainer.num_classes <= 255 else pred

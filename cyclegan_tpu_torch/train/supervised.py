@@ -134,10 +134,12 @@ class SupervisedTrainer:
         return state, mean_metrics({"ce_loss": l_sum / k}, self.mesh)
 
     @torch.no_grad()
-    def logits(self, image: torch.Tensor) -> torch.Tensor:
-        """Raw class logits (B, H, W, K) for images (B, H, W, C), in eval mode."""
+    def logits(self, image: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        """Raw class logits (B, H, W, K) for images (B, H, W, C), in eval mode;
+        under a spatial axis, this rank's slab of images of ``rows`` global
+        rows (default: equal slabs)."""
         with eval_mode(self.model):
-            return _nhwc(self.model(_nchw(image)))
+            return _nhwc(self.model(_nchw(image), rows=rows))
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:

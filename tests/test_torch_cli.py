@@ -77,12 +77,13 @@ def test_cityscapes_cli_train_test(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported_and_a_missing_card(tmp_path, monkeypatch):
     flags = _flags(tmp_path, 32, 32) + ["--dataset", "synthetic", "--dataset_size", "4"]
-    # The data and spatial axes are ported (tests/test_torch_multiprocess.py);
-    # what the spatial axis does not take raises before any rank starts:
-    # a U-Net (Queue 1 item 16), a crop whose slabs lose rows through the
-    # generators' strides, a device count the axis does not divide.
+    # The data and spatial axes are ported (tests/test_torch_multiprocess.py,
+    # tests/test_torch_spatial.py, the U-Nets too): what the spatial axis
+    # does not take raises before any rank starts: a crop whose slabs lose
+    # rows through the generators' strides, a device count the axis does not
+    # divide. A U-Net passes those checks; one process is no mesh of 2.
     for mode in ("--training", "--testing"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        with pytest.raises(ValueError, match="not divisible by spatial=2"):
             main([mode, "--model", "supervised", "--spatial_shards", "2"] + flags
                  + ["--gen_net", "unet_128"])
         with pytest.raises(ValueError, match="must divide by 4 \\* spatial_shards"):

@@ -90,6 +90,24 @@ print("OK", mesh.make_mesh(device="cpu").world, distributed.process_info())
     assert r.returncode == 0 and r.stdout.split() == ["OK", "1", "(0,", "1)"], r.stderr[-2000:]
 
 
+def test_port_tools_import_without_jax():
+    """The port's checkpoint bridge and HTTP load bench import with the JAX
+    stack poisoned and load nothing of the JAX package: they run where the
+    port runs, which has no JAX."""
+    code = r"""
+import sys
+for name in ("jax", "flax", "optax", "orbax"):
+    sys.modules[name] = None
+import tools.torch_import_checkpoint, tools.torch_export_checkpoint, tools.torch_http_bench
+assert not [k for k in sys.modules if k == "cyclegan_tpu" or k.startswith("cyclegan_tpu.")]
+print("OK")
+"""
+    root = Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=str(root))
+    assert r.returncode == 0 and r.stdout.split() == ["OK"], r.stderr[-2000:]
+
+
 SPAWNS_RANKS = ("launch_local(", '"--num_devices", "2"', '"--gpu_ids"')
 
 

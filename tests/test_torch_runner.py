@@ -202,17 +202,25 @@ def test_stacked_and_grain_runs_train_and_log(tmp_path, extra):
 
 
 def test_unported_options_raise_naming_their_queue_item(tmp_path):
-    """The data and spatial axes are ported (items 11 and 15); under the
-    spatial axis the tiled and multi-scale evaluations are not (item 16). A
-    runner asked for more devices, or for more spatial ranks, than its
-    process group has refuses; tile eval and TTA (item 8) validate their
-    settings."""
+    """The mesh and evaluation settings are checked before a run: the data
+    and spatial axes are ported, and under the spatial axis the tiled and
+    multi-scale evaluations and the U-Nets pass the mesh check (a tile
+    canvas whose height the spatial ranks do not divide refuses; their
+    runs on a mesh: tests/test_torch_spatial.py). A runner asked for more
+    devices, or for more spatial ranks, than its process group has
+    refuses; tile eval and TTA validate their settings."""
     cfg = _cfg(tmp_path, "u")
+    tile = dict(eval_resize="tile", resize_height=64, resize_width=64)
+    for ok in (dict(tile, spatial_shards=2), dict(spatial_shards=2, eval_scales="0.75,1.0"),
+               dict(spatial_shards=2, gen_net="unet_128", crop_height=128, crop_width=128)):
+        runner.check_mesh_config(cfg.replace(**ok))
+    with pytest.raises(ValueError, match="tile canvas height 68 must divide by"):
+        runner.check_mesh_config(cfg.replace(spatial_shards=8, crop_height=64,
+                                             **dict(tile, resize_height=68)))
     for run in (runner.run_cyclegan, runner.run_supervised):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            run(cfg.replace(spatial_shards=2, eval_resize="tile", resize_height=64,
-                            resize_width=64), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(ValueError, match="not divisible by spatial=2"):
+            run(cfg.replace(spatial_shards=2, **tile), device="cpu")
+        with pytest.raises(ValueError, match="not divisible by spatial=2"):
             run(cfg.replace(spatial_shards=2, eval_scales="0.75,1.0"), device="cpu")
         with pytest.raises(ValueError, match="not divisible by spatial=2"):
             run(cfg.replace(spatial_shards=2), device="cpu")

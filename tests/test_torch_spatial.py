@@ -19,7 +19,16 @@ largest magnitude, at least 1):
   ``DeconvBlock``, and the whole ResNet generator and PatchGAN (whose last
   two layers split 3 and 2 rows unevenly at 32x32);
 - the slab instance norm's plain versions (forward and VJP) against
-  ``instance_norm_act_plain`` on the plane.
+  ``instance_norm_act_plain`` on the plane, and on a plane of one row,
+  of which one rank owns none (zero partials, every collective made);
+- the U-Net generator (num_downs 5, ngf 8, 32x32, whose innermost plane
+  is one row) with instance norm and with batch norm, and with dropout
+  (num_downs 6, 64x64) on injected masks;
+- the tiled logits with flip and scales inside, and the scaled logits
+  with flip inside at a snapped height (20 rows at scale 0.6 of 32) that
+  fails the runner's ``crop_height % (4 s)`` rule and splits 3 and 2
+  rows at the trunk, on slabs (``parallel.spatial.on_canvas_slabs``)
+  against the whole canvas.
 The worst error over the ranks of each case comes back from rank 0.
 
 The trainers on the same mesh:
@@ -35,7 +44,16 @@ The trainers on the same mesh:
   1e-5, then ``g_total`` / ``d_total`` within 2e-3, every parameter and
   both pools within 2e-3 after 3 steps) and against the JAX step jitted on
   one device (``g_total`` within rtol 2e-3, ``d_total`` within rtol 2e-3 /
-  atol 1e-3).
+  atol 1e-3);
+- the same with ``unet_128`` generators (128x128) against the port's one
+  process, at 2e-3;
+- the supervised ``unet_128`` (ngf 8, 128x128, batch 4) against JAX's
+  unsharded ``value_and_grad`` on the same weights, at 5e-5;
+- the two evaluations' canvases against JAX's ``eval_tile.tiled_logits``
+  and ``tta.scale_avg`` / ``flip_avg`` on the same weights, at 5e-5;
+- ``runner.run_test`` at ``--num_devices 4 --spatial_shards 2`` with
+  ``--eval_resize tile``, ``--eval_flip`` and ``--eval_scales`` on one
+  checkpoint: its confusion matrix equals one process's.
 The ranks import this module without JAX (its fixture imports it in the
 parent), and no rank outlives its test.
 """
@@ -50,13 +68,16 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from cyclegan_tpu_torch import weights
+from cyclegan_tpu_torch import eval_tile, tta, weights
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.models import define_Dis, define_Gen
+from cyclegan_tpu_torch.models.generators import UnetGenerator
 from cyclegan_tpu_torch.ops import blocks
 from cyclegan_tpu_torch.parallel import distributed
 from cyclegan_tpu_torch.parallel import mesh as tmesh
 from cyclegan_tpu_torch.parallel import spatial as S
+from cyclegan_tpu_torch.train import checkpoint as ck
+from cyclegan_tpu_torch.train import runner
 from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
 from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
 from cyclegan_tpu_torch.utils.config import Config
@@ -69,6 +90,16 @@ SUP_CLASSES = 4
 CG_KW = dict(gen_net="resnet_2blocks", ngf=8, ndf=8, crop_height=SIZE, crop_width=SIZE,
              bf16=False, epochs=200, decay_epoch=100, batch_size=2, pool_size=2)
 CG_CLASSES, STEPS = 5, 3
+UNET = 128  # unet_128's plane: its innermost is one row
+SUP_UNET_KW = dict(SUP_KW, gen_net="unet_128", crop_height=UNET, crop_width=UNET)
+CG_UNET_KW = dict(CG_KW, gen_net="unet_128", crop_height=UNET, crop_width=UNET)
+# The evaluations: a 32x48 canvas, 16x16 windows, scales whose 0.6 snaps
+# to 20 rows (20 % (4 * 2) = 4).
+EVAL_CANVAS, EVAL_WINDOW, EVAL_SCALES = (32, 48), (16, 16), (0.6, 1.0)
+EVAL_CASES = ("tile_flip_scales", "flip_scales")
+RUN_KW = dict(dataset="synthetic", gen_net="resnet_2blocks", ngf=4, ndf=4, crop_height=32,
+              crop_width=32, bf16=False, batch_size=2, pool_size=2, eval_resize="tile",
+              resize_height=64, resize_width=64, eval_flip=True, eval_scales="0.7,1.0")
 
 
 @pytest.fixture(autouse=True)
@@ -98,10 +129,17 @@ def _err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def _pre_norm_biases(module) -> set:
-    """ids of the conv biases an instance norm follows: their gradient is
-    zero in exact arithmetic and rounding noise in float."""
-    return {id(m.conv.bias) for m in module.modules()
-            if isinstance(getattr(m, "norm", None), blocks.InstanceNorm)}
+    """ids of the conv biases an instance norm (or a train-mode batch norm)
+    follows: their gradient is zero in exact arithmetic and rounding noise
+    in float."""
+    norms = (blocks.InstanceNorm, blocks.BatchNorm)
+    out = {id(m.conv.bias) for m in module.modules()
+           if isinstance(getattr(m, "norm", None), blocks.InstanceNorm)}
+    for m in module.modules():  # the U-Net's levels
+        for conv, norm in (("down", "down_norm"), ("up", "up_norm")):
+            if isinstance(getattr(m, norm, None), norms):
+                out.add(id(getattr(m, conv).bias))
+    return out
 
 
 def _compare(module, x: torch.Tensor, mesh: tmesh.Mesh, seed: int, **kw) -> float:
@@ -110,7 +148,7 @@ def _compare(module, x: torch.Tensor, mesh: tmesh.Mesh, seed: int, **kw) -> floa
     summed over the ranks."""
     whole = module
     sl = copy.deepcopy(module)
-    blocks.set_data_mesh(sl, mesh)
+    blocks.set_data_mesh(sl, mesh, x.shape[0])
     xw = x.clone().requires_grad_(True)
     yw = whole(xw, **kw)
     ct = _randn(seed, *yw.shape)
@@ -180,7 +218,96 @@ def _in_case(mesh: tmesh.Mesh) -> float:
     return max(_err(ys, yw[:, lo:hi]), _err(xs.grad, xw.grad[:, lo:hi]))
 
 
-def spatial_cases(mesh: tmesh.Mesh) -> dict:
+def _in_zero_row_case(mesh: tmesh.Mesh) -> float:
+    """The slab instance norm on a plane of one row: the second rank owns
+    none, gives zero partials and still makes the gathers."""
+    x = _randn(4, 2, 1, 10, 16)
+    ct = _randn(5, *x.shape)
+    xw = x.clone().requires_grad_(True)
+    yw = IN.instance_norm_act_plain(xw, None, 1e-5, "none")
+    (yw * ct).sum().backward()
+    lo, hi = S.slab(1, mesh.spatial, mesh.spatial_index)
+    xs = x[:, lo:hi].clone().requires_grad_(True)
+    norm = blocks.InstanceNorm()
+    norm.spatial = S.from_mesh(mesh)
+    ys = IN.instance_norm_act_slab(xs, None, 1e-5, "none", norm._gather)
+    (ys * ct[:, lo:hi]).sum().backward()
+    assert ys.shape[1] == hi - lo and xs.grad.shape == xs.shape
+    return max(_err(ys, yw[:, lo:hi]), _err(xs.grad, xw.grad[:, lo:hi]))
+
+
+def _injected_keep(n: int):
+    """A stand-in for ``blocks.dropout_keep``: the same mask for every
+    batch of ``n`` rows, drawn from the shape, so the whole plane's forward
+    and each data rank's draw of the global batch drop alike."""
+
+    def keep(shape, p, generator):
+        r = np.random.default_rng(sum(shape[1:]) * 7 + shape[-1])
+        base = torch.from_numpy(r.random((n, *shape[1:])) >= p)
+        return base.repeat(shape[0] // n, *([1] * (len(shape) - 1)))
+
+    return keep
+
+
+def _unet_dropout_case(mesh: tmesh.Mesh, g: torch.Generator) -> float:
+    """The U-Net with dropout at its middle level (num_downs 6, 64x64)."""
+    x = _nchw(_randn(18, 2, 3, 64, 64))
+    net = UnetGenerator(3, 5, 6, 8, head="none", generator=g, use_dropout=True)
+    real = blocks.dropout_keep
+    blocks.dropout_keep = _injected_keep(x.shape[0])
+    try:
+        return _compare(net, x, mesh, 11, dropout=torch.Generator())
+    finally:
+        blocks.dropout_keep = real
+
+
+def _nhwc_net(net):
+    """NHWC ``(x, rows) -> logits`` of an NCHW generator in eval mode."""
+    net.eval()
+
+    def fn(x, rows=None):
+        with torch.no_grad():
+            return net(_nchw(x.permute(0, 3, 1, 2)), rows=rows).permute(0, 2, 3, 1)
+
+    return fn
+
+
+def eval_canvas_fn(logits_fn, which: str):
+    """The runner's composition: tiles innermost, the flip inside the scales."""
+    if which == "tile_flip_scales":
+        def tiled(x):
+            return eval_tile.tiled_logits(logits_fn, x, EVAL_WINDOW)
+
+        return tta.scale_avg(tta.flip_avg(tiled), EVAL_SCALES)
+    return tta.scale_avg(tta.flip_avg(logits_fn), EVAL_SCALES)
+
+
+def _eval_canvas() -> torch.Tensor:
+    return _randn(21, 2, *EVAL_CANVAS, 3)
+
+
+def _eval_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
+    """Each evaluation on this rank's slab of the canvas against the whole
+    canvas (its errors), and the gathered canvas logits (for JAX)."""
+    net = define_Gen(3, 5, 8, "resnet_2blocks", head="none")
+    weights.load_flax_module(net, eval_params)
+    whole = _nhwc_net(net)
+    sl = copy.deepcopy(net)
+    blocks.set_data_mesh(sl, mesh)
+    sp = S.from_mesh(mesh)
+    x = _eval_canvas()
+    lo, hi = S.slab(x.shape[1], mesh.spatial, mesh.spatial_index)
+    errs, outs = {}, {}
+    for which in EVAL_CASES:
+        want = eval_canvas_fn(whole, which)(x)
+        fn = S.on_canvas_slabs(eval_canvas_fn(S.whole_from_slabs(_nhwc_net(sl), sp), which), sp)
+        got = fn(x[:, lo:hi].contiguous())
+        errs[which] = _err(got, want[:, lo:hi])
+        outs[which] = S.gather_slabs(got, x.shape[1], sp).numpy()
+    return errs, outs
+
+
+def spatial_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
     """Each rank: every module case; the worst error of each over the ranks."""
     torch.manual_seed(0)  # the modules' default initialisation, alike on every rank
     g = torch.Generator().manual_seed(0)
@@ -213,36 +340,51 @@ def spatial_cases(mesh: tmesh.Mesh) -> dict:
             _nchw(_randn(15, 1, 5, 16, 24)), mesh, 8),
         "patchgan_uneven_tail": lambda: _compare(
             define_Dis(3, 8, generator=g), _nchw(_randn(16, 2, 3, 32, 32)), mesh, 9),
+        "instance_norm_zero_row_slab": lambda: _in_zero_row_case(mesh),
+        "generator_unet_instance_norm": lambda: _compare(
+            UnetGenerator(3, 5, 5, 8, head="none", generator=g),
+            _nchw(_randn(17, 2, 3, 32, 32)), mesh, 10),
+        "generator_unet_batch_norm": lambda: _compare(
+            UnetGenerator(5, 3, 5, 8, norm="batch", head="tanh", generator=g),
+            _nchw(_randn(19, 2, 5, 32, 32)), mesh, 12),
+        "generator_unet_dropout": lambda: _unet_dropout_case(mesh, g),
     }
     out = {}
     for name, run in cases.items():
         err = torch.tensor([run()], dtype=torch.float64)
         dist.all_reduce(err, op=dist.ReduceOp.MAX)
         out[name] = float(err)
-    return out
+    errs, canvases = _eval_cases(mesh, eval_params)
+    for name, e in errs.items():
+        err = torch.tensor([e], dtype=torch.float64)
+        dist.all_reduce(err, op=dist.ReduceOp.MAX)
+        out[f"eval_{name}"] = float(err)
+    return out, canvases
 
 
 CASE_NAMES = ["halo_exchange", "instance_norm_slab", "conv_reflect_7x7",
               "conv_trunk_3x3_kernel8", "conv_zero_3x3_stride2", "conv_zero_4x4_stride2",
               "conv_zero_4x4_uneven", "deconv_3x3_stride2", "generator_resnet",
-              "generator_resnet_tanh", "patchgan_uneven_tail"]
+              "generator_resnet_tanh", "patchgan_uneven_tail", "instance_norm_zero_row_slab",
+              "generator_unet_instance_norm", "generator_unet_batch_norm",
+              "generator_unet_dropout", *(f"eval_{w}" for w in EVAL_CASES)]
 
 
-def _sup_batch() -> dict:
+def _sup_batch(size: int = SIZE) -> dict:
     r = np.random.default_rng(1)
-    return {"image": r.uniform(0, 1, (4, SIZE, SIZE, 3)).astype(np.float32),
-            "label": r.integers(0, SUP_CLASSES, (4, SIZE, SIZE)).astype(np.int32)}
+    return {"image": r.uniform(0, 1, (4, size, size, 3)).astype(np.float32),
+            "label": r.integers(0, SUP_CLASSES, (4, size, size)).astype(np.int32)}
 
 
-def _cg_batches() -> list[dict]:
+def _cg_batches(size: int = SIZE) -> list[dict]:
     r = np.random.default_rng(5)
     out = []
     for _ in range(STEPS):
-        lab = r.integers(0, CG_CLASSES, (2, SIZE, SIZE)).astype(np.int32)
+        lab = r.integers(0, CG_CLASSES, (2, size, size)).astype(np.int32)
         lab[:, :3] = 255
         lab[1, :, :5] = 255  # the ranks' valid pixels differ
-        out.append({"lab_image": r.uniform(-1, 1, (2, SIZE, SIZE, 3)).astype(np.float32),
-                    "unlab_image": r.uniform(-1, 1, (2, SIZE, SIZE, 3)).astype(np.float32),
+        out.append({"lab_image": r.uniform(-1, 1, (2, size, size, 3)).astype(np.float32),
+                    "unlab_image": r.uniform(-1, 1, (2, size, size, 3)).astype(np.float32),
                     "lab_label": lab, "pool_use_new_img": r.random(2) > 0.5,
                     "pool_idx_img": r.integers(0, 2, 2).astype(np.int32),
                     "pool_use_new_lab": r.random(2) > 0.5,
@@ -250,14 +392,14 @@ def _cg_batches() -> list[dict]:
     return out
 
 
-def supervised_grads(mesh, sup_vars) -> dict:
+def supervised_grads(mesh, sup_vars, kw=SUP_KW) -> dict:
     """The supervised loss and gradients of the global batch on ``mesh``,
     the gradients as a Flax tree (``weights.flax_variables`` of a net that
     holds them)."""
-    st = SupervisedTrainer(Config(**SUP_KW), SUP_CLASSES, 3, steps_per_epoch=4, mesh=mesh)
+    st = SupervisedTrainer(Config(**kw), SUP_CLASSES, 3, steps_per_epoch=4, mesh=mesh)
     state = st.init_state(torch.Generator().manual_seed(0))
     weights.load_flax_module(st.model, sup_vars)
-    loss = st._loss(state, tmesh.shard_batch(_sup_batch(), mesh))
+    loss = st._loss(state, tmesh.shard_batch(_sup_batch(kw["crop_height"]), mesh))
     grads = tmesh.all_reduce_mean(list(torch.autograd.grad(loss, st.params())), mesh)
     with torch.no_grad():
         for p, g in zip(st.params(), grads):
@@ -266,15 +408,17 @@ def supervised_grads(mesh, sup_vars) -> dict:
             "grads": weights.flax_variables(st.model)["params"]}
 
 
-def cyclegan_run(mesh, flax_params) -> dict:
-    """3 CycleGAN steps on ``mesh`` from the bridged weights: per-step
-    metrics, the parameters, the pools (their slabs gathered)."""
-    tt = CycleGANTrainer(Config(**CG_KW), CG_CLASSES, 3, steps_per_epoch=1000, mesh=mesh)
+def cyclegan_run(mesh, flax_params, kw=CG_KW) -> dict:
+    """3 CycleGAN steps on ``mesh`` from the bridged weights (None: the
+    port's own, drawn from seed 0): per-step metrics, the parameters, the
+    pools (their slabs gathered)."""
+    tt = CycleGANTrainer(Config(**kw), CG_CLASSES, 3, steps_per_epoch=1000, mesh=mesh)
     state = tt.init_state(torch.Generator().manual_seed(0))
-    weights.load_flax_cyclegan(tt, flax_params)
+    if flax_params is not None:
+        weights.load_flax_cyclegan(tt, flax_params)
     state = tmesh.replicate_state(tt, state, mesh)
     out = []
-    for b in _cg_batches():
+    for b in _cg_batches(kw["crop_height"]):
         state, m = tt.train_step(state, tmesh.shard_batch(b, mesh))
         out.append({k: float(v) for k, v in m.items()})
     pools = [tmesh.gather_slab(p.buffer[:p.count].contiguous(), mesh).float().numpy()
@@ -284,12 +428,24 @@ def cyclegan_run(mesh, flax_params) -> dict:
                        for i, net in enumerate(tt.nets()) for k, v in net.state_dict().items()}}
 
 
-def on_the_mesh(sup_vars, cg_params) -> dict:
+def run_cfg(root: str, **kw) -> Config:
+    """The runner's --testing configuration on the checkpoint under ``root``."""
+    return Config(**{**RUN_KW, "checkpoint_dir": f"{root}/ckpt", "results_dir": f"{root}/res",
+                     **kw})
+
+
+def on_the_mesh(refs: dict, run_root: str) -> dict:
     torch.set_num_threads(1)
     mesh = tmesh.make_mesh(spatial=S_RANKS, device="cpu")
     assert (mesh.dp, mesh.spatial) == (WORLD // S_RANKS, S_RANKS)
-    return {"modules": spatial_cases(mesh), "supervised": supervised_grads(mesh, sup_vars),
-            "cyclegan": cyclegan_run(mesh, cg_params)}
+    modules, canvases = spatial_cases(mesh, refs["eval_params"])
+    test = runner.run_test(run_cfg(run_root, num_devices=WORLD, spatial_shards=S_RANKS),
+                           device="cpu")
+    return {"modules": modules, "canvases": canvases,
+            "supervised": supervised_grads(mesh, refs["sup_vars"]),
+            "supervised_unet": supervised_grads(mesh, refs["sup_unet_vars"], SUP_UNET_KW),
+            "cyclegan": cyclegan_run(mesh, refs["cg_params"]),
+            "cyclegan_unet": cyclegan_run(mesh, None, CG_UNET_KW), "run_test": test}
 
 
 @pytest.fixture(scope="module")
@@ -304,15 +460,38 @@ def references():
     from cyclegan_tpu.train.supervised import SupervisedTrainer as JaxSup
     from cyclegan_tpu.utils import config as jconfig
 
-    js = JaxSup(jconfig.Config(**SUP_KW), num_classes=SUP_CLASSES, in_channels=3,
-                steps_per_epoch=4)
-    params = jax.device_get(js.init_state(jax.random.PRNGKey(0)).params)
+    from cyclegan_tpu import eval_tile as jtile
+    from cyclegan_tpu import tta as jtta
+    from cyclegan_tpu.models.generators import ResnetGenerator as JaxResnet
 
-    def loss_fn(p, b):
-        return losses.cross_entropy_loss(js.model.apply(p, b["image"]), b["label"])
+    def supervised(kw):
+        js = JaxSup(jconfig.Config(**kw), num_classes=SUP_CLASSES, in_channels=3,
+                    steps_per_epoch=4)
+        params = jax.device_get(js.init_state(jax.random.PRNGKey(0)).params)
 
-    b = {k: jnp.asarray(v) for k, v in _sup_batch().items()}
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, b)
+        def loss_fn(p, b):
+            return losses.cross_entropy_loss(js.model.apply(p, b["image"]), b["label"])
+
+        b = {k: jnp.asarray(v) for k, v in _sup_batch(kw["crop_height"]).items()}
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, b)
+        return params, float(loss), jax.device_get(grads)
+
+    params, loss, grads = supervised(SUP_KW)
+    unet_params, unet_loss, unet_grads = supervised(SUP_UNET_KW)
+
+    gen = JaxResnet(5, 8, n_blocks=2, head="none")
+    canvas = jnp.asarray(_eval_canvas().numpy())
+    eval_params = jax.device_get(gen.init(jax.random.PRNGKey(3), canvas[:1, :16, :16]))
+
+    def net(p, x):
+        return gen.apply(p, x)
+
+    def tiled(p, x):
+        return jtile.tiled_logits(net, p, x, EVAL_WINDOW)
+
+    eval_jax = {"tile_flip_scales": jtta.scale_avg(jtta.flip_avg(tiled), EVAL_SCALES),
+                "flip_scales": jtta.scale_avg(jtta.flip_avg(net), EVAL_SCALES)}
+    eval_jax = {k: np.asarray(f(eval_params, canvas)) for k, f in eval_jax.items()}
 
     jt = JaxCG(jconfig.Config(**dict(CG_KW, gen_net="resnet_6blocks")), CG_CLASSES, 3,
                steps_per_epoch=1000)
@@ -326,19 +505,33 @@ def references():
     for batch in _cg_batches():
         state, m = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"sup_vars": params, "sup_loss": float(loss), "sup_grads": jax.device_get(grads),
+    return {"sup_vars": params, "sup_loss": loss, "sup_grads": grads,
+            "sup_unet_vars": unet_params, "sup_unet_loss": unet_loss,
+            "sup_unet_grads": unet_grads, "eval_params": eval_params, "eval_jax": eval_jax,
             "cg_params": cg_params, "cg_metrics": metrics}
 
 
 @pytest.fixture(scope="module")
-def mesh4(references, tmp_path_factory):
+def run_root(tmp_path_factory) -> str:
+    """A CycleGAN checkpoint (the port's initial state) for --testing."""
+    root = str(tmp_path_factory.mktemp("run"))
+    cfg = run_cfg(root)
+    t = CycleGANTrainer(cfg, 21, 3, steps_per_epoch=1, device="cpu")
+    state = t.init_state(torch.Generator().manual_seed(cfg.seed))
+    ck.CheckpointManager(cfg.checkpoint_dir).save(0, ck.state_payload(t, state))
+    return root
+
+
+@pytest.fixture(scope="module")
+def mesh4(references, run_root, tmp_path_factory):
     """Every case on dp 2 x spatial 2, in one spawn of four gloo ranks."""
+    refs = {k: references[k] for k in ("sup_vars", "sup_unet_vars", "eval_params",
+                                       "cg_params")}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(distributed.TIMEOUT_ENV, "120")
         mp.setenv("OMP_NUM_THREADS", "1")
         out = distributed.launch_local(
-            on_the_mesh, (references["sup_vars"], references["cg_params"]), nprocs=WORLD,
-            world=WORLD, device="cpu",
+            on_the_mesh, (refs, run_root), nprocs=WORLD, world=WORLD, device="cpu",
             init_method=f"file://{tmp_path_factory.mktemp('mesh4')}/store")
     assert multiprocessing.active_children() == []
     return out
@@ -347,7 +540,7 @@ def mesh4(references, tmp_path_factory):
 @pytest.mark.parametrize("case", CASE_NAMES)
 def test_slab_matches_the_whole_plane(mesh4, case):
     got = mesh4["modules"]
-    assert got[case] <= TOL, {k: f"{v:.3g}" for k, v in got.items()}
+    assert got[case] <= TOL, " ".join(f"{k}={v:.3g}" for k, v in got.items())
 
 
 def _flat(tree, prefix=""):
@@ -359,19 +552,58 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-def test_supervised_dp2_spatial2_gives_jax_unsharded_loss_and_gradients(mesh4, references):
-    got = mesh4["supervised"]
-    assert abs(got["loss"] - references["sup_loss"]) <= 5e-5 * abs(references["sup_loss"])
-    g, r = _flat(got["grads"]), _flat(references["sup_grads"]["params"])
+def _assert_jax_loss_and_grads(got: dict, ref_loss: float, ref_grads) -> None:
+    assert abs(got["loss"] - ref_loss) <= 5e-5 * abs(ref_loss)
+    g, r = _flat(got["grads"]), _flat(ref_grads["params"])
     assert g.keys() == r.keys() and r
     for k in r:
         err = np.abs(g[k] - r[k]).max() / max(1.0, float(np.abs(r[k]).max()))
         assert err <= 5e-5, (k, err)
 
 
-def _one_process(cg_params) -> dict:
+def test_supervised_dp2_spatial2_gives_jax_unsharded_loss_and_gradients(mesh4, references):
+    _assert_jax_loss_and_grads(mesh4["supervised"], references["sup_loss"],
+                               references["sup_grads"])
+
+
+def test_supervised_unet_dp2_spatial2_gives_jax_unsharded_loss_and_gradients(mesh4, references):
+    _assert_jax_loss_and_grads(mesh4["supervised_unet"], references["sup_unet_loss"],
+                               references["sup_unet_grads"])
+
+
+def _one_process(cg_params, kw=CG_KW) -> dict:
     torch.set_num_threads(2)
-    return cyclegan_run(tmesh.Mesh(torch.device("cpu")), cg_params)
+    return cyclegan_run(tmesh.Mesh(torch.device("cpu")), cg_params, kw)
+
+
+def test_cyclegan_unet_spatial2_matches_one_process(mesh4):
+    got, ref = mesh4["cyclegan_unet"], _one_process(None, CG_UNET_KW)
+    for s in range(STEPS):
+        for k in ("g_total", "d_total"):
+            np.testing.assert_allclose(got["metrics"][s][k], ref["metrics"][s][k], rtol=2e-3,
+                                       err_msg=f"step {s + 1}")
+    for k in ref["params"]:
+        np.testing.assert_allclose(got["params"][k], ref["params"][k], atol=2e-3, err_msg=k)
+    for a, b in zip(got["pools"], ref["pools"]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=2e-3)
+
+
+@pytest.mark.parametrize("which", EVAL_CASES)
+def test_slab_evaluations_match_jax(mesh4, references, which):
+    """The canvas logits gathered from the slabs against JAX's tiled and
+    scaled logits of the whole canvas on the same weights."""
+    got, ref = mesh4["canvases"][which], references["eval_jax"][which]
+    assert got.shape == ref.shape == (2, *EVAL_CANVAS, 5)
+    assert np.abs(got - ref).max() / max(1.0, np.abs(ref).max()) <= TOL
+
+
+def test_runner_testing_spatial2_gives_one_process_confusion(mesh4, run_root):
+    one = runner.run_test(run_cfg(run_root, results_dir=f"{run_root}/res1"), device="cpu")
+    two = mesh4["run_test"]
+    assert np.asarray(one["confusion"]).sum() > 0
+    assert two["confusion"] == one["confusion"]
+    assert two["miou"] == one["miou"]
 
 
 def test_cyclegan_spatial2_matches_one_process(mesh4, references):
@@ -413,6 +645,25 @@ def test_slab_rows_cover_every_row_once_and_uneven_tails_shrink():
         rows.append(b.out_rows(rows[-1]))
     assert rows == [256, 128, 64, 32, 31, 30]
     assert [S.slab(31, 2, p) for p in range(2)] == [(0, 16), (16, 31)]
+
+
+@pytest.mark.parametrize("downs,s", [(7, 2), (8, 2), (8, 3), (8, 4)])
+def test_unet_skip_halves_own_the_same_rows(downs, s):
+    """Each U-Net level's transposed convolution gives every rank the rows
+    of the level's input that it owns (so ``cat([x, up])`` stays local),
+    down to the innermost 1-row plane, where a rank may own none."""
+    h = 2 ** downs
+    planes = []
+    while h > 1:
+        inner = S.conv_out_rows(h, 4, 2, 1)
+        assert S.deconv_out_rows(inner, 4, 2, 1, 0) == h
+        for p in range(s):
+            lo, hi = S.slab(h, s, p)
+            _, _, count = S.deconv_source_rows(inner, 4, 2, 1, 0, s, p)
+            assert count == hi - lo
+        planes.append(inner)
+        h = inner
+    assert planes[-1] == 1 and S.slab(1, s, s - 1) == (1, 1)
 
 
 def test_source_rows_reflect_pad_and_take_the_halo():

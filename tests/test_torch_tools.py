@@ -9,15 +9,24 @@
   the CycleGAN trajectory's mean G-loss gap under the 1% bar on each leg.
 - ``tools/soak_summary.py``, unchanged, summarises the
   ``train_metrics.jsonl`` the port's runner writes.
+- ``tools/torch_http_bench.py`` (the counterpart of
+  ``tests/test_tools_round5.py::test_http_bench_cli``) drives the port's
+  endpoint on a tiny artifact with ``--device cpu`` and prints its JSON
+  record.
 """
 
 import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+from cyclegan_tpu_torch import export
 from cyclegan_tpu_torch.main import main as cli
+from cyclegan_tpu_torch.models.generators import define_Gen
 from tools import torch_cyclegan_parity_run, torch_miou_parity_run, torch_quantize_miou_run
 from tools.soak_summary import summarize
 
@@ -84,3 +93,23 @@ def test_soak_summary_reads_the_port_runner_log(tmp_path):
         assert out[f"{k}_first"] == round(rows[0][k], 3)
         assert out[f"{k}_last"] == round(rows[-1][k], 3)
     assert out["sustained_steps_per_sec"]["n_intervals"] >= 1
+
+
+def test_http_bench_cli(tmp_path):
+    """The load bench drives the port's endpoint end to end and reports a
+    complete JSON record (req/s, percentiles, realised batch size)."""
+    g = define_Gen(3, 5, 8, "resnet_2blocks", head="none",
+                   generator=torch.Generator().manual_seed(0))
+    art = export.export_generator(g, str(tmp_path / "m"), gen_net="resnet_2blocks", ngf=8,
+                                  num_classes=5, in_channels=3, crop_hw=(32, 32),
+                                  dtype="float32")
+    root = Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "tools/torch_http_bench.py", art, "--clients", "3",
+                        "--requests", "4", "--max_batch", "4", "--device", "cpu"],
+                       capture_output=True, text=True, timeout=600, cwd=str(root))
+    assert r.returncode == 0, f"{r.stdout}\n{r.stderr}"
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["clients"] == 3 and out["requests_per_client"] == 4
+    assert out["device"] == "cpu" and out["req_per_s"] > 0
+    assert out["latency_ms"]["p50"] <= out["latency_ms"]["p99"] <= out["latency_ms"]["max"]
+    assert 1.0 <= out["mean_batch"] <= 4.0
