@@ -54,7 +54,10 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    per-step count derived from the modules; then the median step time of
    each path, in turns, and one profiled step (the forward convolution's, the
    instance norm's and the chunked norm kernels' device ms and launches:
-   one launch a C entry of either norm, or the phase fails);
+   one launch a C entry of either norm, or the phase fails); on the default
+   path also the median step under deterministic_algorithms() against the
+   default mode's (in turns), and whether each mode's step-1 gradients
+   repeat bitwise across two trainers from one seed;
 7. train_chunked, train_dropout: the same for paths A and B; path A
    launches the chunked block 27 times a step forward and backward (its
    norm kernels 108 times) and no fused block, path B launches conv_dw 54
@@ -83,6 +86,11 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    launched as often as the modules derive for its train steps and eval
    forwards; steps/s from the logger, the loop's input wait and the
    validation seconds are recorded with the card's name and power limit;
+   ckpt_devices: a small run of each trainer (ngf 8, 32x32, dropout on)
+   saved on the CPU resumes on the card (also without its dropout seed,
+   as older checkpoints are), one saved on the card resumes on the CPU and
+   on the card, one step each: the nets and step bitwise, the dropout
+   generator as train/checkpoint.py's rule makes it;
 10. kernels_supervised: the kernels of the supervised paths alone at their
    shapes (bf16, batch 2) against their plain versions, timed: #1/#2 at
    config 1's norm planes and at every U-Net plane (2x2x512 up to
@@ -1551,6 +1559,66 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
 
 
+def deterministic_cost(trainer, batch, first: int, t, st) -> dict:
+    """What deterministic_algorithms() costs the default path's step: the
+    median of TIMED_STEPS steps of the trainer ``t`` (state ``st``) in each
+    mode, in turns (default, deterministic, deterministic, default), host
+    clock around synchronized steps, after a first step under the mode
+    kept apart (its time recorded); and each mode's repeatability: two
+    trainers from one seed (``trainer()``) take step 1 on ``batch(0)`` in
+    that mode, and their step-1 gradients are compared (tensors not bitwise
+    equal, and the worst norm of a difference over its tensor's)."""
+    import torch
+
+    def mode(det: bool):
+        return deterministic_algorithms() if det else contextlib.nullcontext()
+
+    def timed(det: bool, at: int) -> list:
+        out = []
+        with mode(det):
+            for i in range(TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train_step(st, batch(at + i))
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    # The first step under the mode (cuDNN picks its algorithms anew).
+    with mode(True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step(st, batch(first))
+        torch.cuda.synchronize()
+        first_det_ms = (time.perf_counter() - t0) * 1e3
+    default_ms = timed(False, first)
+    det_ms = timed(True, first + TIMED_STEPS) + timed(True, first)
+    default_ms += timed(False, first + TIMED_STEPS)
+    repeatable = {}
+    for name, det in (("default", False), ("deterministic", True)):
+        grads = []
+        with mode(det):
+            for _ in range(2):
+                a, sa = trainer()
+                a.train_step(sa, batch(0))
+                grads.append(_grads(a))
+                del a, sa
+        g0, g1 = grads
+        unequal = sum(not torch.equal(g0[k], g1[k]) for k in g0)
+        worst = max(float((g0[k] - g1[k]).norm() / g1[k].norm()) for k in g0)
+        repeatable[name] = {"bitwise": unequal == 0, "step1_grads_not_bitwise": unequal,
+                            "step1_grads": len(g0), "worst_rel_diff": worst}
+        del grads, g0, g1
+        torch.cuda.empty_cache()
+    return {"first_step_ms_deterministic": first_det_ms,
+            "step_ms_default": default_ms, "step_ms_deterministic": det_ms,
+            "median_step_ms_default": statistics.median(default_ms),
+            "median_step_ms_deterministic": statistics.median(det_ms),
+            "deterministic_over_default": statistics.median(det_ms)
+            / statistics.median(default_ms),
+            "repeatable": repeatable}
+
+
 @contextlib.contextmanager
 def resblock_env(route: str):
     """The JAX package's route variables while a trainer is built (the
@@ -1954,11 +2022,21 @@ def phase_train(smi: str, path: str = "default") -> dict:
     torch.cuda.reset_peak_memory_stats()
     rec.update(profile_step(lambda: kt.train_step(ks, batch(s0 + 2 * TIMED_STEPS))))
     rec["peak_mem_gb_profiled_step"] = torch.cuda.max_memory_allocated() / 1e9
+    if path == "default":
+        rec["deterministic_mode"] = deterministic_cost(trainer, batch, s0, kt, ks)
     emit(rec)
     check_one_launch_a_entry(rec, path)
     print(f"train step ({path}), {TRAIN_PRESET} 256x256 b1 bf16: median {med_k:.2f} ms "
           f"({1e3 / med_k:.2f} steps/s) on the kernels, {med_p:.2f} ms on the plain "
           f"versions; {smi}", flush=True)
+    if path == "default":
+        det = rec["deterministic_mode"]
+        print(f"train step (default) under deterministic_algorithms(): median "
+              f"{det['median_step_ms_deterministic']:.2f} ms against "
+              f"{det['median_step_ms_default']:.2f} ms in the default mode; step-1 gradients "
+              f"bitwise repeatable: default {det['repeatable']['default']['bitwise']}, "
+              f"deterministic {det['repeatable']['deterministic']['bitwise']}; {smi}",
+              flush=True)
     del kt, ks
     torch.cuda.empty_cache()
     return {"launches": launches, "record": rec}
@@ -4322,6 +4400,89 @@ def phase_spatial_eval(recs: list, rcfg, trainer, tmp: str, smi: str) -> dict:
     return {"launches": recs[0]["eval"]["launches"], "record": rec}
 
 
+def phase_ckpt_devices(smi: str) -> dict:
+    """A checkpoint resumes on either device type (train/checkpoint.py): a
+    small run of each trainer (resnet_2blocks, ngf 8, 32x32, batch 2,
+    dropout on, float32) takes one step on one device, is saved, and is
+    resumed on the other (CPU -> card, card -> CPU) or on the same (card ->
+    card), where it takes one more step; a CPU payload without its
+    dropout seed (as written before the seed was stored) resumes on the
+    card too. Held: the nets and the step are the saved ones bitwise; the
+    dropout generator is the new device's, seeded by dropout_reseed(stored
+    seed, or the resuming trainer's own, step), or on the same device type
+    the saved state bitwise; the next step's losses are finite."""
+    import numpy as np
+    import torch
+
+    from cyclegan_tpu_torch.train import checkpoint as ck
+    from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
+    from cyclegan_tpu_torch.utils.config import Config
+
+    cfg = Config(gen_net="resnet_2blocks", ngf=8, ndf=8, crop_height=32, crop_width=32,
+                 bf16=False, batch_size=2, pool_size=2, epochs=2, decay_epoch=1,
+                 use_dropout=True)
+    r = np.random.default_rng(1)
+    images = r.uniform(-1, 1, (2, 2, 32, 32, 3)).astype(np.float32)
+    labels = r.integers(0, NUM_CLASSES, (2, 32, 32))
+
+    def batch(kind: str, device: str) -> dict:
+        img, unlab, lab = (torch.from_numpy(a).to(device) for a in (*images, labels))
+        if kind == "supervised":
+            return {"image": img, "label": lab}
+        return {"lab_image": img, "unlab_image": unlab, "lab_label": lab}
+
+    def build(kind: str, device: str, seed: int):
+        make = SupervisedTrainer if kind == "supervised" else CycleGANTrainer
+        with resblock_env("fused"):
+            t = make(cfg, NUM_CLASSES, 3, 2, device=device)
+        return t, t.init_state(torch.Generator().manual_seed(seed))
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_devices_")
+    try:
+        for kind in ("cyclegan", "supervised"):
+            for src, dst, seeded in (("cpu", "cuda", True), ("cuda", "cpu", True),
+                                     ("cuda", "cuda", True), ("cpu", "cuda", False)):
+                name = f"{kind}_{src}_to_{dst}" + ("" if seeded else "_without_seed")
+                ta, sa = build(kind, src, 0)
+                sa, _ = ta.train_step(sa, batch(kind, src))
+                payload = ck.state_payload(ta, sa)
+                if not seeded:
+                    del payload["dropout_seed"]
+                mngr = ck.CheckpointManager(os.path.join(tmp, name))
+                mngr.save(0, payload)
+                tb, sb = build(kind, dst, 5)
+                seed = sa.dropout_seed if seeded else sb.dropout_seed
+                sb, _ = mngr.restore(tb, sb)
+                want = sa.dropout.get_state() if src == dst else torch.Generator(
+                    device=dst).manual_seed(ck.dropout_reseed(seed, sa.step)).get_state()
+                nets = [torch.equal(x.cpu(), y.cpu()) for na, nb in zip(ta.nets(), tb.nets())
+                        for x, y in zip(na.state_dict().values(), nb.state_dict().values())]
+                rec = {"generator_as_ruled": torch.equal(sb.dropout.get_state().cpu(),
+                                                         want.cpu()),
+                       "generator_device": sb.dropout.device.type,
+                       "nets_bitwise": all(nets), "tensors": len(nets), "step": sb.step}
+                sb, m = tb.train_step(sb, batch(kind, dst))
+                rec["next_step_losses"] = {k: float(v) for k, v in m.items()}
+                out[name] = rec
+                if not (rec["generator_as_ruled"] and rec["nets_bitwise"] and rec["step"] == 1
+                        and rec["generator_device"] == dst and sb.step == 2
+                        and all(map(math.isfinite, rec["next_step_losses"].values()))):
+                    raise AssertionError(f"ckpt_devices: {name}: {rec}")
+                del ta, sa, tb, sb
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rec = {"phase": "ckpt_devices", "config": "resnet_2blocks, ngf 8, 32x32, batch 2, "
+                                              "use_dropout, float32", "runs": out,
+           "nvidia_smi": smi}
+    emit(rec)
+    return rec
+
+
 def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                  serve_full: dict | None = None, dp: dict | None = None,
                  spatial: dict | None = None, http_bench: dict | None = None) -> dict:
@@ -4483,6 +4644,7 @@ def main() -> int:
     emit({"phase": "graph_capture", "instance_norm": in_graph_capture(),
           "chunked_block": chunked_graph_capture()})
     phase_cli(smi)
+    phase_ckpt_devices(smi)
     sup_recs = phase_kernels_supervised()
     t_sup = time.perf_counter()
     runs.update((path, phase_train_supervised(smi, path)) for path in SUP_PATHS)

@@ -3,9 +3,13 @@
 Counterpart of ``cyclegan_tpu/ops/functional.py``. There these are XLA ops
 in NHWC/HWIO; here they are plain ``torch.nn.functional`` calls in torch's
 own NCHW/OIHW layout (activations may sit in ``channels_last`` memory). The
-JAX package's XLA-only routes (``conv2d_reflect_gemm``, ``_conv_gemm_core``)
-have no counterpart yet; ``conv2d_valid_dw_fused`` takes its weight gradient
-from the hand-written kernel of ``kernels.conv_dw``.
+JAX package's im2col-GEMM route of the 7x7 convolutions
+(``conv2d_reflect_gemm``, ``CYCLEGAN_TPU_CONV7``) has no counterpart: it
+computes the same function as the library convolution, lost to it in the
+JAX package's own measurements, and the port keeps the library's
+(ROADMAP.md, Queue 3).
+``conv2d_valid_dw_fused`` takes its weight gradient from the hand-written
+kernel of ``kernels.conv_dw``.
 """
 
 from __future__ import annotations

@@ -10,15 +10,23 @@ temporary name and renamed, so a reader sees a whole file or none.
 A state payload (:func:`state_payload`) holds everything a run carries:
 the four nets' state dicts, both Adams and both LambdaLRs, both replay
 pools (the filled rows, the count and the capacity), the states of the
-pool-decision and dropout ``torch.Generator``s, and the step; every tensor
-is a CPU copy. A supervised payload holds the net's state dict, Adam, its
-LambdaLR, the dropout generator's state and the step. The nets' state
-dicts carry the batch norms' running averages, and their keys do not
-depend on ``remat``. :func:`load_state` puts a payload back into a trainer
-and its state on the trainer's device. Pools are restored at the STORED capacity and
-type, so a resume or ``--testing`` works across ``pool_size`` and
-precision changes; a stored empty pool (a ``pool_size`` 0 run) refuses a
-run that wants one, as the JAX package does.
+pool-decision and dropout ``torch.Generator``s, the dropout stream's seed
+and the step; every tensor is a CPU copy. A supervised payload holds the
+net's state dict, Adam, its LambdaLR, the dropout generator's state and
+seed, and the step. The nets' state dicts carry the batch norms' running
+averages, and their keys do not depend on ``remat``. :func:`load_state`
+puts a payload back into a trainer and its state on the trainer's device.
+A checkpoint resumes on either device type. The stored dropout state tells
+which wrote it: a CPU generator's is the Mersenne Twister's 5056 bytes, a
+CUDA generator's Philox's seed and offset, 16 bytes, and neither loads
+into the other. Written on the trainer's device type, the state is loaded
+as it was saved (the resume is bitwise); written on the other, the
+trainer's generator is seeded with :func:`dropout_reseed` of the stored
+seed (the trainer's own where a payload predates it) and the step.
+Pools are restored at the STORED capacity and type, so a resume or
+``--testing`` works across ``pool_size`` and precision changes; a stored
+empty pool (a ``pool_size`` 0 run) refuses a run that wants one, as the
+JAX package does.
 
 In a data-parallel run only the primary rank writes (the others' ``save``
 does nothing) and every rank restores, straight onto its own device.
@@ -63,20 +71,33 @@ def _pool_payload(pool: PoolState, mesh=None) -> dict:
     return {"buffer": _cpu(rows), "count": pool.count, "size": pool.buffer.shape[0]}
 
 
+def _dropout_payload(state) -> dict:
+    return {"dropout": state.dropout.get_state(), "dropout_seed": int(state.dropout_seed),
+            "step": int(state.step)}
+
+
+def dropout_reseed(seed: int, step: int) -> int:
+    """The seed of a dropout generator resumed at optimizer step ``step`` on
+    another device type than the one that wrote the checkpoint: the run's
+    dropout seed plus the step (seeds are drawn below 2^62), so a run
+    resumed at step 0 draws what a run started there from the same seed
+    draws."""
+    return (int(seed) + int(step)) % 2 ** 63
+
+
 def state_payload(trainer, state) -> dict:
     """Everything of ``(trainer, state)`` a resume needs, as CPU copies.
     Under a spatial axis it gathers the pools' slabs: every rank calls it."""
     if isinstance(state, SupervisedState):
         return {"nets": {"model": _cpu(trainer.model.state_dict())},
                 "opt": _cpu(state.opt.state_dict()), "sched": state.sched.state_dict(),
-                "dropout": state.dropout.get_state(), "step": int(state.step)}
+                **_dropout_payload(state)}
     return {"nets": {n: _cpu(getattr(trainer, n).state_dict()) for n in NETS},
             "g_opt": _cpu(state.g_opt.state_dict()), "d_opt": _cpu(state.d_opt.state_dict()),
             "g_sched": state.g_sched.state_dict(), "d_sched": state.d_sched.state_dict(),
             "pool_img": _pool_payload(state.pool_img, trainer.mesh),
             "pool_lab": _pool_payload(state.pool_lab, trainer.mesh),
-            "generator": state.generator.get_state(), "dropout": state.dropout.get_state(),
-            "step": int(state.step)}
+            "generator": state.generator.get_state(), **_dropout_payload(state)}
 
 
 def _restore_pool(stored: dict, pool: PoolState, name: str, device, mesh=None) -> PoolState:
@@ -104,6 +125,19 @@ def _load_opt(opt: torch.optim.Optimizer, stored: dict) -> None:
     opt.load_state_dict(stored)
 
 
+def _restore_dropout(state, payload: dict) -> None:
+    """The stored dropout stream, on the state's generator: its saved state
+    where a generator of the state's device type wrote it (the states'
+    sizes agree), else the generator seeded with :func:`dropout_reseed`."""
+    saved = payload["dropout"].cpu()
+    state.dropout_seed = int(payload.get("dropout_seed", state.dropout_seed))
+    if saved.numel() == state.dropout.get_state().numel():
+        state.dropout.set_state(saved)
+    else:
+        state.dropout.manual_seed(dropout_reseed(state.dropout_seed, payload["step"]))
+    state.step = int(payload["step"])
+
+
 def load_state(trainer, state, payload: dict):
     """Load a :func:`state_payload` into ``trainer`` and ``state`` (in
     place, every tensor on the trainer's device); returns ``state``."""
@@ -111,8 +145,7 @@ def load_state(trainer, state, payload: dict):
         trainer.model.load_state_dict(payload["nets"]["model"])
         _load_opt(state.opt, payload["opt"])
         state.sched.load_state_dict(payload["sched"])
-        state.dropout.set_state(payload["dropout"].cpu())
-        state.step = int(payload["step"])
+        _restore_dropout(state, payload)
         return state
     for n in NETS:
         getattr(trainer, n).load_state_dict(payload["nets"][n])
@@ -125,8 +158,7 @@ def load_state(trainer, state, payload: dict):
     state.pool_lab = _restore_pool(payload["pool_lab"], state.pool_lab, "pool_lab",
                                    trainer.device, trainer.mesh)
     state.generator.set_state(payload["generator"].cpu())
-    state.dropout.set_state(payload["dropout"].cpu())
-    state.step = int(payload["step"])
+    _restore_dropout(state, payload)
     return state
 
 

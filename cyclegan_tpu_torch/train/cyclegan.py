@@ -95,6 +95,7 @@ class CycleGANState:
     generator: torch.Generator
     dropout: torch.Generator
     step: int = 0
+    dropout_seed: int = 0
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -237,7 +238,8 @@ class CycleGANTrainer:
             pool_img=init_pool(cfg.pool_size, (h, w, self.in_channels), **pool),
             pool_lab=init_pool(cfg.pool_size, (h, w, self.num_classes), **pool),
             generator=torch.Generator().manual_seed(seed),
-            dropout=torch.Generator(device=self.device).manual_seed(drop_seed))
+            dropout=torch.Generator(device=self.device).manual_seed(drop_seed),
+            dropout_seed=drop_seed)
 
     def _onehot(self, labels: torch.Tensor) -> torch.Tensor:
         """(B, H, W) labels -> (B, H, W, K) float32 one-hot, all-zero on void."""

@@ -35,11 +35,13 @@ from cyclegan_tpu_torch.utils.config import Config
 class SupervisedState:
     """What a step carries besides the net (which holds the parameters and
     the batch norms' running averages): Adam, its LambdaLR, the dropout
-    generator (on the trainer's device) and the step count."""
+    generator (on the trainer's device), the step count and the seed the
+    dropout generator was made from."""
     opt: torch.optim.Adam
     sched: torch.optim.lr_scheduler.LambdaLR
     dropout: torch.Generator
     step: int = 0
+    dropout_seed: int = 0
 
 
 class SupervisedTrainer:
@@ -81,7 +83,8 @@ class SupervisedTrainer:
                                         steps_per_epoch=self.steps_per_epoch)
         drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         return SupervisedState(opt=opt, sched=sched,
-                               dropout=torch.Generator(device=self.device).manual_seed(drop_seed))
+                               dropout=torch.Generator(device=self.device).manual_seed(drop_seed),
+                               dropout_seed=drop_seed)
 
     def _loss(self, state: SupervisedState, batch: dict) -> torch.Tensor:
         check_rows(batch["image"].shape[0], self.cfg, self.mesh)

@@ -2,13 +2,18 @@
 mid-epoch format detection), on the CPU.
 
 Exact by construction: a restored state equals the saved one bitwise, and a
-step taken after a restore equals the step taken without one. The mid-epoch
+step taken after a restore equals the step taken without one. A payload
+whose dropout generator another device type wrote (a CUDA generator's
+Philox seed and offset, 16 bytes) resumes on the CPU with the generator
+seeded by ``checkpoint.dropout_reseed`` of the stored seed (the trainer's
+own where the payload predates it) and step. The mid-epoch
 formats are the JAX runner's (v1 {state, epoch, pos, gstep}, v2 + spc, v3 +
 ga), told apart by the stored keys.
 """
 
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 from cyclegan_tpu_torch.train import checkpoint as ck
 from cyclegan_tpu_torch.train import runner
 from cyclegan_tpu_torch.train.cyclegan import CycleGANTrainer
+from cyclegan_tpu_torch.train.supervised import SupervisedTrainer
 from cyclegan_tpu_torch.utils.config import Config
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,6 +53,21 @@ def _batch(seed=1):
             "unlab_image": torch.from_numpy(r.uniform(-1, 1, (2, SIZE, SIZE, 3))
                                             .astype(np.float32)),
             "lab_label": torch.from_numpy(r.integers(0, 4, (2, SIZE, SIZE)))}
+
+
+def _sup_trainer(seed=0):
+    cfg = Config(gen_net="resnet_2blocks", ngf=4, bf16=False, crop_height=SIZE,
+                 crop_width=SIZE, batch_size=2, epochs=2, decay_epoch=1, use_dropout=True)
+    tt = SupervisedTrainer(cfg, 4, 3, steps_per_epoch=2, device="cpu")
+    return tt, tt.init_state(torch.Generator().manual_seed(seed))
+
+
+def _sup_batch(seed=1):
+    b = _batch(seed)
+    return {"image": b["lab_image"], "label": b["lab_label"]}
+
+
+TRAINERS = {"cyclegan": (_trainer, _batch), "supervised": (_sup_trainer, _sup_batch)}
 
 
 def _equal_payloads(a, b, path=""):
@@ -207,3 +228,84 @@ def test_keep_best_tracks_the_best_miou_across_restarts(tmp_path, monkeypatch):
     runner.run_cyclegan(cfg.replace(epochs=4, decay_epoch=3), device="cpu")
     assert json.loads(metric_path.read_text()) == {"miou": 0.5, "epoch": 1}
     assert ck.CheckpointManager(str(tmp_path / "ckpt" / "best")).latest_epoch() == 1
+
+
+def _as_written_on_the_card(payload: dict) -> dict:
+    """``payload`` with the dropout state a CUDA generator gives: Philox's
+    seed and offset, 16 bytes, which no CPU generator loads."""
+    philox = torch.tensor(list(struct.pack("<QQ", payload["dropout_seed"], 4096)),
+                          dtype=torch.uint8)
+    return dict(payload, dropout=philox)
+
+
+@pytest.mark.parametrize("kind", sorted(TRAINERS))
+def test_a_checkpoint_from_the_other_device_type_resumes_by_the_reseed_rule(tmp_path, kind):
+    make, batch = TRAINERS[kind]
+    ta, sa = make()
+    sa, _ = ta.train_step(sa, batch(1))
+    payload = ck.state_payload(ta, sa)
+    assert payload["dropout_seed"] == sa.dropout_seed and payload["dropout"].numel() == 5056
+    with pytest.raises(RuntimeError):  # why the rule exists
+        torch.Generator().set_state(_as_written_on_the_card(payload)["dropout"])
+    mngr = ck.CheckpointManager(str(tmp_path / "c"))
+    mngr.save(0, _as_written_on_the_card(payload))
+    tb, sb = make(seed=5)
+    sb, _ = mngr.restore(tb, sb)
+    seed = ck.dropout_reseed(sa.dropout_seed, 1)
+    assert (sb.step, sb.dropout_seed, sb.dropout.device.type) == (1, sa.dropout_seed, "cpu")
+    assert torch.equal(sb.dropout.get_state(), torch.Generator().manual_seed(seed).get_state())
+    # The resumed run is the uninterrupted one with its generator reseeded
+    # by the rule, bitwise.
+    sa.dropout.manual_seed(seed)
+    sa, ma = ta.train_step(sa, batch(2))
+    sb, mb = tb.train_step(sb, batch(2))
+    assert {k: float(v) for k, v in ma.items()} == {k: float(v) for k, v in mb.items()}
+    _equal_payloads(ck.state_payload(tb, sb), ck.state_payload(ta, sa))
+
+
+@pytest.mark.parametrize("kind", sorted(TRAINERS))
+def test_a_same_device_resume_stays_bitwise(tmp_path, kind):
+    make, batch = TRAINERS[kind]
+    ta, sa = make()
+    sa, _ = ta.train_step(sa, batch(1))
+    mngr = ck.CheckpointManager(str(tmp_path / "c"))
+    mngr.save(0, ck.state_payload(ta, sa))
+    tb, sb = make(seed=5)
+    sb, _ = mngr.restore(tb, sb)
+    assert torch.equal(sb.dropout.get_state(), sa.dropout.get_state())
+    sa, ma = ta.train_step(sa, batch(2))
+    sb, mb = tb.train_step(sb, batch(2))
+    assert {k: float(v) for k, v in ma.items()} == {k: float(v) for k, v in mb.items()}
+    _equal_payloads(ck.state_payload(tb, sb), ck.state_payload(ta, sa))
+
+
+@pytest.mark.parametrize("kind", sorted(TRAINERS))
+def test_a_card_payload_without_its_seed_reseeds_from_the_trainers_own(tmp_path, kind):
+    """A payload written before the seed was stored (no ``dropout_seed``)
+    by a CUDA generator resumes on the CPU: the generator is seeded by the
+    rule from the resuming trainer's own seed, which the state keeps."""
+    make, batch = TRAINERS[kind]
+    ta, sa = make()
+    sa, _ = ta.train_step(sa, batch(1))
+    payload = _as_written_on_the_card(ck.state_payload(ta, sa))
+    del payload["dropout_seed"]
+    mngr = ck.CheckpointManager(str(tmp_path / "c"))
+    mngr.save(0, payload)
+    tb, sb = make(seed=5)
+    own = sb.dropout_seed
+    assert own != sa.dropout_seed
+    sb, _ = mngr.restore(tb, sb)
+    want = torch.Generator().manual_seed(ck.dropout_reseed(own, 1)).get_state()
+    assert (sb.step, sb.dropout_seed) == (1, own)
+    assert torch.equal(sb.dropout.get_state(), want)
+    sb, mb = tb.train_step(sb, batch(2))
+    assert all(np.isfinite(float(v)) for v in mb.values())
+
+
+def test_reseed_rule_at_step_0_is_the_seed_itself():
+    """A run resumed at step 0 on the other device type draws what a run
+    started there from the same seed draws."""
+    tt, st = _trainer()
+    assert st.dropout.initial_seed() == st.dropout_seed
+    assert ck.dropout_reseed(st.dropout_seed, 0) == st.dropout_seed
+    assert ck.dropout_reseed(2 ** 63 - 1, 2) == 1

@@ -894,6 +894,46 @@ def test_cli_trains_on_the_card_and_restores_there(card, tmp_path):
     assert scores["miou"] == pytest.approx(res["miou"], abs=1e-6)
 
 
+
+@pytest.mark.parametrize("seeded", [True, False])
+def test_a_cpu_checkpoint_resumes_on_the_card(card, tmp_path, seeded):
+    """A run saved on the CPU (its dropout state the Mersenne Twister's 5056
+    bytes, with the stream's seed, or without it as checkpoints written
+    before the seed was stored) resumes on the card: the nets bitwise, the
+    card's Philox generator seeded by ``dropout_reseed`` of the stored seed
+    (else the card trainer's own) and the step, and the next step finite."""
+    from cyclegan_tpu_torch.train import checkpoint as ck
+
+    cfg = Config(gen_net="resnet_2blocks", ngf=8, ndf=8, crop_height=32, crop_width=32,
+                 bf16=False, batch_size=2, pool_size=2, epochs=2, decay_epoch=1,
+                 use_dropout=True)
+    r = np.random.default_rng(1)
+    host = {"lab_image": torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)),
+            "unlab_image": torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3))
+                                            .astype(np.float32)),
+            "lab_label": torch.from_numpy(r.integers(0, 5, (2, 32, 32)))}
+    ta = CycleGANTrainer(cfg, 5, 3, 2, device="cpu")
+    sa = ta.init_state(torch.Generator().manual_seed(0))
+    sa, _ = ta.train_step(sa, host)
+    payload = ck.state_payload(ta, sa)
+    assert payload["dropout"].numel() == 5056
+    if not seeded:
+        del payload["dropout_seed"]
+    mngr = ck.CheckpointManager(str(tmp_path / "c"))
+    mngr.save(0, payload)
+    tb = CycleGANTrainer(cfg, 5, 3, 2, device="cuda")
+    sb = tb.init_state(torch.Generator().manual_seed(5))
+    seed = sa.dropout_seed if seeded else sb.dropout_seed
+    sb, _ = mngr.restore(tb, sb)
+    want = torch.Generator(device="cuda").manual_seed(ck.dropout_reseed(seed, 1))
+    assert sb.step == 1 and sb.dropout_seed == seed
+    assert torch.equal(sb.dropout.get_state(), want.get_state())
+    for na, nb in zip(ta.nets(), tb.nets()):
+        for x, y in zip(na.state_dict().values(), nb.state_dict().values()):
+            assert torch.equal(x, y.cpu())
+    sb, m = tb.train_step(sb, {k: v.cuda() for k, v in host.items()})
+    assert all(np.isfinite(float(v)) for v in m.values())
+
 # The supervised paths (BASELINE config 1): kernels #1/#2 at every U-Net
 # plane (the 2x2 and 4x4 planes are smaller than a tile of in_plan), #3-#5
 # at config 1's trunk (2, 32, 32, 256), and the supervised CLI on the card.

@@ -8,7 +8,9 @@
   (port against JAX) run a few steps and report what their protocols hold:
   the CycleGAN trajectory's mean G-loss gap under the 1% bar on each leg.
 - ``tools/soak_summary.py``, unchanged, summarises the
-  ``train_metrics.jsonl`` the port's runner writes.
+  ``train_metrics.jsonl`` the port's runner writes; the port's
+  ``tools/torch_soak_summary.py`` gives that tool's summary and lists the
+  port's ``<n>.pt`` / ``<n>.json`` checkpoints, epoch and mid-epoch.
 - ``tools/torch_http_bench.py`` (the counterpart of
   ``tests/test_tools_round5.py::test_http_bench_cli``) drives the port's
   endpoint on a tiny artifact with ``--device cpu`` and prints its JSON
@@ -27,7 +29,8 @@ import torch
 from cyclegan_tpu_torch import export
 from cyclegan_tpu_torch.main import main as cli
 from cyclegan_tpu_torch.models.generators import define_Gen
-from tools import torch_cyclegan_parity_run, torch_miou_parity_run, torch_quantize_miou_run
+from tools import (torch_cyclegan_parity_run, torch_miou_parity_run, torch_quantize_miou_run,
+                   torch_soak_summary)
 from tools.soak_summary import summarize
 
 
@@ -93,6 +96,35 @@ def test_soak_summary_reads_the_port_runner_log(tmp_path):
         assert out[f"{k}_first"] == round(rows[0][k], 3)
         assert out[f"{k}_last"] == round(rows[-1][k], 3)
     assert out["sustained_steps_per_sec"]["n_intervals"] >= 1
+
+
+def test_torch_soak_summary_lists_the_port_checkpoints(tmp_path):
+    """On a tiny CPU run that saved epochs 0 and 1 and a mid-epoch
+    checkpoint at step 3: the JSONL summary is the JAX-side tool's; the
+    inventory lists the saved pairs with their optimizer steps (the
+    JAX-side tool's lists Orbax step directories and finds none), and a
+    pair missing its .json."""
+    ck, res = tmp_path / "ck", tmp_path / "res"
+    cli(["--training", "--device", "cpu", "--no_bf16", "--ngf", "4", "--ndf", "4",
+         "--gen_net", "resnet_2blocks", "--crop_height", "32", "--crop_width", "32",
+         "--dataset", "synthetic", "--dataset_size", "8", "--labeled_fraction", "0.5",
+         "--batch_size", "2", "--pool_size", "2", "--epochs", "2", "--decay_epoch", "1",
+         "--log_every", "1", "--save_every_steps", "3", "--checkpoint_dir", str(ck),
+         "--results_dir", str(res)])
+    ref = summarize(str(res), str(ck))
+    out = torch_soak_summary.summarize(str(res), str(ck))
+    assert (ref["epoch_ckpts"], ref["mid_ckpts"]) == ([], [])
+    assert out["sustained_steps_per_sec"]["n_intervals"] >= 1
+    assert (out["epoch_ckpts"], out["epoch_ckpt_steps"]) == ([0, 1], {0: 2, 1: 4})
+    assert (out["mid_ckpts"], out["mid_ckpt_steps"]) == ([3], {3: 3})
+    assert out["unpaired_ckpt_files"] == []
+    (ck / "1.json").unlink()
+    again = torch_soak_summary.checkpoint_inventory(str(ck))
+    assert again["epoch_ckpts"] == [0] and again["unpaired_ckpt_files"] == ["1.pt"]
+    r = subprocess.run([sys.executable, "tools/torch_soak_summary.py", str(res), str(ck)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=str(Path(__file__).resolve().parent.parent))
+    assert r.returncode == 0 and json.loads(r.stdout)["mid_ckpts"] == [3], r.stderr
 
 
 def test_http_bench_cli(tmp_path):

@@ -13,7 +13,8 @@ writes ``<epoch>.pt`` + ``<epoch>.json`` (``train/checkpoint.py``), which
 resumes at the next epoch. A checkpoint without optimizer state gets fresh
 moments, and the tool says so. The run's trainer is built on ``--device``
 (the card unless ``cpu`` is asked for): the checkpoint's dropout generator
-is that device's, which the run resumes on.
+is that device's; a run on the other device type reseeds it
+(``train/checkpoint.py::dropout_reseed``).
 
 Usage:
   python tools/torch_import_checkpoint.py latest.ckpt ./checkpoints \\
