@@ -163,7 +163,12 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    (float32), the class maps equal to one process's --testing of the same
    checkpoint on every pixel that is no tie; (c) the slab entries alone at
    config 3's stem and trunk slabs against their plain versions and the
-   one-launch kernel on the whole plane, timed;
+   one-launch kernel on the whole plane, every slab's statistics bitwise
+   alike, each slot-writing partials leaving zeros in the other slot, a
+   second call bitwise, timed eagerly and as CUDA-graph replays beside the
+   library graph of the same function and the gather work they removed,
+   and one slab norm layer profiled: two kernels a direction, no fill or
+   copy;
 18. spatial_unet: config 3 with ``unet_256`` generators (ngf 64, bf16) at
    spatial 2 on the same two ranks, 3 steps against the same model
    unsharded in one process at the bf16 bars, both ranks' losses equal,
@@ -3885,15 +3890,18 @@ def _spatial_rank(out_dir: str) -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 1e9
     # The collectives timed alone, by what makes them: the halo exchanges
-    # (parallel/spatial.py's RowGather), the norms' partials (gather_slots),
+    # (parallel/spatial.py's RowGather), the norms' partials (the exchange
+    # buffer's all-reduce, ops/blocks.py's InstanceNorm._gather), other
+    # slot gathers (parallel/mesh.py::gather_slots),
     # the gradients (all_reduce_mean) and the metrics and counts.
     real = dist.all_reduce
     spent: dict = {}
 
     def timed_all_reduce(tensor, *a, **k):
         who = _sys._getframe(1).f_code.co_name
-        kind = {"forward": "halo", "backward": "halo", "gather_slots": "norm_partials",
-                "all_reduce_mean": "gradients"}.get(who, "metrics_and_counts")
+        kind = {"forward": "halo", "backward": "halo", "_gather": "norm_partials",
+                "gather_slots": "slot_gathers", "all_reduce_mean": "gradients"}.get(
+                    who, "metrics_and_counts")
         torch.cuda.synchronize()
         ta = time.perf_counter()
         w = real(tensor, *a, **k)
@@ -4016,16 +4024,70 @@ def _spatial_unet_rank(mesh) -> dict:
     return rec
 
 
+SLAB_KERNELS = {"fwd_partials": "in_fwd_partials<", "fwd_apply": "in_fwd_slab_apply<",
+                "vjp_partials": "in_bwd_partials<", "vjp_apply": "in_bwd_slab_apply<"}
+
+
+def slab_layer_kernels(xs, dy, act: str) -> dict:
+    """One slab norm layer (``instance_norm_act_slab`` forward and its VJP
+    through autograd) profiled: its device activities by name and count.
+    The exchange buffer's all-reduce is stood in for by a call that does no
+    device work, so whatever the profile holds is the layer's own: it must
+    be the two slab kernels a direction, once each, and no fill or copy."""
+    import torch
+
+    from cyclegan_tpu_torch.kernels import instance_norm as IN
+
+    group = IN.SlabGroup(SPATIAL_RANKS, 0, lambda buf: None)
+    x = xs.detach().requires_grad_(True)
+
+    def layer():
+        y = IN.instance_norm_act_slab(x, None, 1e-5, act, group)
+        return torch.autograd.grad(y, x, dy)
+
+    layer()
+    torch.cuda.synchronize()
+    seen, sessions = {}, 0
+    # A session can come back without device events (CUPTI starts lazily;
+    # on the card whole sessions in a row did): the first is not read, and
+    # they repeat until one reports the device's activities.
+    while not seen and sessions < 8:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            layer()
+            torch.cuda.synchronize()
+        sessions += 1
+        if sessions > 1:
+            seen = {e.key[:90]: e.count for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    ours = {k: sum(n for name, n in seen.items() if pat in name)
+            for k, pat in SLAB_KERNELS.items()}
+    others = {name: n for name, n in seen.items()
+              if not any(pat in name for pat in SLAB_KERNELS.values())}
+    return {"kernels": ours, "other_device_activities": others, "sessions": sessions,
+            "two_kernels_a_direction_and_nothing_else":
+                ours == {k: 1 for k in SLAB_KERNELS} and not others}
+
+
 def slab_kernel_records(randn, fail_if) -> dict:
     """The slab entries alone at config 3's stem and trunk slab shapes
-    (bf16, batch 1, two slabs of a 256x512 and of a 64x128 plane): each
-    slab's partials and apply (forward) and the VJP's, against their plain
-    versions on the same inputs, and against the one-launch kernels on the
-    whole plane's rows; ms of the pair for one slab, the plain pair's, the
-    library's instance norm (+ act) on the slab and its autograd VJP, and
-    the bound (each input read once, each output written once)."""
+    (bf16, batch 1, two slabs of a 256x512 and of a 64x128 plane). Each
+    slab's partials write its slot of an (S, N, C, k) exchange buffer and
+    zeros into the other (checked exactly); the slabs' buffers are summed
+    as the all-reduce sums them; each slab's apply runs from the sum. Held,
+    forward and VJP: the partials against their plain versions, every
+    apply against its plain version and the one-launch kernel's rows of the
+    whole plane, every slab's statistics bitwise alike, a second call of
+    each entry bitwise equal. Timed for one slab: the pair (partials, then
+    the apply from the summed buffer) eagerly (ms, CUDA events, host
+    included) and as a CUDA-graph replay (device µs a call), the plain
+    pair, the library graph of the same function (``var_mean`` of the
+    slab, the Chan merge with the other slab's partials, normalise + act;
+    its autograd VJP), the bound (each input read once, each output written
+    once), and what the gather did around its all-reduce before the
+    partials wrote their slot (a zero-filled buffer and a copy into the
+    slot, ``parallel/mesh.py::gather_slots``); then one slab norm layer
+    profiled (``slab_layer_kernels``)."""
     import torch
-    import torch.nn.functional as TF
 
     from cyclegan_tpu_torch.kernels import instance_norm as IN
 
@@ -4033,6 +4095,16 @@ def slab_kernel_records(randn, fail_if) -> dict:
     d = torch.bfloat16
     tol = TOL[("instance_norm_act", "bfloat16")]
     btol = BWD_TOL[("instance_norm_act_bwd", "bfloat16")]
+    S = SPATIAL_RANKS
+
+    def slots(x, k):
+        return torch.empty((S, x.shape[0], x.shape[3], k), dtype=torch.float32, device=x.device)
+
+    def removed_gather(p):  # what gather_slots did before its all-reduce
+        buf = torch.zeros((S, *p.shape), dtype=p.dtype, device=p.device)
+        buf[0].copy_(p)
+        return buf
+
     # Calls a step at these planes: the stem and up2 (64 channels) of 3
     # generator applies, the 9 trunk blocks' two norms of 3 applies.
     for shape, act, calls in (((1, 256, 512, 64), "relu", 6), ((1, 64, 128, 256), "relu", 27),
@@ -4040,62 +4112,115 @@ def slab_kernel_records(randn, fail_if) -> dict:
         n, h, w, c = shape
         x = randn(shape, d)
         dy = randn(shape, d)
-        hs = h // SPATIAL_RANKS
-        slabs = [x[:, i * hs:(i + 1) * hs].contiguous() for i in range(SPATIAL_RANKS)]
-        dys = [dy[:, i * hs:(i + 1) * hs].contiguous() for i in range(SPATIAL_RANKS)]
-        parts = torch.stack([IN._slab_partials_cuda(t) for t in slabs])
-        parts_p = torch.stack([IN.slab_partials_plain(t) for t in slabs])
-        y, mean, rstd, count = IN._slab_apply_cuda(slabs[0], None, parts, 1e-5, act)
-        y_p = IN.slab_apply_plain(slabs[0], None, parts_p, 1e-5, act)[0]
+        hs = h // S
+        xsl = [x[:, i * hs:(i + 1) * hs].contiguous() for i in range(S)]
+        dys = [dy[:, i * hs:(i + 1) * hs].contiguous() for i in range(S)]
+        own = [IN._slab_partials_cuda(t, slots(t, 3), i) for i, t in enumerate(xsl)]
+        own_p = [IN.slab_partials_plain(t, slots(t, 3), i) for i, t in enumerate(xsl)]
+        parts = sum(own)  # the all-reduce: one slot a rank, zeros elsewhere
+        outs = [IN._slab_apply_cuda(t, None, parts, 1e-5, act) for t in xsl]
+        y, mean, rstd, count = outs[0]
+        y_p = IN.slab_apply_plain(xsl[0], None, sum(own_p), 1e-5, act)[0]
         whole = torch.empty_like(x)
         wm, wr = IN.launch(x, None, whole, 1e-5, act)
-        sums = torch.stack([IN._slab_bwd_partials_cuda(t, g, mean, rstd, act)
-                            for t, g in zip(slabs, dys)])
-        dx = IN._slab_bwd_apply_cuda(slabs[0], dys[0], mean, rstd, sums, count, act)
-        dx_p = IN.slab_bwd_apply_plain(slabs[0], dys[0], mean, rstd, sums, count, act)
+        own_b = [IN._slab_bwd_partials_cuda(t, g, mean, rstd, slots(t, 2), i, act)
+                 for i, (t, g) in enumerate(zip(xsl, dys))]
+        own_bp = [IN.slab_bwd_partials_plain(t, g, mean, rstd, slots(t, 2), i, act)
+                  for i, (t, g) in enumerate(zip(xsl, dys))]
+        sums = sum(own_b)
+        dx = IN._slab_bwd_apply_cuda(xsl[0], dys[0], mean, rstd, sums, count, act)
+        dx_p = IN.slab_bwd_apply_plain(xsl[0], dys[0], mean, rstd, sum(own_bp), count, act)
         dx_whole = torch.empty_like(x)
         IN.launch_bwd(x, dy, wm, wr, dx_whole, act)
+        again = IN._slab_apply_cuda(xsl[0], None, sum(IN._slab_partials_cuda(
+            t, slots(t, 3), i) for i, t in enumerate(xsl)), 1e-5, act)
+        dx_again = IN._slab_bwd_apply_cuda(xsl[0], dys[0], mean, rstd, sum(
+            IN._slab_bwd_partials_cuda(t, g, mean, rstd, slots(t, 2), i, act)
+            for i, (t, g) in enumerate(zip(xsl, dys))), count, act)
         torch.cuda.synchronize()
+        others_zero = all(torch.equal(b[j], torch.zeros_like(b[j]))
+                          for i, b in enumerate(own + own_b) for j in range(S) if j != i % S)
         checks = {"vs_plain": compare("instance_norm_act", y, y_p, "bfloat16"),
                   "vs_whole_plane": compare("instance_norm_act", y, whole[:, :hs], "bfloat16"),
                   "stats_vs_whole_plane": float(max((mean - wm).abs().max(),
-                                                    ((rstd - wr) / wr).abs().max()))}
+                                                    ((rstd - wr) / wr).abs().max())),
+                  "partials_vs_plain": float(max(
+                      ((a - b).abs() / b.abs().clamp_min(1.0)).max()
+                      for a, b in zip(own + own_b, own_p + own_bp))),
+                  "other_slots_zero": others_zero,
+                  "stats_alike_on_every_slab": all(
+                      torch.equal(o[1], mean) and torch.equal(o[2], rstd) for o in outs),
+                  "second_call_bitwise": all(torch.equal(a, b) for a, b in zip(again, outs[0]))}
         bchecks = {"vs_plain": compare_bwd("instance_norm_act_bwd", dx, dx_p, "bfloat16"),
                    "vs_whole_plane": compare_bwd("instance_norm_act_bwd", dx,
-                                                 dx_whole[:, :hs], "bfloat16")}
-        fail_if(not all(v["ok"] for v in (checks["vs_plain"], checks["vs_whole_plane"],
-                                          *bchecks.values()))
-                or checks["stats_vs_whole_plane"] > 1e-4,
-                f"slab IN {shape} {act}: {checks} {bchecks}")
-        xs, g0 = slabs[0], dys[0]
+                                                 dx_whole[:, :hs], "bfloat16"),
+                   "second_call_bitwise": torch.equal(dx_again, dx)}
+        ok = (all(v["ok"] for v in (checks["vs_plain"], checks["vs_whole_plane"],
+                                    bchecks["vs_plain"], bchecks["vs_whole_plane"]))
+              and checks["stats_vs_whole_plane"] <= 1e-4 and checks["partials_vs_plain"] <= 1e-4
+              and others_zero and checks["stats_alike_on_every_slab"]
+              and checks["second_call_bitwise"] and bchecks["second_call_bitwise"])
+        fail_if(not ok, f"slab IN {shape} {act}: {checks} {bchecks}")
+        xs, g0 = xsl[0], dys[0]
         elt = xs.element_size()
+        buf, bbuf = slots(xs, 3), slots(xs, 2)
+        nb, mb, m2b = (t[:, :, None, None] for t in own[1][1].unbind(-1))
+        na = float(xs.shape[1] * xs.shape[2])
+
+        def lib(xl):  # NCHW view of the slab
+            var, m = torch.var_mean(xl.float(), dim=(2, 3), keepdim=True, correction=0)
+            tot = na + nb
+            dm = mb - m
+            mm = m + dm * (nb / tot)
+            rs = torch.rsqrt((var * na + m2b + dm * dm * (na * nb / tot)) / tot + 1e-5)
+            return _lib_act((xl.float() - mm) * rs, act).to(xl.dtype)
+
+        def pair():
+            IN._slab_partials_cuda(xs, buf, 0)
+            return IN._slab_apply_cuda(xs, None, parts, 1e-5, act)
+
+        def pair_p():
+            IN.slab_partials_plain(xs, buf, 0)
+            return IN.slab_apply_plain(xs, None, parts, 1e-5, act)
+
+        def bpair():
+            IN._slab_bwd_partials_cuda(xs, g0, mean, rstd, bbuf, 0, act)
+            return IN._slab_bwd_apply_cuda(xs, g0, mean, rstd, sums, count, act)
+
+        def bpair_p():
+            IN.slab_bwd_partials_plain(xs, g0, mean, rstd, bbuf, 0, act)
+            return IN.slab_bwd_apply_plain(xs, g0, mean, rstd, sums, count, act)
+
+        xl = xs.permute(0, 3, 1, 2)
+        gathers = {k: {"graph_us": graph_us(lambda: removed_gather(p[0][0])),
+                       "eager_us": time_ms(lambda: removed_gather(p[0][0]), 20) * 1e3}
+                   for k, p in (("fwd", own), ("vjp", own_b))}
+        layer = slab_layer_kernels(xs, g0, act)
+        fail_if(not layer["two_kernels_a_direction_and_nothing_else"],
+                f"slab IN layer {shape} {act}: {layer}")
         part_bytes = 4 * n * c * 3
-        ms = time_ms(lambda: IN._slab_apply_cuda(xs, None, torch.stack(
-            [IN._slab_partials_cuda(xs), parts[1]]), 1e-5, act), 20)
-        plain = time_ms(lambda: IN.slab_apply_plain(xs, None, torch.stack(
-            [IN.slab_partials_plain(xs), parts_p[1]]), 1e-5, act), 5)
-        lib = time_ms(lambda: _lib_act(TF.instance_norm(
-            xs.permute(0, 3, 1, 2)), act), 20)
-        nbytes = 2 * xs.numel() * elt + SPATIAL_RANKS * part_bytes + 4 * n * c * 2
+        nbytes = 2 * xs.numel() * elt + S * part_bytes + part_bytes + 4 * n * c * 2
         b_ms, b_by = bound(nbytes, 10 * xs.numel(), "float32")
         out["instance_norm_act_slab"].append({
             "shape": list(xs.shape), "plane": list(shape), "act": act, "calls_per_step": calls,
             "max_abs_err": checks["vs_plain"]["max_abs_err"], "checks": checks,
-            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
-        ms = time_ms(lambda: IN._slab_bwd_apply_cuda(xs, g0, mean, rstd, torch.stack(
-            [IN._slab_bwd_partials_cuda(xs, g0, mean, rstd, act), sums[1]]), count, act), 20)
-        plain = time_ms(lambda: IN.slab_bwd_apply_plain(xs, g0, mean, rstd, torch.stack(
-            [IN.slab_bwd_partials_plain(xs, g0, mean, rstd, act), sums[1]]), count, act), 5)
-        xl = xs.permute(0, 3, 1, 2).detach().requires_grad_(True)
-        yl = _lib_act(TF.instance_norm(xl), act)
+            "ms": time_ms(pair, 20), "graph_us": graph_us(pair),
+            "plain_ms": time_ms(pair_p, 5), "library_ms": time_ms(lambda: lib(xl), 20),
+            "library_graph_us": graph_us(lambda: lib(xl)), "bound_ms": b_ms, "bound_by": b_by,
+            "removed_gather": gathers["fwd"], "layer": layer})
+        xg = xl.detach().requires_grad_(True)
+        yl = lib(xg)
         gl = g0.permute(0, 3, 1, 2)
-        lib = time_ms(lambda: torch.autograd.grad(yl, xl, gl, retain_graph=True), 20)
-        nbytes = 3 * xs.numel() * elt + SPATIAL_RANKS * 4 * n * c * 2 + 4 * n * c * 2
+        nbytes = 3 * xs.numel() * elt + (S + 1) * 4 * n * c * 2 + 4 * n * c * 2
         b_ms, b_by = bound(nbytes, 12 * xs.numel(), "float32")
         out["instance_norm_act_slab_bwd"].append({
             "shape": list(xs.shape), "plane": list(shape), "act": act, "calls_per_step": calls,
             "max_abs_err": bchecks["vs_plain"]["max_abs_err"], "checks": bchecks,
-            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+            "ms": time_ms(bpair, 20), "graph_us": graph_us(bpair),
+            "plain_ms": time_ms(bpair_p, 5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(yl, xg, gl, retain_graph=True),
+                                  20),
+            "bound_ms": b_ms, "bound_by": b_by, "removed_gather": gathers["vjp"]})
     return out
 
 
@@ -4610,11 +4735,13 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             **{k: sum(r[k] * r["calls_per_step"] for r in rs)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "device_ms": sum(r["graph_us"] * r["calls_per_step"] for r in rs) / 1e3,
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
             "per": f"one train step of {SPATIAL_PRESET} at spatial_shards {SPATIAL_RANKS} "
                    f"(bf16, batch 1), a rank's {sum(r['calls_per_step'] for r in rs)} calls "
-                   f"at its stem and trunk slabs (partials + apply; library: the instance "
-                   f"norm of the slab alone)",
+                   f"at its stem and trunk slabs (partials + apply, eager; device_ms: the "
+                   f"same as CUDA-graph replays; library: var_mean of the slab, the merge "
+                   f"with the other slab's partials, normalise + act, and its autograd VJP)",
             "launches_over": f"{TRAIN_STEPS} train steps of rank 0 of {SPATIAL_RANKS}, both "
                              f"entries", "on_paths": on_paths})
     return {"kernels": entries}

@@ -354,11 +354,15 @@ __device__ __forceinline__ void fwd_partial(const TIn* __restrict__ x, float* __
   }
 }
 
-template <typename TIn, typename TOut, int V>
+// Phase 3 for one tile. stage(tile) puts the group's mean and rstd into
+// sh[0 .. cg) and sh[cg .. 2 cg), cg = lanes * vec, for every thread of the
+// block (it ends in a barrier); the tile's first loads are in flight
+// meanwhile.
+template <typename TIn, typename TOut, int V, typename Stage>
 __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
                                           const TOut* __restrict__ skip, TOut* __restrict__ y,
-                                          const float* __restrict__ stats, const Plan& p,
-                                          int vt, int act, float* sh, int& staged) {
+                                          const Plan& p, int vt, int act, const float* sh,
+                                          Stage&& stage) {
   constexpr int K = chunk_rows<TIn, TOut, V>();
   const Tile<V> tl(p, vt);
   const bool live = tl.c0 < p.C;
@@ -376,7 +380,7 @@ __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
   };
   int base = tl.r0 + tl.rl;
   load(base);  // in flight while the statistics are staged
-  stage_stats<V>(stats, p, tl, sh, staged);
+  stage(tl);
   if (!live) return;
   float mu[V], rs[V];
 #pragma unroll
@@ -403,14 +407,26 @@ __device__ __forceinline__ void fwd_apply(const TIn* __restrict__ x,
   }
 }
 
+// Slot `index` of S in an (S, N * C, k) float32 exchange buffer: lane 0's
+// k values v[] of (sample, channel) i go into it, zeros into the others.
+struct Slot {
+  float* buf = nullptr;
+  int S = 0, index = 0;
+  template <int kK>
+  __device__ __forceinline__ void put(size_t NC, size_t i, const float (&v)[kK]) const {
+    for (int q = 0; q < S; ++q)
+#pragma unroll
+      for (int j = 0; j < kK; ++j) buf[((size_t)q * NC + i) * kK + j] = q == index ? v[j] : 0.f;
+  }
+};
+
 // One warp per (sample, channel) pair i: lane l merges the partials of row
-// tiles l, l + 32, ... in order, then the lanes merge in a fixed tree. kRaw
-// (a slab's partials): out[3 i ..] = (count, mean, M2) of the merge;
-// else stats = mean (N * C), then rstd (N * C).
-template <bool kRaw = false>
+// tiles l, l + 32, ... in order, then the lanes merge in a fixed tree into
+// stats = mean (N * C), then rstd (N * C); or, given a slot (a slab's
+// partials; stats NULL), into its (count, mean, M2).
 __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
-                                          float* __restrict__ stats, const Plan& p,
-                                          float eps) {
+                                          float* __restrict__ stats, const Plan& p, float eps,
+                                          const Slot& slot = Slot{}) {
   const size_t NC = (size_t)p.N * p.C, NCT = NC * p.row_tiles;
   const int lane = threadIdx.x % 32;
   for (size_t i = (size_t)blockIdx.x * kWarps + threadIdx.x / 32; i < NC;
@@ -438,15 +454,11 @@ __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
       const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
       if (lane < off) chan_merge<1>(n, &m, &m2, nb, &mb, &m2b);
     }
-    if (lane == 0) {
-      if constexpr (kRaw) {
-        stats[3 * i] = n;
-        stats[3 * i + 1] = m;
-        stats[3 * i + 2] = m2;
-      } else {
-        stats[i] = m;
-        stats[NC + i] = rsqrtf(m2 / (float)p.HW + eps);
-      }
+    if (lane == 0 && slot.buf != nullptr) {
+      slot.put<3>(NC, i, {n, m, m2});
+    } else if (lane == 0) {
+      stats[i] = m;
+      stats[NC + i] = rsqrtf(m2 / (float)p.HW + eps);
     }
   }
 }
@@ -470,8 +482,9 @@ in_fwd(const TIn* __restrict__ x, const TOut* __restrict__ skip, TOut* __restric
   if (y == nullptr) return;  // the same for every block
   grid_barrier();
   int staged = -1;
+  auto stage = [&](const Tile<V>& tl) { stage_stats<V>(stats, p, tl, sh, staged); };
   for (int k = mine - 1; k >= 0; --k)
-    fwd_apply<TIn, TOut, V>(x, skip, y, stats, p, blockIdx.x + k * gridDim.x, act, sh, staged);
+    fwd_apply<TIn, TOut, V>(x, skip, y, p, blockIdx.x + k * gridDim.x, act, sh, stage);
 }
 
 // ---------------------------------------------------------------------- VJP
@@ -557,11 +570,10 @@ __device__ __forceinline__ void bwd_partial(const TX* __restrict__ x, const TDY*
 }
 
 // One warp per (sample, channel): lane l adds row tiles l, l + 32, ... in
-// order, the lanes add in a fixed tree; the sums become means over H*W.
-// kRaw (a slab's partials): gm[2 i ..] = the two sums, not divided.
-template <bool kRaw = false>
+// order, the lanes add in a fixed tree; the sums become means over H*W, or,
+// given a slot (a slab's partials; gm NULL), go into it as they are.
 __device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float* __restrict__ gm,
-                                          const Plan& p) {
+                                          const Plan& p, const Slot& slot = Slot{}) {
   const size_t NC = (size_t)p.N * p.C, NCT = NC * p.row_tiles;
   const int lane = threadIdx.x % 32;
   for (size_t i = (size_t)blockIdx.x * kWarps + threadIdx.x / 32; i < NC;
@@ -590,25 +602,23 @@ __device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float*
         b += bb;
       }
     }
-    if (lane == 0) {
-      if constexpr (kRaw) {
-        gm[2 * i] = a;
-        gm[2 * i + 1] = b;
-      } else {
-        gm[i] = a / (float)p.HW;
-        gm[NC + i] = b / (float)p.HW;
-      }
+    if (lane == 0 && slot.buf != nullptr) {
+      slot.put<2>(NC, i, {a, b});
+    } else if (lane == 0) {
+      gm[i] = a / (float)p.HW;
+      gm[NC + i] = b / (float)p.HW;
     }
   }
 }
 
-template <typename TX, typename TDY, int V>
+// Phase 3 of the VJP for one tile; stage(tile) puts the group's two means
+// (of g and of g * xhat) into sh as fwd_apply's stage does mean and rstd.
+template <typename TX, typename TDY, int V, typename Stage>
 __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* __restrict__ dy,
                                           const float* __restrict__ mean,
-                                          const float* __restrict__ rstd,
-                                          const float* __restrict__ gm, TX* __restrict__ dx,
-                                          const Plan& p, int vt, int act, float* sh,
-                                          int& staged) {
+                                          const float* __restrict__ rstd, TX* __restrict__ dx,
+                                          const Plan& p, int vt, int act, const float* sh,
+                                          Stage&& stage) {
   constexpr int K = chunk_rows<TX, TDY, V>();
   const Tile<V> tl(p, vt);
   const bool live = tl.c0 < p.C;
@@ -626,7 +636,7 @@ __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* _
   };
   int base = tl.r0 + tl.rl;
   load(base);  // in flight while the means are staged
-  stage_stats<V>(gm, p, tl, sh, staged);
+  stage(tl);
   if (!live) return;
   float mu[V], rs[V], gmu[V], gxm[V];
 #pragma unroll
@@ -672,107 +682,128 @@ in_bwd(const TX* __restrict__ x, const TDY* __restrict__ dy, const float* __rest
   bwd_merge(part, gm, p);
   grid_barrier();
   int staged = -1;
+  auto stage = [&](const Tile<V>& tl) { stage_stats<V>(gm, p, tl, sh, staged); };
   for (int k = mine - 1; k >= 0; --k)
-    bwd_apply<TX, TDY, V>(x, dy, mean, rstd, gm, dx, p, blockIdx.x + k * gridDim.x, act, sh,
-                          staged);
+    bwd_apply<TX, TDY, V>(x, dy, mean, rstd, dx, p, blockIdx.x + k * gridDim.x, act, sh, stage);
 }
 
 // ------------------------------------------------------ slabs (spatial axis)
 //
 // A sample whose H axis is split over S ranks (the spatial axis of the mesh,
 // cyclegan_tpu_torch/parallel/spatial.py) has its statistics over the whole
-// plane. Each direction then takes two launches with a gather of the S
-// ranks' partials between them (the wrapper's, over the spatial group):
-//   partials: phase 1 and the tile-order merge of this slab, written as
-//             (N, C, 3) float32 (count, mean, M2) forward, (N, C, 2) (sum g,
-//             sum g * xhat) for the VJP;
-//   apply:    phase 2 from the S slabs' partials (S, N, C, .), merged in rank
-//             order by one thread a (sample, channel), a grid barrier, and
-//             phase 3 over this slab.
-// Every rank of a spatial group merges the same gathered partials in the
-// same order with the same code, so each gets bitwise the same mean and rstd
-// (and VJP means); slabs of uneven height weigh by their counts.
+// plane. Each direction takes two launches with one all-reduce of the
+// spatial group between them (the wrapper's):
+//   partials: phase 1 and the tile-order merge of this slab (one cooperative
+//             launch, as the whole-plane kernels' phases 1 and 2), written
+//             as (count, mean, M2) (forward) or (sum g, sum g * xhat) (VJP)
+//             into this slab's slot of the (S, N, C, k) exchange buffer,
+//             zeros into the other slots: the buffer goes to the all-reduce
+//             as it is, and the sum over the ranks is the gather.
+//   apply:    an ordinary launch of one CTA a tile, no grid barrier: each
+//             CTA merges the S slots of its channel group in rank order into
+//             shared memory (the forward's Chan merges, the VJP's sums over
+//             the plane's count), then runs phase 3 on its tile. CTAs take
+//             the tiles in the reverse of the partials' order, so the part of
+//             x (and dy) the partials read last, most likely still in the
+//             50 MB L2, is read first.
+// What bounds them: bytes at the stem's slab (8.4 MB of bf16 x at config 3,
+// batch 1), latency at the trunk's (2.1 MB). The partials keep their grid
+// barrier: the merge of a (sample, channel group)'s 128 tiles right after
+// it takes one warp a channel on every SM, and every barrier-free variant
+// measured (a tree of last-block tickets; a thread-block cluster of 8 tiles
+// and a ticket) leaves that merge to a few CTAs and took 1.5-3 µs longer
+// (PERF.md §6, rows 1″/2″). The applies' merge is S items a channel, which
+// every CTA does for itself faster than a grid waits at a barrier.
+// Determinism: every rank merges the same all-reduced buffer in the same
+// order with the same code in every CTA, so each gets bitwise the same mean
+// and rstd (and VJP means); the CTA of a group's tile 0 writes them out.
+// Slabs of uneven height weigh by their counts.
 
 template <typename TIn, int V>
 __global__ void __launch_bounds__(kThreads, 2)
-in_fwd_partials(const TIn* __restrict__ x, float* __restrict__ out, float* __restrict__ part,
-                Plan p) {
+in_fwd_partials(const TIn* __restrict__ x, Slot slot, float* __restrict__ part, Plan p) {
   __shared__ float sh[(2 * V + 1) * kThreads];
   const int mine = block_tiles(p.N * p.groups * p.row_tiles);
   for (int k = 0; k < mine; ++k)
     fwd_partial<TIn, V>(x, part, p, blockIdx.x + k * gridDim.x, sh);
   grid_barrier();
-  fwd_merge<true>(part, out, p, 0.f);
-}
-
-// stats: mean (N * C), rstd (N * C), then the merged count (one float, read
-// by the VJP's apply).
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-in_fwd_slab_apply(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ y,
-                  float* __restrict__ stats, const float* __restrict__ slabs, int S, Plan p,
-                  float eps, int act) {
-  __shared__ float sh[(2 * V + 1) * kThreads];
-  const size_t NC = (size_t)p.N * p.C;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < NC;
-       i += (size_t)gridDim.x * kThreads) {
-    float n = 0.f, m = 0.f, m2 = 0.f;
-    for (int q = 0; q < S; ++q) {
-      const float* r = slabs + ((size_t)q * NC + i) * 3;
-      chan_merge<1>(n, &m, &m2, __ldg(r), r + 1, r + 2);
-    }
-    stats[i] = m;
-    stats[NC + i] = rsqrtf(m2 / n + eps);
-    if (i == 0) stats[2 * NC] = n;
-  }
-  grid_barrier();
-  int staged = -1;
-  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
-  for (int k = 0; k < mine; ++k)
-    fwd_apply<T, T, V>(x, skip, y, stats, p, blockIdx.x + k * gridDim.x, act, sh, staged);
+  fwd_merge(part, nullptr, p, 0.f, slot);
 }
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 2)
 in_bwd_partials(const T* __restrict__ x, const T* __restrict__ dy,
-                const float* __restrict__ mean, const float* __restrict__ rstd,
-                float* __restrict__ out, float* __restrict__ part, Plan p, int act) {
+                const float* __restrict__ mean, const float* __restrict__ rstd, Slot slot,
+                float* __restrict__ part, Plan p, int act) {
   __shared__ float sh[2 * V * kThreads];
   const int mine = block_tiles(p.N * p.groups * p.row_tiles);
   for (int k = 0; k < mine; ++k)
     bwd_partial<T, T, V>(x, dy, mean, rstd, part, p, blockIdx.x + k * gridDim.x, act, sh);
   grid_barrier();
-  bwd_merge<true>(part, out, p);
+  bwd_merge(part, nullptr, p, slot);
 }
 
-// count: the plane's merged count (stats[2 N C] of the forward's apply); gm:
-// scratch of 2 * N * C float32 for the two means.
+// slots: the all-reduced (S, N, C, 3) partials; stats: mean (N * C), rstd
+// (N * C), then the plane's count (one float, read by the VJP's apply).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+in_fwd_slab_apply(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ y,
+                  float* __restrict__ stats, const float* __restrict__ slots, int S, Plan p,
+                  float eps, int act) {
+  __shared__ float sh[2 * 32 * V];
+  const int cg = p.lanes * V;
+  const size_t NC = (size_t)p.N * p.C;
+  auto stage = [&](const Tile<V>& tl) {
+    for (int i = threadIdx.x; i < cg && tl.g0 + i < p.C; i += kThreads) {
+      const size_t nc = (size_t)tl.n * p.C + tl.g0 + i;
+      float n = 0.f, m = 0.f, m2 = 0.f;
+      for (int q = 0; q < S; ++q) {
+        const float* r = slots + ((size_t)q * NC + nc) * 3;
+        chan_merge<1>(n, &m, &m2, __ldg(r), r + 1, r + 2);
+      }
+      const float rs = rsqrtf(m2 / n + eps);
+      sh[i] = m;
+      sh[cg + i] = rs;
+      if (tl.t == 0) {
+        stats[nc] = m;
+        stats[NC + nc] = rs;
+        if (nc == 0) stats[2 * NC] = n;
+      }
+    }
+    __syncthreads();
+  };
+  const int tiles = p.N * p.groups * p.row_tiles;
+  fwd_apply<T, T, V>(x, skip, y, p, tiles - 1 - (int)blockIdx.x, act, sh, stage);
+}
+
+// slots: the all-reduced (S, N, C, 2) sums; count: the plane's count
+// (stats[2 N C] of the forward's apply).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 2)
 in_bwd_slab_apply(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ mean, const float* __restrict__ rstd,
-                  T* __restrict__ dx, const float* __restrict__ slabs, int S,
-                  const float* __restrict__ count, float* __restrict__ gm, Plan p, int act) {
-  __shared__ float sh[2 * V * kThreads];
+                  T* __restrict__ dx, const float* __restrict__ slots, int S,
+                  const float* __restrict__ count, Plan p, int act) {
+  __shared__ float sh[2 * 32 * V];
+  const int cg = p.lanes * V;
   const size_t NC = (size_t)p.N * p.C;
-  const float n = __ldg(count);
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < NC;
-       i += (size_t)gridDim.x * kThreads) {
-    float a = 0.f, b = 0.f;
-    for (int q = 0; q < S; ++q) {
-      const float* r = slabs + ((size_t)q * NC + i) * 2;
-      a += __ldg(r);
-      b += __ldg(r + 1);
+  auto stage = [&](const Tile<V>& tl) {
+    const float n = __ldg(count);
+    for (int i = threadIdx.x; i < cg && tl.g0 + i < p.C; i += kThreads) {
+      const size_t nc = (size_t)tl.n * p.C + tl.g0 + i;
+      float a = 0.f, b = 0.f;
+      for (int q = 0; q < S; ++q) {
+        const float* r = slots + ((size_t)q * NC + nc) * 2;
+        a += __ldg(r);
+        b += __ldg(r + 1);
+      }
+      sh[i] = a / n;
+      sh[cg + i] = b / n;
     }
-    gm[i] = a / n;
-    gm[NC + i] = b / n;
-  }
-  grid_barrier();
-  int staged = -1;
-  const int mine = block_tiles(p.N * p.groups * p.row_tiles);
-  for (int k = 0; k < mine; ++k)
-    bwd_apply<T, T, V>(x, dy, mean, rstd, gm, dx, p, blockIdx.x + k * gridDim.x, act, sh,
-                       staged);
+    __syncthreads();
+  };
+  const int tiles = p.N * p.groups * p.row_tiles;
+  bwd_apply<T, T, V>(x, dy, mean, rstd, dx, p, tiles - 1 - (int)blockIdx.x, act, sh, stage);
 }
 
 // ------------------------------------------------------------------- host
@@ -883,52 +914,45 @@ cudaError_t coop(Kernel kernel, int (&cache)[CG_MAX_DEVICES], const Plan& p, voi
 }
 
 template <typename T, int V>
-cudaError_t launch_fwd_partials(const void* x, float* out, float* part, const Plan& p,
+cudaError_t launch_fwd_partials(const void* x, Slot slot, float* part, const Plan& p,
                                 cudaStream_t s) {
   static int cache[CG_MAX_DEVICES] = {};
   auto xp = static_cast<const T*>(x);
   Plan plan = p;
-  void* args[] = {&xp, &out, &part, &plan};
+  void* args[] = {&xp, &slot, &part, &plan};
   return coop(in_fwd_partials<T, V>, cache, p, args, s);
 }
 
 template <typename T, int V>
-cudaError_t launch_fwd_slab_apply(const void* x, const void* skip, void* y, float* stats,
-                                  const float* slabs, int S, const Plan& p, float eps, int act,
-                                  cudaStream_t s) {
-  static int cache[CG_MAX_DEVICES] = {};
-  auto xp = static_cast<const T*>(x);
-  auto sp = static_cast<const T*>(skip);
-  auto yp = static_cast<T*>(y);
-  Plan plan = p;
-  void* args[] = {&xp, &sp, &yp, &stats, &slabs, &S, &plan, &eps, &act};
-  return coop(in_fwd_slab_apply<T, V>, cache, p, args, s);
-}
-
-template <typename T, int V>
 cudaError_t launch_bwd_partials(const void* x, const void* dy, const float* mean,
-                                const float* rstd, float* out, float* part, const Plan& p,
+                                const float* rstd, Slot slot, float* part, const Plan& p,
                                 int act, cudaStream_t s) {
   static int cache[CG_MAX_DEVICES] = {};
   auto xp = static_cast<const T*>(x);
   auto dyp = static_cast<const T*>(dy);
   Plan plan = p;
-  void* args[] = {&xp, &dyp, &mean, &rstd, &out, &part, &plan, &act};
+  void* args[] = {&xp, &dyp, &mean, &rstd, &slot, &part, &plan, &act};
   return coop(in_bwd_partials<T, V>, cache, p, args, s);
 }
 
 template <typename T, int V>
-cudaError_t launch_bwd_slab_apply(const void* x, const void* dy, const float* mean,
-                                  const float* rstd, void* dx, const float* slabs, int S,
-                                  const float* count, float* gm, const Plan& p, int act,
+cudaError_t launch_fwd_slab_apply(const void* x, const void* skip, void* y, float* stats,
+                                  const float* slots, int S, const Plan& p, float eps, int act,
                                   cudaStream_t s) {
-  static int cache[CG_MAX_DEVICES] = {};
-  auto xp = static_cast<const T*>(x);
-  auto dyp = static_cast<const T*>(dy);
-  auto dxp = static_cast<T*>(dx);
-  Plan plan = p;
-  void* args[] = {&xp, &dyp, &mean, &rstd, &dxp, &slabs, &S, &count, &gm, &plan, &act};
-  return coop(in_bwd_slab_apply<T, V>, cache, p, args, s);
+  in_fwd_slab_apply<T, V><<<p.N * p.groups * p.row_tiles, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(skip), static_cast<T*>(y), stats, slots,
+      S, p, eps, act);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd_slab_apply(const void* x, const void* dy, const float* mean,
+                                  const float* rstd, void* dx, const float* slots, int S,
+                                  const float* count, const Plan& p, int act, cudaStream_t s) {
+  in_bwd_slab_apply<T, V><<<p.N * p.groups * p.row_tiles, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, rstd, static_cast<T*>(dx),
+      slots, S, count, p, act);
+  return cudaGetLastError();
 }
 
 // The slab entries take one element type for every tensor (float32 or
@@ -1002,27 +1026,30 @@ extern "C" int cg_instance_norm_act_bwd(const void* x, const void* dy, const voi
 // ---------------------------------------------------------- slab entries
 // A sample split over S ranks' H slabs (see "slabs" above). x, skip (or
 // NULL), y, dy, dx: this slab's (N, HW, C), all of `dtype`; the plan is
-// in_plan's for the slab. One cooperative launch each; each returns its CUDA
-// error code (0 on success).
+// in_plan's for the slab. One launch each (the partials' cooperative, the
+// applies' not); each returns its CUDA error code (0 on success).
 
-// out: (N, C, 3) float32 (count, mean, M2) of this slab; part: scratch of
-// 2 * N * C * ceil(HW / rows) float32.
-extern "C" int cg_instance_norm_partials(const void* x, void* out, void* part, int N, int HW,
-                                         int C, int rows, int vec, int lanes, int tiles,
-                                         int dtype, void* stream) {
+// slots: the (S, N, C, 3) float32 exchange buffer: this slab's (count, mean,
+// M2) into slot `index`, zeros into the others; part: scratch of 2 * N * C *
+// ceil(HW / rows) float32.
+extern "C" int cg_instance_norm_partials(const void* x, void* slots, int S, int index,
+                                         void* part, int N, int HW, int C, int rows, int vec,
+                                         int lanes, int tiles, int dtype, void* stream) {
   Plan p;
-  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p)) return (int)cudaErrorInvalidValue;
-  auto o = static_cast<float*>(out), pt = static_cast<float*>(part);
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || S < 1 || index < 0 || index >= S)
+    return (int)cudaErrorInvalidValue;
+  const Slot slot{static_cast<float*>(slots), S, index};
+  auto pt = static_cast<float*>(part);
   auto s = static_cast<cudaStream_t>(stream);
   return (int)by_type(dtype, vec, [&](auto t, auto v) {
-    return launch_fwd_partials<decltype(t), decltype(v)::value>(x, o, pt, p, s);
+    return launch_fwd_partials<decltype(t), decltype(v)::value>(x, slot, pt, p, s);
   });
 }
 
-// slabs: (S, N, C, 3) float32, the S slabs' partials in rank order; stats:
+// slots: the S slabs' (S, N, C, 3) float32 partials, all-reduced; stats:
 // (2 * N * C + 1) float32 output, mean, rstd, then the plane's count.
 extern "C" int cg_instance_norm_slab_apply(const void* x, const void* skip, void* y,
-                                           void* stats, const void* slabs, int S, int N,
+                                           void* stats, const void* slots, int S, int N,
                                            int HW, int C, int rows, int vec, int lanes,
                                            int tiles, float eps, int act, int dtype,
                                            void* stream) {
@@ -1031,7 +1058,7 @@ extern "C" int cg_instance_norm_slab_apply(const void* x, const void* skip, void
       y == nullptr)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<float*>(stats);
-  auto sl = static_cast<const float*>(slabs);
+  auto sl = static_cast<const float*>(slots);
   auto s = static_cast<cudaStream_t>(stream);
   return (int)by_type(dtype, vec, [&](auto t, auto v) {
     return launch_fwd_slab_apply<decltype(t), decltype(v)::value>(x, skip, y, st, sl, S, p,
@@ -1039,40 +1066,43 @@ extern "C" int cg_instance_norm_slab_apply(const void* x, const void* skip, void
   });
 }
 
-// mean, rstd: (N, C) float32 of the forward's apply; out: (N, C, 2) float32
-// (sum g, sum g * xhat) of this slab; part as cg_instance_norm_partials'.
+// mean, rstd: (N, C) float32 of the forward's apply; slots: the (S, N, C, 2)
+// float32 exchange buffer: this slab's (sum g, sum g * xhat) into slot
+// `index`, zeros into the others; part as cg_instance_norm_partials'.
 extern "C" int cg_instance_norm_bwd_partials(const void* x, const void* dy, const void* mean,
-                                             const void* rstd, void* out, void* part, int N,
-                                             int HW, int C, int rows, int vec, int lanes,
-                                             int tiles, int act, int dtype, void* stream) {
+                                             const void* rstd, void* slots, int S, int index,
+                                             void* part, int N, int HW, int C, int rows,
+                                             int vec, int lanes, int tiles, int act, int dtype,
+                                             void* stream) {
   Plan p;
-  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2)
+  if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2 || S < 1 ||
+      index < 0 || index >= S)
     return (int)cudaErrorInvalidValue;
   auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
-  auto o = static_cast<float*>(out), pt = static_cast<float*>(part);
+  const Slot slot{static_cast<float*>(slots), S, index};
+  auto pt = static_cast<float*>(part);
   auto s = static_cast<cudaStream_t>(stream);
   return (int)by_type(dtype, vec, [&](auto t, auto v) {
-    return launch_bwd_partials<decltype(t), decltype(v)::value>(x, dy, mu, rs, o, pt, p, act,
-                                                                s);
+    return launch_bwd_partials<decltype(t), decltype(v)::value>(x, dy, mu, rs, slot, pt, p,
+                                                                act, s);
   });
 }
 
-// slabs: (S, N, C, 2) float32 in rank order; count: the plane's count (one
-// float32 on the device); gm: scratch of 2 * N * C float32.
+// slots: the S slabs' (S, N, C, 2) float32 sums, all-reduced; count: the
+// plane's count (one float32 on the device).
 extern "C" int cg_instance_norm_bwd_slab_apply(const void* x, const void* dy, const void* mean,
-                                               const void* rstd, void* dx, const void* slabs,
-                                               int S, const void* count, void* gm, int N,
-                                               int HW, int C, int rows, int vec, int lanes,
-                                               int tiles, int act, int dtype, void* stream) {
+                                               const void* rstd, void* dx, const void* slots,
+                                               int S, const void* count, int N, int HW, int C,
+                                               int rows, int vec, int lanes, int tiles, int act,
+                                               int dtype, void* stream) {
   Plan p;
   if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2 || S < 1)
     return (int)cudaErrorInvalidValue;
   auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
-  auto sl = static_cast<const float*>(slabs), n = static_cast<const float*>(count);
-  auto g = static_cast<float*>(gm);
+  auto sl = static_cast<const float*>(slots), n = static_cast<const float*>(count);
   auto s = static_cast<cudaStream_t>(stream);
   return (int)by_type(dtype, vec, [&](auto t, auto v) {
     return launch_bwd_slab_apply<decltype(t), decltype(v)::value>(x, dy, mu, rs, dx, sl, S, n,
-                                                                  g, p, act, s);
+                                                                  p, act, s);
   });
 }

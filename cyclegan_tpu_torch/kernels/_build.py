@@ -43,11 +43,13 @@ SIGNATURES = {
         "cg_instance_norm_act": [_VOIDP] * 5 + [_INT] * 7 + [_FLOAT] + [_INT] * 3
         + [_VOIDP],
         "cg_instance_norm_act_bwd": [_VOIDP] * 6 + [_INT] * 10 + [_VOIDP],
-        "cg_instance_norm_partials": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP],
+        "cg_instance_norm_partials": [_VOIDP] * 2 + [_INT] * 2 + [_VOIDP] + [_INT] * 8
+        + [_VOIDP],
         "cg_instance_norm_slab_apply": [_VOIDP] * 5 + [_INT] * 8 + [_FLOAT] + [_INT] * 2
         + [_VOIDP],
-        "cg_instance_norm_bwd_partials": [_VOIDP] * 6 + [_INT] * 9 + [_VOIDP],
-        "cg_instance_norm_bwd_slab_apply": [_VOIDP] * 6 + [_INT] + [_VOIDP] * 2 + [_INT] * 9
+        "cg_instance_norm_bwd_partials": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP] + [_INT] * 9
+        + [_VOIDP],
+        "cg_instance_norm_bwd_slab_apply": [_VOIDP] * 6 + [_INT] + [_VOIDP] + [_INT] * 9
         + [_VOIDP],
     },
     "resblock": {

@@ -22,18 +22,19 @@ PyTorch versions (:func:`instance_norm_act_plain`,
 
 :func:`instance_norm_act_slab` is the same function of a sample whose H
 axis is split over the ranks of a spatial group (``parallel.spatial``):
-each direction makes this slab's partials (forward: (count, mean, M2) per
-(sample, channel); VJP: the sums of g and g * xhat), gathers the ranks'
-partials with a slot a rank, and merges them in rank order before it
-applies (:class:`InstanceNormActSlab`; the kernels' slab entries, or
-:func:`slab_partials_plain`, :func:`slab_apply_plain`,
+each direction writes this slab's partials (forward: (count, mean, M2) per
+(sample, channel); VJP: the sums of g and g * xhat) into its slot of an
+(S, N, C, k) exchange buffer and zeros into the others, sums the buffer
+over the group (one all-reduce: the gather), and merges the S slots in
+rank order as it applies (:class:`InstanceNormActSlab`; the kernels' slab
+entries, or :func:`slab_partials_plain`, :func:`slab_apply_plain`,
 :func:`slab_bwd_partials_plain`, :func:`slab_bwd_apply_plain`).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -319,15 +320,18 @@ def chan_merge_plain(parts: torch.Tensor) -> torch.Tensor:
     return torch.stack([n, m, m2], dim=-1)
 
 
-def slab_partials_plain(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, 3) float32 (count, mean, M2) of NHWC ``x`` over its H*W."""
+def slab_partials_plain(x: torch.Tensor, buf: torch.Tensor, index: int) -> torch.Tensor:
+    """The (count, mean, M2) of NHWC ``x`` over its H*W, float32 (N, C, 3),
+    into slot ``index`` of the (S, N, C, 3) exchange buffer ``buf``, zeros
+    into its other slots; returns ``buf``."""
     n, h, w, c = x.shape
-    x32 = x.float()
-    if h * w == 0:
-        return torch.zeros((n, c, 3), dtype=torch.float32, device=x.device)
-    mean = x32.mean(dim=(1, 2))
-    m2 = torch.square(x32 - mean[:, None, None]).sum(dim=(1, 2))
-    return torch.stack([torch.full_like(mean, float(h * w)), mean, m2], dim=-1)
+    buf.zero_()
+    if h * w:
+        x32 = x.float()
+        mean = x32.mean(dim=(1, 2))
+        m2 = torch.square(x32 - mean[:, None, None]).sum(dim=(1, 2))
+        buf[index] = torch.stack([torch.full_like(mean, float(h * w)), mean, m2], dim=-1)
+    return buf
 
 
 def slab_apply_plain(x: torch.Tensor, skip: torch.Tensor | None, slabs: torch.Tensor,
@@ -345,11 +349,16 @@ def slab_apply_plain(x: torch.Tensor, skip: torch.Tensor | None, slabs: torch.Te
 
 
 def slab_bwd_partials_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
-                            rstd: torch.Tensor, act: str = "none") -> torch.Tensor:
-    """(N, C, 2) float32 (sum g, sum g * xhat) of this slab, g = act'(xhat) dy."""
+                            rstd: torch.Tensor, buf: torch.Tensor, index: int,
+                            act: str = "none") -> torch.Tensor:
+    """The (sum g, sum g * xhat) of this slab, g = act'(xhat) dy, float32
+    (N, C, 2), into slot ``index`` of the (S, N, C, 2) exchange buffer
+    ``buf``, zeros into its other slots; returns ``buf``."""
     xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
     g = dy.float() * _act_grad(xhat, act)
-    return torch.stack([g.sum(dim=(1, 2)), (g * xhat).sum(dim=(1, 2))], dim=-1)
+    buf.zero_()
+    buf[index] = torch.stack([g.sum(dim=(1, 2)), (g * xhat).sum(dim=(1, 2))], dim=-1)
+    return buf
 
 
 def slab_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
@@ -376,20 +385,31 @@ def _slab_plan(x: torch.Tensor, *tensors: torch.Tensor) -> InPlan:
     return plan
 
 
-def _slab_partials_cuda(x: torch.Tensor) -> torch.Tensor:
+def _check_slots(x: torch.Tensor, buf: torch.Tensor, k: int, index: int | None = None) -> None:
+    """An (S, N, C, k) float32 exchange buffer on x's device (and a slot
+    ``index`` of it)."""
+    n, _, _, c = x.shape
+    _check("instance_norm_act_slab", 1, x, buf)
+    if buf.dtype != torch.float32 or buf.dim() != 4 or buf.shape[1:] != (n, c, k) \
+            or (index is not None and not 0 <= index < buf.shape[0]):
+        raise ValueError(f"instance_norm_act_slab: exchange buffer {tuple(buf.shape)} "
+                         f"{buf.dtype}, slot {index}; want (S, {n}, {c}, {k}) float32")
+
+
+def _slab_partials_cuda(x: torch.Tensor, buf: torch.Tensor, index: int) -> torch.Tensor:
     global slab_launches
     n, h, w, c = x.shape
-    if h * w == 0:  # a rank that owns no row of the plane: nothing to launch
-        return slab_partials_plain(x)
+    if h * w == 0:  # a rank that owns no row of the plane: its slot is zeros
+        return slab_partials_plain(x, buf, index)
     plan = _slab_plan(x)
-    out = torch.empty((n, c, 3), dtype=torch.float32, device=x.device)
+    _check_slots(x, buf, 3, index)
     stream = _build.stream_ptr(x)
     part = _build.scratch_ptr(8 * n * c * plan.row_tiles, x, stream)
-    _build.call("instance_norm", "cg_instance_norm_partials", x.data_ptr(), out.data_ptr(),
-                part, n, h * w, c, plan.rows, plan.vec, plan.lanes, plan.tiles,
-                _build.DTYPE_CODES[x.dtype], stream)
+    _build.call("instance_norm", "cg_instance_norm_partials", x.data_ptr(), buf.data_ptr(),
+                buf.shape[0], index, part, n, h * w, c, plan.rows, plan.vec, plan.lanes,
+                plan.tiles, _build.DTYPE_CODES[x.dtype], stream)
     slab_launches += 1
-    return out
+    return buf
 
 
 def _slab_apply_cuda(x, skip, slabs, eps, act):
@@ -398,10 +418,10 @@ def _slab_apply_cuda(x, skip, slabs, eps, act):
     if h * w == 0:
         return slab_apply_plain(x, skip, slabs, eps, act)
     plan = _slab_plan(x, *(() if skip is None else (skip,)))
-    _check("instance_norm_act_slab", 1, slabs)
-    if slabs.dtype != torch.float32 or slabs.shape[1:] != (n, c, 3):
-        raise ValueError(f"instance_norm_act_slab: slab partials {tuple(slabs.shape)}, "
-                         f"want (S, {n}, {c}, 3) float32")
+    _check_slots(x, slabs, 3)
+    # Two allocations: statistics carved from y's would keep all of y alive
+    # for the backward whenever the next layer saves another tensor (the
+    # spatial path's halo-padded convolution input).
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     stats = torch.empty(2 * n * c + 1, dtype=torch.float32, device=x.device)
     _build.call("instance_norm", "cg_instance_norm_slab_apply", x.data_ptr(),
@@ -413,21 +433,21 @@ def _slab_apply_cuda(x, skip, slabs, eps, act):
     return y, stats[:n * c].view(n, c), stats[n * c:2 * n * c].view(n, c), stats[2 * n * c:]
 
 
-def _slab_bwd_partials_cuda(x, dy, mean, rstd, act):
+def _slab_bwd_partials_cuda(x, dy, mean, rstd, buf, index, act):
     global slab_bwd_launches
     n, h, w, c = x.shape
     if h * w == 0:
-        return slab_bwd_partials_plain(x, dy, mean, rstd, act)
+        return slab_bwd_partials_plain(x, dy, mean, rstd, buf, index, act)
     plan = _slab_plan(x, dy)
-    out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    _check_slots(x, buf, 2, index)
     stream = _build.stream_ptr(x)
     part = _build.scratch_ptr(8 * n * c * plan.row_tiles, x, stream)
     _build.call("instance_norm", "cg_instance_norm_bwd_partials", x.data_ptr(), dy.data_ptr(),
-                mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), part, n, h * w, c, plan.rows,
-                plan.vec, plan.lanes, plan.tiles, ACTS[act], _build.DTYPE_CODES[x.dtype],
-                stream)
+                mean.data_ptr(), rstd.data_ptr(), buf.data_ptr(), buf.shape[0], index, part,
+                n, h * w, c, plan.rows, plan.vec, plan.lanes, plan.tiles, ACTS[act],
+                _build.DTYPE_CODES[x.dtype], stream)
     slab_bwd_launches += 1
-    return out
+    return buf
 
 
 def _slab_bwd_apply_cuda(x, dy, mean, rstd, slabs, count, act):
@@ -436,33 +456,44 @@ def _slab_bwd_apply_cuda(x, dy, mean, rstd, slabs, count, act):
     if h * w == 0:
         return slab_bwd_apply_plain(x, dy, mean, rstd, slabs, count, act)
     plan = _slab_plan(x, dy)
-    _check("instance_norm_act_slab_bwd", 1, slabs, count)
+    _check_slots(x, slabs, 2)
+    _check("instance_norm_act_slab_bwd", 1, count)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    stream = _build.stream_ptr(x)
-    gm = _build.scratch_ptr(8 * n * c, x, stream)
     _build.call("instance_norm", "cg_instance_norm_bwd_slab_apply", x.data_ptr(),
                 dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-                slabs.data_ptr(), slabs.shape[0], count.data_ptr(), gm, n, h * w, c,
+                slabs.data_ptr(), slabs.shape[0], count.data_ptr(), n, h * w, c,
                 plan.rows, plan.vec, plan.lanes, plan.tiles, ACTS[act],
-                _build.DTYPE_CODES[x.dtype], stream)
+                _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     slab_bwd_apply_launches += 1
     return dx
 
 
+class SlabGroup(NamedTuple):
+    """This slab's place among the ``size`` slabs of a plane: its slot
+    ``index`` of the exchange buffer, and ``reduce``, which sums an (S, N,
+    C, k) float32 buffer over the slabs' ranks in place (an all-reduce that
+    every rank of the group makes, in the same order)."""
+    size: int
+    index: int
+    reduce: Callable[[torch.Tensor], object]
+
+
 class InstanceNormActSlab(torch.autograd.Function):
-    """The seam of a slab: ``gather`` maps this rank's partials (N, C, k) to
-    the spatial group's (S, N, C, k) in rank order (a collective every rank
-    of the group makes, forward and backward alike); ``plain`` as in
-    :class:`InstanceNormAct`."""
+    """The seam of a slab: each direction's partials write their slot of an
+    uninitialised (S, N, C, k) buffer (``group``, a :class:`SlabGroup`),
+    ``group.reduce`` sums it over the group, and the apply merges the S
+    slots; ``plain`` as in :class:`InstanceNormAct`."""
 
     @staticmethod
-    def forward(ctx, x, skip, eps, act, plain, gather):
-        part = (slab_partials_plain if plain else _slab_partials_cuda)(x)
+    def forward(ctx, x, skip, eps, act, plain, group):
+        buf = x.new_empty((group.size, x.shape[0], x.shape[3], 3), dtype=torch.float32)
+        (slab_partials_plain if plain else _slab_partials_cuda)(x, buf, group.index)
+        group.reduce(buf)
         apply = slab_apply_plain if plain else _slab_apply_cuda
-        y, mean, rstd, count = apply(x, skip, gather(part), eps, act)
+        y, mean, rstd, count = apply(x, skip, buf, eps, act)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             ctx.save_for_backward(x, mean, rstd, count)
-            ctx.act, ctx.plain, ctx.gather = act, plain, gather
+            ctx.act, ctx.plain, ctx.group = act, plain, group
         return y
 
     @staticmethod
@@ -471,22 +502,26 @@ class InstanceNormActSlab(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             dy_c = dy.contiguous()
+            group = ctx.group
+            buf = x.new_empty((group.size, x.shape[0], x.shape[3], 2), dtype=torch.float32)
             partials = slab_bwd_partials_plain if ctx.plain else _slab_bwd_partials_cuda
+            partials(x, dy_c, mean, rstd, buf, group.index, ctx.act)
+            group.reduce(buf)
             apply = slab_bwd_apply_plain if ctx.plain else _slab_bwd_apply_cuda
-            sums = ctx.gather(partials(x, dy_c, mean, rstd, ctx.act))
-            dx = apply(x, dy_c, mean, rstd, sums, count, ctx.act)
+            dx = apply(x, dy_c, mean, rstd, buf, count, ctx.act)
         dskip = dy if ctx.needs_input_grad[1] else None
         return dx, dskip, None, None, None, None
 
 
 def instance_norm_act_slab(x: torch.Tensor, skip: torch.Tensor | None, eps: float,
-                           act: str, gather) -> torch.Tensor:
+                           act: str, group: SlabGroup) -> torch.Tensor:
     """:func:`instance_norm_act` of this rank's H slab of NHWC ``x`` with the
-    statistics of the whole plane, whose S slabs' partials ``gather``
-    collects (see :class:`InstanceNormActSlab`). CUDA tensors go through
-    the kernels' slab entries, CPU tensors through the plain versions."""
+    statistics of the whole plane, whose S slabs' partials meet in the
+    exchange buffer that ``group`` reduces (see :class:`InstanceNormActSlab`).
+    CUDA tensors go through the kernels' slab entries, two launches a
+    direction; CPU tensors through the plain versions."""
     _check_args(x, act)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"instance_norm_act_slab: no kernel for device {x.device}")
-    return InstanceNormActSlab.apply(x, skip, eps, act, x.device.type == "cpu", gather)
+    return InstanceNormActSlab.apply(x, skip, eps, act, x.device.type == "cpu", group)
 

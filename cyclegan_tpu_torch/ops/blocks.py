@@ -49,14 +49,15 @@ import os
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cyclegan_tpu_torch.kernels import (instance_norm_act, residual_block_chunked,
                                         residual_block_fused)
-from cyclegan_tpu_torch.kernels.instance_norm import instance_norm_act_slab
+from cyclegan_tpu_torch.kernels.instance_norm import SlabGroup, instance_norm_act_slab
 from cyclegan_tpu_torch.ops import functional as F
 from cyclegan_tpu_torch.parallel import spatial as S
-from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_grad, gather_slots
+from cyclegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_grad
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -87,17 +88,22 @@ class InstanceNorm(nn.Module):
         self.eps = eps
         self.spatial: S.Spatial | None = None
 
-    def _gather(self, part: torch.Tensor) -> torch.Tensor:
-        """The spatial group's partials (S, N, C, k) from this rank's."""
-        sp = self.spatial
-        return gather_slots(part[None], sp.group, sp.index, sp.size)
+    def _gather(self, buf: torch.Tensor) -> None:
+        """The spatial group's partials (S, N, C, k), in place: each rank's
+        slab wrote its slot of ``buf`` and zeros into the others, so the sum
+        over the group is the gather (exact: one rank's value plus zeros)."""
+        dist.all_reduce(buf, group=self.spatial.group)
+
+    def slab_group(self) -> SlabGroup:
+        """This rank's slot of the exchange buffer and the group's sum."""
+        return SlabGroup(self.spatial.size, self.spatial.index, self._gather)
 
     def forward(self, x: torch.Tensor, act: str = "none",
                 skip: torch.Tensor | None = None) -> torch.Tensor:
         skip = to_nhwc(skip.to(x.dtype)) if skip is not None else None
         if self.spatial is not None:
             return to_nchw(instance_norm_act_slab(to_nhwc(x), skip, self.eps, act,
-                                                  self._gather))
+                                                  self.slab_group()))
         return to_nchw(instance_norm_act(to_nhwc(x), skip, self.eps, act))
 
 

@@ -63,29 +63,37 @@ def test_instance_norm_act_matches_plain(card, shape, act, skip, dtype):
                                **TOL[dtype])
 
 
+def _slots(x: torch.Tensor, s: int, k: int) -> torch.Tensor:
+    """An uninitialised (S, N, C, k) float32 exchange buffer for x's slabs."""
+    return torch.empty((s, x.shape[0], x.shape[3], k), device=x.device)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act,skip", [("relu", False), ("none", True), ("leaky", False)])
 @pytest.mark.parametrize("shape,cuts", [((2, 16, 12, 64), (8,)), ((1, 31, 7, 40), (16,)),
                                         ((1, 12, 10, 96), (3, 7, 9))])
 def test_instance_norm_slab_entries_match_plain_and_the_whole_plane(card, shape, cuts, act,
                                                                     skip, dtype):
-    """The slab entries (spatial axis): each slab's partials, merged in slab
-    order by the apply, give its rows of the one-launch kernel on the whole
-    plane and of the plain slab versions, forward and VJP; uneven slabs
-    weigh by their counts; one launch a call of each entry."""
+    """The slab entries (spatial axis): each slab's partials, written into
+    its slot of the exchange buffer and summed over the slabs as the
+    all-reduce sums them, give through each apply its rows of the one-launch
+    kernel on the whole plane and of the plain slab versions, forward and
+    VJP; every slab holds bitwise the same statistics; uneven slabs weigh by
+    their counts; one launch a call of each entry."""
     x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(dtype)
     s = torch.randn(shape, device="cuda", generator=card).to(dtype) if skip else None
     dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
     edges = [0, *cuts, shape[1]]
     rows = [slice(a, b) for a, b in zip(edges, edges[1:])]
+    n = len(rows)
     xs = [x[:, r].contiguous() for r in rows]
     dys = [dy[:, r].contiguous() for r in rows]
     before = dict(_build.launches)
-    parts = torch.stack([IN._slab_partials_cuda(t) for t in xs])
+    parts = sum(IN._slab_partials_cuda(t, _slots(x, n, 3), i) for i, t in enumerate(xs))
     whole = IN.instance_norm_act_plain(x, s, 1e-5, act)
     mean, rstd = IN.instance_norm_stats_plain(x)
     dx_whole = IN.instance_norm_act_bwd_plain(x, dy, mean, rstd, act)
-    outs, sums = [], []
+    outs = []
     for r, t in zip(rows, xs):
         y, m, rs, count = IN._slab_apply_cuda(t, None if s is None else s[:, r].contiguous(),
                                               parts, 1e-5, act)
@@ -93,8 +101,8 @@ def test_instance_norm_slab_entries_match_plain_and_the_whole_plane(card, shape,
     torch.testing.assert_close(outs[0][1], mean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(outs[0][2], rstd, atol=1e-5, rtol=1e-5)
     assert float(outs[0][3]) == shape[1] * shape[2]
-    sums = torch.stack([IN._slab_bwd_partials_cuda(t, g, outs[0][1], outs[0][2], act)
-                        for t, g in zip(xs, dys)])
+    sums = sum(IN._slab_bwd_partials_cuda(t, g, outs[0][1], outs[0][2], _slots(x, n, 2), i, act)
+               for i, (t, g) in enumerate(zip(xs, dys)))
     for r, t, g, (y, m, rs, count) in zip(rows, xs, dys, outs):
         assert torch.equal(m, outs[0][1]) and torch.equal(rs, outs[0][2])  # every slab alike
         torch.testing.assert_close(y.float(), whole[:, r].float(), **TOL[dtype])
@@ -105,12 +113,77 @@ def test_instance_norm_slab_entries_match_plain_and_the_whole_plane(card, shape,
         tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else TOL[dtype]
         torch.testing.assert_close(dx.float(), dx_whole[:, r].float(), **tol)
     torch.cuda.synchronize()
-    n = len(rows)
     assert {k: _build.launches[k] - before.get(k, 0) for k in (
         "cg_instance_norm_partials", "cg_instance_norm_slab_apply",
         "cg_instance_norm_bwd_partials", "cg_instance_norm_bwd_slab_apply")} == \
         {"cg_instance_norm_partials": n, "cg_instance_norm_slab_apply": n,
          "cg_instance_norm_bwd_partials": n, "cg_instance_norm_bwd_slab_apply": n}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 29, 64), (1, 300, 40, 256), (3, 5, 7, 40)])
+def test_instance_norm_slab_partials_fill_their_slot_and_zero_the_others(card, shape, dtype):
+    """Into slot 1 of a NaN-filled buffer of 3: the slab's partials (against
+    the plain version's) and exact zeros in slots 0 and 2, forward and VJP,
+    over many tiles (300 x 40 rows at C = 256: 94 tiles of 2 channel groups
+    in float32, 188 in bf16) as well as few."""
+    x = (torch.randn(shape, device="cuda", generator=card) * 2 + 1).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    mean, rstd = IN.instance_norm_stats_plain(x)
+    for k, run, plain in (
+            (3, lambda b: IN._slab_partials_cuda(x, b, 1),
+             lambda b: IN.slab_partials_plain(x, b, 1)),
+            (2, lambda b: IN._slab_bwd_partials_cuda(x, dy, mean, rstd, b, 1, "relu"),
+             lambda b: IN.slab_bwd_partials_plain(x, dy, mean, rstd, b, 1, "relu"))):
+        got = run(torch.full((3, shape[0], shape[3], k), float("nan"), device="cuda"))
+        want = plain(_slots(x, 3, k))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+        torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_slab_entries_second_call_is_bitwise(card, dtype):
+    """Every entry, called twice on the same inputs, gives bitwise the same
+    exchange buffer, output and statistics (every merge runs in a fixed
+    order; no float atomics)."""
+    x = (torch.randn((2, 96, 40, 64), device="cuda", generator=card) * 2 + 1).to(dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=card).to(dtype)
+
+    def run():
+        parts = IN._slab_partials_cuda(x, _slots(x, 2, 3), 0)
+        y, mean, rstd, count = IN._slab_apply_cuda(x, None, parts, 1e-5, "leaky")
+        sums = IN._slab_bwd_partials_cuda(x, dy, mean, rstd, _slots(x, 2, 2), 0, "leaky")
+        dx = IN._slab_bwd_apply_cuda(x, dy, mean, rstd, sums, count, "leaky")
+        return parts, y, mean, rstd, count, sums, dx
+
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_slab_layer_is_two_kernels_a_direction(card, dtype, built_and_launched):
+    """A slab norm layer (forward and its VJP through autograd) launches the
+    two slab kernels a direction and nothing else: no fill, no copy around
+    its all-reduce (stood in for here by a call that does no device work)."""
+    x = torch.randn((1, 64, 64, 64), device="cuda", generator=card).to(dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=card).to(dtype)
+    group = IN.SlabGroup(2, 1, lambda buf: None)
+    xg = x.requires_grad_(True)
+
+    def layer():
+        y = IN.instance_norm_act_slab(xg, None, 1e-5, "relu", group)
+        torch.autograd.grad(y, xg, dy)
+
+    layer()
+    torch.cuda.synchronize()
+    names = _device_kernels(layer)
+    assert len(names) == 4, names
+    assert [sum(pat in k for k in names) for pat in (
+        "in_fwd_partials<", "in_fwd_slab_apply<", "in_bwd_partials<", "in_bwd_slab_apply<")] \
+        == [1, 1, 1, 1], names
 
 
 def test_instance_norm_float32_in_bf16_out(card):

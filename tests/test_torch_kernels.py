@@ -16,6 +16,7 @@ import torch
 from cyclegan_tpu.kernels.instance_norm import instance_norm_act as jax_in_act
 from cyclegan_tpu.kernels.resblock import (residual_block_fused as jax_rb_fused,
                                            residual_block_reference)
+from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
 
@@ -44,6 +45,44 @@ def test_instance_norm_act_bf16_matches_pallas():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
                                atol=2 ** -8, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_wrappers_hand_the_c_entries_their_slot(monkeypatch, dtype):
+    """What the slab entries' wrappers hand their C entries, in the order of
+    their signatures: the partials, the exchange buffer, S and this slab's
+    slot, the scratch of the tiles' partials, then the plan; the applies
+    take no scratch, and the statistics the backward saves do not share
+    the forward output's memory. A slot or buffer that does not fit
+    raises."""
+    calls, asked = [], []
+    monkeypatch.setattr(_build, "call", lambda lib, fn, *args: calls.append((fn, args)))
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "scratch_ptr", lambda nbytes, t, s: asked.append(nbytes) or 16)
+    n, h, w, c = 2, 40, 30, 64
+    x = torch.zeros((n, h, w, c), dtype=dtype)
+    plan = IN.in_plan(h * w, c, x.element_size())
+    buf, bbuf = torch.zeros((3, n, c, 3)), torch.zeros((3, n, c, 2))
+    IN._slab_partials_cuda(x, buf, 2)
+    y, mean, rstd, count = IN._slab_apply_cuda(x, x.clone(), buf, 1e-5, "relu")
+    IN._slab_bwd_partials_cuda(x, x.clone(), mean, rstd, bbuf, 2, "relu")
+    IN._slab_bwd_apply_cuda(x, x.clone(), mean, rstd, bbuf, count, "relu")
+    assert [fn for fn, _ in calls] == ["cg_instance_norm_partials", "cg_instance_norm_slab_apply",
+                                       "cg_instance_norm_bwd_partials",
+                                       "cg_instance_norm_bwd_slab_apply"]
+    for fn, args in calls:
+        assert len(args) == len(_build.SIGNATURES["instance_norm"][fn]), fn
+    shape = (n, h * w, c, plan.rows, plan.vec, plan.lanes, plan.tiles)
+    assert calls[0][1][1:12] == (buf.data_ptr(), 3, 2, 16, *shape)
+    assert calls[2][1][4:15] == (bbuf.data_ptr(), 3, 2, 16, *shape)
+    assert calls[1][1][4:13] == (buf.data_ptr(), 3, *shape)
+    assert calls[3][1][5:15] == (bbuf.data_ptr(), 3, count.data_ptr(), *shape)
+    assert asked == [8 * n * c * plan.row_tiles] * 2
+    assert y.shape == x.shape and y.dtype == dtype and mean.shape == rstd.shape == (n, c)
+    assert y.untyped_storage().data_ptr() != mean.untyped_storage().data_ptr()
+    for bad, slot in ((buf, 3), (bbuf, 0), (torch.zeros((3, n, c + 1, 3)), 0)):
+        with pytest.raises(ValueError, match="exchange buffer"):
+            IN._slab_partials_cuda(x, bad, slot)
 
 
 def _rb_params(c, seed):

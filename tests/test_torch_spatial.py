@@ -18,9 +18,15 @@ largest magnitude, at least 1):
   3x3 stride 2, 4x4 stride 2 and stride 1 on an uneven slab split),
   ``DeconvBlock``, and the whole ResNet generator and PatchGAN (whose last
   two layers split 3 and 2 rows unevenly at 32x32);
-- the slab instance norm's plain versions (forward and VJP) against
-  ``instance_norm_act_plain`` on the plane, and on a plane of one row,
-  of which one rank owns none (zero partials, every collective made);
+- the slab instance norm's plain versions (forward and VJP) through the
+  slot-writing gather (each rank's partials in its slot of the exchange
+  buffer, zeros in the others, one all-reduce) against
+  ``instance_norm_act_plain`` on the plane: relu with a skip, none without,
+  leaky on an uneven split (4 and 3 rows), and a plane of one row, of
+  which one rank owns none (a slot of zeros, every collective made); in
+  each, mean and rstd bitwise equal on every rank; and relu with a skip
+  against the JAX package's ``instance_norm_act`` on the whole plane (its
+  Pallas kernels in interpret mode), at the same float32 bar of 5e-5;
 - the U-Net generator (num_downs 5, ngf 8, 32x32, whose innermost plane
   is one row) with instance norm and with batch norm, and with dropout
   (num_downs 6, 64x64) on injected masks;
@@ -200,40 +206,66 @@ def _halo_case(mesh: tmesh.Mesh) -> float:
     return max(errs)
 
 
-def _in_case(mesh: tmesh.Mesh) -> float:
-    """The slab instance norm's plain versions (relu, with a skip) against
-    instance_norm_act_plain on the plane, forward and VJP."""
-    x = _randn(1, 2, 12, 10, 16)
-    skip = _randn(2, *x.shape)
-    ct = _randn(3, *x.shape)
-    xw = x.clone().requires_grad_(True)
-    yw = IN.instance_norm_act_plain(xw, skip, 1e-5, "relu")
-    (yw * ct).sum().backward()
-    lo, hi = S.slab(12, mesh.spatial, mesh.spatial_index)
+def _slab_norm(mesh: tmesh.Mesh, x: torch.Tensor, skip, act: str, ct: torch.Tensor):
+    """This rank's slab of ``x`` through ``instance_norm_act_slab`` with a
+    module's slot-writing gather (``InstanceNorm.slab_group``): the output,
+    the input's gradient under ``ct``, the plane's mean and rstd the seam
+    saved, and the slab's rows."""
+    lo, hi = S.slab(x.shape[1], mesh.spatial, mesh.spatial_index)
     xs = x[:, lo:hi].clone().requires_grad_(True)
     norm = blocks.InstanceNorm()
-    norm.spatial = S.Spatial(mesh.spatial, mesh.spatial_index, mesh.spatial_group)
-    ys = IN.instance_norm_act_slab(xs, skip[:, lo:hi], 1e-5, "relu", norm._gather)
+    norm.spatial = S.from_mesh(mesh)
+    ys = IN.instance_norm_act_slab(xs, None if skip is None else skip[:, lo:hi], 1e-5, act,
+                                   norm.slab_group())
+    _, mean, rstd, _ = ys.grad_fn.saved_tensors
     (ys * ct[:, lo:hi]).sum().backward()
-    return max(_err(ys, yw[:, lo:hi]), _err(xs.grad, xw.grad[:, lo:hi]))
+    assert ys.shape[1] == hi - lo and xs.grad.shape == xs.shape
+    return ys, xs.grad, mean, rstd, slice(lo, hi)
+
+
+def _alike_on_every_rank(mesh: tmesh.Mesh, *stats: torch.Tensor) -> bool:
+    """Each tensor bitwise equal on every rank of this rank's spatial group."""
+    for t in stats:
+        got = tmesh.gather_slots(t[None], mesh.spatial_group, mesh.spatial_index, mesh.spatial)
+        if not all(torch.equal(got[0], r) for r in got[1:]):
+            return False
+    return True
+
+
+def _in_case(mesh: tmesh.Mesh, h: int = 12, act: str = "relu", skip: bool = True,
+             seed: int = 1) -> float:
+    """The slab instance norm's plain versions through the slot-writing
+    gather against instance_norm_act_plain on the plane of ``h`` rows,
+    forward and VJP; inf unless every rank holds bitwise the same mean and
+    rstd."""
+    x = _randn(seed, 2, h, 10, 16)
+    sk = _randn(seed + 1, *x.shape) if skip else None
+    ct = _randn(seed + 1 + skip, *x.shape)
+    xw = x.clone().requires_grad_(True)
+    yw = IN.instance_norm_act_plain(xw, sk, 1e-5, act)
+    (yw * ct).sum().backward()
+    ys, dx, mean, rstd, rows = _slab_norm(mesh, x, sk, act, ct)
+    if not _alike_on_every_rank(mesh, mean, rstd):
+        return float("inf")
+    return max(_err(ys, yw[:, rows]), _err(dx, xw.grad[:, rows]))
 
 
 def _in_zero_row_case(mesh: tmesh.Mesh) -> float:
     """The slab instance norm on a plane of one row: the second rank owns
-    none, gives zero partials and still makes the gathers."""
-    x = _randn(4, 2, 1, 10, 16)
-    ct = _randn(5, *x.shape)
-    xw = x.clone().requires_grad_(True)
-    yw = IN.instance_norm_act_plain(xw, None, 1e-5, "none")
-    (yw * ct).sum().backward()
-    lo, hi = S.slab(1, mesh.spatial, mesh.spatial_index)
-    xs = x[:, lo:hi].clone().requires_grad_(True)
-    norm = blocks.InstanceNorm()
-    norm.spatial = S.from_mesh(mesh)
-    ys = IN.instance_norm_act_slab(xs, None, 1e-5, "none", norm._gather)
-    (ys * ct[:, lo:hi]).sum().backward()
-    assert ys.shape[1] == hi - lo and xs.grad.shape == xs.shape
-    return max(_err(ys, yw[:, lo:hi]), _err(xs.grad, xw.grad[:, lo:hi]))
+    none, writes a slot of zeros, still makes the gathers and holds the
+    same statistics."""
+    return _in_case(mesh, h=1, act="none", skip=False, seed=4)
+
+
+def _in_jax_case(mesh: tmesh.Mesh, in_jax: dict) -> float:
+    """The slab norm (relu, with a skip) against the JAX package's
+    instance_norm_act on the whole plane, forward and VJP."""
+    x, sk, ct = (torch.from_numpy(in_jax[k]) for k in ("x", "skip", "ct"))
+    ys, dx, mean, rstd, rows = _slab_norm(mesh, x, sk, "relu", ct)
+    if not _alike_on_every_rank(mesh, mean, rstd):
+        return float("inf")
+    return max(_err(ys, torch.from_numpy(in_jax["y"])[:, rows]),
+               _err(dx, torch.from_numpy(in_jax["dx"])[:, rows]))
 
 
 def _injected_keep(n: int):
@@ -307,7 +339,7 @@ def _eval_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
     return errs, outs
 
 
-def spatial_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
+def spatial_cases(mesh: tmesh.Mesh, eval_params, in_jax: dict) -> tuple[dict, dict]:
     """Each rank: every module case; the worst error of each over the ranks."""
     torch.manual_seed(0)  # the modules' default initialisation, alike on every rank
     g = torch.Generator().manual_seed(0)
@@ -316,6 +348,9 @@ def spatial_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
     cases = {
         "halo_exchange": lambda: _halo_case(mesh),
         "instance_norm_slab": lambda: _in_case(mesh),
+        "instance_norm_slab_none": lambda: _in_case(mesh, act="none", skip=False, seed=31),
+        "instance_norm_slab_uneven": lambda: _in_case(mesh, h=7, act="leaky", seed=34),
+        "instance_norm_slab_vs_jax": lambda: _in_jax_case(mesh, in_jax),
         "conv_reflect_7x7": lambda: _compare(
             blocks.ConvBlock(8, 8, 7, pad=3, **conv), x16, mesh, 1, rows=16),
         "conv_trunk_3x3_kernel8": lambda: _compare(
@@ -362,7 +397,8 @@ def spatial_cases(mesh: tmesh.Mesh, eval_params) -> tuple[dict, dict]:
     return out, canvases
 
 
-CASE_NAMES = ["halo_exchange", "instance_norm_slab", "conv_reflect_7x7",
+CASE_NAMES = ["halo_exchange", "instance_norm_slab", "instance_norm_slab_none",
+              "instance_norm_slab_uneven", "instance_norm_slab_vs_jax", "conv_reflect_7x7",
               "conv_trunk_3x3_kernel8", "conv_zero_3x3_stride2", "conv_zero_4x4_stride2",
               "conv_zero_4x4_uneven", "deconv_3x3_stride2", "generator_resnet",
               "generator_resnet_tanh", "patchgan_uneven_tail", "instance_norm_zero_row_slab",
@@ -438,7 +474,7 @@ def on_the_mesh(refs: dict, run_root: str) -> dict:
     torch.set_num_threads(1)
     mesh = tmesh.make_mesh(spatial=S_RANKS, device="cpu")
     assert (mesh.dp, mesh.spatial) == (WORLD // S_RANKS, S_RANKS)
-    modules, canvases = spatial_cases(mesh, refs["eval_params"])
+    modules, canvases = spatial_cases(mesh, refs["eval_params"], refs["in_jax"])
     test = runner.run_test(run_cfg(run_root, num_devices=WORLD, spatial_shards=S_RANKS),
                            device="cpu")
     return {"modules": modules, "canvases": canvases,
@@ -462,6 +498,7 @@ def references():
 
     from cyclegan_tpu import eval_tile as jtile
     from cyclegan_tpu import tta as jtta
+    from cyclegan_tpu.kernels.instance_norm import instance_norm_act as jax_in_act
     from cyclegan_tpu.models.generators import ResnetGenerator as JaxResnet
 
     def supervised(kw):
@@ -493,6 +530,14 @@ def references():
                 "flip_scales": jtta.scale_avg(jtta.flip_avg(net), EVAL_SCALES)}
     eval_jax = {k: np.asarray(f(eval_params, canvas)) for k, f in eval_jax.items()}
 
+    # The instance norm of a whole plane, its Pallas kernels in interpret
+    # mode, as the JAX package's own CPU tests run them.
+    in_jax = {k: _randn(40 + i, 2, 12, 10, 16).numpy()
+              for i, k in enumerate(("x", "skip", "ct"))}
+    y, vjp = jax.vjp(lambda a, b: jax_in_act(a, b, 1e-5, "relu", True),
+                     jnp.asarray(in_jax["x"]), jnp.asarray(in_jax["skip"]))
+    in_jax.update(y=np.asarray(y), dx=np.asarray(vjp(jnp.asarray(in_jax["ct"]))[0]))
+
     jt = JaxCG(jconfig.Config(**dict(CG_KW, gen_net="resnet_6blocks")), CG_CLASSES, 3,
                steps_per_epoch=1000)
     jt.G_i2l = jt.G_i2l.clone(n_blocks=2)
@@ -508,6 +553,7 @@ def references():
     return {"sup_vars": params, "sup_loss": loss, "sup_grads": grads,
             "sup_unet_vars": unet_params, "sup_unet_loss": unet_loss,
             "sup_unet_grads": unet_grads, "eval_params": eval_params, "eval_jax": eval_jax,
+            "in_jax": in_jax,
             "cg_params": cg_params, "cg_metrics": metrics}
 
 
@@ -526,7 +572,7 @@ def run_root(tmp_path_factory) -> str:
 def mesh4(references, run_root, tmp_path_factory):
     """Every case on dp 2 x spatial 2, in one spawn of four gloo ranks."""
     refs = {k: references[k] for k in ("sup_vars", "sup_unet_vars", "eval_params",
-                                       "cg_params")}
+                                       "cg_params", "in_jax")}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(distributed.TIMEOUT_ENV, "120")
         mp.setenv("OMP_NUM_THREADS", "1")
