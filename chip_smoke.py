@@ -645,14 +645,16 @@ def phase_serve(tmp: str) -> dict:
     img_dir, gt_dir = _write_inputs(tmp)
     out_dir = os.path.join(tmp, "preds")
 
-    # The main path: counts set to 0 just before, read just after.
-    IN.launches = RB.launches = 0
+    # The main path: counts set to 0 just before, read just after. A forward
+    # makes 5 norms outside the trunk and N_BLOCKS fused blocks, each of 2
+    # forward convolutions and 2 norms.
+    _zero_counters()
     summary = serve.run_serve(artifact, img_dir, out_dir, batch_size=BATCH,
                               gt_dir=gt_dir, device="cuda")
-    launches = {"instance_norm_act": IN.launches, "residual_block_fused": RB.launches}
+    launches = {k: _read_counters().get(k, 0) for k in SERVE_ENTRIES}
     forwards = math.ceil(N_IMAGES / BATCH)
-    if launches["instance_norm_act"] < 5 * forwards or \
-            launches["residual_block_fused"] < N_BLOCKS * forwards:
+    if launches["cg_instance_norm_act"] < (5 + 2 * N_BLOCKS) * forwards or \
+            launches["cg_conv3x3_reflect"] < 2 * N_BLOCKS * forwards:
         raise AssertionError(f"serving path bypassed the kernels: {launches} over "
                              f"{forwards} forwards")
 
@@ -745,10 +747,10 @@ def phase_http(served: dict) -> dict:
                 data, status = r.read(), r.status
             return name, fmts[i % 3], status, data, time.perf_counter() - t0
 
-        IN.launches = RB.launches = 0
+        _zero_counters()
         with ThreadPoolExecutor(max_workers=4) as ex:
             results = list(ex.map(post, range(8)))
-        launches = {"instance_norm_act": IN.launches, "residual_block_fused": RB.launches}
+        launches = {k: _read_counters().get(k, 0) for k in SERVE_ENTRIES}
     finally:
         server.shutdown()
         server.server_close()
@@ -771,7 +773,7 @@ def phase_http(served: dict) -> dict:
     if worst < HTTP_AGREEMENT_MIN:
         raise AssertionError(f"HTTP mask/png vs run_serve agreement off ties {worst} < "
                              f"{HTTP_AGREEMENT_MIN}")
-    if launches["instance_norm_act"] == 0 or launches["residual_block_fused"] == 0:
+    if not all(launches.values()):
         raise AssertionError(f"HTTP path bypassed the kernels: {launches}")
     lat = sorted(r[4] for r in results)
     rec = {"phase": "http", "requests": len(results), "all_200": True,
@@ -1738,7 +1740,7 @@ def net_counts(net) -> dict:
 
 def launches_per_step(in_calls: int, rb: int, rc: int, dw: int, re_in: int = 0,
                       re_rb: int = 0, re_rc: int = 0) -> dict:
-    """Wrapper and C-entry launches of a step that makes ``in_calls``
+    """C-entry launches (``_build.launches``) of a step that makes ``in_calls``
     instance norms (and their VJPs), ``rb`` fused and ``rc`` chunked blocks
     (forward and backward), ``dw`` conv_dw weight gradients, and under remat
     ``re_in`` / ``re_rb`` / ``re_rc`` recomputed norm and block forwards.
@@ -1751,12 +1753,7 @@ def launches_per_step(in_calls: int, rb: int, rc: int, dw: int, re_in: int = 0,
     backwards split ds and du once each, for an input and a weight gradient,
     and reflect-pad the input of each weight gradient (4); bf16 conv_dw on
     channels that are multiples of 8 needs none."""
-    return {"instance_norm_act": in_calls + re_in, "instance_norm_act_bwd": in_calls,
-            "residual_block_fused": rb + re_rb, "residual_block_bwd_dx": rb,
-            "residual_block_bwd_dw": rb,
-            "residual_block_chunked": rc + re_rc, "residual_block_chunked_bwd": rc,
-            "conv_dw": dw,
-            "cg_instance_norm_act": in_calls + re_in + 4 * rb + 2 * re_rb + 2 * re_rc,
+    return {"cg_instance_norm_act": in_calls + re_in + 4 * rb + 2 * re_rb + 2 * re_rc,
             "cg_instance_norm_act_bwd": in_calls + 2 * rb,
             "cg_conv3x3_reflect": 4 * rb + 2 * rc + 2 * re_rb + 2 * re_rc,
             "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
@@ -1788,47 +1785,29 @@ def supervised_launches(trainer, steps: int) -> dict:
 
 def _zero_counters() -> None:
     from cyclegan_tpu_torch.kernels import _build
-    from cyclegan_tpu_torch.kernels import conv_dw as CD
-    from cyclegan_tpu_torch.kernels import instance_norm as IN
-    from cyclegan_tpu_torch.kernels import resblock as RB
-    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
 
-    IN.launches = IN.bwd_launches = RB.launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
-    RC.launches = RC.bwd_launches = CD.launches = 0
-    IN.slab_launches = IN.slab_apply_launches = IN.slab_bwd_launches = 0
-    IN.slab_bwd_apply_launches = 0
     _build.launches.clear()
 
 
 def _read_counters() -> dict:
+    """Calls of each C entry since :func:`_zero_counters`."""
     from cyclegan_tpu_torch.kernels import _build
-    from cyclegan_tpu_torch.kernels import conv_dw as CD
-    from cyclegan_tpu_torch.kernels import instance_norm as IN
-    from cyclegan_tpu_torch.kernels import resblock as RB
-    from cyclegan_tpu_torch.kernels import resblock_chunked as RC
 
-    return {"instance_norm_act": IN.launches, "instance_norm_act_bwd": IN.bwd_launches,
-            "residual_block_fused": RB.launches, "residual_block_bwd_dx": RB.bwd_dx_launches,
-            "residual_block_bwd_dw": RB.bwd_dw_launches, "residual_block_chunked": RC.launches,
-            "residual_block_chunked_bwd": RC.bwd_launches, "conv_dw": CD.launches,
-            "instance_norm_slab_partials": IN.slab_launches,
-            "instance_norm_slab_apply": IN.slab_apply_launches,
-            "instance_norm_slab_bwd_partials": IN.slab_bwd_launches,
-            "instance_norm_slab_bwd_apply": IN.slab_bwd_apply_launches,
-            **dict(_build.launches)}
+    return dict(_build.launches)
 
 
 # The paths of the train step: (route of the residual blocks, use_dropout).
 TRAIN_PATHS = {"default": ("fused", False), "chunked": ("chunked", False),
                "dropout": ("fused", True)}
 # What each path must show in its launch counters per step, beside the
-# derived counts: path A runs the chunked block in every trunk block and no
-# fused one; path B runs conv_dw for both trunk convolutions and no
-# residual-block kernel.
-PATH_COUNTS = {"chunked": {"residual_block_chunked": 27, "residual_block_chunked_bwd": 27,
-                           "residual_block_fused": 0, "residual_block_bwd_dx": 0},
-               "dropout": {"conv_dw": 54, "residual_block_fused": 0,
-                           "residual_block_chunked": 0}}
+# derived counts: path A runs the chunked block in every trunk block (2
+# norms, 2 norm VJPs, 2 forward and 2 input-gradient convolutions a block)
+# and no fused one (whose recompute would add forward convolutions); path B
+# runs conv_dw for both trunk convolutions and no residual-block kernel.
+PATH_COUNTS = {"chunked": {"cg_chunked_in_fwd": 54, "cg_chunked_in_vjp": 54,
+                           "cg_conv3x3_reflect": 54, "cg_conv3x3_reflect_dgrad": 54},
+               "dropout": {"cg_conv_dw": 54, "cg_conv3x3_reflect": 0,
+                           "cg_chunked_in_fwd": 0}}
 
 
 def profile_step(step) -> dict:
@@ -2052,23 +2031,25 @@ def phase_train(smi: str, path: str = "default") -> dict:
 # 4, for the stacked runs); the val split is the synthetic 40 images.
 CLI_SIZE, CLI_STACK_SIZE, CLI_VAL = 24, 32, 40
 CLI_PREEMPT_AT = 4  # optimizer step: epoch 1, call 1
-CLI_IN_KERNELS = ("instance_norm_act", "instance_norm_act_bwd", "residual_block_fused",
-                  "residual_block_bwd_dx", "residual_block_bwd_dw")
+CLI_IN_KERNELS = ("cg_instance_norm_act", "cg_instance_norm_act_bwd", "cg_conv3x3_reflect",
+                  "cg_conv3x3_reflect_dgrad", "cg_conv_dw")
+# What a served forward launches: its norms and forward convolutions.
+SERVE_ENTRIES = ("cg_instance_norm_act", "cg_conv3x3_reflect")
 SCORE_TOL = 1e-4  # --testing against the last validation, mIoU and pixel accuracy
 
 
 def net_forward_launches(net, n: int) -> dict:
-    """Launches of ``n`` forwards of ``net`` without gradients (eval, sample
-    dumps, --testing): each norm outside a whole trunk block is one
-    instance_norm_act launch, each fused trunk block one
-    residual_block_fused launch; no backward kernel."""
+    """C-entry launches of ``n`` forwards of ``net`` without gradients
+    (eval, sample dumps, --testing): every norm, a fused trunk block's two
+    included, is one cg_instance_norm_act launch, and each fused block makes
+    two forward convolutions; no backward kernel."""
     from cyclegan_tpu_torch.ops.blocks import InstanceNorm, ResidualBlock
 
     out = dict.fromkeys(CLI_IN_KERNELS, 0)
     fused = sum(isinstance(m, ResidualBlock) and m.route == "fused" for m in net.modules())
     norms = sum(isinstance(m, InstanceNorm) for m in net.modules())
-    out["instance_norm_act"] += n * (norms - 2 * fused)
-    out["residual_block_fused"] += n * fused
+    out["cg_instance_norm_act"] += n * norms
+    out["cg_conv3x3_reflect"] += n * 2 * fused
     return out
 
 
@@ -2124,7 +2105,7 @@ def phase_cli(smi: str) -> dict:
                 res = cli(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                got = {k: _read_counters()[k] for k in CLI_IN_KERNELS}
+                got = {k: _read_counters().get(k, 0) for k in CLI_IN_KERNELS}
         finally:
             for k, v in saved.items():
                 os.environ.pop(k, None)
@@ -2691,8 +2672,11 @@ def phase_remat(smi: str) -> dict:
             if {k: r["launches"].get(k, 0) for k in r["derived"]} != r["derived"]:
                 raise AssertionError(f"remat {name}: launch counters {r['launches']} != "
                                      f"derived {r['derived']}")
-        # The trunk's second forward: every whole block launched twice.
-        if on["launches"]["residual_block_fused"] != 2 * off["launches"]["residual_block_fused"]:
+        # The trunk's second forward: 2 more forward convolutions a whole
+        # block, as many as its VJP's input gradients.
+        conv = "cg_conv3x3_reflect"
+        if on["launches"].get(conv, 0) - off["launches"].get(conv, 0) != \
+                off["launches"].get("cg_conv3x3_reflect_dgrad", 0):
             raise AssertionError(f"remat {name}: no recompute in the counters {on['launches']}")
         err16 = loss_err(on, off, "bfloat16")
         times = {False: [], True: []}
@@ -2786,7 +2770,7 @@ def phase_cli_supervised(smi: str) -> dict:
                 res = cli(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                got = {k: _read_counters()[k] for k in CLI_IN_KERNELS}
+                got = {k: _read_counters().get(k, 0) for k in CLI_IN_KERNELS}
         finally:
             for k, v in saved.items():
                 os.environ.pop(k, None)
@@ -2904,7 +2888,7 @@ def phase_http_bench(served: dict, smi: str) -> dict:
     _zero_counters()
     rec = torch_http_bench.bench(served["artifact"], device="cuda", **HTTP_BENCH)
     got = _read_counters()
-    want = serving_launches(served["G"], rec["device_calls"] + rec["warmup_calls"])
+    want = net_forward_launches(served["G"], rec["device_calls"] + rec["warmup_calls"])
     _held_counts(got, want, "http_bench")
     n = HTTP_BENCH["clients"] * HTTP_BENCH["requests"]
     if rec["req_per_s"] <= 0 or not rec["mean_batch"] >= 1.0 or \
@@ -2933,17 +2917,6 @@ def serve_windows(canvas: int, window: int, scales) -> list:
         out.append(len(window_positions(hs, window, window // 2))
                    * len(window_positions(ws, window, window // 2)))
     return out
-
-
-def serving_launches(net, forwards: int) -> dict:
-    """Wrapper and C-entry launches of ``forwards`` eval forwards of
-    ``net``: net_forward_launches, each fused block making 2 convolutions
-    and 2 norms; every other counter 0."""
-    d = net_forward_launches(net, forwards)
-    return {"instance_norm_act": d["instance_norm_act"],
-            "residual_block_fused": d["residual_block_fused"],
-            "cg_instance_norm_act": d["instance_norm_act"] + 2 * d["residual_block_fused"],
-            "cg_conv3x3_reflect": 2 * d["residual_block_fused"]}
 
 
 def _held_counts(counters: dict, want: dict, what: str) -> None:
@@ -3138,7 +3111,7 @@ def phase_serve_full(tmp: str, smi: str) -> dict:
     batches = math.ceil(N_IMAGES / BATCH)
     forwards = batches * 2 * len(SERVE_SCALES)   # flip doubles the calls
     G_i2l = define_Gen(3, NUM_CLASSES, NGF, "resnet_9blocks", head="none")
-    want = serving_launches(G_i2l, forwards)
+    want = net_forward_launches(G_i2l, forwards)
 
     # The main path: counts set to 0 just before, read just after.
     out_dir = os.path.join(root, "preds")
@@ -3233,7 +3206,7 @@ def phase_serve_full(tmp: str, smi: str) -> dict:
         img = gfn(labels).float()
         torch.cuda.synchronize()
         counts = _read_counters()
-        _held_counts(counts, serving_launches(G_l2i, 1), f"serve_full {name}")
+        _held_counts(counts, net_forward_launches(G_l2i, 1), f"serve_full {name}")
         ok = tuple(img.shape) == (BATCH, CROP, CROP, 3) and bool(torch.isfinite(img).all()) \
             and float(img.abs().max()) <= 1.0
         gen[name] = {"dtype": gcfg["dtype"], "shape": list(img.shape), "ok": ok,
@@ -3318,7 +3291,7 @@ def phase_serve_full(tmp: str, smi: str) -> dict:
         _zero_counters()
         serve.run_serve(art, img_dir, d, batch_size=BATCH, device="cuda")
         counts = _read_counters()
-        _held_counts(counts, serving_launches(G, batches), f"serve_full {name}")
+        _held_counts(counts, net_forward_launches(G, batches), f"serve_full {name}")
         fn1, _, _ = export.load_head(art, "cuda")
         x1 = torch.from_numpy(np.stack([serve.load_image(
             os.path.join(img_dir, n), (CFG1_CROP, CFG1_CROP), 3, "resize") for n in first])).cuda()
@@ -3808,14 +3781,9 @@ def phase_configs(smi: str) -> dict:
 SPATIAL_PRESET = "cityscapes_semisup_512x256"
 SPATIAL_RANKS = 2
 SPATIAL_TIMED_STEPS = 3
-SLAB_COUNTERS = ("instance_norm_slab_partials", "instance_norm_slab_apply",
-                 "instance_norm_slab_bwd_partials", "instance_norm_slab_bwd_apply",
-                 "cg_instance_norm_partials", "cg_instance_norm_slab_apply",
+SLAB_COUNTERS = ("cg_instance_norm_partials", "cg_instance_norm_slab_apply",
                  "cg_instance_norm_bwd_partials", "cg_instance_norm_bwd_slab_apply")
-WHOLE_PLANE_COUNTERS = ("instance_norm_act", "instance_norm_act_bwd", "residual_block_fused",
-                        "residual_block_bwd_dx", "residual_block_bwd_dw",
-                        "residual_block_chunked", "residual_block_chunked_bwd",
-                        "cg_instance_norm_act", "cg_instance_norm_act_bwd",
+WHOLE_PLANE_COUNTERS = ("cg_instance_norm_act", "cg_instance_norm_act_bwd",
                         "cg_conv3x3_reflect", "cg_conv3x3_reflect_dgrad",
                         "cg_chunked_in_fwd", "cg_chunked_in_vjp")
 
@@ -3840,7 +3808,7 @@ def spatial_launches(trainer, steps: int) -> dict:
     norms, dw = (3 * g["norms"] + 4 * d["norms"]) * steps, 3 * g["dw"] * steps
     out = {k: norms for k in SLAB_COUNTERS}
     out.update({k: 0 for k in WHOLE_PLANE_COUNTERS})
-    out.update(conv_dw=dw, cg_conv_dw=dw)
+    out.update(cg_conv_dw=dw)
     return out
 
 
@@ -4468,7 +4436,7 @@ def phase_spatial_eval(recs: list, rcfg, trainer, tmp: str, smi: str) -> dict:
     scales = SPATIAL_EVAL["eval_scales"].split(",")
     forwards = len(ds) * len(scales) * 2
     norms = sum(isinstance(m, InstanceNorm) for m in trainer.G_i2l.modules())
-    want = {k: forwards * norms if k in SLAB_COUNTERS[:2] + SLAB_COUNTERS[4:6] else 0
+    want = {k: forwards * norms if k in SLAB_COUNTERS[:2] else 0
             for k in SLAB_COUNTERS + WHOLE_PLANE_COUNTERS}
     for r in recs:
         got = {k: r["eval"]["launches"].get(k, 0) for k in want}
@@ -4649,7 +4617,17 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
     }
     path_of = {"residual_block_chunked": "chunked", "residual_block_chunked_bwd": "chunked",
                "conv_dw": "dropout"}
-    counter_of = {"conv3x3_reflect": "cg_conv3x3_reflect"}
+    # Each kernel's launches are its C entry's: the fused block's forward
+    # convolutions (its VJP's recompute included), the dx chain's input
+    # gradients, the weight gradients' cg_conv_dw (path B's conv_dw too).
+    counter_of = {"instance_norm_act": "cg_instance_norm_act",
+                  "instance_norm_act_bwd": "cg_instance_norm_act_bwd",
+                  "residual_block_fused": "cg_conv3x3_reflect",
+                  "residual_block_bwd_dx": "cg_conv3x3_reflect_dgrad",
+                  "residual_block_bwd_dw": "cg_conv_dw",
+                  "residual_block_chunked": "cg_chunked_in_fwd",
+                  "residual_block_chunked_bwd": "cg_chunked_in_vjp",
+                  "conv_dw": "cg_conv_dw", "conv3x3_reflect": "cg_conv3x3_reflect"}
     entries = []
     for name, (source, replaces) in meta.items():
         path = path_of.get(name, "default")
@@ -4668,7 +4646,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                 return sum(r[key] * r["calls_per_step"] for r in srs)
 
             on_paths[sup_path] = {
-                "launches": runs[sup_path]["launches"][counter_of.get(name, name)],
+                "launches": runs[sup_path]["launches"].get(counter_of[name], 0),
                 "max_abs_err": max(r["max_abs_err"] for r in srs), "ms": stotal("ms"),
                 "plain_ms": stotal("plain_ms"), "bound_ms": stotal("bound_ms"),
                 "library_ms": stotal("library_ms"),
@@ -4679,7 +4657,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
         if frs:
             n_win = frs[0]["shape"][0]
             on_paths["serve_full"] = {
-                "launches": serve_full["launches"][counter_of.get(name, name)],
+                "launches": serve_full["launches"].get(counter_of[name], 0),
                 "max_abs_err": max(r["max_abs_err"] for r in frs),
                 **{k: sum(r[k] * r["calls_per_forward"] for r in frs)
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4690,14 +4668,14 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
                        f"{sum(r['calls_per_forward'] for r in frs)} calls",
                 "launches_over": f"run_serve of {N_IMAGES} images at batch {BATCH}, tiled, "
                                  f"flip, scales {list(SERVE_SCALES)}"}
-        hb = (http_bench or {}).get("launches", {}).get(counter_of.get(name, name), 0)
+        hb = (http_bench or {}).get("launches", {}).get(counter_of[name], 0)
         if hb:
             on_paths["http_bench"] = {
                 "launches": hb,
                 "launches_over": f"tools/torch_http_bench.py, {HTTP_BENCH['clients']} clients x "
                                  f"{HTTP_BENCH['requests']} requests, max_batch {BATCH}, and the "
                                  f"server's warm-up"}
-        dp_launches = (dp or {}).get("launches", {}).get(counter_of.get(name, name), 0)
+        dp_launches = (dp or {}).get("launches", {}).get(counter_of[name], 0)
         if dp_launches:
             on_paths["dp"] = {"launches": dp_launches,
                               "launches_over": f"{DP_STEPS} train steps of rank 0 of 2 gloo "
@@ -4705,7 +4683,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
         every = rs + frs + [r for v in (sup_recs or {}).values() for r in v.get(name, [])]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs[path]["launches"][counter_of.get(name, name)],
+            "launches": runs[path]["launches"].get(counter_of[name], 0),
             "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
@@ -4713,10 +4691,8 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
             "launches_over": f"{TRAIN_STEPS} train steps, path {path}", "on_paths": on_paths})
-    slab_meta = {"instance_norm_act_slab": ("instance_norm_slab_partials",
-                                            "instance_norm_slab_apply", 126),
-                 "instance_norm_act_slab_bwd": ("instance_norm_slab_bwd_partials",
-                                                "instance_norm_slab_bwd_apply", 146)}
+    slab_meta = {"instance_norm_act_slab": (*SLAB_COUNTERS[:2], 126),
+                 "instance_norm_act_slab_bwd": (*SLAB_COUNTERS[2:], 146)}
     for name, (c1, c2, line) in slab_meta.items() if spatial else ():
         rs = spatial["records"][name]
         on_paths = {}
@@ -4731,7 +4707,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
         entries.append({
             "name": name, "route": "cuda", "source": "cyclegan_tpu_torch/csrc/instance_norm.cu",
             "replaces": f"cyclegan_tpu/kernels/instance_norm.py:{line}",
-            "launches": spatial["launches"][c1] + spatial["launches"][c2],
+            "launches": spatial["launches"].get(c1, 0) + spatial["launches"].get(c2, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             **{k: sum(r[k] * r["calls_per_step"] for r in rs)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},

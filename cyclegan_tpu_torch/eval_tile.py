@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 
 from cyclegan_tpu_torch.train import metrics
+from cyclegan_tpu_torch.utils.observability import span
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -36,7 +37,8 @@ def tiled_logits(logits_fn: LogitsFn, images: torch.Tensor, crop_hw: tuple[int, 
                  overlap: float = 0.5) -> torch.Tensor:
     """(B, H, W, C) canvas images -> (B, H, W, K) float32 overlap-averaged
     logits. ``logits_fn(windows)`` is called once on the (P*B, ch, cw, C)
-    stack of all windows. Raises if the canvas is smaller than the window."""
+    stack of all windows. Raises if the canvas is smaller than the window.
+    Span: ``serve.tiles`` (the gather, the call and the stitch)."""
     b, h, w, _ = images.shape
     ch, cw = crop_hw
     if h < ch or w < cw:
@@ -45,19 +47,20 @@ def tiled_logits(logits_fn: LogitsFn, images: torch.Tensor, crop_hw: tuple[int, 
     sx = max(int(round(cw * (1.0 - overlap))), 1)
     ys = window_positions(h, ch, sy)
     xs = window_positions(w, cw, sx)
-    wins = torch.cat([images[:, y:y + ch, x:x + cw, :] for y in ys for x in xs])
-    logits = logits_fn(wins)
-    k = logits.shape[-1]
-    # float32 accumulation: bf16 logits would round the sum before the average.
-    acc = torch.zeros((b, h, w, k), dtype=torch.float32, device=logits.device)
-    cnt = torch.zeros((h, w, 1), dtype=torch.float32, device=logits.device)
-    i = 0
-    for y in ys:
-        for x in xs:
-            acc[:, y:y + ch, x:x + cw, :] += logits[i * b:(i + 1) * b].float()
-            cnt[y:y + ch, x:x + cw, :] += 1.0
-            i += 1
-    return acc / cnt
+    with span("serve.tiles"):
+        wins = torch.cat([images[:, y:y + ch, x:x + cw, :] for y in ys for x in xs])
+        logits = logits_fn(wins)
+        k = logits.shape[-1]
+        # float32 accumulation: bf16 logits would round the sum before the average.
+        acc = torch.zeros((b, h, w, k), dtype=torch.float32, device=logits.device)
+        cnt = torch.zeros((h, w, 1), dtype=torch.float32, device=logits.device)
+        i = 0
+        for y in ys:
+            for x in xs:
+                acc[:, y:y + ch, x:x + cw, :] += logits[i * b:(i + 1) * b].float()
+                cnt[y:y + ch, x:x + cw, :] += 1.0
+                i += 1
+        return acc / cnt
 
 
 def tiled_predict(trainer, images: torch.Tensor, crop_hw: tuple[int, int], *,

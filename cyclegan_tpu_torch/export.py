@@ -282,8 +282,10 @@ def onehot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return oh.float() * valid[..., None]
 
 
-def head_fn(G: nn.Module, cfg: dict, device: torch.device) -> Callable:
-    """The served function of an artifact's generator (see :func:`load_head`)."""
+def head_fn(G: Callable[[torch.Tensor], torch.Tensor], cfg: dict,
+            device: torch.device) -> Callable:
+    """The served function of an artifact's generator ``G`` (its module, or
+    a function calling it; see :func:`load_head`)."""
     if cfg["head"] == "generate":
         k = cfg["num_classes"]
         return lambda labels: G(onehot(labels, k).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels (``csrc/*.cu``), each with its plain PyTorch
-version beside it and a launch counter on its wrapper. The wrappers are
+version beside it; ``_build.launches`` counts the calls of every C entry,
+the port's one launch counter. The wrappers are
 ``torch.autograd.Function``s whose backward is a kernel too (the kernel of
 ``kernels.conv_dw`` is itself a backward: ``ops.functional.
 conv2d_valid_dw_fused`` is its Function). ``kernels.conv_dw`` stays the

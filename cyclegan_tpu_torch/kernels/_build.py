@@ -66,8 +66,9 @@ SIGNATURES = {
     },
 }
 
-# Successful calls of each C entry (the wrappers' own counters count calls
-# of the Python functions; one of those may make several entry calls).
+# Successful calls of each C entry: the port's launch counter (a wrapper
+# may make several entry calls; a test reads the delta of the entries the
+# route it holds calls).
 launches: collections.Counter = collections.Counter()
 
 

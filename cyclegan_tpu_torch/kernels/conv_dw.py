@@ -32,9 +32,6 @@ import torch
 
 from cyclegan_tpu_torch.kernels import _build
 
-# Calls of conv_dw that launched the CUDA kernel.
-launches = 0
-
 # The kernel's output tile (rows of k*k*Cin, columns of Cout) and its
 # pipeline step in pixels (csrc/conv_dw.cu BM, BN, BK).
 TILE_M, TILE_N = 128, 256
@@ -166,7 +163,6 @@ def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
 
 
 def _dw_cuda(xp: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    global launches
     n, h, w_, cin, cout = _shapes(xp, dy, k)
     if dy.dtype != xp.dtype:
         raise TypeError(f"conv_dw: xp and dy must share one dtype, got {xp.dtype}, {dy.dtype}")
@@ -184,7 +180,6 @@ def _dw_cuda(xp: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
                            (n, h, w_, cin8, cout8), k)
         if (cin8, cout8) != (cin, cout):
             out = out[:, :, :cin, :cout].contiguous()
-    launches += 1
     return out
 
 

@@ -43,17 +43,6 @@ from cyclegan_tpu_torch.kernels import _build
 ACTS = {"none": 0, "relu": 1, "leaky": 2}
 LEAKY_SLOPE = 0.2
 
-# Calls of instance_norm_act that launched the CUDA forward, and backward
-# passes of it that launched the CUDA VJP (the residual block's own
-# instance-norm launches are counted by its wrapper, not here).
-launches = 0
-bwd_launches = 0
-# Launches of the slab entries (instance_norm_act_slab), by wrapper.
-slab_launches = 0
-slab_apply_launches = 0
-slab_bwd_launches = 0
-slab_bwd_apply_launches = 0
-
 
 def _act(z: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
@@ -226,10 +215,8 @@ def launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torc
 
 
 def _fwd_cuda(x, skip, eps, act):
-    global launches
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     mean, rstd = launch(x, skip, out, eps, act)
-    launches += 1
     return out, mean, rstd
 
 
@@ -239,10 +226,8 @@ def _fwd_plain(x, skip, eps, act):
 
 
 def _bwd_cuda(x, dy, mean, rstd, act):
-    global bwd_launches
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     launch_bwd(x, dy, mean, rstd, dx, act)
-    bwd_launches += 1
     return dx
 
 
@@ -397,7 +382,6 @@ def _check_slots(x: torch.Tensor, buf: torch.Tensor, k: int, index: int | None =
 
 
 def _slab_partials_cuda(x: torch.Tensor, buf: torch.Tensor, index: int) -> torch.Tensor:
-    global slab_launches
     n, h, w, c = x.shape
     if h * w == 0:  # a rank that owns no row of the plane: its slot is zeros
         return slab_partials_plain(x, buf, index)
@@ -408,12 +392,10 @@ def _slab_partials_cuda(x: torch.Tensor, buf: torch.Tensor, index: int) -> torch
     _build.call("instance_norm", "cg_instance_norm_partials", x.data_ptr(), buf.data_ptr(),
                 buf.shape[0], index, part, n, h * w, c, plan.rows, plan.vec, plan.lanes,
                 plan.tiles, _build.DTYPE_CODES[x.dtype], stream)
-    slab_launches += 1
     return buf
 
 
 def _slab_apply_cuda(x, skip, slabs, eps, act):
-    global slab_apply_launches
     n, h, w, c = x.shape
     if h * w == 0:
         return slab_apply_plain(x, skip, slabs, eps, act)
@@ -429,12 +411,10 @@ def _slab_apply_cuda(x, skip, slabs, eps, act):
                 slabs.data_ptr(), slabs.shape[0], n, h * w, c, plan.rows, plan.vec,
                 plan.lanes, plan.tiles, float(eps), ACTS[act], _build.DTYPE_CODES[x.dtype],
                 _build.stream_ptr(x))
-    slab_apply_launches += 1
     return y, stats[:n * c].view(n, c), stats[n * c:2 * n * c].view(n, c), stats[2 * n * c:]
 
 
 def _slab_bwd_partials_cuda(x, dy, mean, rstd, buf, index, act):
-    global slab_bwd_launches
     n, h, w, c = x.shape
     if h * w == 0:
         return slab_bwd_partials_plain(x, dy, mean, rstd, buf, index, act)
@@ -446,12 +426,10 @@ def _slab_bwd_partials_cuda(x, dy, mean, rstd, buf, index, act):
                 mean.data_ptr(), rstd.data_ptr(), buf.data_ptr(), buf.shape[0], index, part,
                 n, h * w, c, plan.rows, plan.vec, plan.lanes, plan.tiles, ACTS[act],
                 _build.DTYPE_CODES[x.dtype], stream)
-    slab_bwd_launches += 1
     return buf
 
 
 def _slab_bwd_apply_cuda(x, dy, mean, rstd, slabs, count, act):
-    global slab_bwd_apply_launches
     n, h, w, c = x.shape
     if h * w == 0:
         return slab_bwd_apply_plain(x, dy, mean, rstd, slabs, count, act)
@@ -464,7 +442,6 @@ def _slab_bwd_apply_cuda(x, dy, mean, rstd, slabs, count, act):
                 slabs.data_ptr(), slabs.shape[0], count.data_ptr(), n, h * w, c,
                 plan.rows, plan.vec, plan.lanes, plan.tiles, ACTS[act],
                 _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
-    slab_bwd_apply_launches += 1
     return dx
 
 

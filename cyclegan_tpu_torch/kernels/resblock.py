@@ -39,13 +39,6 @@ from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as _in
 
-# Calls of residual_block_fused that launched the CUDA forward, and calls of
-# the two halves of its CUDA VJP: the dx chain (TPU kernel #4) and the
-# weight gradients (#5), once each per backward pass.
-launches = 0
-bwd_dx_launches = 0
-bwd_dw_launches = 0
-
 
 def _conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """float32 reflect-pad 3x3 conv + bias: NHWC x, HWIO w -> NHWC f32."""
@@ -351,7 +344,6 @@ def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
 
 
 def _fwd_cuda(x, w1, b1, w2, b2, eps):
-    global launches
     n, h, w_, c = x.shape
     if w1.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}, got {w1.shape[-1]}")
@@ -367,7 +359,6 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps):
     conv3x3_reflect(a, w2, b2, u)  # s overwrites u: u is dead once `a` exists
     y = torch.empty_like(a)
     _in.launch(u, x, y, eps, "none")
-    launches += 1
     return y
 
 
@@ -377,7 +368,6 @@ def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
     ``(dx, a, ds, du, g_parts)``, ``g_parts`` the bf16 parts of ds and du
     (one split serves a cotangent's input and weight gradient); all but dx
     feed :func:`bwd_dw_cuda`."""
-    global bwd_dx_launches
     f32 = dict(dtype=torch.float32, device=x.device)
     u = torch.empty(x.shape, **f32)
     conv3x3_reflect(x, w1, b1, u)
@@ -397,7 +387,6 @@ def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
     du_parts = CD.bf16_parts(du, ng)
     dx = torch.empty_like(a)
     conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
-    bwd_dx_launches += 1
     return dx, a, ds, du, (ds_parts, du_parts)
 
 
@@ -405,11 +394,9 @@ def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):
     """TPU kernel #5 (``_bwd_dw_kernel``) on the card: dw1 = wgrad(x, du)
     and dw2 = wgrad(a, ds), summed over the batch, in the weights' type;
     ``g_parts`` = (ds, du) in bf16 parts, from :func:`bwd_dx_cuda`."""
-    global bwd_dw_launches
     ds_parts, du_parts = g_parts
     dw = (conv3x3_reflect_wgrad(x, du, w_dtype, g_parts=du_parts),
           conv3x3_reflect_wgrad(a, ds, w_dtype, g_parts=ds_parts))
-    bwd_dw_launches += 1
     return dw
 
 

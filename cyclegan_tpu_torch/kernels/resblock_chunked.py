@@ -56,11 +56,6 @@ from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import resblock as RB
 
-# Calls of the chunked forward (TPU kernel #6) and of its VJP (#7) that
-# launched the CUDA kernels.
-launches = 0
-bwd_launches = 0
-
 
 def _check_hc(h: int, hc: int) -> None:
     if hc <= 0 or h % hc:
@@ -236,7 +231,6 @@ def in_vjp(g: torch.Tensor, src: torch.Tensor, stats: torch.Tensor, out: torch.T
 def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
     """TPU kernel #6 on the card: ``(y, vhat, s, stats)``; allocates the
     outputs and the convolutions' float32 output, nothing else."""
-    global launches
     n, h, w_, c = x.shape
     if w1.shape[-1] != c or w2.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}")
@@ -254,7 +248,6 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps, hc):
     in_fwd(v32, stats, x, vhat, a, hc, eps, 1)
     RB.conv3x3_reflect(a, w2, b2, v32)                 # s overwrites u
     in_fwd(v32, stats, x, s, y, hc, eps, 2)
-    launches += 1
     return y, vhat, s, stats
 
 
@@ -263,7 +256,6 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     type; two normalisation VJPs, two input and two weight gradients. Of
     its own it allocates the outputs and what a convolution reads (ds, da,
     du, dv, a)."""
-    global bwd_launches
     n, h, w_, c = x.shape
     cp = RB.padded_channels(c)
     if cp != c:
@@ -283,7 +275,6 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
     dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype, g_parts=du_parts)
     dw2 = RB.conv3x3_reflect_wgrad(a, ds, w2.dtype, g_parts=ds_parts)
-    bwd_launches += 1
     return dx, dw1, dw2
 
 

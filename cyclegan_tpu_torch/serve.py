@@ -15,6 +15,7 @@ visible card).
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -32,6 +33,7 @@ from cyclegan_tpu_torch.export import (build_module, head_fn, load_artifact, res
                                        uint8_output)
 from cyclegan_tpu_torch.train import metrics as metrics_lib
 from cyclegan_tpu_torch.tta import flip_avg, scale_avg, validate_tile_scales
+from cyclegan_tpu_torch.utils.observability import span
 from cyclegan_tpu_torch.utils.pipeline import InferencePipeline
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
@@ -187,6 +189,13 @@ def build_predictor(artifact_path: str, *, eval_resize: str = "resize",
     ``data_parallel``: one replica per visible CUDA device, each batch split
     over them (:func:`data_parallel_predictor`); with one device (or on the CPU) the
     single-device path.
+
+    Spans (``utils.observability``): each replica's call is a
+    ``serve.predict`` (unit: that replica's call count; the input's copy,
+    the argmax and the uint8 cast are its own time) over ``serve.scale``
+    (:func:`tta.scale_avg`), ``serve.flip`` (:func:`tta.flip_avg`),
+    ``serve.tiles`` (:func:`eval_tile.tiled_logits`) and ``serve.forward``,
+    the generator on one stack of windows.
     """
     dev = resolve_device(device)
     art, manifest = load_artifact(artifact_path)
@@ -202,7 +211,13 @@ def build_predictor(artifact_path: str, *, eval_resize: str = "resize",
         devices = [dev]
 
     def replica(d: torch.device) -> Callable[[np.ndarray], torch.Tensor]:
-        fn = head_fn(build_module(art, d), cfg, d)
+        G = build_module(art, d)
+
+        def generator(x: torch.Tensor) -> torch.Tensor:
+            with span("serve.forward"):
+                return G(x)
+
+        fn = head_fn(generator, cfg, d)
         if cfg["head"] == "logits":
             logits_fn = served_logits(fn, (h, w), canvas_hw=canvas_hw, flip=flip,
                                       scales=scales)
@@ -210,17 +225,19 @@ def build_predictor(artifact_path: str, *, eval_resize: str = "resize",
             if cfg["num_classes"] <= 255:
                 fn = uint8_output(fn)
         fn = torch.inference_mode()(fn)
+        calls = itertools.count()
 
         def predict(batch: np.ndarray) -> torch.Tensor:
-            x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.dtype(in_dtype)))
-            if d.type != "cuda":
-                return fn(x)
-            # Pinned memory makes the copy asynchronous: the host does not
-            # wait for the kernels already queued ahead of it. The kernels
-            # launch on the current device, so each replica makes its own
-            # device current.
-            with torch.cuda.device(d):
-                return fn(x.pin_memory().to(d, non_blocking=True))
+            with span("serve.predict", unit=next(calls)):
+                x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.dtype(in_dtype)))
+                if d.type != "cuda":
+                    return fn(x)
+                # Pinned memory makes the copy asynchronous: the host does
+                # not wait for the kernels already queued ahead of it. The
+                # kernels launch on the current device, so each replica
+                # makes its own device current.
+                with torch.cuda.device(d):
+                    return fn(x.pin_memory().to(d, non_blocking=True))
 
         return predict
 

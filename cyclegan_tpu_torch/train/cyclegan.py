@@ -76,6 +76,7 @@ from cyclegan_tpu_torch.train import losses, metrics, schedule
 from cyclegan_tpu_torch.train.pool import (PoolState, init_pool, pool_query,
                                            pool_query_with_decisions)
 from cyclegan_tpu_torch.utils.config import Config
+from cyclegan_tpu_torch.utils.observability import span
 
 POOL_KEYS = ("pool_use_new_img", "pool_idx_img", "pool_use_new_lab", "pool_idx_lab")
 
@@ -343,22 +344,32 @@ class CycleGANTrainer:
         lab_label (B, H, W) int, unlab_image (B, H, W, C), on the trainer's
         device, and optionally all four injected pool-decision keys. Updates
         the modules, optimizers and pools in place; returns ``(state,
-        metrics)``."""
-        real_lab_oh = self._onehot(batch["lab_label"])
-        drop = state.dropout if self.cfg.use_dropout else None
-        g_total, aux, fake_img, fake_lab = self._g_loss(batch, real_lab_oh, drop)
-        g_params = self.g_params()
-        self._update(g_params, torch.autograd.grad(g_total, g_params),
-                     state.g_opt, state.g_sched)
-        metrics_ = {k: v.detach() for k, v in aux.items()}
-        pooled_img, pooled_lab = self._pool(state, batch, fake_img, fake_lab)
-        d_total, d_aux = self._d_loss(batch, real_lab_oh, pooled_img, pooled_lab)
-        d_params = self.d_params()
-        self._update(d_params, torch.autograd.grad(d_total, d_params),
-                     state.d_opt, state.d_sched)
-        state.step += 1
-        metrics_.update((k, v.detach()) for k, v in d_aux.items())
-        return state, mean_metrics(metrics_, self.mesh)
+        metrics)``. Spans (``utils.observability``): ``train_step`` (unit:
+        the step's number) over ``g_forward``, ``g_backward``, ``g_update``,
+        ``pool``, ``d_forward``, ``d_backward``, ``d_update``."""
+        with span("train_step", unit=state.step):
+            real_lab_oh = self._onehot(batch["lab_label"])
+            drop = state.dropout if self.cfg.use_dropout else None
+            with span("g_forward"):
+                g_total, aux, fake_img, fake_lab = self._g_loss(batch, real_lab_oh, drop)
+            g_params = self.g_params()
+            with span("g_backward"):
+                grads = torch.autograd.grad(g_total, g_params)
+            with span("g_update"):
+                self._update(g_params, grads, state.g_opt, state.g_sched)
+            metrics_ = {k: v.detach() for k, v in aux.items()}
+            with span("pool"):
+                pooled_img, pooled_lab = self._pool(state, batch, fake_img, fake_lab)
+            with span("d_forward"):
+                d_total, d_aux = self._d_loss(batch, real_lab_oh, pooled_img, pooled_lab)
+            d_params = self.d_params()
+            with span("d_backward"):
+                grads = torch.autograd.grad(d_total, d_params)
+            with span("d_update"):
+                self._update(d_params, grads, state.d_opt, state.d_sched)
+            state.step += 1
+            metrics_.update((k, v.detach()) for k, v in d_aux.items())
+            return state, mean_metrics(metrics_, self.mesh)
 
     def multi_step(self, state: CycleGANState, batches: dict) -> tuple[CycleGANState, dict]:
         """K chained train steps (``Config.steps_per_call``): ``batches``
@@ -381,31 +392,44 @@ class CycleGANTrainer:
         phase starts from the D the G phase saw and averages its gradients
         the same way. Metrics are the means over the K microbatches. With
         equal valid-pixel counts per microbatch the losses equal one
-        :meth:`train_step` on the concatenated batch."""
+        :meth:`train_step` on the concatenated batch. Spans: one
+        ``train_step`` root; ``g_forward``, ``g_backward``, ``pool``,
+        ``d_forward`` and ``d_backward`` once a microbatch, ``g_update`` and
+        ``d_update`` once."""
         k = _stack_size(batches)
         micro = [{key: v[i] for key, v in batches.items()} for i in range(k)]
         drop = state.dropout if self.cfg.use_dropout else None
-        g_params, d_params = self.g_params(), self.d_params()
-        onehots = [self._onehot(b["lab_label"]) for b in micro]
-        g_sum, sums, fakes = None, {}, []
-        for b, oh in zip(micro, onehots):
-            g_total, aux, fake_img, fake_lab = self._g_loss(b, oh, drop)
-            grads = torch.autograd.grad(g_total, g_params)
-            g_sum = list(grads) if g_sum is None else [s.add_(g) for s, g in zip(g_sum, grads)]
-            _accumulate(sums, aux)
-            fakes.append((fake_img, fake_lab))
-        self._update(g_params, [g / k for g in g_sum], state.g_opt, state.g_sched)
-        del g_sum
-        pooled = [self._pool(state, b, *f) for b, f in zip(micro, fakes)]
-        d_sum = None
-        for b, oh, (p_img, p_lab) in zip(micro, onehots, pooled):
-            d_total, d_aux = self._d_loss(b, oh, p_img, p_lab)
-            grads = torch.autograd.grad(d_total, d_params)
-            d_sum = list(grads) if d_sum is None else [s.add_(g) for s, g in zip(d_sum, grads)]
-            _accumulate(sums, d_aux)
-        self._update(d_params, [g / k for g in d_sum], state.d_opt, state.d_sched)
-        state.step += 1
-        return state, mean_metrics({key: v / k for key, v in sums.items()}, self.mesh)
+        with span("train_step", unit=state.step):
+            g_params, d_params = self.g_params(), self.d_params()
+            onehots = [self._onehot(b["lab_label"]) for b in micro]
+            g_sum, sums, fakes = None, {}, []
+            for b, oh in zip(micro, onehots):
+                with span("g_forward"):
+                    g_total, aux, fake_img, fake_lab = self._g_loss(b, oh, drop)
+                with span("g_backward"):
+                    grads = torch.autograd.grad(g_total, g_params)
+                g_sum = list(grads) if g_sum is None else [s.add_(g) for s, g in zip(g_sum, grads)]
+                _accumulate(sums, aux)
+                fakes.append((fake_img, fake_lab))
+            with span("g_update"):
+                self._update(g_params, [g / k for g in g_sum], state.g_opt, state.g_sched)
+            del g_sum
+            pooled = []
+            for b, f in zip(micro, fakes):
+                with span("pool"):
+                    pooled.append(self._pool(state, b, *f))
+            d_sum = None
+            for b, oh, (p_img, p_lab) in zip(micro, onehots, pooled):
+                with span("d_forward"):
+                    d_total, d_aux = self._d_loss(b, oh, p_img, p_lab)
+                with span("d_backward"):
+                    grads = torch.autograd.grad(d_total, d_params)
+                d_sum = list(grads) if d_sum is None else [s.add_(g) for s, g in zip(d_sum, grads)]
+                _accumulate(sums, d_aux)
+            with span("d_update"):
+                self._update(d_params, [g / k for g in d_sum], state.d_opt, state.d_sched)
+            state.step += 1
+            return state, mean_metrics({key: v / k for key, v in sums.items()}, self.mesh)
 
     @torch.no_grad()
     def logits(self, image: torch.Tensor, rows: int | None = None) -> torch.Tensor:

@@ -22,17 +22,21 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from cyclegan_tpu_torch.utils.observability import span
+
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def flip_avg(logits_fn: LogitsFn) -> LogitsFn:
     """Wrap ``images -> logits`` with horizontal-flip TTA:
-    ``0.5 * (f(x) + hflip(f(hflip(x))))``, in float32."""
+    ``0.5 * (f(x) + hflip(f(hflip(x))))``, in float32. Span:
+    ``serve.flip`` (both calls, the flips and the average)."""
 
     def fn(images: torch.Tensor) -> torch.Tensor:
-        straight = logits_fn(images).float()
-        mirrored = logits_fn(images.flip(2)).flip(2).float()
-        return 0.5 * (straight + mirrored)
+        with span("serve.flip"):
+            straight = logits_fn(images).float()
+            mirrored = logits_fn(images.flip(2)).flip(2).float()
+            return 0.5 * (straight + mirrored)
 
     return fn
 
@@ -88,7 +92,8 @@ def scale_avg(logits_fn: LogitsFn, scales: tuple[float, ...], *, snap: int = 4) 
     """Multi-scale TTA: run ``logits_fn`` at each scale of the image (dims
     snapped to ``snap``), resize the logits back to the input's grid and
     average them in float32. Wrap :func:`flip_avg` inside it to average
-    over scales x {identity, mirror}."""
+    over scales x {identity, mirror}. Span: ``serve.scale``, one a scale
+    (its resizes, the call and the sum)."""
     if not scales:
         raise ValueError("scale_avg needs at least one scale")
 
@@ -96,12 +101,13 @@ def scale_avg(logits_fn: LogitsFn, scales: tuple[float, ...], *, snap: int = 4) 
         _, h, w, _ = images.shape
         acc = None
         for s in scales:
-            hs, ws = snapped_dims(h, w, s, snap=snap)
-            if (hs, ws) == (h, w):
-                lo = logits_fn(images).float()
-            else:
-                lo = resize(logits_fn(resize(images, (hs, ws))), (h, w))
-            acc = lo if acc is None else acc + lo
+            with span("serve.scale"):
+                hs, ws = snapped_dims(h, w, s, snap=snap)
+                if (hs, ws) == (h, w):
+                    lo = logits_fn(images).float()
+                else:
+                    lo = resize(logits_fn(resize(images, (hs, ws))), (h, w))
+                acc = lo if acc is None else acc + lo
         return acc / len(scales)
 
     return fn

@@ -38,6 +38,11 @@ RB_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
           torch.bfloat16: dict(atol=2 ** -6, rtol=2 ** -6)}
 
 
+def _delta(before, *entries) -> tuple:
+    """Calls of each C entry since ``before``, a copy of ``_build.launches``."""
+    return tuple(_build.launches[e] - before[e] for e in entries)
+
+
 @pytest.fixture(autouse=True)
 def card():
     if not torch.cuda.is_available():
@@ -55,10 +60,10 @@ def card():
 def test_instance_norm_act_matches_plain(card, shape, act, skip, dtype):
     x = (torch.randn(shape, device="cuda", generator=card) * 3 + 1).to(dtype)
     s = torch.randn(shape, device="cuda", generator=card).to(dtype) if skip else None
-    before = IN.launches
+    before = _build.launches.copy()
     y = IN.instance_norm_act(x, s, 1e-5, act)
     torch.cuda.synchronize()
-    assert IN.launches == before + 1 and y.dtype == dtype
+    assert _delta(before, "cg_instance_norm_act") == (1,) and y.dtype == dtype
     torch.testing.assert_close(y.float(), IN.instance_norm_act_plain(x, s, 1e-5, act).float(),
                                **TOL[dtype])
 
@@ -247,10 +252,12 @@ def test_residual_block_matches_plain(card, shape, dtype):
               for _ in range(2)]
     b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).to(dtype)
               for _ in range(2)]
-    before = RB.launches
+    before = _build.launches.copy()
     y = RB.residual_block_fused(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
-    assert RB.launches == before + 1 and y.dtype == dtype
+    # One fused forward: two convolutions, each followed by its norm.
+    assert _delta(before, "cg_conv3x3_reflect", "cg_instance_norm_act") == (2, 2)
+    assert y.dtype == dtype
     torch.testing.assert_close(y.float(), RB.residual_block_plain(x, w1, b1, w2, b2).float(),
                                **RB_TOL[dtype])
 
@@ -271,10 +278,11 @@ def test_generator_kernel_path_matches_plain_path(card, monkeypatch):
     G = G.to("cuda", memory_format=torch.channels_last).eval()
     x = torch.rand((2, 3, 32, 32), device="cuda", generator=card) * 2 - 1
     x = x.contiguous(memory_format=torch.channels_last)
-    n_in, n_rb = IN.launches, RB.launches
+    before = _build.launches.copy()
     with torch.inference_mode():
         got = G(x)
-    assert IN.launches - n_in == 5 and RB.launches - n_rb == 2
+    # 5 norms outside the trunk, 2 fused blocks of 2 convolutions and 2 norms.
+    assert _delta(before, "cg_instance_norm_act", "cg_conv3x3_reflect") == (5 + 2 * 2, 2 * 2)
     monkeypatch.setattr(blocks, "instance_norm_act", IN.instance_norm_act_plain)
     monkeypatch.setattr(blocks, "residual_block_fused", RB.residual_block_plain)
     with torch.inference_mode():
@@ -470,7 +478,7 @@ def test_conv3x3_grads_match_plain(card, shape, cout, dtype, out_dtype):
 def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
     """Shapes the tensor-core tiles do not take raise before any launch, on
     the card too: no fallback to another route."""
-    before = (CD.launches, dict(_build.launches))
+    before = dict(_build.launches)
     with pytest.raises(ValueError, match="contiguous"):
         CD.conv_dw(torch.zeros((1, 6, 6, 36), device="cuda"),
                    torch.zeros((1, 4, 24, 4), device="cuda").transpose(2, 3))
@@ -481,7 +489,7 @@ def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
         RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48), device="cuda"),
                                  torch.zeros((3, 3, 32, 48), device="cuda"),
                                  torch.zeros((1, 4, 4, 32), device="cuda"))
-    assert (CD.launches, dict(_build.launches)) == before
+    assert dict(_build.launches) == before
 
 
 # The relu mask of the block VJP's recompute: the plain VJP runs on the
@@ -519,12 +527,13 @@ def test_residual_block_bwd_matches_plain(card, shape, dtype):
               for _ in range(2)]
     dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
-    before = (RB.bwd_dx_launches, RB.bwd_dw_launches)
+    before = _build.launches.copy()
     y = RB.residual_block_fused(*leaves)
     assert y.grad_fn is not None
     got = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
-    assert (RB.bwd_dx_launches, RB.bwd_dw_launches) == (before[0] + 1, before[1] + 1)
+    # One VJP: the dx chain's 2 input gradients (#4), 2 weight gradients (#5).
+    assert _delta(before, "cg_conv3x3_reflect_dgrad", "cg_conv_dw") == (2, 2)
     mask = _kernel_relu_mask(x, w1, b1)
     ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
     for g_, r_ in zip((got[0], got[1], got[3]), ref):
@@ -568,9 +577,13 @@ def test_small_train_step_kernel_path_matches_plain_path(card, monkeypatch):
         return [{k: float(v) for k, v in t.train_step(st, batch)[1].items()}
                 for _ in range(2)]
 
-    n_in, n_rb = IN.bwd_launches, RB.bwd_dw_launches
+    before = _build.launches.copy()
     got = run()
-    assert IN.bwd_launches - n_in == 2 * 27 and RB.bwd_dw_launches - n_rb == 2 * 6
+    # A step: 27 norm VJPs outside the trunk and 6 fused block VJPs (3
+    # generator applies x 2 blocks), each with 2 norm VJPs and 2 weight
+    # gradients.
+    assert _delta(before, "cg_instance_norm_act_bwd", "cg_conv_dw") == \
+        (2 * (27 + 2 * 6), 2 * 2 * 6)
     monkeypatch.setattr(blocks, "instance_norm_act", IN.instance_norm_act_reference)
     monkeypatch.setattr(blocks, "residual_block_fused", RB.residual_block_reference)
     ref = run()
@@ -599,13 +612,15 @@ def test_chunked_block_matches_plain(card, shape, hc, dtype):
               for _ in range(2)]
     dy = torch.randn(shape, device="cuda", generator=card).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
-    before = (RC.launches, RC.bwd_launches, RB.launches)
+    before = _build.launches.copy()
     y, vhat, s, stats = RC._fwd_cuda(x, w1, b1, w2, b2, 1e-5, hc)
     out = RC.residual_block_chunked(*leaves, 1e-5, hc)
     got = torch.autograd.grad(out, leaves, dy)
     torch.cuda.synchronize()
-    assert (RC.launches, RC.bwd_launches, RB.launches) == \
-        (before[0] + 2, before[1] + 1, before[2])
+    # Two chunked forwards (2 norms each), one VJP (2 norm VJPs), and no
+    # fused block (whose norms are cg_instance_norm_act).
+    assert _delta(before, "cg_chunked_in_fwd", "cg_chunked_in_vjp",
+                  "cg_instance_norm_act") == (4, 2, 0)
     ry, rvhat, rs, rstats = RC.residual_block_chunked_plain(x, w1, b1, w2, b2, 1e-5, hc)
     for g_, r_ in ((y, ry), (out, ry), (vhat, rvhat), (s, rs)):
         torch.testing.assert_close(g_.float(), r_.float(), **RB_TOL[dtype])
@@ -754,10 +769,10 @@ def test_conv_dw_matches_plain_and_repeats_bitwise(card, xshape, cout, k, dtype)
     n, hp, wp, _ = xshape
     xp = torch.randn(xshape, device="cuda", generator=card).to(dtype)
     dy = torch.randn((n, hp - k + 1, wp - k + 1, cout), device="cuda", generator=card).to(dtype)
-    before = CD.launches
+    before = _build.launches.copy()
     dw = CD.conv_dw(xp, dy, k)
     torch.cuda.synchronize()
-    assert CD.launches == before + 1 and dw.dtype == torch.float32
+    assert _delta(before, "cg_conv_dw") == (1,) and dw.dtype == torch.float32
     _close(dw, CD.conv_dw_plain(xp, dy, k), BWD_TOL[torch.float32])
     assert torch.equal(dw, CD.conv_dw(xp, dy, k))
 
@@ -890,7 +905,7 @@ def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
 
     (kt, ks), (pt, ps), (bt, bs) = trainer(), trainer(), trainer()
     k_branch, p_branch = [], []
-    counts = (RC.launches, RC.bwd_launches, CD.launches, RB.launches)
+    before = _build.launches.copy()
     with monkeypatch.context() as m:
         m.setattr(blocks, "instance_norm_act", recording(IN.instance_norm_act, k_branch))
         got = [losses(kt, ks)]
@@ -907,9 +922,13 @@ def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
         _copy_state(kt, ks, pt, ps)
         ref.append(losses(pt, ps))
     got.append(losses(kt, ks))
-    want = (12, 12, 0, 0) if path == "chunked" else (0, 0, 24, 0)  # 3 G applies x 2 blocks
-    assert tuple(a - b for a, b in zip((RC.launches, RC.bwd_launches, CD.launches,
-                                        RB.launches), counts)) == want
+    # Two kernel steps of 3 G applies x 2 blocks: path A's chunked blocks
+    # (2 norms, 2 norm VJPs, 2 weight gradients and 2 forward convolutions
+    # each; a fused block would add its recompute's), path B's 2 conv_dw a
+    # block and no block kernel.
+    want = (24, 24, 24, 24) if path == "chunked" else (0, 0, 24, 0)
+    assert _delta(before, "cg_chunked_in_fwd", "cg_chunked_in_vjp", "cg_conv_dw",
+                  "cg_conv3x3_reflect") == want
     for step, (g_, r_) in enumerate(zip(got, ref), 1):
         for k in g_:
             np.testing.assert_allclose(g_[k], r_[k], rtol=1e-3, atol=1e-4,
@@ -948,11 +967,11 @@ def test_cli_trains_on_the_card_and_restores_there(card, tmp_path):
              "--crop_width", "32", "--batch_size", "1", "--pool_size", "2", "--epochs", "1",
              "--decay_epoch", "1", "--log_every", "1", "--validation_every", "1",
              "--checkpoint_dir", cfg.checkpoint_dir, "--results_dir", cfg.results_dir]
-    before = (IN.launches, IN.bwd_launches, RB.launches, RB.bwd_dx_launches)
+    before = _build.launches.copy()
     res = main(["--training"] + flags)
     torch.cuda.synchronize()
-    after = (IN.launches, IN.bwd_launches, RB.launches, RB.bwd_dx_launches)
-    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert all(_delta(before, "cg_instance_norm_act", "cg_instance_norm_act_bwd",
+                      "cg_conv3x3_reflect", "cg_conv3x3_reflect_dgrad")), _build.launches
     assert np.isfinite(res["miou"])
     trainer, state, _, _ = ck.restore_for_inference(cfg, semisupervised=True)
     assert state.step == 2 and state.pool_img.count == 2
@@ -1065,13 +1084,11 @@ def test_supervised_cli_trains_and_tests_on_the_card(card, tmp_path, extra):
              "--crop_width", "32", "--batch_size", "2", "--epochs", "1", "--decay_epoch", "1",
              "--log_every", "1", "--checkpoint_dir", str(tmp_path / "ckpt"),
              "--results_dir", str(tmp_path / "res"), *extra]
-    before = (IN.launches + RB.launches + CD.launches, IN.bwd_launches + RB.bwd_dx_launches
-              + CD.launches)
+    before = _build.launches.copy()
     res = main(["--training"] + flags)
     torch.cuda.synchronize()
-    after = (IN.launches + RB.launches + CD.launches, IN.bwd_launches + RB.bwd_dx_launches
-             + CD.launches)
-    assert after[0] > before[0] or "batch" in extra, (before, after)
+    forward = sum(_delta(before, "cg_instance_norm_act", "cg_conv3x3_reflect", "cg_conv_dw"))
+    assert forward > 0 or "batch" in extra, _build.launches
     assert np.isfinite(res["miou"])
     scores = main(["--testing"] + flags)
     assert scores["miou"] == pytest.approx(res["miou"], abs=1e-6)

@@ -30,6 +30,7 @@ from cyclegan_tpu.models.generators import ResnetGenerator as JaxResnetGenerator
 from cyclegan_tpu.ops import functional as JF
 from cyclegan_tpu.ops.blocks import ResidualBlock as JaxResidualBlock
 from cyclegan_tpu_torch import weights
+from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.models.generators import define_Gen
 from cyclegan_tpu_torch.ops import blocks
@@ -57,9 +58,10 @@ def test_conv_dw_plain_matches_pallas(k):
     xp = r.standard_normal((2, 8 + k - 1, 7 + k - 1, 16)).astype(np.float32)
     dy = r.standard_normal((2, 8, 7, 12)).astype(np.float32)
     ref = jax_conv_dw(jnp.asarray(xp), jnp.asarray(dy), k, interpret=True)
-    CD.launches = 0
+    before = _build.launches["cg_conv_dw"]
     got = CD.conv_dw(torch.from_numpy(xp), torch.from_numpy(dy), k)
-    assert got.shape == (k, k, 16, 12) and got.dtype == torch.float32 and CD.launches == 0
+    assert got.shape == (k, k, 16, 12) and got.dtype == torch.float32
+    assert _build.launches["cg_conv_dw"] == before
     _close_to_max(got.numpy(), ref, 1e-5)
 
 

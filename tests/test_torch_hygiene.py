@@ -91,15 +91,16 @@ print("OK", mesh.make_mesh(device="cpu").world, distributed.process_info())
 
 
 def test_port_tools_import_without_jax():
-    """The port's checkpoint bridge, HTTP load bench, soak summary and slab
-    norm bench import with the JAX stack poisoned and load nothing of the
-    JAX package: they run where the port runs, which has no JAX."""
+    """The port's checkpoint bridge, HTTP load bench, soak summary, slab
+    norm bench and span trace import with the JAX stack poisoned and load
+    nothing of the JAX package: they run where the port runs, which has no
+    JAX."""
     code = r"""
 import sys
 for name in ("jax", "flax", "optax", "orbax"):
     sys.modules[name] = None
 import tools.torch_import_checkpoint, tools.torch_export_checkpoint, tools.torch_http_bench
-import tools.torch_soak_summary, tools.torch_slab_norm_bench
+import tools.torch_soak_summary, tools.torch_slab_norm_bench, tools.torch_span_trace
 assert not [k for k in sys.modules if k == "cyclegan_tpu" or k.startswith("cyclegan_tpu.")]
 print("OK")
 """

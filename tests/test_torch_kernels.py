@@ -103,12 +103,13 @@ def test_residual_block_matches_pallas_and_reference(shape):
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
-    IN.launches = RB.launches = 0
+    before = _build.launches.copy()
     x = torch.from_numpy(_x((1, 4, 4, 32), 20))
     w1, b1, w2, b2 = [torch.from_numpy(a) for a in _rb_params(32, 21)]
     IN.instance_norm_act(x, None, 1e-5, "relu")
     RB.residual_block_fused(x, w1, b1, w2, b2)
-    assert IN.launches == 0 and RB.launches == 0
+    assert [_build.launches[e] - before[e]
+            for e in ("cg_instance_norm_act", "cg_conv3x3_reflect")] == [0, 0]
 
 
 @pytest.mark.parametrize("shape,c_out,match", [

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from cyclegan_tpu.kernels.conv_dw import supported as jax_dw_supported
 from cyclegan_tpu.kernels.instance_norm import instance_norm_act as jax_in_act
 from cyclegan_tpu.kernels.resblock import residual_block_fused as jax_rb_fused
+from cyclegan_tpu_torch.kernels import _build
 from cyclegan_tpu_torch.kernels import conv_dw as CD
 from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
@@ -289,10 +290,11 @@ def test_bf16_parts_hold_the_float32_bar(x_dtype, parts):
 
 
 def test_cpu_backward_leaves_launch_counters_at_zero():
-    IN.bwd_launches = RB.bwd_dx_launches = RB.bwd_dw_launches = 0
+    before = _build.launches.copy()
     x = torch.from_numpy(_x((1, 4, 4, 32), 40)).requires_grad_()
     w1, b1, w2, b2 = [torch.from_numpy(a).requires_grad_() for a in _rb_params(32, 41)]
     y = IN.instance_norm_act(RB.residual_block_fused(x, w1, b1, w2, b2), None, 1e-5, "relu")
     F.mse_loss(y, torch.zeros_like(y)).backward()
-    assert IN.bwd_launches == RB.bwd_dx_launches == RB.bwd_dw_launches == 0
+    assert [_build.launches[e] - before[e] for e in (
+        "cg_instance_norm_act_bwd", "cg_conv3x3_reflect_dgrad", "cg_conv_dw")] == [0, 0, 0]
     assert x.grad is not None and torch.count_nonzero(w1.grad) > 0
