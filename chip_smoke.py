@@ -14,8 +14,9 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
 
 1. device: the card, its power limit, and the parallel nvcc build of every
    kernel under cyclegan_tpu_torch/csrc (build seconds, ptxas registers,
-   spills and warnings); the forward convolution's wgmma kernel must build
-   with no spill and no wgmma serialisation (ptxas C7515);
+   spills and warnings); the forward convolution's and the input
+   gradient's wgmma kernels must build with no spill and no wgmma
+   serialisation (ptxas C7515);
 2. kernels: each CUDA kernel against its plain PyTorch version at the main
    path's shapes (batch 8), float32 and bf16, with the stated tolerance and
    its time beside the plain version, one library call and the bound;
@@ -40,8 +41,9 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    beside the byte bound, a second call and a sample run alone bitwise
    equal to the first and to its place in the batch;
    then the tensor-core gradient convolutions alone (input gradient, weight
-   gradient, conv_dw) at the trunk shapes on bf16 operands with a float32
-   cotangent, at the float32 bars, and the forward convolution alone at the
+   gradient, conv_dw) at the trunk shapes (batch 16, 8, 2, 1) on bf16
+   operands with a float32 cotangent, at the float32 bars, and the forward
+   convolution alone at the
    trunk shapes of training (batch 1 and 2) and serving (batch 8), on its
    tile and on every other tile it has, each call bitwise equal to a
    second one;
@@ -443,21 +445,21 @@ def phase_device():
                  if "registers" in ln or "spill" in ln or "warning" in ln
                  or re.search(r"\(C\d{4}\)", ln)]
              for n, log in logs.items()}
-    faults = ptxas_faults(logs["resblock"], "conv3x3_wgmma")
+    faults = {k: ptxas_faults(logs["resblock"], k) for k in ("conv3x3_wgmma", "dgrad_mma")}
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas, "conv3x3_wgmma_ptxas_faults": faults})
-    if faults:
-        raise AssertionError(f"conv3x3_wgmma: ptxas reports {faults}")
+          "build_s": build_s, "ptxas": ptxas, "resblock_ptxas_faults": faults})
+    if any(faults.values()):
+        raise AssertionError(f"resblock.cu: ptxas reports {faults}")
     return smi
 
 
 def ptxas_faults(log: str, kernel: str) -> list:
     """What ptxas -v says against ``kernel`` (a substring of its mangled
-    name) in one source's build log: a wgmma serialisation warning (C7515:
-    every wgmma of that source is this kernel's) or spill stores or loads
-    in the properties of one of its instances."""
+    name) in one source's build log: a wgmma serialisation warning (C7515,
+    anywhere in the source: the warning may name no function) or spill
+    stores or loads in the properties of one of its instances."""
     faults, fn = [], ""
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", ln)
@@ -1284,13 +1286,14 @@ def kernels_train_chunked_dw(randn, fail_if, cases=None, phase: str = "kernels_t
 
 
 def kernels_grad_convs(randn, fail_if) -> list:
-    """The gradient convolutions alone at the trunk shapes (batch 2 and 1,
-    64x64x256) on the main path's mix: bf16 activations and weights with a
-    float32 cotangent (conv_dw: bf16 input and output gradient, as path B
-    calls it), against their plain versions on the same values at the
-    float32 bars of BWD_TOL; each weight gradient twice, bitwise equal. The
-    whole-block VJPs above are held at the looser bf16 bars, which absorb
-    the recompute's rounding flips; these are not."""
+    """The gradient convolutions alone at the trunk shapes (batch 16 and 8,
+    the train cells' rows, then 2 and 1; 64x64x256) on the main path's mix:
+    bf16 activations and weights with a float32 cotangent (conv_dw: bf16
+    input and output gradient, as path B calls it), against their plain
+    versions on the same values at the float32 bars of BWD_TOL; each twice,
+    bitwise equal; the input gradient's tile and grid. The whole-block VJPs
+    above are held at the looser bf16 bars, which absorb the recompute's
+    rounding flips; these are not."""
     import torch
     import torch.nn.functional as F
 
@@ -1298,7 +1301,7 @@ def kernels_grad_convs(randn, fail_if) -> list:
     from cyclegan_tpu_torch.kernels import resblock as RB
 
     c, recs = NGF * 4, []
-    for b in (2, 1):
+    for b in (16, 8, 2, 1):
         shape = (b, CROP // 4, CROP // 4, c)
         x, w = randn(shape, torch.bfloat16), randn((3, 3, c, c), torch.bfloat16, 0.02)
         g, dy = randn(shape), randn(shape, torch.bfloat16)
@@ -1306,8 +1309,9 @@ def kernels_grad_convs(randn, fail_if) -> list:
         xpl, wl = xp, w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         xp = xp.permute(0, 2, 3, 1).contiguous()
         gl, dyl = g.to(torch.bfloat16).permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        da = torch.empty(shape, device="cuda")
+        da, da_again = torch.empty(shape, device="cuda"), torch.empty(shape, device="cuda")
         RB.conv3x3_reflect_dgrad(g, w, da)
+        RB.conv3x3_reflect_dgrad(g, w, da_again)
         dw, dw_again = RB.conv3x3_reflect_wgrad(x, g), RB.conv3x3_reflect_wgrad(x, g)
         cd, cd_again = CD.conv_dw(xp, dy), CD.conv_dw(xp, dy)
         torch.cuda.synchronize()
@@ -1317,7 +1321,7 @@ def kernels_grad_convs(randn, fail_if) -> list:
         cases = (
             ("conv3x3_reflect_dgrad", compare_bwd(
                 "conv3x3_reflect_dgrad", da, RB.conv3x3_reflect_dgrad_plain(g, w), "bfloat16"),
-             True, lambda: RB.conv3x3_reflect_dgrad(g, w, da),
+             torch.equal(da, da_again), lambda: RB.conv3x3_reflect_dgrad(g, w, da),
              lambda: RB.conv3x3_reflect_dgrad_plain(g, w),
              lambda: torch.nn.grad.conv2d_input(xpl.shape, wl, gl),
              2 * g.numel() * 4 + w.numel() * 2, grad_passes(w.dtype, g.dtype)),
@@ -1342,9 +1346,12 @@ def kernels_grad_convs(randn, fail_if) -> list:
                    "plain_ms": time_ms(plain, 5), "library_ms": time_ms(lib, 20),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "tflops_issued": passes * conv / 1e9 / ms}
+            if name == "conv3x3_reflect_dgrad":
+                plan = RB.dgrad_plan(*shape, c)
+                rec.update(plan=list(plan), blocks=RB.dgrad_blocks(plan, *shape[:3], c))
             fail_if(not (res["ok"] and bitwise), name, rec)
             recs.append(rec)
-        del x, w, g, dy, xp, xpl, da, dw, dw_again, cd, cd_again
+        del x, w, g, dy, xp, xpl, da, da_again, dw, dw_again, cd, cd_again
     torch.cuda.empty_cache()
     return recs
 

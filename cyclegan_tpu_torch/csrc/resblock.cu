@@ -83,15 +83,47 @@
 // chip_smoke.py. A float32 weight (the float32 train step) takes three
 // parts of both operands and six passes, products exact to float32
 // rounding as the FFMA kernel's were (conv_dw.cu says why). No TF32.
-// What the design does about that: dgrad_mma is an implicit GEMM on
-// mma.sync m16n8k16 with zero padding, on a 64 x 128 tile (8 warps of
-// 32 x 32) so that batch 1 (4,356 padded pixels x 256) gives 138 blocks for
-// the 132 SMs where 128 x 128 gave 70; A is stored [m][k] and B [ci][k],
-// both read by plain ldmatrix, from a 3-stage cp.async ring. The output is
-// too small for wider warp tiles: 4 warps of 32 x 64 (fewer ldmatrix per
-// mma) and a wgmma version with one warpgroup a 64 x 128 tile were both
-// slower at batch 2 on an H100, with too few warps an SM to hide their
-// loads. The forward's wgmma tiling above is the candidate for this loop.
+// What the design does about that: dgrad_mma is the forward's row-tile
+// design on wgmma for the main path's (2, 1) parts: M = N*(H+2)*(W+2)
+// padded pixels, N = Cin, K = 9 * Cout walked tap by tap in chunks of 64
+// output channels. A is the cotangent's two parts, a padded pixel's 64
+// channels = 128 B, K-major with the 128-byte swizzle, zero outside the
+// plane (and past a Cout that is no multiple of 64); B is w[tap] as
+// stored, a row an input channel's 64 output channels, so K-major too and
+// no transpose. cp.async writes each 16-byte chunk to its swizzled slot, a
+// ring of 4 steps, copies 2 steps ahead, one wgmma group in flight, a
+// prologue of 2 steps (4 or more made ptxas serialise the forward's
+// wgmmas, C7515). Every k16 multiplies both A parts against the same B
+// stage, so the weight tile crosses from L2 once for both passes; hi and lo
+// sum into float32 accumulators of their own until the epilogue adds them
+// and writes float32 dpad, as the mma.sync kernel's acc[0] and acc[1] did:
+// the tensor cores' float32 accumulation truncates, and the corrections
+// (~2^-8 of the main terms) add an error ~2^8 times smaller kept apart.
+// Two m64n256 accumulators a thread would not fit in 255 registers, so the
+// tile is 128 pixels x 128 input channels: warpgroup wg owns rows 64 wg ..
+// 64 wg + 63 and both parts (two m64n128k16 a k16, 128 accumulator
+// registers, 200 in all, no spill). kernels/resblock.py::dgrad_plan picks
+// the tile from the shapes by conv_plan's rule (one wgmma tile today).
+// Measured on an H100 (700 W, CUDA events, 20 calls, the entry with its
+// fold) at (b, 64, 64, 256) -> 256, b = 1 / 2 / 8 / 16: the mma.sync kernel
+// this replaced 0.090 / 0.151 / 0.416 / 0.770 ms; this tile 0.055 / 0.100
+// / 0.268 / 0.488 ms (158 TFLOP/s of the function's work at 16 rows, 337
+// of the two passes over the padded plane); hi and lo on two warpgroups of
+// a 64 x 256 tile sharing the B stage (an exchange through shared memory
+// in the epilogue) 0.056 / 0.102 / 0.269 / 0.490; a 64 x 128 tile of that
+// kind 0.065 / 0.099 / 0.304 / 0.565. At batch 1 the 128 x 128 tile's 70
+// blocks beat every tile that fills the card (138 blocks: two waves on
+// 132 SMs). Per-step overhead and the traffic from L2 bound it, as they
+// bound the forward above: a step moves 48 KB from L2 into an SM for
+// 1,024 cycles of tensor-core work. The results are bitwise those of the
+// mma.sync kernel (the same products in the same order into the same two
+// accumulators). The float32 weight's
+// (3, 3) case (six passes) stays on the mma.sync kernel: an implicit GEMM
+// on mma.sync m16n8k16 with zero padding, on a 64 x 128 tile (8 warps of
+// 32 x 32), A stored [m][k] and B [ci][k], both read by plain ldmatrix,
+// from a 3-stage cp.async ring. It runs in no benchmark cell, and ptxas
+// serialises a float32 wgmma ring of six passes (conv_dw.cu's
+// wgrad_wgmma<3, 3>, C7515).
 // The fold reads dpad as float4 with 32-bit index arithmetic.
 
 #include "common.cuh"
@@ -382,28 +414,156 @@ conv3x3_reflect_f32(const float* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------- backward
 // The input gradient on the tensor cores: a full correlation of the
 // cotangent's bf16 parts with w[tap] transposed, written to padded float32
-// scratch, then the reflect fold.
+// scratch, then the reflect fold. A tile (kernels/resblock.py::
+// DGRAD_TILES, DGRAD_SYNC) is (WGMMA, WM, BN, STAGES): 64 WM padded pixels
+// x BN input channels a block, a ring of STAGES steps.
 constexpr int DBM = 64, DBN = 128, DBK = 32, DSTAGES = 3, DTHREADS = 256;
 constexpr int D_LD = DBK + 8;  // [row][k] rows of 80 B: conflict-free ldmatrix
 constexpr int DA_TILE = DBM * D_LD;
 constexpr int DB_TILE = DBN * D_LD;
 
-constexpr int dgrad_smem(int ng, int nw) {
-  return DSTAGES * (ng * DA_TILE + nw * DB_TILE) * (int)sizeof(bf16);
+// The wgmma tile: a stage holds both parts' 128 pixel rows of one tap x 64
+// output channels (128 B a row, 128-byte swizzle), then B's BN rows of
+// w[tap] (an input channel's 64 output channels, 128 B: K-major as stored).
+template <int BN, int STAGES>
+struct DgradWgmma {
+  static constexpr int A_PART = 128 * 128, STAGE = 2 * A_PART + BN * 128;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + room to align to 1 KB
+  static_assert(STAGES >= 3 && SMEM <= SMEM_MAX, "tile does not fit");
+};
+
+template <int NG, int NW, bool WGMMA, int BN, int STAGES>
+constexpr int dgrad_smem() {
+  if constexpr (WGMMA)
+    return DgradWgmma<BN, STAGES>::SMEM;
+  else
+    return DSTAGES * (NG * DA_TILE + NW * DB_TILE) * (int)sizeof(bf16);
 }
 
-// Grid (ceil(N*(H+2)*(W+2) / DBM), ceil(Cin / DBN)); 8 warps as 2 (M) x 4
-// (N), each owning 32 x 32 of the tile (2 x 4 mma tiles of 16 x 8).
-// dpad[n, i, j, ci] = sum_{ky, kx, co} sum_{(a, b) in passes}
-//   g_a[n, i-ky, j-kx, co] * w_b[ky, kx, ci, co]
-// for i in [0, H+2), j in [0, W+2), with g zero outside [0, H) x [0, W);
-// g_a = g + a * g_part, w_b = w + b * w_part; the passes are the (a, b)
-// with a + b < max(NG, NW). Needs Cout % 32 == 0 (a 32-deep K step stays
-// inside one tap), Cin % 8 == 0 and 16-byte aligned planes.
+// The main path's (2, 1) case on wgmma: two warpgroups, warpgroup wg owns
+// pixel rows 64 wg .. 64 wg + 63 of the 128 x BN tile and both parts: one
+// m64nBNk16 product a k16 and part, hi into d[0] and lo into d[1], both
+// against the same B stage. K steps of one tap x 64 output channels, tap by
+// tap.
+template <int BN, int STAGES>
+__device__ __forceinline__ void dgrad_wgmma_tile(const bf16* __restrict__ g, size_t g_part,
+                                                 const bf16* __restrict__ w,
+                                                 float* __restrict__ dpad, int N, int H, int W,
+                                                 int Cin, int Cout) {
+  using T = DgradWgmma<BN, STAGES>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int Hp = H + 2, Wp = W + 2, M = N * Hp * Wp;
+  const int chunks = (Cout + CK - 1) / CK, KT = 9 * chunks;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * BN;
+
+  // Loads: 16-byte chunk c8 of A's pixel rows (tid >> 3) + 32 i (both
+  // parts) and of B's rows (tid >> 3) + 32 i. Padded pixel (n, i, j) reads
+  // g at (n, i - ky, j - kx), whose index n H W + (i - ky) W + j - kx is
+  // a_pix - ky W - kx with a_pix = (n H + i) W + j; a_i < 0 past M.
+  constexpr int A_PASSES = 128 / 32, B_PASSES = BN / 32;
+  const int c8 = tid & 7, row0 = tid >> 3;
+  int a_pix[A_PASSES], a_i[A_PASSES], a_j[A_PASSES];
+#pragma unroll
+  for (int i = 0; i < A_PASSES; ++i) {
+    const int m = m0 + row0 + 32 * i;
+    const int n = m / (Hp * Wp), rem = m - n * Hp * Wp;
+    a_i[i] = m < M ? rem / Wp : -4;
+    a_j[i] = rem - rem / Wp * Wp;
+    a_pix[i] = (n * H + a_i[i]) * W + a_j[i];
+  }
+  auto load_step = [&](int kt) {
+    const int tap = kt / chunks, co = (kt - tap * chunks) * CK + c8 * 8;
+    const int ky = tap / 3, kx = tap - ky * 3;
+    unsigned char* as = smem + (kt % STAGES) * T::STAGE;
+    const bool co_ok = co < Cout;
+#pragma unroll
+    for (int i = 0; i < A_PASSES; ++i) {
+      const int h = a_i[i] - ky, ww = a_j[i] - kx, row = row0 + 32 * i;
+      const bool ok = co_ok && h >= 0 && h < H && ww >= 0 && ww < W;
+      const bf16* src = ok ? g + (size_t)(a_pix[i] - ky * W - kx) * Cout + co : g;
+      unsigned char* dst = as + row * 128 + ((c8 ^ (row & 7)) << 4);
+      cp_async16(dst, src, ok ? 16 : 0);
+      cp_async16(dst + T::A_PART, ok ? src + g_part : g, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < B_PASSES; ++i) {
+      const int row = row0 + 32 * i, ci = n0 + row;
+      const bool ok = co_ok && ci < Cin;
+      cp_async16(as + 2 * T::A_PART + row * 128 + ((c8 ^ (row & 7)) << 4),
+                 ok ? w + ((size_t)tap * Cin + ci) * Cout + co : w, ok ? 16 : 0);
+    }
+  };
+
+  float d[2][BN / 2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[p][i] = 0.f;
+
+  // The forward's ring: copies STAGES - 2 steps ahead, one wgmma group in
+  // flight, a stage refilled only after the group that read it completed.
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < KT) load_step(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 3>();
+    cg_fence_async_smem();  // copies -> wgmma
+    __syncthreads();
+    const int nk = kt + STAGES - 2;
+    if (nk < KT) load_step(nk);
+    cp_async_commit();
+
+    const uint32_t st = base + (kt % STAGES) * T::STAGE, b = st + 2 * T::A_PART;
+    const uint32_t a = st + wg * 64 * 128;
+    cg_fence_operand(d[0]);
+    cg_fence_operand(d[1]);
+    cg_wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < CK / 16; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        cg_wgmma<BN, 0, 0>(d[p], cg_desc_k_sw128(a + p * T::A_PART + j * 32),
+                           cg_desc_k_sw128(b + j * 32));
+    cg_wgmma_commit();
+    cg_wgmma_wait<1>();
+    cg_fence_operand(d[0]);
+    cg_fence_operand(d[1]);
+  }
+  cg_wgmma_wait<0>();
+  cg_fence_operand(d[0]);
+  cg_fence_operand(d[1]);
+  cp_async_wait<0>();
+
+  // Accumulator row r of the warpgroup's 64; d[p][4 j ..] holds columns 8 j ..
+  const int lane = tid & 31, r = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int row = m0 + wg * 64 + r;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + j * 8 + (lane & 3) * 2;
+    if (c >= Cin) continue;
+    if (row < M)
+      *reinterpret_cast<float2*>(dpad + (size_t)row * Cin + c) =
+          make_float2(d[0][4 * j] + d[1][4 * j], d[0][4 * j + 1] + d[1][4 * j + 1]);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(dpad + (size_t)(row + 8) * Cin + c) =
+          make_float2(d[0][4 * j + 2] + d[1][4 * j + 2], d[0][4 * j + 3] + d[1][4 * j + 3]);
+  }
+}
+
+// The mma.sync tile: 8 warps as 2 (M) x 4 (N), each owning 32 x 32 of a
+// 64 x 128 tile (2 x 4 mma tiles of 16 x 8), any (NG, NW).
 template <int NG, int NW>
-__global__ void __launch_bounds__(DTHREADS, 2)
-dgrad_mma(const bf16* __restrict__ g, size_t g_part, const bf16* __restrict__ w,
-          size_t w_part, float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
+__device__ __forceinline__ void dgrad_sync_tile(const bf16* __restrict__ g, size_t g_part,
+                                                const bf16* __restrict__ w, size_t w_part,
+                                                float* __restrict__ dpad, int N, int H, int W,
+                                                int Cin, int Cout) {
   constexpr int PASSES = NG > NW ? NG : NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
@@ -529,6 +689,27 @@ dgrad_mma(const bf16* __restrict__ g, size_t g_part, const bf16* __restrict__ w,
   }
 }
 
+// Grid (ceil(N*(H+2)*(W+2) / (64 WM)), ceil(Cin / BN)):
+// dpad[n, i, j, ci] = sum_{ky, kx, co} sum_{(a, b) in passes}
+//   g_a[n, i-ky, j-kx, co] * w_b[ky, kx, ci, co]
+// for i in [0, H+2), j in [0, W+2), with g zero outside [0, H) x [0, W);
+// g_a = g + a * g_part, w_b = w + b * w_part; the passes are the (a, b)
+// with a + b < max(NG, NW), the main pass (0, 0) summed apart from the
+// others until the end. WGMMA takes (NG, NW) = (2, 1) alone. Needs
+// Cout % 32 == 0, Cin % 8 == 0 and 16-byte aligned planes.
+template <int NG, int NW, bool WGMMA, int WM, int BN, int STAGES>
+__global__ void __launch_bounds__(DTHREADS, WGMMA ? 1 : 2)
+dgrad_mma(const bf16* __restrict__ g, size_t g_part, const bf16* __restrict__ w,
+          size_t w_part, float* __restrict__ dpad, int N, int H, int W, int Cin, int Cout) {
+  if constexpr (WGMMA) {
+    static_assert(NG == 2 && NW == 1 && WM == 2, "the wgmma tile: 128 rows, parts (2, 1)");
+    dgrad_wgmma_tile<BN, STAGES>(g, g_part, w, dpad, N, H, W, Cin, Cout);
+  } else {
+    static_assert(WM == 1 && BN == DBN && STAGES == DSTAGES, "the mma.sync tile is 64 x 128");
+    dgrad_sync_tile<NG, NW>(g, g_part, w, w_part, dpad, N, H, W, Cin, Cout);
+  }
+}
+
 // out[n, p, q, c] = sum of dpad over the padded positions that reflect onto
 // (p, q) (+ add[n, p, q, c]): padded row p + 1, and row 0 when p == 1, and
 // row H + 1 when p == H - 2; the same for columns. A fixed order per element.
@@ -573,18 +754,17 @@ fold_pad1(const float* __restrict__ dpad, const TOut* __restrict__ add,
   }
 }
 
-template <int NG, int NW>
-cudaError_t launch_dgrad_mma(const bf16* g, const bf16* w, float* dpad, int N, int H, int W,
-                             int Cin, int Cout, cudaStream_t s) {
-  constexpr int smem = dgrad_smem(NG, NW);
+template <int NG, int NW, bool WGMMA, int WM, int BN, int STAGES>
+cudaError_t launch_dgrad(const bf16* g, const bf16* w, float* dpad, int N, int H, int W, int Cin,
+                         int Cout, cudaStream_t s) {
+  constexpr int smem = dgrad_smem<NG, NW, WGMMA, BN, STAGES>();
   static bool sized[CG_MAX_DEVICES] = {};
-  const cudaError_t e = cg_smem_limit(dgrad_mma<NG, NW>, smem, sized);
+  const cudaError_t e = cg_smem_limit(dgrad_mma<NG, NW, WGMMA, WM, BN, STAGES>, smem, sized);
   if (e != cudaSuccess) return e;
   const int M = N * (H + 2) * (W + 2);
-  dim3 grid((M + DBM - 1) / DBM, (Cin + DBN - 1) / DBN);
-  dgrad_mma<NG, NW><<<grid, DTHREADS, smem, s>>>(g, (size_t)N * H * W * Cout, w,
-                                                (size_t)9 * Cin * Cout, dpad, N, H, W, Cin,
-                                                Cout);
+  dim3 grid((M + 64 * WM - 1) / (64 * WM), (Cin + BN - 1) / BN);
+  dgrad_mma<NG, NW, WGMMA, WM, BN, STAGES><<<grid, DTHREADS, smem, s>>>(
+      g, (size_t)N * H * W * Cout, w, (size_t)9 * Cin * Cout, dpad, N, H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
@@ -643,11 +823,14 @@ extern "C" int cg_conv3x3_reflect(const void* x, const void* w, const void* bias
 // the weight; (ng, nw) is (2, 1) for bf16 weights, (3, 3) for float32 ones;
 // add (or NULL) and out:
 // (N, H, W, Cin) of out_dtype; out = fold(full correlation of g with w)
-// [+ add]. dpad: (N, H+2, W+2, Cin) float32 scratch. Needs H, W >= 2,
-// Cout % 32 == 0, Cin % 8 == 0 and 16-byte aligned g and w.
+// [+ add]. dpad: (N, H+2, W+2, Cin) float32 scratch. (wgmma, rows, tile_n,
+// stages): the tile kernels/resblock.py::dgrad_plan chose for (2, 1), or
+// the mma.sync tile for (3, 3). Needs H, W >= 2, Cout % 32 == 0,
+// Cin % 8 == 0 and 16-byte aligned g and w.
 extern "C" int cg_conv3x3_reflect_dgrad(const void* g, const void* w, const void* add, void* out,
                                         void* dpad, int N, int H, int W, int Cin, int Cout,
-                                        int ng, int nw, int out_dtype, void* stream) {
+                                        int ng, int nw, int wgmma, int rows, int tile_n,
+                                        int stages, int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto gp = static_cast<const bf16*>(g);
   auto wp = static_cast<const bf16*>(w);
@@ -655,11 +838,12 @@ extern "C" int cg_conv3x3_reflect_dgrad(const void* g, const void* w, const void
   if (N <= 0 || H < 2 || W < 2 || Cin <= 0 || Cin % 8 != 0 || Cout <= 0 || Cout % 32 != 0 ||
       (long long)N * H * W * Cin >= (1LL << 31) || (out_dtype != CG_F32 && out_dtype != CG_BF16))
     return (int)cudaErrorInvalidValue;
+  // kernels/resblock.py's DGRAD_TILES for (2, 1) and DGRAD_SYNC for (3, 3).
   cudaError_t e;
-  if (ng == 2 && nw == 1)
-    e = launch_dgrad_mma<2, 1>(gp, wp, dp, N, H, W, Cin, Cout, s);
-  else if (ng == 3 && nw == 3)
-    e = launch_dgrad_mma<3, 3>(gp, wp, dp, N, H, W, Cin, Cout, s);
+  if (ng == 2 && nw == 1 && wgmma && rows == 2 && tile_n == 128 && stages == 4)
+    e = launch_dgrad<2, 1, true, 2, 128, 4>(gp, wp, dp, N, H, W, Cin, Cout, s);
+  else if (ng == 3 && nw == 3 && !wgmma && rows == 1 && tile_n == 128 && stages == 3)
+    e = launch_dgrad<3, 3, false, 1, 128, 3>(gp, wp, dp, N, H, W, Cin, Cout, s);
   else
     return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

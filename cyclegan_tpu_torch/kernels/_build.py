@@ -54,7 +54,7 @@ SIGNATURES = {
     },
     "resblock": {
         "cg_conv3x3_reflect": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP],
-        "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP],
+        "cg_conv3x3_reflect_dgrad": [_VOIDP] * 5 + [_INT] * 12 + [_VOIDP],
     },
     "resblock_chunked": {
         "cg_chunked_in_fwd": [_VOIDP] * 5 + [_INT] * 8 + [_FLOAT] + [_INT] * 2 + [_VOIDP],

@@ -39,6 +39,13 @@ STEP = 32
 # Blocks of the weight gradient resident at once on an H100: 132 SMs, one
 # block each (up to 222 KB of shared memory a block).
 RESIDENT_BLOCKS = 132
+# Pixels a chunk of a float32 weight gradient (three parts against three,
+# six passes into one accumulator) sums at most: the tensor cores'
+# truncating float32 accumulation errs in proportion to the steps a chunk
+# adds. On an H100 the trunk's one-wave chunks read 0.33 of chip_smoke.py's
+# float32 bar at 1,184 pixels (batch 2), 1.22 at 4,704 (batch 8) and 2.45
+# at 9,376 (batch 16); capped here, 0.32 and 0.33 at batch 8 and 16.
+F32_CHUNK = 37 * STEP
 
 
 def _shapes(xp: torch.Tensor, dy: torch.Tensor, k: int) -> tuple[int, ...]:
@@ -103,12 +110,15 @@ def _wgrad_tiles(m: int, n: int) -> int:
 
 
 @functools.cache
-def _wgrad_split(tiles: int, k: int) -> tuple[int, int]:
+def _wgrad_split(tiles: int, k: int, max_chunk: int | None = None) -> tuple[int, int]:
     """K (pixel) chunks of the weight gradient: enough blocks to keep the
     resident blocks of an H100 busy (at most one wave of them), at least
-    256 pixels a chunk, a chunk a multiple of the kernel's 32-pixel step.
-    From the shapes only, so dw's summation order is fixed."""
+    256 pixels a chunk, a chunk a multiple of the kernel's 32-pixel step;
+    more chunks where one would sum over ``max_chunk`` pixels (a multiple
+    of the step). From the shapes only, so dw's summation order is fixed."""
     splits = max(1, min(RESIDENT_BLOCKS // tiles, k // 256))
+    if max_chunk is not None:
+        splits = max(splits, -(-k // max_chunk))
     kchunk = -(-k // splits)
     kchunk = -(-kchunk // STEP) * STEP
     return -(-k // kchunk), kchunk
@@ -153,7 +163,8 @@ def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
             xp.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
         raise ValueError(f"conv_dw: ({na}, {nb}) parts of {xp.dtype}, {dy.dtype}")
     out = torch.empty((k, k, cin, cout), dtype=out_dtype, device=xp.device)
-    splits, kchunk = _wgrad_split(_wgrad_tiles(k * k * cin, cout), n * h * w_)
+    splits, kchunk = _wgrad_split(_wgrad_tiles(k * k * cin, cout), n * h * w_,
+                                  F32_CHUNK if na == 3 else None)
     stream = _build.stream_ptr(xp)
     part = _build.scratch_ptr(4 * splits * k * k * cin * cout, xp, stream)
     _build.call("conv_dw", "cg_conv_dw", xp.data_ptr(), dy.data_ptr(), out.data_ptr(), part,

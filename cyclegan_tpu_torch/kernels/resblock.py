@@ -30,6 +30,7 @@ on a CPU tensor it runs the plain versions through the same Function.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -289,6 +290,56 @@ def _check_g_parts(name: str, g: torch.Tensor, g_parts: torch.Tensor | None,
     return g_parts
 
 
+# The input gradient's tiles (csrc/resblock.cu, dgrad_mma<NG, NW, WGMMA, WM,
+# BN, STAGES>): (WGMMA, WM, BN, STAGES), 64 WM padded pixels x BN input
+# channels a block of 256 threads, a ring of STAGES steps of one tap x 64
+# output channels. DGRAD_TILES, the plan's, take the main path's parts (two
+# of the float32 cotangent, one of a bf16 weight) on wgmma: two warpgroups
+# of 64 pixel rows, each with hi and lo in accumulators of their own.
+# Of the wgmma tiles an H100 timed (csrc/resblock.cu's note), this one was
+# the fastest at batch 1, 2, 8 and 16 of the trunk. DGRAD_SYNC, the
+# mma.sync tile, takes a float32 weight's three parts against three. The
+# C entry takes exactly these.
+DGRAD_TILES = ((True, 2, 128, 4),)
+DGRAD_SYNC = (False, 1, 128, 3)
+dgrad_tiles: collections.Counter = collections.Counter()  # calls by tile, on the card
+
+
+def dgrad_smem(tile: tuple[bool, int, int, int]) -> int:
+    """Shared memory bytes a block of a wgmma input-gradient tile takes, as
+    ``DgradWgmma::SMEM`` in csrc/resblock.cu sizes it: the ring (both
+    parts' 64 WM pixel rows and B's BN rows, 128 B each) and 1 KB to
+    align."""
+    _, wm, bn, stages = tile
+    return stages * (2 * 64 * wm + bn) * 128 + 1024
+
+
+def dgrad_blocks(tile: tuple[bool, int, int, int], n: int, h: int, w: int, cin: int) -> int:
+    """Blocks in the grid of ``tile`` for the (n, h + 2, w + 2) padded
+    gradient of cin channels."""
+    _, wm, bn, _ = tile
+    return -(-n * (h + 2) * (w + 2) // (64 * wm)) * -(-cin // bn)
+
+
+@functools.cache
+def dgrad_plan(n: int, h: int, w: int, cin: int, cout: int) -> tuple[bool, int, int, int]:
+    """The tile of the input gradient of an (n, h, w, cout) float32
+    cotangent to cin channels on the main path's parts (two of the
+    cotangent, one of a bf16 weight), from the shapes alone, by
+    :func:`conv_plan`'s rule: the first of :data:`DGRAD_TILES` whose shared
+    memory fits a block and whose grid gives the card :data:`CONV_FILL`
+    blocks, else the fitting one with the most blocks. Raises ValueError
+    on shapes the kernel does not take."""
+    _check_grad_shapes("conv3x3_reflect_dgrad", h, w, cin, cout)
+    if n < 1 or n * h * w * cin >= 2 ** 31:
+        raise ValueError(f"conv3x3_reflect_dgrad needs 1 <= N and N*H*W*Cin < 2^31, "
+                         f"got N={n}, {h}x{w}x{cin}")
+    fits = [t for t in DGRAD_TILES if dgrad_smem(t) <= SMEM_BLOCK_MAX]
+    blocks = {t: dgrad_blocks(t, n, h, w, cin) for t in fits}
+    full = [t for t in fits if blocks[t] >= CONV_FILL]
+    return full[0] if full else max(fits, key=blocks.get)
+
+
 def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
                           add: torch.Tensor | None = None,
                           g_parts: torch.Tensor | None = None) -> None:
@@ -297,10 +348,11 @@ def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     (N, H, W, Cout), reflect fold included, plus ``add`` (out's type). The
     tensor cores multiply the bf16 parts of ``g`` (``g_parts``, if the
     caller has them: ``CD.parts(g.dtype, w.dtype)`` of them) with those of
-    ``w``."""
+    ``w``, on the tile of :func:`dgrad_plan` (a float32 weight's three
+    parts on :data:`DGRAD_SYNC`), counted in :data:`dgrad_tiles`."""
     n, h, w_, cout = g.shape
     cin = w.shape[2]
-    _check_grad_shapes("conv3x3_reflect_dgrad", h, w_, cin, cout)
+    plan = dgrad_plan(n, h, w_, cin, cout)  # the shape checks
     if g.dtype != torch.float32:
         raise TypeError("conv3x3_reflect_dgrad: g must be float32")
     if w.shape != (3, 3, cin, cout) or out.shape != (n, h, w_, cin):
@@ -311,14 +363,17 @@ def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     _build.check_same_device("conv3x3_reflect_dgrad", g, w, out,
                              *([add] if add is not None else []))
     ng, nw = CD.parts(g.dtype, w.dtype), CD.parts(w.dtype, g.dtype)
+    if (ng, nw) != (2, 1):
+        plan = DGRAD_SYNC
     gp = _check_g_parts("conv3x3_reflect_dgrad", g, g_parts, ng)
     wp = w if nw == 1 else CD.bf16_parts(w.reshape(1, 9, cin, cout), nw)
     stream = _build.stream_ptr(g)
     dpad = _build.scratch_ptr(4 * n * (h + 2) * (w_ + 2) * cin, g, stream)
     _build.call("resblock", "cg_conv3x3_reflect_dgrad",
                 gp.data_ptr(), wp.data_ptr(), None if add is None else add.data_ptr(),
-                out.data_ptr(), dpad, n, h, w_, cin, cout, ng, nw,
+                out.data_ptr(), dpad, n, h, w_, cin, cout, ng, nw, *plan,
                 _build.DTYPE_CODES[out.dtype], stream)
+    dgrad_tiles[plan] += 1
 
 
 def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,

@@ -457,22 +457,32 @@ GRAD_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 @pytest.mark.parametrize("dtype,out_dtype", GRAD_TYPES)
 @pytest.mark.parametrize("shape,cout", [((2, 8, 9, 64), 64), ((1, 17, 5, 32), 96),
                                         ((2, 2, 3, 32), 32), ((2, 7, 9, 32), 96),
-                                        ((1, 64, 64, 256), 256), ((2, 64, 64, 256), 256)])
+                                        ((3, 5, 70, 96), 64),
+                                        ((1, 64, 64, 256), 256), ((2, 64, 64, 256), 256),
+                                        ((8, 64, 64, 256), 256), ((16, 64, 64, 256), 256)])
 def test_conv3x3_grads_match_plain(card, shape, cout, dtype, out_dtype):
-    """Ragged tile edges (Cin 32, Cout 96, odd H and W), the trunk shape at
-    batch 1 and 2; dw twice, bitwise equal."""
+    """Ragged tile edges (Cin 32, Cout 96, odd H and W, a padded row longer
+    than a tile), the trunk shape at batch 1 and 2 and at the train cells'
+    8 and 16 rows; dx and dw twice, bitwise equal (one writer an output, no
+    atomics); dx on the plan's tile (a float32 weight's on the mma.sync
+    tile), counted under it."""
     cin = shape[-1]
     x = torch.randn(shape, device="cuda", generator=card).to(dtype)
     w = (0.05 * torch.randn((3, 3, cin, cout), device="cuda", generator=card)).to(dtype)
     g = torch.randn(shape[:3] + (cout,), device="cuda", generator=card)
     add = torch.randn(shape, device="cuda", generator=card).to(out_dtype)
-    dx = torch.empty(shape, device="cuda", dtype=out_dtype)
+    dx, again = (torch.empty(shape, device="cuda", dtype=out_dtype) for _ in range(2))
+    before = RB.dgrad_tiles.copy()
     RB.conv3x3_reflect_dgrad(g, w, dx, add=add)
+    RB.conv3x3_reflect_dgrad(g, w, again, add=add)
     dw = RB.conv3x3_reflect_wgrad(x, g, out_dtype)
     torch.cuda.synchronize()
     _close(dx, add.float() + RB.conv3x3_reflect_dgrad_plain(g, w), BWD_TOL[out_dtype])
     _close(dw, RB.conv3x3_reflect_wgrad_plain(x, g), BWD_TOL[out_dtype])
+    assert torch.equal(dx, again)
     assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, g, out_dtype))  # fixed order
+    tile = RB.dgrad_plan(*shape, cout) if dtype == torch.bfloat16 else RB.DGRAD_SYNC
+    assert RB.dgrad_tiles - before == {tile: 2}
 
 
 def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):

@@ -194,6 +194,100 @@ def test_conv_plan_fills_the_card(batch):
     assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("batch", [1, 2, 8, 16])
+def test_dgrad_plan_fills_the_card(batch):
+    """The input gradient's tile at the trunk shape (64x64x256 -> 256): the
+    wgmma tile at every batch, with a block for at least 128 of the 132 SMs
+    from batch 2 on (546 and 1,090 blocks of 128 x 128 at the train
+    cells' 8 and 16 rows), in shared memory an H100 block can hold. At
+    batch 1 its 70 blocks measured faster on an H100 than tiles that give
+    the card 138 (the mma.sync tile, a 64 x 128 wgmma tile: two waves)."""
+    plan = RB.dgrad_plan(batch, 64, 64, 256, 256)
+    assert plan == RB.DGRAD_TILES[0] and plan[0]
+    assert RB.dgrad_blocks(plan, batch, 64, 64, 256) >= (RB.CONV_FILL if batch > 1 else 70)
+    assert RB.dgrad_smem(plan) <= RB.SMEM_BLOCK_MAX
+
+
+def _dgrad_written(tile, n, h, w, cin):
+    """How often each (padded pixel, input channel) of the padded gradient
+    is written, walking the grid as csrc/resblock.cu's dgrad_mma decodes it:
+    a wgmma tile's two warpgroups own 64 rows each (WM 2) or half the
+    columns each (WM 1, after their exchange); the mma.sync tile's 8 warps
+    own 32 x 32 each."""
+    wgmma, wm, bn, _ = tile
+    m = n * (h + 2) * (w + 2)
+    seen = np.zeros((m, cin), np.int32)
+    # (first row, rows, first column, columns) of each writer in a block
+    if not wgmma:
+        parts = [(warp // 4 * 32, 32, warp % 4 * 32, 32) for warp in range(8)]
+    elif wm == 2:
+        parts = [(wg * 64, 64, 0, bn) for wg in range(2)]
+    else:
+        parts = [(0, 64, wg * bn // 2, bn // 2) for wg in range(2)]
+    for bx in range(-(-m // (64 * wm))):
+        for by in range(-(-cin // bn)):
+            for r0, rows, c0, cols in parts:
+                r, c = bx * 64 * wm + r0, by * bn + c0
+                seen[r:min(r + rows, m), c:min(c + cols, cin)] += 1
+    assert RB.dgrad_blocks(tile, n, h, w, cin) == -(-m // (64 * wm)) * -(-cin // bn)
+    return seen
+
+
+@pytest.mark.parametrize("tile", RB.DGRAD_TILES + (RB.DGRAD_SYNC,))
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 17, 5, 32, 96), (2, 7, 9, 32, 96),
+                                            (3, 5, 70, 96, 64), (2, 2, 3, 32, 32),
+                                            (1, 64, 64, 256, 256), (2, 64, 64, 256, 256)])
+def test_dgrad_tiles_cover_each_padded_pixel_and_channel_once(tile, n, h, w, cin, cout):
+    """Every tile covers the (N, H+2, W+2, Cin) padded gradient once: ragged
+    Cin 32 in a 128- or 256-wide tile, Cout 96 (a K chunk half zero-filled),
+    odd H and W, a padded row longer than a tile; the plan picks one of
+    them and its shared memory fits a block."""
+    assert (_dgrad_written(tile, n, h, w, cin) == 1).all()
+    plan = RB.dgrad_plan(n, h, w, cin, cout)
+    assert plan in RB.DGRAD_TILES and RB.dgrad_smem(plan) <= RB.SMEM_BLOCK_MAX
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,match", [
+    (1, 1, 4, 32, 32, "H, W >= 2"), (1, 4, 4, 48, 32, "Cin % 32"),
+    (1, 4, 4, 32, 48, "Cout % 32"), (0, 4, 4, 32, 32, "1 <= N"),
+    (2048, 64, 64, 256, 256, "2\\^31"),
+])
+def test_dgrad_plan_raises_on_shapes_the_kernel_refuses(monkeypatch, n, h, w, cin, cout, match):
+    """The plan raises on a shape the C entry refuses, and the wrapper
+    before any launch (zero-size planes stand in: nothing is read)."""
+    calls = []
+    monkeypatch.setattr(_build, "call", lambda *args: calls.append(args))
+    with pytest.raises(ValueError, match=match):
+        RB.dgrad_plan(n, h, w, cin, cout)
+    if n * h * w < 2 ** 20:
+        with pytest.raises(ValueError, match=match):
+            RB.conv3x3_reflect_dgrad(torch.zeros((n, h, w, cout)), torch.zeros((3, 3, cin, cout)),
+                                     torch.zeros((n, h, w, cin)))
+    assert calls == []
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_dgrad_wrapper_launches_the_planned_tile(monkeypatch, w_dtype):
+    """The wrapper hands the C entry the plan's tile (a float32 weight's
+    three parts the mma.sync tile), with the argument count the entry
+    declares, and counts the call under that tile."""
+    calls = []
+    monkeypatch.setattr(_build, "call", lambda lib, fn, *args: calls.append((fn, args)))
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "scratch_ptr", lambda nbytes, t, s: 16)
+    n, h, w, c = 2, 8, 9, 64
+    g, out = torch.zeros((n, h, w, c)), torch.zeros((n, h, w, c))
+    wt = torch.zeros((3, 3, c, c), dtype=w_dtype)
+    before = RB.dgrad_tiles.copy()
+    RB.conv3x3_reflect_dgrad(g, wt, out)
+    (args,) = [args for fn, args in calls if fn == "cg_conv3x3_reflect_dgrad"]
+    bf16 = w_dtype == torch.bfloat16
+    tile = RB.dgrad_plan(n, h, w, c, c) if bf16 else RB.DGRAD_SYNC
+    assert len(args) == len(_build.SIGNATURES["resblock"]["cg_conv3x3_reflect_dgrad"])
+    assert args[5:16] == (n, h, w, c, c, 2 if bf16 else 3, 1 if bf16 else 3, *tile)
+    assert RB.dgrad_tiles - before == {tile: 1}
+
+
 @pytest.mark.parametrize("cout", [8, 40, 256])
 @pytest.mark.parametrize("cin", [32, 96, 256, 2048])
 def test_conv_plan_takes_every_channel_count(cin, cout):

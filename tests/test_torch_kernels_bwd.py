@@ -184,6 +184,20 @@ def test_wgrad_split_covers_every_pixel_once(tiles, k):
     assert splits == 1 or (splits * tiles <= CD.RESIDENT_BLOCKS and kchunk >= 256)
 
 
+@pytest.mark.parametrize("k", [4096, 8192, 32768, 65536, 100])
+def test_wgrad_split_caps_a_float32_chunk(k):
+    """A float32 weight gradient's chunks sum at most F32_CHUNK pixels,
+    past one wave of blocks where the batch needs it (8 and 16 rows of the
+    trunk), and cover every pixel once; up to batch 2 (8,192 pixels) the
+    split is the one-wave split."""
+    tiles = CD._wgrad_tiles(9 * 256, 256)
+    splits, kchunk = CD._wgrad_split(tiles, k, CD.F32_CHUNK)
+    assert kchunk % CD.STEP == 0 and splits * kchunk >= k > (splits - 1) * kchunk
+    assert kchunk <= CD.F32_CHUNK
+    if k <= 8192:
+        assert (splits, kchunk) == CD._wgrad_split(tiles, k)
+
+
 @pytest.mark.parametrize("k", [4096, 8192])
 def test_wgrad_split_fills_the_card_at_the_trunk_shape(k):
     """The trunk's 2304 x 256 weight gradient at batch 1 and 2: 18 output

@@ -232,6 +232,7 @@ def test_span_trace_tool_on_a_tiny_cell(cell):
         host = [k for k in out["metrics"] if k.endswith("_host_ms.train")]
         assert len(host) == 4 and all(out["metrics"][k] > 0 for k in host)
         assert out["units"] == 2 and out["spans"] == 2 * 8
+        assert out["dgrad_tiles"] == {}  # the CPU runs the plain versions
     else:
         assert out["metrics"] == {"serve_front.tta_device_share": None}  # no device here
         assert out["units"] == 2

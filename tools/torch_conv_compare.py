@@ -24,8 +24,11 @@ its ``cyclegan_tpu_torch/build``). Prints one JSON line per result:
   device ms and launches, forward and VJP, by kernel;
 - ``kernel_outputs``: the default path's and path B's kernels (instance norm
   forward and VJP, the input and weight gradients, ``conv_dw``, the fused
-  block forward and VJP) on the same seeded inputs, and whether the two
-  checkouts' outputs are bitwise equal;
+  block forward and VJP; the input gradient also at 8 and 16 rows and the
+  block VJP at 8) on the same seeded inputs, whether the two checkouts'
+  outputs are bitwise equal, and for the gradients the worst difference
+  over chip_smoke.py's bar (``worst_diff_over_bar``, the base as the
+  reference);
 - ``chunked_profile``: one profiled path-A step
   (``CYCLEGAN_TPU_RESBLOCK=chunked``, hc 8) in each checkout: the chunked
   block's normalisation kernels' device ms and launches, by kernel;
@@ -47,6 +50,11 @@ import subprocess
 import sys
 import tempfile
 
+# The gradient outputs whose two checkouts are held against each other at
+# chip_smoke.py's bf16 BWD_TOL bar of the same name (the output's name
+# prefix): the input gradient alone (a float32 cotangent, the float32 bar)
+# and the bf16 block VJP.
+BARS = ("conv3x3_reflect_dgrad", "residual_block_bwd")
 CONV_CASES = (((1, 64, 64, 256), 256), ((2, 64, 64, 256), 256), ((8, 64, 64, 256), 256),
               ((2, 13, 11, 96), 200), ((1, 64, 64, 512), 256))
 
@@ -139,6 +147,12 @@ def kernel_outputs() -> dict:
     da = torch.empty(shape, device="cuda")
     RB.conv3x3_reflect_dgrad(g, w2, da)
     out["conv3x3_reflect_dgrad"] = da
+    for b in (8, 16):  # the train cells' rows
+        gb = torch.randn((b,) + shape[1:], device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(12 + b))
+        db = torch.empty_like(gb)
+        RB.conv3x3_reflect_dgrad(gb, w2, db)
+        out[f"conv3x3_reflect_dgrad{tuple(gb.shape)}"] = db
     out["conv3x3_reflect_wgrad"] = RB.conv3x3_reflect_wgrad(x, g)
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     out["conv_dw"] = CD.conv_dw(xp.permute(0, 2, 3, 1).contiguous(), dy)
@@ -148,6 +162,11 @@ def kernel_outputs() -> dict:
     for name, t in zip(("dx", "dw1", "db1", "dw2", "db2"),
                        torch.autograd.grad(y, leaves, dy)):
         out[f"residual_block_bwd_{name}"] = t
+    x8, dy8 = randn((8,) + shape[1:]), randn((8,) + shape[1:])
+    leaves = [t.clone().requires_grad_() for t in (x8, w1, b1, w2, b2)]
+    for name, t in zip(("dx", "dw1", "dw2"), torch.autograd.grad(
+            RB.residual_block_fused(*leaves), [leaves[i] for i in (0, 1, 3)], dy8)):
+        out[f"residual_block_bwd_{name}{tuple(x8.shape)}"] = t
     return {k: v.detach().cpu() for k, v in out.items()}
 
 
@@ -307,11 +326,18 @@ def main() -> int:
                             "-", "--seeds", str(args.seeds), "--child", checkout,
                             paths[name]], check=True, cwd=checkout)
         base, head = (torch.load(paths[n]) for n in ("base", "head"))
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
     for key in base:
-        print(json.dumps({"result": "conv" if key.startswith("((") else "kernel_outputs",
-                          "case": key,
-                          "bitwise_equal": bool(torch.equal(base[key], head[key])),
-                          "max_abs_diff": float((base[key] - head[key]).abs().max())}))
+        rec = {"result": "conv" if key.startswith("((") else "kernel_outputs", "case": key,
+               "bitwise_equal": bool(torch.equal(base[key], head[key])),
+               "max_abs_diff": float((base[key] - head[key]).abs().max())}
+        bar = next((b for b in BARS if key.startswith(b)), None)
+        if bar is not None and bool(base[key].abs().max() > 0):  # not the zero bias grads
+            rec["worst_diff_over_bar"] = cs.compare_bwd(
+                bar, head[key].float(), base[key].float(), "bfloat16")["worst_err_over_tol"]
+        print(json.dumps(rec))
     return 0
 
 

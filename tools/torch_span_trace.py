@@ -14,6 +14,8 @@ train steps or ``trace_batches`` served batches from sync to sync under
   ``trainer.launches.train`` and ``trainer.host_syncs.train`` (a step of
   the stretch); a serve cell's ``serve_front.tta_device_share``; readers
   in ``portbench/spans.py``;
+- ``dgrad_tiles`` (train cells): the input gradient's calls a step of the
+  stretch by the tile they took (``kernels/resblock.py::dgrad_tiles``);
 - ``checks``: the share of the stretch's device time launched inside a
   root span, each probe's phases' and root's self time against its root's
   duration, and the probes' median root duration against their median
@@ -44,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
+from cyclegan_tpu_torch.kernels import resblock as RB  # noqa: E402
 from cyclegan_tpu_torch.utils import observability as obs  # noqa: E402
 from portbench import harness  # noqa: E402
 from portbench import spans as S  # noqa: E402
@@ -128,14 +131,18 @@ def run(workload: str, seed: int, device: str, overrides: dict | None = None) ->
         if kind != "train":
             for sent in pending:
                 prog.fetch(sent)
+        tiles = RB.dgrad_tiles.copy()
         spans, calls, tr = stretch(window, dev)
+        tiles = RB.dgrad_tiles - tiles
     finally:
         obs.record_spans(False)
+    extra = {}
     if kind == "train":
         metrics = {name: S.host_ms(probe_spans, names) for name, names in PHASES.items()}
         metrics.update({"trainer.update_device_ms.train": S.update_device_ms(spans, calls),
                         "trainer.launches.train": S.launches(spans, calls),
                         "trainer.host_syncs.train": S.host_syncs(spans, calls)})
+        extra["dgrad_tiles"] = {str(t): n / p["trace_steps"] for t, n in tiles.items()}
     else:
         metrics = {"serve_front.tta_device_share": S.tta_device_share(spans, calls)}
     checks = {"rooted_device_share": S.rooted_share(spans, calls, root),
@@ -144,7 +151,7 @@ def run(workload: str, seed: int, device: str, overrides: dict | None = None) ->
     by_span = {k: [round(v[0], 3), round(v[1], 3)]
                for k, v in sorted(S.by_span(spans, calls).items(), key=lambda kv: -sum(kv[1]))}
     names = collections.Counter(c.name for c in calls.host)
-    return {"workload": workload, "seed": seed, "metrics": metrics, "checks": checks,
+    return {"workload": workload, "seed": seed, "metrics": metrics, **extra, "checks": checks,
             "by_span": by_span, "stretch_ms": (calls.t1 - calls.t0) * 1e-6,
             "units": len(S.roots(spans, root)), "spans": len(spans),
             "host_calls": dict(names.most_common(20)),
