@@ -83,6 +83,54 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
     return Cell(name, entry, workload, config, e2e, per_layer)
 
 
+# Keys every configuration file states, held to its preset unless listed.
+STATED = ("gen_net", "ngf", "ndf", "n_layers_D", "norm", "crop_height", "crop_width", "bf16",
+          "pool_size", "lr", "lamda", "epochs", "decay_epoch")
+# Widths, which no configuration may cut.
+WIDTHS = ("ngf", "ndf")
+
+
+def config_problems(name: str, body: dict) -> list:
+    """What keeps configuration ``name``'s file ``body`` from its preset, as
+    a list of problems (empty: none). The preset is ``body['preset']``,
+    else ``name``, in the port's ``PRESETS``. Each key under ``reduced`` (a
+    cut of the published deployment) and under ``changed`` (a value from
+    another published source, with its ``source``) gives the preset's value
+    as ``published`` and the file's as ``here``; every other field of the
+    port's ``Config`` that the file sets equals the preset's, and the file
+    sets each of :data:`STATED`."""
+    import dataclasses
+
+    from cyclegan_tpu_torch.utils.config import PRESETS, Config
+
+    preset = PRESETS.get(body.get("preset", name))
+    if preset is None:
+        return [f"no preset {body.get('preset', name)!r} in the port's PRESETS"]
+    reduced, changed = body.get("reduced", {}), body.get("changed", {})
+    out = [f"{k}: both reduced and changed" for k in sorted(set(reduced) & set(changed))]
+    out += [f"{k}: a width, never cut" for k in WIDTHS if k in reduced]
+    for kind, listed in (("reduced", reduced), ("changed", changed)):
+        for key, entry in listed.items():
+            if not hasattr(preset, key):
+                out.append(f"{kind} {key}: no field of Config")
+                continue
+            if entry.get("published") != getattr(preset, key):
+                out.append(f"{kind} {key}: published {entry.get('published')!r}, the preset "
+                           f"has {getattr(preset, key)!r}")
+            if body.get(key) != entry.get("here"):
+                out.append(f"{kind} {key}: here {entry.get('here')!r}, the file has "
+                           f"{body.get(key)!r}")
+            if kind == "changed" and not str(entry.get("source", "")).strip():
+                out.append(f"changed {key}: no source")
+    fields = {f.name for f in dataclasses.fields(Config)}
+    out += [f"{k}: not stated" for k in STATED if k not in body]
+    for key in sorted(fields & set(body) - set(reduced) - set(changed)):
+        if body[key] != getattr(preset, key):
+            out.append(f"{key}: {body[key]!r}, the preset has {getattr(preset, key)!r}, and "
+                       f"neither reduced nor changed lists it")
+    return out
+
+
 def load_reader(metric: str):
     path = BENCH_DIR / "metrics" / f"{metric}.py"
     spec = importlib.util.spec_from_file_location("portbench_metric_" + metric.replace(".", "_"),

@@ -21,10 +21,10 @@ VOID = 255
 
 def net_specs(cfg: dict) -> dict:
     """{net: [(name, shape)]} of the four networks of a configuration."""
-    n = nets.n_blocks_of(cfg["gen_net"])
+    gen = nets.family(cfg["gen_net"])
     k, c = cfg["num_classes"], cfg["in_channels"]
-    return {"G_i2l": nets.generator_spec(c, k, cfg["ngf"], n),
-            "G_l2i": nets.generator_spec(k, c, cfg["ngf"], n),
+    return {"G_i2l": gen.spec(c, k, cfg),
+            "G_l2i": gen.spec(k, c, cfg),
             "D_img": nets.patchgan_spec(c, cfg["ndf"], cfg["n_layers_D"]),
             "D_lab": nets.patchgan_spec(k, cfg["ndf"], cfg["n_layers_D"])}
 

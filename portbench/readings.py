@@ -2,7 +2,8 @@
 
 A reader (``portbench/metrics/<metric>.py``) gets one :class:`Observation`
 and returns a number, or None where it finds nothing to read; it never
-returns 0 for a share of a roofline or of a peak.
+returns 0 for a share of a roofline or of a peak. The readers of the
+program's spans are in :mod:`portbench.spans`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import re
 import statistics
 from pathlib import Path
 
+from portbench import spans as S
 from portbench import trace as T
 from portbench.work import calls
 from portbench.work.peaks import PEAK_FLOPS
@@ -26,6 +28,9 @@ class Observation:
     calls: dict                # {entry: [calls, least s]} one unit needs (work.calls)
     model_flops: float         # model FLOPs of one unit (work.model)
     host_ms: list              # host ms to enqueue one unit, from an idle device
+    spans: list = ()           # the stretch's spans (observability.take_spans())
+    span_calls: S.Calls | None = None  # the stretch's host calls and device work
+    probe_spans: list = ()     # the spans of units each run from an idle device
 
 
 @functools.cache

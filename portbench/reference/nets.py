@@ -1,27 +1,43 @@
-"""The networks, written out: ResNet generator and 70x70 PatchGAN.
+"""The networks, written out: the 70x70 PatchGAN, the pieces every network
+shares, and the generator families found by name.
 
 Activations are NCHW float32. Parameters are a dict ``name -> tensor`` in
-torch layout (convolutions OIHW, transposed convolutions (I, O, kH, kW));
-:func:`generator_spec` and :func:`patchgan_spec` list their names and
-shapes, the names the benchmark loads into the program's modules.
+torch layout (convolutions OIHW, transposed convolutions (I, O, kH, kW)); a
+``spec`` lists their names and shapes, the names the benchmark loads into
+the program's modules.
 
-Generator (CycleGAN's ResNet, n blocks): reflect-pad 3 + 7x7 conv to ngf,
-IN, ReLU; two 3x3 stride-2 zero-pad-1 convs to 2ngf and 4ngf, each IN +
-ReLU; n blocks of [reflect-pad 1, 3x3 conv, IN, ReLU, (dropout 0.5),
-reflect-pad 1, 3x3 conv, IN] + input; two 3x3 stride-2 transposed convs
-(padding 1, output padding 1) to 2ngf and ngf, each IN + ReLU;
-reflect-pad 3 + 7x7 conv to the output; tanh on the image generator, raw
-logits on the label generator. PatchGAN: 4x4 zero-pad-1 convs C64 (stride
-2, no norm), C128, C256 (stride 2), C512 (stride 1), each IN but the first,
-LeakyReLU 0.2 after each, then a 4x4 stride-1 conv to one channel.
-Instance norm: biased variance, eps 1e-5, no affine.
+Generators come in families, one file each: ``gen_<family>.py`` beside
+this one, where the family is the ``gen_net`` prefix before its first
+``_`` (``resnet_9blocks`` -> ``gen_resnet.py``, ``unet_256`` ->
+``gen_unet.py``). :func:`family` loads it. A family file exports
 
-Dropout (frozen copy of the draw rule): a block's keep-mask is
+- ``spec(in_nc, out_nc, cfg)``: [(name, shape)] of the generator's
+  parameters, in the port module's registration order and under its names;
+- ``forward(p, x, cfg, tanh, q=EXACT, drop=None)``: the generator on NCHW
+  float32 ``x``, its convolutions through ``q`` (:mod:`.precision`), its
+  dropout masks drawn from ``drop`` by :func:`dropout_keep` (None: no
+  dropout), tanh or raw logits on the head;
+- ``macs(in_nc, out_nc, cfg, h, w)``: forward multiply-adds of one row at
+  h x w, layer by layer, first layer first (``work.model.pass_flops``);
+- ``calls(c, cfg, rows, backward)``: adds to ``c`` (``work.calls.Calls``)
+  the calls of the port's C entries that one apply of ``rows`` rows needs,
+  with its backward where ``backward``.
+
+A family file imports nothing of the port and nothing of JAX.
+
+PatchGAN: 4x4 zero-pad-1 convs C64 (stride 2, no norm), C128, C256 (stride
+2), C512 (stride 1), each IN but the first, LeakyReLU 0.2 after each, then
+a 4x4 stride-1 conv to one channel. Instance norm: biased variance, eps
+1e-5, no affine.
+
+Dropout (frozen copy of the draw rule): a call's keep-mask is
 ``torch.rand((N, H, W, C), generator=g, device=g.device) >= 0.5`` (NHWC,
 then read as NCHW); kept values are scaled by 2.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 import torch.nn.functional as F
@@ -32,27 +48,16 @@ DROP_P = 0.5
 EPS = 1e-5
 
 
-def generator_spec(in_nc: int, out_nc: int, ngf: int, n_blocks: int) -> list:
-    """[(name, shape)] of a ResNet generator's parameters, in the order of
-    the module's registration."""
-    spec = []
-
-    def conv(name, cin, cout, k):
-        spec.extend([(f"{name}.conv.weight", (cout, cin, k, k)), (f"{name}.conv.bias", (cout,))])
-
-    def deconv(name, cin, cout, k):
-        spec.extend([(f"{name}.conv.weight", (cin, cout, k, k)), (f"{name}.conv.bias", (cout,))])
-
-    conv("stem", in_nc, ngf, 7)
-    conv("down1", ngf, 2 * ngf, 3)
-    conv("down2", 2 * ngf, 4 * ngf, 3)
-    for i in range(n_blocks):
-        conv(f"trunk.{i}.conv0", 4 * ngf, 4 * ngf, 3)
-        conv(f"trunk.{i}.conv1", 4 * ngf, 4 * ngf, 3)
-    deconv("up1", 4 * ngf, 2 * ngf, 3)
-    deconv("up2", 2 * ngf, ngf, 3)
-    conv("head", ngf, out_nc, 7)
-    return spec
+def family(gen_net: str):
+    """The module of ``gen_net``'s generator family (``gen_<prefix>.py``)."""
+    name = gen_net.split("_", 1)[0]
+    try:
+        return importlib.import_module(f"portbench.reference.gen_{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"portbench.reference.gen_{name}":
+            raise
+        raise ValueError(f"the reference has no generator family {name!r} "
+                         f"(portbench/reference/gen_{name}.py) for {gen_net!r}") from None
 
 
 def patchgan_spec(in_nc: int, ndf: int, n_layers: int) -> list:
@@ -63,12 +68,6 @@ def patchgan_spec(in_nc: int, ndf: int, n_layers: int) -> list:
         spec.extend([(f"blocks.{k}.conv.weight", (chans[k + 1], chans[k], 4, 4)),
                      (f"blocks.{k}.conv.bias", (chans[k + 1],))])
     return spec
-
-
-def n_blocks_of(gen_net: str) -> int:
-    if not (gen_net.startswith("resnet_") and gen_net.endswith("blocks")):
-        raise ValueError(f"the reference has the ResNet generators only, not {gen_net!r}")
-    return int(gen_net[len("resnet_"):-len("blocks")])
 
 
 def instance_norm(x: torch.Tensor) -> torch.Tensor:
@@ -92,29 +91,10 @@ def dropout_keep(shape_nchw, generator: torch.Generator) -> torch.Tensor:
     return keep.permute(0, 3, 1, 2)
 
 
-def generator(p: dict, x: torch.Tensor, n_blocks: int, tanh: bool, q=EXACT,
-              drop: torch.Generator | None = None) -> torch.Tensor:
-    """The ResNet generator on NCHW ``x``; ``drop``: the dropout masks'
-    generator (None: no dropout)."""
-    def conv(name, h, stride=1, padding=0):
-        return q.conv2d(h, p[f"{name}.conv.weight"], p[f"{name}.conv.bias"], stride, padding)
-
-    def deconv(name, h):
-        return q.conv_transpose2d(h, p[f"{name}.conv.weight"], p[f"{name}.conv.bias"])
-
-    h = torch.relu(instance_norm(conv("stem", reflect(x, 3))))
-    h = torch.relu(instance_norm(conv("down1", h, 2, 1)))
-    h = torch.relu(instance_norm(conv("down2", h, 2, 1)))
-    for i in range(n_blocks):
-        a = torch.relu(instance_norm(conv(f"trunk.{i}.conv0", reflect(h, 1))))
-        if drop is not None:
-            keep = dropout_keep(a.shape, drop)
-            a = torch.where(keep, a / (1 - DROP_P), torch.zeros((), device=a.device))
-        h = h + instance_norm(conv(f"trunk.{i}.conv1", reflect(a, 1)))
-    h = torch.relu(instance_norm(deconv("up1", h)))
-    h = torch.relu(instance_norm(deconv("up2", h)))
-    h = conv("head", reflect(h, 3))
-    return torch.tanh(h) if tanh else h
+def dropout(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout of ``x`` under a mask drawn by :func:`dropout_keep`."""
+    keep = dropout_keep(x.shape, generator)
+    return torch.where(keep, x / (1 - DROP_P), torch.zeros((), device=x.device))
 
 
 def patchgan(p: dict, x: torch.Tensor, n_layers: int, q=EXACT) -> torch.Tensor:

@@ -58,18 +58,19 @@ def snapped(h: int, w: int, s: float, snap: int = 4) -> tuple[int, int]:
 
 
 class ReferenceServer:
-    """G_i2l's float32 parameters and the serving options; :meth:`logits`
-    gives an image's served logits. Windows go through the net ``chunk`` at
-    a time."""
+    """G_i2l's float32 parameters, its configuration (the generator's family
+    and sizes) and the serving options; :meth:`logits` gives an image's
+    served logits. Windows go through the net ``chunk`` at a time."""
 
-    def __init__(self, params: dict, n_blocks: int, window: tuple[int, int], *, flip: bool,
+    def __init__(self, params: dict, cfg: dict, window: tuple[int, int], *, flip: bool,
                  scales: tuple[float, ...], q=EXACT, chunk: int = 16):
         self.p = {k: v.float() for k, v in params.items()}
-        self.n_blocks, self.window, self.flip, self.scales = n_blocks, window, flip, scales
+        self.cfg, self.gen = cfg, nets.family(cfg["gen_net"])
+        self.window, self.flip, self.scales = window, flip, scales
         self.q, self.chunk = q, chunk
 
     def _net(self, wins: torch.Tensor) -> torch.Tensor:
-        outs = [nets.generator(self.p, c.permute(0, 3, 1, 2), self.n_blocks, False, self.q)
+        outs = [self.gen.forward(self.p, c.permute(0, 3, 1, 2), self.cfg, False, self.q)
                 for c in wins.split(self.chunk)]
         return torch.cat(outs).permute(0, 2, 3, 1)
 

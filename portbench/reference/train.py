@@ -118,7 +118,7 @@ class ReferenceTrainer:
                  pools: tuple | None = None, first_update: int = 0,
                  device: torch.device | str = "cpu"):
         self.cfg, self.q = cfg, q
-        self.n_blocks = nets.n_blocks_of(cfg["gen_net"])
+        self.gen = nets.family(cfg["gen_net"])
         self.k = cfg["num_classes"]
         self.params = {net: {k: v.detach().to(device, torch.float32).clone().requires_grad_()
                              for k, v in w.items()} for net, w in weights.items()}
@@ -140,7 +140,7 @@ class ReferenceTrainer:
                              steps_per_epoch=c["steps_per_epoch"])
 
     def _g(self, name, x, tanh):
-        return nets.generator(self.params[name], x, self.n_blocks, tanh, self.q, self.drop)
+        return self.gen.forward(self.params[name], x, self.cfg, tanh, self.q, self.drop)
 
     def _d(self, name, x):
         return nets.patchgan(self.params[name], x, self.cfg["n_layers_D"], self.q)

@@ -13,12 +13,20 @@ it (on the card ``torch.autograd.grad`` launches the backward from the
 autograd engine's thread while the calling thread waits inside its span),
 and an idle gap of the device to the innermost span open when it began.
 A reader returns a number, or None where there is nothing to read.
+
+The per-layer metrics that read spans (``metrics/<metric>.py``) import
+their ``read(obs)`` from the last section here: it takes a
+:class:`portbench.readings.Observation` whose traffic kind recorded spans
+(:func:`recorded`) in two places only, around probes that run each unit
+from an idle device (``obs.probe_spans``, host-timed) and inside the
+profiled stretch (``obs.spans``, ``obs.span_calls``).
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
 import statistics
 
@@ -31,7 +39,28 @@ LAUNCHES = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCoop
 SYNCS = frozenset({"cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
                    "cudaMemcpy"})
 UPDATES = frozenset({"g_update", "d_update"})
+# The train step's phases whose host self time a metric reads.
+FORWARD = frozenset({"g_forward", "d_forward"})
+BACKWARD = frozenset({"g_backward", "d_backward"})
+POOL = frozenset({"pool"})
 NO_SPAN = "(no span)"
+
+
+@contextlib.contextmanager
+def recorded():
+    """The program's span recording on while the block runs
+    (``observability.record_spans``); yields ``take``, which returns the
+    spans recorded since the last take. Spans left from before the block
+    are dropped, and recording is off again after it."""
+    from cyclegan_tpu_torch.utils import observability as O
+
+    O.take_spans()
+    O.record_spans(True)
+    try:
+        yield O.take_spans
+    finally:
+        O.record_spans(False)
+        O.take_spans()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +256,48 @@ def by_span(spans: list, calls: Calls) -> dict:
     if calls.t1 > at:
         out[name(idx.innermost(at))][1] += (calls.t1 - at) * 1e-6
     return dict(out)
+
+
+# Readers of an Observation, one per per-layer metric (metrics/<metric>.py).
+
+def read_fwd_host_ms(obs) -> float | None:
+    """Host ms a train step in the forwards (``g_forward`` + ``d_forward``
+    self time), the median over the probes."""
+    return host_ms(obs.probe_spans, FORWARD)
+
+
+def read_bwd_host_ms(obs) -> float | None:
+    """Host ms a train step in ``g_backward`` + ``d_backward``."""
+    return host_ms(obs.probe_spans, BACKWARD)
+
+
+def read_update_host_ms(obs) -> float | None:
+    """Host ms a train step in ``g_update`` + ``d_update``."""
+    return host_ms(obs.probe_spans, UPDATES)
+
+
+def read_pool_host_ms(obs) -> float | None:
+    """Host ms a train step in ``pool``."""
+    return host_ms(obs.probe_spans, POOL)
+
+
+def _stretch(fn, obs, *args):
+    return None if obs.span_calls is None else fn(obs.spans, obs.span_calls, *args)
+
+
+def read_update_device_ms(obs) -> float | None:
+    return _stretch(update_device_ms, obs)
+
+
+def read_launches(obs) -> float | None:
+    return _stretch(launches, obs)
+
+
+def read_host_syncs(obs) -> float | None:
+    return _stretch(host_syncs, obs)
+
+
+def read_tta_device_share(obs) -> float | None:
+    """None also where no device time lay outside every ``serve.forward``:
+    no TTA work was found to read."""
+    return _stretch(tta_device_share, obs) or None

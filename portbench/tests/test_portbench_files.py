@@ -57,13 +57,41 @@ def test_metric_reader_found_by_name(metric):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_lists_what_it_cut(config):
-    from cyclegan_tpu_torch.utils.config import PRESETS
-
     body = harness.load_json(harness.ROOT / config["file"])
-    assert sorted(body["reduced"]) == sorted(config["reduced"])
-    preset = PRESETS[config["name"]]
-    for key, cut in body["reduced"].items():
-        assert getattr(preset, key) == cut["published"] and body[key] == cut["here"]
-    for key in ("gen_net", "ngf", "ndf", "n_layers_D", "norm", "crop_height", "crop_width",
-                "bf16", "pool_size", "lr", "lamda", "epochs", "decay_epoch"):
-        assert body[key] == getattr(preset, key), key
+    # BENCHMARK.json's reduced lists every key changed from the source: the
+    # file's cuts and the values it takes from another published source
+    assert sorted(config["reduced"]) == sorted({*body["reduced"], *body.get("changed", {})})
+    assert harness.config_problems(config["name"], body) == []
+
+
+def _departing(**changed):
+    """voc_dp8_bf16's file as a configuration of its own that departs from
+    the preset: the U-Net-256 generator of pix2pix in place of the ResNet."""
+    body = harness.load_json(harness.BENCH_DIR / "configs" / "voc_dp8_bf16.json")
+    return {**body, "preset": "voc_dp8_bf16", "gen_net": "unet_256", "changed": changed}
+
+
+UNET_256 = {"published": "resnet_9blocks", "here": "unet_256",
+            "source": "arXiv:1611.07004 section 6.1.1; the reference repo's "
+                      "define_Gen(netG='unet_256')"}
+
+
+def test_a_config_may_depart_from_its_preset():
+    assert harness.config_problems("voc_dp8_unet256", _departing(gen_net=UNET_256)) == []
+
+
+@pytest.mark.parametrize("changed", [
+    {},                                                         # gen_net not listed
+    {"gen_net": {**UNET_256, "source": " "}},                   # listed with no source
+    {"gen_net": {**UNET_256, "published": "resnet_6blocks"}},   # not the preset's value
+    {"gen_net": {**UNET_256, "here": "unet_128"}},              # not the file's value
+], ids=["unlisted", "no_source", "not_published", "not_here"])
+def test_a_departure_is_refused_unless_listed_whole(changed):
+    assert harness.config_problems("voc_dp8_unet256", _departing(**changed))
+
+
+def test_a_width_is_never_cut():
+    body = harness.load_json(harness.BENCH_DIR / "configs" / "voc_dp8_bf16.json")
+    body = {**body, "ngf": 32,
+            "reduced": {**body["reduced"], "ngf": {"published": 64, "here": 32, "why": "-"}}}
+    assert harness.config_problems("voc_dp8_bf16", body) == ["ngf: a width, never cut"]

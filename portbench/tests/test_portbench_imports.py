@@ -55,6 +55,9 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_port():
+    families = sorted(f.stem for f in (BENCH_DIR / "reference").glob("gen_*.py"))
+    assert {"gen_resnet", "gen_unet"} <= set(families)
     loaded = _loaded_after("import portbench.reference.train, portbench.reference.serve, "
-                           "portbench.reference.precision")
+                           "portbench.reference.precision"
+                           + "".join(f", portbench.reference.{f}" for f in families))
     assert not loaded & {"cyclegan_tpu_torch", *harness.FORBIDDEN}

@@ -41,8 +41,10 @@ def cfg_of(name):
 
 
 def test_generator_flops_hand_count():
+    from portbench.reference.nets import family
+
     # stem 1.233 + down 2 x 2.416 + trunk 18 x 4.832 + up 2 x 2.416 + head 8.631 GFLOP
-    g = model.generator_macs(3, 21, 64, 9, 256, 256)
+    g = family("resnet_9blocks").macs(3, 21, {"gen_net": "resnet_9blocks", "ngf": 64}, 256, 256)
     assert 2 * sum(g) == 2 * (256 * 256 * 3 * 64 * 49 + 2 * 128 * 128 * 64 * 128 * 9
                               + 2 * 64 * 64 * 128 * 256 * 9 + 18 * 64 * 64 * 256 * 256 * 9
                               + 256 * 256 * 64 * 21 * 49)

@@ -116,3 +116,106 @@ def test_readers_find_nothing_without_spans_or_device_work():
     assert cpu.device == [] and any(c.name.startswith("aten::") for c in cpu.host)
     assert all(c.end > s0 and c.start < s1 for c in cpu.host)
     assert S.launches(_step(0, 0), cpu) is None
+
+
+# The readers of an Observation, on a recorded CPU run of the tiny cells.
+
+def _traced(cell):
+    """A ``--trace 1`` run's Observation on the CPU (the traffic kind's
+    own ``run``), and the spans left behind after it."""
+    import importlib
+
+    from cyclegan_tpu_torch.utils import observability as O
+
+    from portbench import harness
+    from portbench.tests import tiny
+
+    torch.set_num_threads(4)
+    c = harness.load_cell(cell)
+    ctx = harness.make_context(c, 2 ** 31 + 31, 0.3, True, torch.device("cpu"),
+                               time.perf_counter(), tiny.overrides(cell))
+    out = importlib.import_module(f"portbench.traffic.{c.workload['kind']}").run(ctx)
+    return out["obs"], ctx.params, O.take_spans()
+
+
+def _at(spans, name):
+    """A time (ns) inside the first span named ``name``."""
+    s = next(s for s in spans if s.name == name)
+    return (s.start + s.end) // 2
+
+
+@pytest.mark.parametrize("cell", ["voc_dp8_bf16.train", "voc_dp8_bf16.train_dropout"])
+def test_trainer_readers_on_a_recorded_run(cell):
+    obs, p, left = _traced(cell)
+    assert left == []  # recording off again, nothing left behind
+    assert len(S.roots(list(obs.probe_spans), "train_step")) == p["host_probes"]
+    assert len(S.roots(list(obs.spans), "train_step")) == p["trace_steps"]
+    phases = [S.read_fwd_host_ms(obs), S.read_bwd_host_ms(obs), S.read_update_host_ms(obs),
+              S.read_pool_host_ms(obs)]
+    assert all(v > 0 for v in phases)
+    # the phases' self times fit in a probe's step
+    steps = sorted((s.end - s.start) / MS for s in obs.probe_spans if s.name == "train_step")
+    assert sum(phases) <= steps[-1]
+    # a CPU profile holds no device work: nothing to read
+    assert obs.span_calls is not None and obs.span_calls.device == []
+    for read in (S.read_update_device_ms, S.read_launches, S.read_host_syncs):
+        assert read(obs) is None
+    # the recorded spans against device work placed in them: 1 ms launched
+    # in each step's g_update, 2 ms in its g_backward, one copy to the host
+    # in the first step
+    stretch = list(obs.spans)
+    host, device = [], []
+    for k, step in enumerate(s for s in stretch if s.name == "train_step"):
+        mine = [s for s in stretch if s.start >= step.start and s.end <= step.end]
+        for j, (name, ms) in enumerate((("g_update", 1), ("g_backward", 2))):
+            t = _at(mine, name)
+            host.append(S.Call("cudaLaunchKernel", t, t + 1000, 10 * k + j))
+            device.append(S.Call("k", t, t + ms * MS, 10 * k + j))
+    t = _at(stretch, "pool")
+    host.append(S.Call("cudaMemcpyAsync", t, t + 1000, 99))
+    device.append(S.Call("Memcpy DtoH (Device -> Pageable)", t, t + 1000, 99))
+    obs.span_calls = S.Calls(stretch[0].start, max(s.end for s in stretch), host, device)
+    assert S.read_update_device_ms(obs) == pytest.approx(1.0)
+    assert S.read_launches(obs) == pytest.approx(2 + 1 / p["trace_steps"])
+    assert S.read_host_syncs(obs) == pytest.approx(1 / p["trace_steps"])
+    assert S.read_tta_device_share(obs) is None
+
+
+def test_serving_front_reader_on_a_recorded_run():
+    obs, p, left = _traced("voc_semisup_256.serve_tta")
+    assert left == []
+    stretch = list(obs.spans)
+    assert len(S.roots(stretch, "serve.predict")) == p["trace_batches"]
+    assert len(S.roots(list(obs.probe_spans), "serve.predict")) == p["host_probes"]
+    assert {"serve.scale", "serve.flip", "serve.tiles", "serve.forward"} <= \
+        {s.name for s in stretch}
+    assert S.read_tta_device_share(obs) is None  # no device work on the CPU
+    # 3 ms launched in a forward, 1 ms as a predict call opens
+    fwd, scale = _at(stretch, "serve.forward"), stretch[0].start
+    idx = S.Index(stretch)
+    assert "serve.forward" not in idx.names(idx.innermost(scale))
+    obs.span_calls = S.Calls(stretch[0].start, max(s.end for s in stretch),
+                             [S.Call("cudaLaunchKernel", fwd, fwd + 1000, 1),
+                              S.Call("cudaLaunchKernel", scale, scale + 1000, 2)],
+                             [S.Call("conv", fwd, fwd + 3 * MS, 1),
+                              S.Call("resize", scale, scale + MS, 2)])
+    assert S.read_tta_device_share(obs) == pytest.approx(25.0)
+    for read in (S.read_launches, S.read_host_syncs, S.read_update_device_ms):
+        assert read(obs) is None  # no train step in a served stretch
+
+
+@pytest.mark.parametrize("cell", ["voc_dp8_bf16.train", "voc_semisup_256.serve_tta"])
+def test_no_span_is_recorded_without_trace(cell, monkeypatch):
+    """The ``--trace 0`` run leaves span recording off throughout."""
+    from cyclegan_tpu_torch.utils import observability as O
+
+    from portbench import harness
+    from portbench.tests import tiny
+
+    turned = []
+    record = O.record_spans
+    monkeypatch.setattr(O, "record_spans", lambda on: (turned.append(on), record(on)))
+    torch.set_num_threads(4)
+    r = harness.run_cell(cell, 2 ** 31 + 32, 0.3, False, device="cpu",
+                         overrides=tiny.overrides(cell))
+    assert r["correct"] and turned == [] and O.take_spans() == []

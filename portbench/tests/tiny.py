@@ -19,3 +19,8 @@ SERVE_CELLS = ("voc_semisup_256.serve_tta",)
 
 def overrides(cell: str) -> dict:
     return SERVE if cell in SERVE_CELLS else TRAIN
+# The U-Net family through a train cell's overrides: unet_128 at ngf 4,
+# 128x128 (its 7 levels down to 1x1), 2 rows, float32.
+UNET = {"config": {**TRAIN["config"], "gen_net": "unet_128", "ngf": 4, "crop_height": 128,
+                   "crop_width": 128},
+        "params": {**TRAIN["params"], "image_cell": 16, "label_cell": 16}}

@@ -12,9 +12,11 @@ maps to the host.
 
 Window (``--trace 0``): ``serve_img_per_s`` is the images whose class maps
 reached the host over the window's whole time. Traced run: ``host_probes``
-calls each from an idle device, host-timed, then ``trace_batches`` batches
-under the profiler. The check: a sample of the answers (``check_answers``,
-drawn from the seed among all the run fetched) against the reference.
+calls each from an idle device, host-timed, then as many again with the
+program's spans recorded (the span probes), then ``trace_batches`` batches
+under the profiler, spans recorded. The window records none. The check: a
+sample of the answers (``check_answers``, drawn from the seed among all the
+run fetched) against the reference.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import numpy as np
 import torch
 
 from portbench import compare, inputs, readings
+from portbench import spans as S
 from portbench import trace as T
-from portbench.reference import nets, precise
+from portbench.reference import precise
 from portbench.reference.precision import EXACT
 from portbench.reference.serve import ReferenceServer, served_gap
 from portbench.traffic.train import free, sync
@@ -116,32 +119,45 @@ class Program:
         return sent, got
 
 
-def traced(prog: Program, ctx) -> tuple[readings.Observation, int, int]:
-    from cyclegan_tpu_torch.kernels import _build
-
-    dev, p = ctx.device, ctx.params
+def probes(prog: Program, n: int, dev) -> tuple[list, int, int]:
+    """``n`` calls each from an idle device: the host ms until each call
+    returns, and the images sent and fetched."""
     host = []
     sent = got = 0
-    for _ in range(p["host_probes"]):
+    for _ in range(n):
         sync(dev)
         t = time.perf_counter()
         pending = prog.submit()
         host.append((time.perf_counter() - t) * 1e3)
         sent += len(pending[0])
         got += prog.fetch(pending)
-    sync(dev)
-    before = dict(_build.launches)
-    with torch.profiler.profile(activities=T.activities(dev)) as prof:
-        s0 = time.time_ns()
-        s, g = prog.pipelined(batches=p["trace_batches"])
+    return host, sent, got
+
+
+def traced(prog: Program, ctx) -> tuple[readings.Observation, int, int]:
+    from cyclegan_tpu_torch.kernels import _build
+
+    dev, p = ctx.device, ctx.params
+    host, sent, got = probes(prog, p["host_probes"], dev)
+    with S.recorded() as take:
+        _, s, g = probes(prog, p["host_probes"], dev)
+        sent, got = sent + s, got + g
         sync(dev)
-        s1 = time.time_ns()
+        probe_spans = take()
+        before = dict(_build.launches)
+        with torch.profiler.profile(activities=T.activities(dev)) as prof:
+            s0 = time.time_ns()
+            s, g = prog.pipelined(batches=p["trace_batches"])
+            sync(dev)
+            s1 = time.time_ns()
+        spans = take()
     launched = {k: v - before.get(k, 0) for k, v in _build.launches.items()}
     cfg = ctx.cfg
     obs = readings.Observation(
         trace=T.from_profiler(prof, s0, s1), units=p["trace_batches"], launches=launched,
         calls=calls.serve_batch_calls(cfg, p), model_flops=model.serve_batch_flops(cfg, p),
-        host_ms=host)
+        host_ms=host, spans=spans, span_calls=S.from_profiler(prof, s0, s1),
+        probe_spans=probe_spans)
     return obs, sent + s, got + g
 
 
@@ -151,9 +167,8 @@ def reference_logits(ctx, canvases: list, q=EXACT) -> dict:
     weights, images = make_inputs(ctx)
     cfg, p = ctx.cfg, ctx.params
     with precise():
-        ref = ReferenceServer(weights, nets.n_blocks_of(cfg["gen_net"]),
-                              (cfg["crop_height"], cfg["crop_width"]), flip=p["flip"],
-                              scales=tuple(p["scales"]), q=q)
+        ref = ReferenceServer(weights, cfg, (cfg["crop_height"], cfg["crop_width"]),
+                              flip=p["flip"], scales=tuple(p["scales"]), q=q)
         return {i: ref.logits(images[i]) for i in sorted(set(canvases))}
 
 

@@ -16,7 +16,9 @@ with the same trainer and state.
 Window (``--trace 0``): steps back to back for ``--seconds``, then a
 synchronize; ``train_samples_per_s`` is rows over the window's whole time.
 Traced run (``--trace 1``): ``host_probes`` steps each from an idle
-device, host-timed, then ``trace_steps`` steps under the profiler.
+device, host-timed, then as many again with the program's spans recorded
+(the span probes), then ``trace_steps`` steps under the profiler, spans
+recorded. The window records none.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from portbench import compare, inputs, readings
+from portbench import spans as S
 from portbench import trace as T
 from portbench.reference import precise
 from portbench.reference.precision import EXACT
@@ -169,30 +172,41 @@ def window(prog: Program, ctx) -> dict:
     return {"steps": n, "train_samples_per_s": n * rows / (time.perf_counter() - t0)}
 
 
-def traced(prog: Program, ctx) -> tuple[readings.Observation, int]:
-    from cyclegan_tpu_torch.kernels import _build
-
-    dev, p = ctx.device, ctx.params
+def probes(prog: Program, n: int, dev) -> list:
+    """``n`` steps each from an idle device: the host ms until each returns."""
     host = []
-    for _ in range(p["host_probes"]):
+    for _ in range(n):
         sync(dev)
         t = time.perf_counter()
         prog.step()
         host.append((time.perf_counter() - t) * 1e3)
-    sync(dev)
-    before = dict(_build.launches)
-    with torch.profiler.profile(activities=T.activities(dev)) as prof:
-        s0 = time.time_ns()
-        for _ in range(p["trace_steps"]):
-            prog.step()
+    return host
+
+
+def traced(prog: Program, ctx) -> tuple[readings.Observation, int]:
+    from cyclegan_tpu_torch.kernels import _build
+
+    dev, p = ctx.device, ctx.params
+    host = probes(prog, p["host_probes"], dev)
+    with S.recorded() as take:
+        probes(prog, p["host_probes"], dev)
         sync(dev)
-        s1 = time.time_ns()
+        probe_spans = take()
+        before = dict(_build.launches)
+        with torch.profiler.profile(activities=T.activities(dev)) as prof:
+            s0 = time.time_ns()
+            for _ in range(p["trace_steps"]):
+                prog.step()
+            sync(dev)
+            s1 = time.time_ns()
+        spans = take()
     launched = {k: v - before.get(k, 0) for k, v in _build.launches.items()}
     obs = readings.Observation(
         trace=T.from_profiler(prof, s0, s1), units=p["trace_steps"], launches=launched,
         calls=calls.train_step_calls(ctx.cfg), model_flops=model.train_step_flops(ctx.cfg),
-        host_ms=host)
-    return obs, p["host_probes"] + p["trace_steps"]
+        host_ms=host, spans=spans, span_calls=S.from_profiler(prof, s0, s1),
+        probe_spans=probe_spans)
+    return obs, 2 * p["host_probes"] + p["trace_steps"]
 
 
 def reference_readings(ctx, q=EXACT, rows: int | None = None) -> dict:

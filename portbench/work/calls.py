@@ -9,12 +9,17 @@ the configuration's types (bf16 operands and activations, float32 weight
 gradients and norm statistics), each input read once and each output
 written once:
 
-- a residual block's forward: 2 convolutions (``cg_conv3x3_reflect``),
-  the first instance norm (+ ReLU) and the second (+ the block's skip);
+- a ResNet residual block's forward: 2 convolutions
+  (``cg_conv3x3_reflect``), the first instance norm (+ ReLU) and the
+  second (+ the block's skip);
 - its backward: 2 input gradients (``cg_conv3x3_reflect_dgrad``), 2 weight
   gradients (``cg_conv_dw``) and 2 norm VJPs;
-- every other instance norm (stem, down1, down2, up1, up2; the PatchGAN's
-  three): one forward, and one VJP where a backward runs.
+- every other instance norm (the ResNet's stem, down1, down2, up1, up2;
+  the U-Net's; the PatchGAN's three): one forward, and one VJP where a
+  backward runs.
+
+A generator's calls come from its family's ``calls``
+(``reference/gen_<family>.py``); the PatchGAN's are here.
 
 Nothing else is needed work: a forward recomputed inside a backward, a
 product split into several bf16 passes, the buffers of that split
@@ -60,30 +65,11 @@ class Calls:
 
 
 def _generator(c: Calls, cfg: dict, rows: int, backward: bool) -> None:
-    from portbench.reference.nets import n_blocks_of
+    """The calls of one generator apply, by its family
+    (``reference/gen_<family>.py``)."""
+    from portbench.reference.nets import family
 
-    ngf, h, w = cfg["ngf"], cfg["crop_height"], cfg["crop_width"]
-    outside = [(ngf, h, w), (2 * ngf, h // 2, w // 2), (4 * ngf, h // 4, w // 4),
-               (2 * ngf, h // 2, w // 2), (ngf, h, w)]
-    for ch, hh, ww in outside:
-        e = rows * ch * hh * ww
-        c.norm("cg_instance_norm_act", e, 2)                # x -> y
-        if backward:
-            c.norm("cg_instance_norm_act_bwd", e, 3)        # x, dy -> dx
-    ch = 4 * ngf
-    e = rows * ch * (h // 4) * (w // 4)
-    conv = 2.0 * e * ch * 9
-    weight = 9 * ch * ch
-    for _ in range(n_blocks_of(cfg["gen_net"])):
-        for _ in range(2):
-            c.add("cg_conv3x3_reflect", conv, 2 * e * BF16 + weight * BF16)
-        c.norm("cg_instance_norm_act", e, 2)                # u -> relu(IN(u))
-        c.norm("cg_instance_norm_act", e, 3)                # s, x -> IN(s) + x
-        if backward:
-            for _ in range(2):
-                c.add("cg_conv3x3_reflect_dgrad", conv, 2 * e * BF16 + weight * BF16)
-                c.add("cg_conv_dw", conv, 2 * e * BF16 + weight * 4)
-                c.norm("cg_instance_norm_act_bwd", e, 3)
+    family(cfg["gen_net"]).calls(c, cfg, rows, backward)
 
 
 def _patchgan(c: Calls, cfg: dict, rows: int) -> None:

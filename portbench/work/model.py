@@ -16,18 +16,6 @@ def conv_out(size: int, k: int, stride: int, pad: int) -> int:
     return (size + 2 * pad - k) // stride + 1
 
 
-def generator_macs(in_nc: int, out_nc: int, ngf: int, n_blocks: int, h: int, w: int) -> list:
-    """Forward multiply-adds of one row, layer by layer (stem first)."""
-    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
-    return ([h * w * in_nc * ngf * 49,                      # stem 7x7
-             h2 * w2 * ngf * 2 * ngf * 9,                   # down1 3x3 s2
-             h4 * w4 * 2 * ngf * 4 * ngf * 9]               # down2 3x3 s2
-            + [h4 * w4 * 4 * ngf * 4 * ngf * 9] * (2 * n_blocks)   # trunk 3x3
-            + [h4 * w4 * 4 * ngf * 2 * ngf * 9,             # up1, per input pixel
-               h2 * w2 * 2 * ngf * ngf * 9,                 # up2
-               h * w * ngf * out_nc * 49])                  # head 7x7
-
-
 def patchgan_macs(in_nc: int, ndf: int, n_layers: int, h: int, w: int) -> list:
     chans = [in_nc] + [min(ndf * 2 ** i, ndf * 8) for i in range(n_layers + 1)] + [1]
     strides = [2] * n_layers + [1, 1]
@@ -51,12 +39,14 @@ def pass_flops(macs: list, rows: int, *, input_grad: bool, weight_grad: bool,
 
 
 def nets_macs(cfg: dict) -> dict:
-    from portbench.reference.nets import n_blocks_of
+    """{net: forward multiply-adds of one row, layer by layer}; the
+    generators' from their family (``reference/gen_<family>.py``)."""
+    from portbench.reference.nets import family
 
-    n = n_blocks_of(cfg["gen_net"])
+    gen = family(cfg["gen_net"])
     k, c, h, w = cfg["num_classes"], cfg["in_channels"], cfg["crop_height"], cfg["crop_width"]
-    return {"G_i2l": generator_macs(c, k, cfg["ngf"], n, h, w),
-            "G_l2i": generator_macs(k, c, cfg["ngf"], n, h, w),
+    return {"G_i2l": gen.macs(c, k, cfg, h, w),
+            "G_l2i": gen.macs(k, c, cfg, h, w),
             "D_img": patchgan_macs(c, cfg["ndf"], cfg["n_layers_D"], h, w),
             "D_lab": patchgan_macs(k, cfg["ndf"], cfg["n_layers_D"], h, w)}
 
