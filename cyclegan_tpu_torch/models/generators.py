@@ -46,6 +46,7 @@ from cyclegan_tpu_torch.ops.blocks import (ConvBlock, DeconvBlock, Dropout, Resi
                                            slab_conv, slab_deconv)
 from cyclegan_tpu_torch.ops.init import init_weights
 from cyclegan_tpu_torch.parallel import spatial as S
+from cyclegan_tpu_torch.utils.observability import span
 
 
 def _remat_block(block: ResidualBlock, h: torch.Tensor,
@@ -138,7 +139,13 @@ class UnetLevel(nn.Module):
     innermost only ``up``'s), the middle ones drop after ``up``'s norm, and
     every level but the outermost returns ``cat([x, up], channels)``.
     Under a spatial axis (``spatial``, set by ``ops.blocks.set_data_mesh``)
-    ``x`` is this rank's slab of a plane of ``rows`` global rows."""
+    ``x`` is this rank's slab of a plane of ``rows`` global rows.
+
+    Spans (``utils.observability``), three siblings a level that never nest
+    in one another: ``unet.down`` (the LeakyReLU, the strided convolution
+    and its norm; closed before ``sub`` runs), ``unet.up`` (the ReLU, the
+    transposed convolution, its norm and dropout) and ``unet.skip`` (the
+    casts and the concatenation; not at the outermost level)."""
 
     def __init__(self, outer_nc: int, inner_nc: int, input_nc: int | None = None,
                  sub: "UnetLevel | None" = None, outermost: bool = False,
@@ -160,29 +167,32 @@ class UnetLevel(nn.Module):
     def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None,
                 rows: int | None = None) -> torch.Tensor:
         d, sp = self.dtype, self.spatial
-        h = x if self.outermost else F.leaky_relu(x, 0.2)
-        c = self.down
-        if sp is None:
-            h = F.conv2d(h, c.weight, c.bias, stride=2, padding=1, compute_dtype=d)
-        else:
-            h = slab_conv(h, rows, c, 1, "zero", d, sp)
-        h = apply_norm(self.down_norm, h)
+        with span("unet.down"):
+            h = x if self.outermost else F.leaky_relu(x, 0.2)
+            c = self.down
+            if sp is None:
+                h = F.conv2d(h, c.weight, c.bias, stride=2, padding=1, compute_dtype=d)
+            else:
+                h = slab_conv(h, rows, c, 1, "zero", d, sp)
+            h = apply_norm(self.down_norm, h)
         if self.sub is not None:
             h = self.sub(h, dropout, None if sp is None else S.conv_out_rows(rows, 4, 2, 1))
-        h = torch.relu(h)
-        c = self.up
-        if sp is None:
-            h = F.conv2d_transpose(h, c.weight, c.bias, stride=2, padding=1, output_padding=0,
-                                   compute_dtype=d)
-        else:
-            h = slab_deconv(h, S.conv_out_rows(rows, 4, 2, 1), c, d, sp)
-        if self.outermost:
-            return h
-        h = apply_norm(self.up_norm, h)
-        if self.dropout is not None:
-            h = self.dropout(h, dropout, rows)
-        t = torch.result_type(x, h)
-        return torch.cat([x.to(t), h.to(t)], dim=1)
+        with span("unet.up"):
+            h = torch.relu(h)
+            c = self.up
+            if sp is None:
+                h = F.conv2d_transpose(h, c.weight, c.bias, stride=2, padding=1,
+                                       output_padding=0, compute_dtype=d)
+            else:
+                h = slab_deconv(h, S.conv_out_rows(rows, 4, 2, 1), c, d, sp)
+            if self.outermost:
+                return h
+            h = apply_norm(self.up_norm, h)
+            if self.dropout is not None:
+                h = self.dropout(h, dropout, rows)
+        with span("unet.skip"):
+            t = torch.result_type(x, h)
+            return torch.cat([x.to(t), h.to(t)], dim=1)
 
 
 class UnetGenerator(nn.Module):
