@@ -287,8 +287,8 @@ BWD_TOL = {
     # A bf16 dx rounds a float32 value that differs in its last bits: one
     # bf16 ulp is 2^-8 of the value.
     ("instance_norm_act_bwd", "bfloat16"): (2 ** -8, 2 ** -6),
-    # The residual block recomputes its bf16 activation a = relu(IN(u)); the
-    # kernel's tensor-core convolution and the plain float32 one round it at
+    # The residual block's bf16 activation a = relu(IN(u)): the kernel's
+    # tensor-core convolution and the plain float32 one round it at
     # other elements (one bf16 ulp, 2^-8, each), and each such flip passes
     # through the second convolution, two normalisation VJPs and an input
     # gradient into dx and dw before the final bf16 rounding.
@@ -803,8 +803,9 @@ def compare_bwd(kernel: str, out, ref, dtype: str) -> dict:
 def block_vjp_check(x, dy, w1, b1, w2, b2, grads, dname: str) -> tuple[dict, dict]:
     """The fused residual block's VJP on the card (``grads``: its dx, dw1,
     dw2) against the plain VJP on the kernel path's relu mask (``a > 0`` of
-    ``bwd_dx_cuda``'s recompute, bitwise the Function's) at BWD_TOL; and the
-    mask's flips against the plain version's own, at RELU_FLIP_SHARE."""
+    ``bwd_dx_cuda``'s recompute, bitwise the a the Function kept) at
+    BWD_TOL; and the mask's flips against the plain version's own, at
+    RELU_FLIP_SHARE."""
     from cyclegan_tpu_torch.kernels import resblock as RB
 
     mask = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)[1] > 0
@@ -1026,7 +1027,11 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
         t_fwd = {"ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 10),
                  "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 5),
                  "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
+    # "ms" times the recompute route (the bound's work counts its two
+    # convolutions); "saved_ms" the Function's, from the kept residuals.
+    res = RB.forward_residuals_cuda(x, w1, b1, w2, b2, 1e-5, out=False)[1]
     t_dx = {"ms": time_ms(lambda: RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5), 10),
+            "saved_ms": time_ms(lambda: RB.bwd_dx_saved_cuda(x, dy, w1, w2, res), 10),
             "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
             "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
                                                               retain_graph=True), 10)}
@@ -1057,7 +1062,7 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
             rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
         fail_if(not res["ok"], name, rec)
         out.append(rec)
-    del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl
+    del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl, res
     return out
 
 
@@ -1292,8 +1297,8 @@ def kernels_grad_convs(randn, fail_if) -> list:
     input and output gradient, as path B calls it), against their plain
     versions on the same values at the float32 bars of BWD_TOL; each twice,
     bitwise equal; the input gradient's tile and grid. The whole-block VJPs
-    above are held at the looser bf16 bars, which absorb the recompute's
-    rounding flips; these are not."""
+    above are held at the looser bf16 bars, which absorb the rounding
+    flips of their bf16 activation a; these are not."""
     import torch
     import torch.nn.functional as F
 
@@ -1358,9 +1363,9 @@ def kernels_grad_convs(randn, fail_if) -> list:
 
 def kernels_conv_fwd(randn, fail_if) -> list:
     """The bf16 forward convolution alone at the trunk shape (64x64x256 ->
-    256): batch 1 and 2 (training: per step 36 and 72 calls, the fused
-    blocks' forwards and their backwards' recomputes) and batch 8 (serving:
-    18 calls a forward). Against its plain version at the card test's bar,
+    256): batch 1 and 2 (training: per step 18 and 36 calls, the fused
+    blocks' forwards; their backwards start from the kept residuals) and
+    batch 8 (serving: 18 calls a forward). Against its plain version at the card test's bar,
     a second call bitwise equal; its time beside the plain version's, the
     bound, TFLOP/s issued, its grid and cuDNN's conv2d on the reflect-padded
     channels_last input (a yardstick only). Then every tile of CONV_TILES,
@@ -1371,7 +1376,7 @@ def kernels_conv_fwd(randn, fail_if) -> list:
     from cyclegan_tpu_torch.kernels import resblock as RB
 
     c, recs = NGF * 4, []
-    for b, calls, serve_calls in ((1, 36, 0), (2, 72, 0), (BATCH, 0, 2 * N_BLOCKS)):
+    for b, calls, serve_calls in ((1, 18, 0), (2, 36, 0), (BATCH, 0, 2 * N_BLOCKS)):
         shape = (b, CROP // 4, CROP // 4, c)
         x, w = randn(shape, torch.bfloat16), randn((3, 3, c, c), torch.bfloat16, 0.02)
         bias = randn((c,), torch.bfloat16, 0.01)
@@ -1751,18 +1756,16 @@ def launches_per_step(in_calls: int, rb: int, rc: int, dw: int, re_in: int = 0,
     instance norms (and their VJPs), ``rb`` fused and ``rc`` chunked blocks
     (forward and backward), ``dw`` conv_dw weight gradients, and under remat
     ``re_in`` / ``re_rb`` / ``re_rc`` recomputed norm and block forwards.
-    C entries: the fused block's forward makes 2 convolutions and 2 norms,
-    its backward recomputes both and their statistics and makes 2 norm
-    VJPs, 2 input and 2 weight gradients. The chunked forward makes 2
-    convolutions and 2 norms; its backward reads the saved residuals: 2 norm
-    VJPs, 2 input and 2 weight gradients, and no convolution. The weight
+    C entries: each block's forward (fused or chunked) makes 2 convolutions
+    and 2 norms; its backward reads the saved residuals: 2 norm VJPs, 2
+    input and 2 weight gradients, and no convolution. The weight
     gradients are cg_conv_dw, as path B's conv_dw is. cg_bf16_parts: both
     backwards split ds and du once each, for an input and a weight gradient,
     and reflect-pad the input of each weight gradient (4); bf16 conv_dw on
     channels that are multiples of 8 needs none."""
-    return {"cg_instance_norm_act": in_calls + re_in + 4 * rb + 2 * re_rb + 2 * re_rc,
+    return {"cg_instance_norm_act": in_calls + re_in + 2 * rb + 2 * re_rb + 2 * re_rc,
             "cg_instance_norm_act_bwd": in_calls + 2 * rb,
-            "cg_conv3x3_reflect": 4 * rb + 2 * rc + 2 * re_rb + 2 * re_rc,
+            "cg_conv3x3_reflect": 2 * rb + 2 * rc + 2 * re_rb + 2 * re_rc,
             "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
             "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 4 * rb + 4 * rc,
             "cg_chunked_in_fwd": 2 * rc + 2 * re_rc, "cg_chunked_in_vjp": 2 * rc}
@@ -1809,7 +1812,7 @@ TRAIN_PATHS = {"default": ("fused", False), "chunked": ("chunked", False),
 # What each path must show in its launch counters per step, beside the
 # derived counts: path A runs the chunked block in every trunk block (2
 # norms, 2 norm VJPs, 2 forward and 2 input-gradient convolutions a block)
-# and no fused one (whose recompute would add forward convolutions); path B
+# and no fused one (as many forward convolutions, no chunked norm); path B
 # runs conv_dw for both trunk convolutions and no residual-block kernel.
 PATH_COUNTS = {"chunked": {"cg_chunked_in_fwd": 54, "cg_chunked_in_vjp": 54,
                            "cg_conv3x3_reflect": 54, "cg_conv3x3_reflect_dgrad": 54},
@@ -4617,16 +4620,16 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
         "residual_block_chunked_bwd": ("cyclegan_tpu_torch/csrc/resblock_chunked.cu",
                                        "cyclegan_tpu/kernels/resblock_chunked.py:406"),
         "conv_dw": ("cyclegan_tpu_torch/csrc/conv_dw.cu", "cyclegan_tpu/kernels/conv_dw.py:58"),
-        # The forward convolution alone: the heart of #3 (and of #6 and #4's
-        # recompute); its launches are the C entry's on the default path.
+        # The forward convolution alone: the heart of #3 (and of #6); its
+        # launches are the C entry's on the default path.
         "conv3x3_reflect": ("cyclegan_tpu_torch/csrc/resblock.cu",
                             "cyclegan_tpu/kernels/resblock.py:79"),
     }
     path_of = {"residual_block_chunked": "chunked", "residual_block_chunked_bwd": "chunked",
                "conv_dw": "dropout"}
     # Each kernel's launches are its C entry's: the fused block's forward
-    # convolutions (its VJP's recompute included), the dx chain's input
-    # gradients, the weight gradients' cg_conv_dw (path B's conv_dw too).
+    # convolutions, the dx chain's input gradients, the weight gradients'
+    # cg_conv_dw (path B's conv_dw too).
     counter_of = {"instance_norm_act": "cg_instance_norm_act",
                   "instance_norm_act_bwd": "cg_instance_norm_act_bwd",
                   "residual_block_fused": "cg_conv3x3_reflect",
@@ -4695,6 +4698,7 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
             "library_ms": total("library_ms"),
+            **({"saved_ms": total("saved_ms")} if "saved_ms" in rs[0] else {}),
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
             "launches_over": f"{TRAIN_STEPS} train steps, path {path}", "on_paths": on_paths})

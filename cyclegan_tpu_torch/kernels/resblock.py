@@ -8,8 +8,10 @@ on NHWC ``x`` with HWIO weights. As in the Pallas kernel, the convolution
 outputs u and s stay float32 and ``relu(IN(u))`` is cast to x's type before
 the second convolution.
 
-The VJP keeps the JAX design: only ``(x, w1, b1, w2, b2)`` are saved; the
-backward recomputes u, a and s and their statistics, then chains::
+When a gradient is wanted, the forward keeps what it computes
+(:class:`Residuals`: u, a, s and both norms' statistics, about 10 bytes an
+element of x more than the JAX design, which saves only ``(x, w1, b1, w2,
+b2)`` and recomputes them), and the backward starts at ``ds``::
 
     ds = IN_bwd(s, dy; none)         da = dgrad(ds, w2)
     du = IN_bwd(u, da; relu)         dx = dy + dgrad(du, w1)
@@ -18,7 +20,11 @@ backward recomputes u, a and s and their statistics, then chains::
 with float32 cotangents and accumulation (the Pallas kernels cast the
 weights to float32 for the input gradient). ``dw`` is summed over the batch
 and cast to the weights' type; the bias gradients are exactly zero (a
-per-channel constant before an instance norm cancels).
+per-channel constant before an instance norm cancels). Under the trunk's
+``remat`` the checkpoint drops the residuals and reruns the forward, which
+keeps them again: a block is recomputed once. The recompute route stays as
+functions (:func:`bwd_dx_cuda`, :func:`bwd_dx_plain`), the yardstick the
+on-card checks hold the saved route to.
 
 :func:`residual_block_fused` is a ``torch.autograd.Function``. On a CUDA
 tensor it launches the hand-written kernels of ``csrc/resblock.cu`` (the
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,14 +55,38 @@ def _conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return y.permute(0, 2, 3, 1)
 
 
+class Residuals(NamedTuple):
+    """What the block's forward keeps for its backward, at the width the
+    convolutions ran: the float32 convolution outputs ``u`` and ``s``,
+    ``a = relu(IN(u))`` in x's type, and the float32 (N, C) statistics of
+    both norms."""
+    u: torch.Tensor
+    a: torch.Tensor
+    s: torch.Tensor
+    mean1: torch.Tensor
+    rstd1: torch.Tensor
+    mean2: torch.Tensor
+    rstd2: torch.Tensor
+
+
 def residual_block_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor,
                          eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch version; u and s are float32 as in the Pallas kernel."""
+    return residual_block_fwd_plain(x, w1, b1, w2, b2, eps)[0]
+
+
+def residual_block_fwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             eps: float = 1e-5) -> tuple[torch.Tensor, Residuals]:
+    """:func:`residual_block_plain` with the residuals its backward starts
+    from: ``(y, Residuals)``."""
     u = _conv3x3_plain(x, w1, b1)
     a = _in.instance_norm_act_plain(u, None, eps, "relu", out_dtype=x.dtype)
     s = _conv3x3_plain(a, w2, b2)
-    return _in.instance_norm_act_plain(s, x, eps, "none", out_dtype=x.dtype)
+    y = _in.instance_norm_act_plain(s, x, eps, "none", out_dtype=x.dtype)
+    return y, Residuals(u, a, s, *_in.instance_norm_stats_plain(u, eps),
+                        *_in.instance_norm_stats_plain(s, eps))
 
 
 def _fold_pad1_plain(gp: torch.Tensor) -> torch.Tensor:
@@ -167,6 +198,19 @@ def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor
     ``relu_mask`` as in :func:`bwd_dx_plain`."""
     dx, a, ds, du = bwd_dx_plain(x, dy, w1, b1, w2, b2, eps, relu_mask)
     return (dx, *bwd_dw_plain(x, a, ds, du))
+
+
+def residual_block_bwd_saved_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
+                                   w2: torch.Tensor, r: Residuals
+                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch VJP from the forward's residuals ``r``: ``(dx (x's
+    type), dw1, dw2 (float32))``, the chain of the module docstring with no
+    recompute; bitwise :func:`residual_block_bwd_plain` on the same inputs."""
+    ds = _in.instance_norm_act_bwd_plain(r.s, dy, r.mean2, r.rstd2, "none")
+    da = conv3x3_reflect_dgrad_plain(ds, w2)
+    du = _in.instance_norm_act_bwd_plain(r.u, da, r.mean1, r.rstd1, "relu")
+    dx = (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
+    return (dx, *bwd_dw_plain(x, r.a, ds, du))
 
 
 # The convolutions take channel counts in multiples of this (conv_plan's
@@ -398,93 +442,123 @@ def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
                            out_dtype)
 
 
-def _fwd_cuda(x, w1, b1, w2, b2, eps):
-    n, h, w_, c = x.shape
+def forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep=True, out=True):
+    """TPU kernel #3 (``_forward_pallas``) on the card, at a width the
+    convolutions take: two convolutions, each followed by its norm.
+    Returns ``(y, Residuals)``: y with ``out`` (else None, the second norm
+    makes its statistics only), the residuals with ``keep`` (else None, and
+    s overwrites u, which is dead once a exists)."""
+    u = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    conv3x3_reflect(x, w1, b1, u)
+    a = torch.empty_like(x, memory_format=torch.contiguous_format)
+    mean1, rstd1 = _in.launch(u, None, a, eps, "relu")
+    s = torch.empty_like(u) if keep else u
+    conv3x3_reflect(a, w2, b2, s)
+    y = torch.empty_like(a) if out else None
+    mean2, rstd2 = _in.launch(s, x if out else None, y, eps, "none")
+    return y, Residuals(u, a, s, mean1, rstd1, mean2, rstd2) if keep else None
+
+
+def _fwd_cuda(x, w1, b1, w2, b2, eps, keep):
+    """The block forward on the card: ``(y, saved)``, ``saved`` = ``(x, w1,
+    w2, *Residuals)`` at the width the convolutions ran (a narrow trunk's
+    zero-filled copies), what :func:`_bwd_cuda` starts from, with ``keep``;
+    else None."""
+    c = x.shape[-1]
     if w1.shape[-1] != c:
         raise ValueError(f"residual block needs Cout == Cin == {c}, got {w1.shape[-1]}")
     cp = padded_channels(c)
     if cp != c:
-        y = _fwd_cuda(zero_fill(x, cp), zero_fill(w1, cp, 2), zero_fill(b1, cp),
-                      zero_fill(w2, cp, 2), zero_fill(b2, cp), eps)
-        return y[..., :c].contiguous()
-    u = torch.empty((n, h, w_, c), dtype=torch.float32, device=x.device)
-    conv3x3_reflect(x, w1, b1, u)
-    a = torch.empty_like(x, memory_format=torch.contiguous_format)
-    _in.launch(u, None, a, eps, "relu")
-    conv3x3_reflect(a, w2, b2, u)  # s overwrites u: u is dead once `a` exists
-    y = torch.empty_like(a)
-    _in.launch(u, x, y, eps, "none")
-    return y
+        y, saved = _fwd_cuda(zero_fill(x, cp), zero_fill(w1, cp, 2), zero_fill(b1, cp),
+                             zero_fill(w2, cp, 2), zero_fill(b2, cp), eps, keep)
+        return y[..., :c].contiguous(), saved
+    y, r = forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep)
+    return y, (x, w1, w2, *r) if keep else None
+
+
+def bwd_dx_saved_cuda(x, dy, w1, w2, r: Residuals):
+    """TPU kernel #4 (``_bwd_dx_kernel``) on the card from the forward's
+    residuals ``r``: ds, du and dx = dy + dgrad(du, w1). Returns ``(dx, a,
+    ds, du, g_parts)``, ``g_parts`` the bf16 parts of ds and du (one split
+    serves a cotangent's input and weight gradient); all but dx feed
+    :func:`bwd_dw_cuda`. Writes no residual: a second backward of the same
+    graph reads them again."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ds = torch.empty(x.shape, **f32)
+    _in.launch_bwd(r.s, dy, r.mean2, r.rstd2, ds, "none")
+    ng = CD.parts(torch.float32, x.dtype)
+    ds_parts = CD.bf16_parts(ds, ng)
+    da = torch.empty(x.shape, **f32)
+    conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
+    du = torch.empty(x.shape, **f32)
+    _in.launch_bwd(r.u, da, r.mean1, r.rstd1, du, "relu")
+    du_parts = CD.bf16_parts(du, ng)
+    dx = torch.empty_like(r.a)
+    conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
+    return dx, r.a, ds, du, (ds_parts, du_parts)
 
 
 def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
-    """TPU kernel #4 (``_bwd_dx_kernel``) on the card: recompute u, a, s and
-    their statistics, then ds, du and dx = dy + dgrad(du, w1). Returns
-    ``(dx, a, ds, du, g_parts)``, ``g_parts`` the bf16 parts of ds and du
-    (one split serves a cotangent's input and weight gradient); all but dx
-    feed :func:`bwd_dw_cuda`."""
-    f32 = dict(dtype=torch.float32, device=x.device)
-    u = torch.empty(x.shape, **f32)
-    conv3x3_reflect(x, w1, b1, u)
-    a = torch.empty_like(x, memory_format=torch.contiguous_format)
-    mean1, rstd1 = _in.launch(u, None, a, eps, "relu")
-    s = torch.empty(x.shape, **f32)
-    conv3x3_reflect(a, w2, b2, s)
-    mean2, rstd2 = _in.launch(s, None, None, eps, "none")
-    ds = torch.empty(x.shape, **f32)
-    _in.launch_bwd(s, dy, mean2, rstd2, ds, "none")
-    ng = CD.parts(torch.float32, x.dtype)
-    ds_parts = CD.bf16_parts(ds, ng)
-    da = s  # s is dead once ds exists
-    conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
-    du = torch.empty(x.shape, **f32)
-    _in.launch_bwd(u, da, mean1, rstd1, du, "relu")
-    du_parts = CD.bf16_parts(du, ng)
-    dx = torch.empty_like(a)
-    conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
-    return dx, a, ds, du, (ds_parts, du_parts)
+    """The recompute route of TPU kernel #4, the JAX design: u, a, s and
+    their statistics computed again (no y), then :func:`bwd_dx_saved_cuda`.
+    The block's Function runs the same chain from the residuals its forward
+    kept; the on-card checks hold the two bitwise equal."""
+    r = forward_residuals_cuda(x, w1, b1, w2, b2, eps, out=False)[1]
+    return bwd_dx_saved_cuda(x, dy, w1, w2, r)
 
 
 def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):
     """TPU kernel #5 (``_bwd_dw_kernel``) on the card: dw1 = wgrad(x, du)
     and dw2 = wgrad(a, ds), summed over the batch, in the weights' type;
-    ``g_parts`` = (ds, du) in bf16 parts, from :func:`bwd_dx_cuda`."""
+    ``g_parts`` = (ds, du) in bf16 parts, from :func:`bwd_dx_saved_cuda`."""
     ds_parts, du_parts = g_parts
     dw = (conv3x3_reflect_wgrad(x, du, w_dtype, g_parts=du_parts),
           conv3x3_reflect_wgrad(a, ds, w_dtype, g_parts=ds_parts))
     return dw
 
 
-def _bwd_cuda(x, dy, w1, b1, w2, b2, eps):
-    c = x.shape[-1]
-    cp = padded_channels(c)
+def _bwd_cuda(dy, x, w1, w2, *res):
+    """``(dx, dw1, dw2)`` from :func:`_fwd_cuda`'s ``saved``; a narrow
+    trunk's dy is zero-filled to the saved width and the results cut back."""
+    c, cp = dy.shape[-1], x.shape[-1]
+    dx, a, ds, du, g_parts = bwd_dx_saved_cuda(x, zero_fill(dy, cp) if cp != c else dy,
+                                               w1, w2, Residuals(*res))
+    dw1, dw2 = bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts)
     if cp != c:
-        dx, dw1, dw2 = _bwd_cuda(zero_fill(x, cp), zero_fill(dy, cp), zero_fill(w1, cp, 2),
-                                 zero_fill(b1, cp), zero_fill(w2, cp, 2), zero_fill(b2, cp), eps)
         return dx[..., :c].contiguous(), dw1[:, :, :c, :c], dw2[:, :, :c, :c]
-    dx, a, ds, du, g_parts = bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps)
-    return (dx, *bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts))
+    return dx, dw1, dw2
+
+
+def _fwd_plain(x, w1, b1, w2, b2, eps, keep):
+    y, r = residual_block_fwd_plain(x, w1, b1, w2, b2, eps)
+    return y, (x, w1, w2, *r) if keep else None
+
+
+def _bwd_plain(dy, x, w1, w2, *res):
+    return residual_block_bwd_saved_plain(x, dy, w1, w2, Residuals(*res))
 
 
 class ResidualBlockFused(torch.autograd.Function):
-    """The differentiable seam; ``plain`` picks the plain versions. Saves
-    ``(x, w1, b1, w2, b2)`` only when a gradient is wanted."""
+    """The differentiable seam; ``plain`` picks the plain versions. Only
+    when a gradient is wanted, saves ``(x, w1, w2)`` and the
+    :class:`Residuals`, which the backward starts from."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, eps, plain):
-        y = (residual_block_plain if plain else _fwd_cuda)(x, w1, b1, w2, b2, eps)
-        if any(ctx.needs_input_grad[:5]):
-            ctx.save_for_backward(x, w1, b1, w2, b2)
-            ctx.eps, ctx.plain = eps, plain
+        keep = any(ctx.needs_input_grad[:5])
+        y, saved = (_fwd_plain if plain else _fwd_cuda)(x, w1, b1, w2, b2, eps, keep)
+        if keep:
+            ctx.save_for_backward(*saved)
+            ctx.plain = plain
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w1, b1, w2, b2 = ctx.saved_tensors
-        bwd = residual_block_bwd_plain if ctx.plain else _bwd_cuda
-        dx, dw1, dw2 = bwd(x, dy.contiguous(), w1, b1, w2, b2, ctx.eps)
-        return (dx, dw1.to(w1.dtype), torch.zeros_like(b1), dw2.to(w2.dtype),
-                torch.zeros_like(b2), None, None)
+        saved = ctx.saved_tensors
+        dx, dw1, dw2 = (_bwd_plain if ctx.plain else _bwd_cuda)(dy.contiguous(), *saved)
+        w_dtype = saved[1].dtype
+        zeros = torch.zeros(dy.shape[-1], dtype=w_dtype, device=dy.device)
+        return dx, dw1.to(w_dtype), zeros, dw2.to(w_dtype), zeros.clone(), None, None
 
 
 def residual_block_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -544,6 +544,9 @@ def test_residual_block_bwd_matches_plain(card, shape, dtype):
     torch.cuda.synchronize()
     # One VJP: the dx chain's 2 input gradients (#4), 2 weight gradients (#5).
     assert _delta(before, "cg_conv3x3_reflect_dgrad", "cg_conv_dw") == (2, 2)
+    # The forward's 2 convolutions and 2 norms, and none in the backward: it
+    # starts from the residuals the forward kept (4 and 4 with a recompute).
+    assert _delta(before, "cg_conv3x3_reflect", "cg_instance_norm_act") == (2, 2)
     mask = _kernel_relu_mask(x, w1, b1)
     ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
     for g_, r_ in zip((got[0], got[1], got[3]), ref):
@@ -551,6 +554,44 @@ def test_residual_block_bwd_matches_plain(card, shape, dtype):
     assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[4]) == 0
     flips, worst = RB.relu_mask_flips(x, w1, b1, mask)
     assert worst <= 1.0 and flips <= RELU_FLIP_SHARE * mask.numel(), (flips, worst)
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+def test_residual_block_vjp_from_saved_residuals_is_the_recompute_route(card, rows):
+    """At the train cells' trunk shapes (8 and 16 rows of 64x64x256, bf16)
+    the Function's dx, dw1 and dw2, from the residuals its forward kept,
+    are bitwise those of the recompute route kept as functions
+    (``bwd_dx_cuda`` then ``bwd_dw_cuda``): the same kernels on the same
+    inputs, with no split-K and fixed summation orders."""
+    shape, c = (rows, 64, 64, 256), 256
+    x, dy = (torch.randn(shape, device="cuda", generator=card).bfloat16() for _ in range(2))
+    w1, w2 = [(0.02 * torch.randn((3, 3, c, c), device="cuda", generator=card)).bfloat16()
+              for _ in range(2)]
+    b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).bfloat16()
+              for _ in range(2)]
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    got = torch.autograd.grad(RB.residual_block_fused(*leaves), leaves, dy)
+    dx, a, ds, du, g_parts = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
+    dw1, dw2 = RB.bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], dx)
+    assert torch.equal(got[1], dw1) and torch.equal(got[3], dw2)
+
+
+@pytest.mark.parametrize("grad,allocations", [(False, 5), (True, 6)])
+def test_residual_block_forward_allocates_s_only_when_it_keeps_it(card, grad, allocations):
+    """A forward under ``torch.inference_mode`` allocates u, a, y and the
+    two norms' statistics, as before residuals were kept (s overwrites u);
+    a forward that keeps its residuals allocates s too."""
+    shape, c = (2, 16, 16, 64), 64
+    x = torch.randn(shape, device="cuda", generator=card).bfloat16()
+    w, b = (0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).bfloat16(), \
+        torch.zeros((c,), device="cuda", dtype=torch.bfloat16)
+    args = [t.clone().requires_grad_(grad) for t in (x, w, b, w, b)]
+    with torch.inference_mode(not grad):
+        RB.residual_block_fused(*args)  # builds; grows the scratch
+        torch.cuda.synchronize()
+        assert _allocations(lambda: RB.residual_block_fused(*args)) == allocations
 
 
 def test_kernel_outputs_carry_grad_fn(card):
@@ -934,8 +975,8 @@ def test_small_train_step_paths_a_and_b_match_plain(card, monkeypatch, path):
     got.append(losses(kt, ks))
     # Two kernel steps of 3 G applies x 2 blocks: path A's chunked blocks
     # (2 norms, 2 norm VJPs, 2 weight gradients and 2 forward convolutions
-    # each; a fused block would add its recompute's), path B's 2 conv_dw a
-    # block and no block kernel.
+    # each, as many as a fused block's), path B's 2 conv_dw a block and no
+    # block kernel.
     want = (24, 24, 24, 24) if path == "chunked" else (0, 0, 24, 0)
     assert _delta(before, "cg_chunked_in_fwd", "cg_chunked_in_vjp", "cg_conv_dw",
                   "cg_conv3x3_reflect") == want
