@@ -34,9 +34,11 @@ CLI with tiled and TTA testing), and prints one JSON line per phase:
    against its plain version at the train step's shapes, with its time, the
    plain version's, one library call's and the bound, per call and summed
    over one train step; two calls of each weight gradient and of each
-   instance-norm kernel are bitwise equal; the fused block's VJP is held
-   against the plain VJP on the kernel path's relu mask, and the mask's
-   flips on their own (RELU_FLIP_SHARE); the chunked block's normalisation
+   instance-norm kernel are bitwise equal; both residual blocks are held
+   alike: the kernel forward's y and residuals against the plain
+   forward's, the VJP through the Function against the plain VJP from the
+   kernel forward's own residuals, a second backward bitwise equal to the
+   first; the chunked block's normalisation
    kernels alone (forward pair, VJP pair) with their device us a call
    beside the byte bound, a second call and a sample run alone bitwise
    equal to the first and to its place in the batch;
@@ -207,12 +209,9 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+from portbench.work.peaks import HBM_BPS, PEAK_FLOPS
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s,
-# bf16 tensor-core and float32 non-tensor flop/s.
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 8
 CROP = 256
@@ -250,9 +249,9 @@ TOL = {
     # measured 2^-5 against the fused block's bar of 2^-6 + 2^-6 |y|.
     ("residual_block_chunked", "float32"): (1e-4, 1e-4),
     ("residual_block_chunked", "bfloat16"): (2 ** -4, 2 ** -6),
-    # Its float32 statistics [mu1, r1, mu2, r2] in either type.
-    ("residual_block_chunked_stats", "float32"): (1e-4, 1e-4),
-    ("residual_block_chunked_stats", "bfloat16"): (1e-4, 1e-4),
+    # Either block's float32 statistics [mu1, r1, mu2, r2] in either type.
+    ("residual_block_stats", "float32"): (1e-4, 1e-4),
+    ("residual_block_stats", "bfloat16"): (1e-4, 1e-4),
     # The forward convolution alone, bf16 operands: the products are exact
     # in float32, and the 2,304-term float32 sums run in another order (the
     # tensor cores' accumulation truncates); the card test's bar.
@@ -310,16 +309,6 @@ BWD_TOL = {
     ("conv3x3_reflect_dgrad", "bfloat16"): (1e-5, 1e-4),
     ("conv3x3_reflect_wgrad", "bfloat16"): (1e-5, 1e-4),
 }
-# The bf16 and float32 block VJPs are held against the plain VJP evaluated
-# on the kernel path's relu mask (relu_mask), at the bars above. The
-# elements where the two paths' masks differ are held on their own: each
-# within the forward convolution's rounding of zero (the threshold
-# resblock.relu_mask_flips derives from the convolution's bar and rstd),
-# and together at most this share of the plane. float32 reorderings of
-# 2,304-term sums differ by ~1e-6 relative, so an honest kernel flips ~1e-6
-# of a plane (an H100 showed 0 to 3 elements of a 1M- or 2M-element plane
-# in the seeded cases); a mask that is wrong by design flips far more.
-RELU_FLIP_SHARE = 1e-4
 # The chunked route's rows a chunk (the JAX package's default).
 HC = 8
 # Per-step losses, kernel path vs plain path from the same weights, batch
@@ -800,25 +789,6 @@ def compare_bwd(kernel: str, out, ref, dtype: str) -> dict:
             "ok": bool(worst <= 1.0 and torch.isfinite(out).all())}
 
 
-def block_vjp_check(x, dy, w1, b1, w2, b2, grads, dname: str) -> tuple[dict, dict]:
-    """The fused residual block's VJP on the card (``grads``: its dx, dw1,
-    dw2) against the plain VJP on the kernel path's relu mask (``a > 0`` of
-    ``bwd_dx_cuda``'s recompute, bitwise the a the Function kept) at
-    BWD_TOL; and the mask's flips against the plain version's own, at
-    RELU_FLIP_SHARE."""
-    from cyclegan_tpu_torch.kernels import resblock as RB
-
-    mask = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)[1] > 0
-    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
-    checks = {n: compare_bwd("residual_block_bwd", o, r, dname)
-              for n, o, r in zip(("dx", "dw1", "dw2"), grads, ref)}
-    flips, worst = RB.relu_mask_flips(x, w1, b1, mask,
-                                      conv_tol=TOL[("conv3x3_reflect", "bfloat16")])
-    return checks, {"relu_mask_flips": flips, "flip_share": flips / mask.numel(),
-                    "flip_share_max": RELU_FLIP_SHARE, "flip_worst_over_threshold": worst,
-                    "ok": worst <= 1.0 and flips <= RELU_FLIP_SHARE * mask.numel()}
-
-
 def train_in_cases() -> list:
     """(shape, act, calls per train step) of the standalone instance norm,
     by reading train/cyclegan.py: per generator apply two norms at 256^2x64,
@@ -966,12 +936,15 @@ def in_case(shape, act: str, calls: int, randn, fail_if, phase: str = "kernels_t
 
 def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_train") -> list:
     """TPU kernels #3-#5 (the fused residual block) at one NHWC trunk
-    ``shape``: the block's VJP through the Function against the plain VJP on
-    the kernel path's relu mask (block_vjp_check), bias gradients exactly
-    zero; then, where the path makes ``calls`` of it a step, the forward,
-    dx and dw each against its plain version, timed beside the plain
-    version, one library graph (reflect pad + cuDNN + F.instance_norm) and
-    the bound. Returns the three records (none when ``calls`` is 0)."""
+    ``shape``, held as the chunked block is: the kernel forward's y and
+    residuals (u, a, s and the four statistics) against the plain
+    forward's; the VJP through the Function against the plain VJP from the
+    kernel forward's own residuals (one relu mask on both sides), bias
+    gradients exactly zero, a second backward from those residuals bitwise
+    the first. Then, where the path makes ``calls`` of it a step, the
+    forward, dx and dw each timed beside its plain version, one library
+    graph (reflect pad + cuDNN + F.instance_norm) and the bound. Returns the
+    three records (none when ``calls`` is 0)."""
     import torch
     import torch.nn.functional as F
 
@@ -983,29 +956,39 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
     x, dy = randn(shape, dtype), randn(shape, dtype)
     w1, w2 = randn((3, 3, c, c), dtype, 0.02), randn((3, 3, c, c), dtype, 0.02)
     b1, b2 = randn((c,), dtype, 0.01), randn((c,), dtype, 0.01)
+    # #3: y and the residuals against the plain forward.
+    y, r = RB.forward_residuals_cuda(x, w1, b1, w2, b2, 1e-5)
+    ry, rr = RB.residual_block_fwd_plain(x, w1, b1, w2, b2)
+    fwd = {n: compare("residual_block_fused", o, p, dname)
+           for n, o, p in zip(("y", "u", "a", "s"), (y, r.u, r.a, r.s), (ry, rr.u, rr.a, rr.s))}
+    fwd["stats"] = compare("residual_block_stats", torch.stack(r[3:]), torch.stack(rr[3:]),
+                           dname)
+    # #4 and #5 through the Function (its own saved residuals), against the
+    # plain VJP from the kernel forward's residuals; a second backward from
+    # those residuals bitwise equal.
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
-    y = RB.residual_block_fused(*leaves)
-    got = torch.autograd.grad(y, leaves, dy)
-    checks, flip = block_vjp_check(x, dy, w1, b1, w2, b2, (got[0], got[1], got[3]), dname)
+    y_fn = RB.residual_block_fused(*leaves)
+    got = torch.autograd.grad(y_fn, leaves, dy)
+    ref = RB.residual_block_bwd_saved_plain(x, dy, w1, w2, r)
+    dxk, a, ds, du, g_parts = RB.bwd_dx_saved_cuda(x, dy, w1, w2, r)
+    again = (dxk, *RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts))
+    torch.cuda.synchronize()
+    checks = {n: compare_bwd("residual_block_bwd", o, p, dname)
+              for n, o, p in zip(("dx", "dw1", "dw2"), (got[0], got[1], got[3]), ref)}
     bias_zero = all(torch.count_nonzero(got[i]) == 0 for i in (2, 4))
-    dw_check = {"max_abs_err": max(checks["dw1"]["max_abs_err"], checks["dw2"]["max_abs_err"]),
-                "worst_err_over_tol": max(checks["dw1"]["worst_err_over_tol"],
-                                          checks["dw2"]["worst_err_over_tol"]),
-                "ok": checks["dw1"]["ok"] and checks["dw2"]["ok"]}
-    ok = all(v["ok"] for v in checks.values()) and flip["ok"] and bias_zero and \
-        y.grad_fn is not None
-    fail_if(not ok, "residual_block_fused VJP",
-            {"phase": phase, "kernel": "residual_block_bwd", "via":
-             "autograd.Function", "shape": list(shape), "dtype": dname,
-             "bias_grads_exactly_zero": bias_zero, "reference": "plain VJP on the "
-             "kernel path's relu mask", **{f"mask_{k}": v for k, v in flip.items()},
-             **{f"{n}_{k}": r[k] for n, r in checks.items()
+    bitwise = all(torch.equal(a_, g_) for a_, g_ in zip(again, (got[0], got[1], got[3])))
+    dw_check = _max_check({n: checks[n] for n in ("dw1", "dw2")})
+    both = _max_check({**fwd, **checks})
+    fail_if(not (both["ok"] and bias_zero and bitwise and y_fn.grad_fn is not None),
+            "residual_block_fused forward and VJP",
+            {"phase": phase, "kernel": "residual_block_fused", "via": "autograd.Function",
+             "shape": list(shape), "dtype": dname, **both,
+             "bias_grads_exactly_zero": bias_zero, "second_call_bitwise_equal": bitwise,
+             "reference": "plain forward; plain VJP from the kernel forward's residuals",
+             **{f"{n}_{k}": r_[k] for n, r_ in {**fwd, **checks}.items()
                 for k in ("max_abs_err", "worst_err_over_tol")}})
     if not calls:
         return out
-    res_f = compare("residual_block_fused", RB.residual_block_fused(x, w1, b1, w2, b2),
-                    RB.residual_block_plain(x, w1, b1, w2, b2), dname)
-    dxk, a, ds, du, g_parts = RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5)
     # Library yardstick: reflect pad + cuDNN conv + F.instance_norm, NCHW
     # over channels_last, autograd for dx alone and for (dw1, dw2) alone.
     xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
@@ -1027,12 +1010,8 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
         t_fwd = {"ms": time_ms(lambda: RB.residual_block_fused(x, w1, b1, w2, b2), 10),
                  "plain_ms": time_ms(lambda: RB.residual_block_plain(x, w1, b1, w2, b2), 5),
                  "library_ms": time_ms(lambda: lib_rb(xl.detach()), 10)}
-    # "ms" times the recompute route (the bound's work counts its two
-    # convolutions); "saved_ms" the Function's, from the kept residuals.
-    res = RB.forward_residuals_cuda(x, w1, b1, w2, b2, 1e-5, out=False)[1]
-    t_dx = {"ms": time_ms(lambda: RB.bwd_dx_cuda(x, dy, w1, b1, w2, b2, 1e-5), 10),
-            "saved_ms": time_ms(lambda: RB.bwd_dx_saved_cuda(x, dy, w1, w2, res), 10),
-            "plain_ms": time_ms(lambda: RB.bwd_dx_plain(x, dy, w1, b1, w2, b2), 3),
+    t_dx = {"ms": time_ms(lambda: RB.bwd_dx_saved_cuda(x, dy, w1, w2, r), 10),
+            "plain_ms": time_ms(lambda: RB.bwd_dx_saved_plain(x, dy, w1, w2, r), 3),
             "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
                                                               retain_graph=True), 10)}
     t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts), 10),
@@ -1040,17 +1019,17 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
             "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
                                                               retain_graph=True), 10)}
     f32_b = ds.numel() * 4
-    # Work at the rate of the products the kernels issue: the bf16
-    # recompute convolutions, and the gradient convolutions' passes over
-    # the bf16 parts (old_work: the same gradients at the float32 rate,
-    # the bound of their float32 FFMA predecessors).
+    # Work at the rate of the products the kernels issue: the gradient
+    # convolutions' passes over the bf16 parts (old_work: the same gradients
+    # at the float32 rate, the bound of their float32 FFMA predecessors).
     passes = grad_passes(dtype, torch.float32)
     for name, res, t, nb, work, old_work in (
-            ("residual_block_fused", res_f, t_fwd, 2 * act_b + w_b,
+            ("residual_block_fused", _max_check(fwd), t_fwd, 2 * act_b + w_b,
              {"bfloat16": 2 * conv}, None),
-            ("residual_block_bwd_dx", checks["dx"], t_dx, 3 * act_b + w_b,
-             {"bfloat16": 2 * conv + passes * 2 * conv},
-             {"bfloat16": 2 * conv, "float32": 2 * conv}),
+            # reads dy, u, s, w1 and w2; writes ds, du and dx.
+            ("residual_block_bwd_dx", checks["dx"], t_dx,
+             2 * act_b + 4 * f32_b + 2 * w1.numel() * elt, {"bfloat16": passes * 2 * conv},
+             {"float32": 2 * conv}),
             ("residual_block_bwd_dw", dw_check, t_dw,
              2 * act_b + 2 * f32_b + 2 * w1.numel() * elt, {"bfloat16": passes * 2 * conv},
              {"float32": 2 * conv})):
@@ -1062,7 +1041,7 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
             rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
         fail_if(not res["ok"], name, rec)
         out.append(rec)
-    del x, dy, leaves, y, got, dxk, a, ds, du, g_parts, xl, yl, res
+    del x, dy, leaves, y, y_fn, got, dxk, a, ds, du, g_parts, again, xl, yl, r
     return out
 
 
@@ -1191,7 +1170,7 @@ def kernels_train_chunked_dw(randn, fail_if, cases=None, phase: str = "kernels_t
         torch.cuda.synchronize()
         fwd = {n: compare("residual_block_chunked", o, r, dname)
                for n, o, r in zip(("y", "vhat", "s"), (y, vhat, s), ref)}
-        fwd["stats"] = compare("residual_block_chunked_stats", stats, ref[3], dname)
+        fwd["stats"] = compare("residual_block_stats", stats, ref[3], dname)
         # #7 through the Function (its own saved residuals), against the plain
         # VJP from the same residuals; exactly zero bias gradients; a second
         # backward bitwise equal.
@@ -4698,7 +4677,6 @@ def kernels_line(recs: dict, runs: dict, sup_recs: dict | None = None,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["calls_per_step"])["bound_by"],
             "library_ms": total("library_ms"),
-            **({"saved_ms": total("saved_ms")} if "saved_ms" in rs[0] else {}),
             "per": f"one train step ({TRAIN_PRESET}, {CROP}x{CROP}, batch 1, bf16): "
                    f"{sum(r['calls_per_step'] for r in rs)} calls",
             "launches_over": f"{TRAIN_STEPS} train steps, path {path}", "on_paths": on_paths})

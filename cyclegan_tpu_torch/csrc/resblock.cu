@@ -10,7 +10,7 @@
 //   conv3x3_reflect(x, w1, b1) -> u (f32) -> IN apply + relu -> a (x's type)
 //   conv3x3_reflect(a, w2, b2) -> s (f32) -> IN apply + skip x -> y
 // The same convolution is the forward of the chunked block (#6,
-// kernels/resblock_chunked.py) and the recompute of #4's backward below.
+// kernels/resblock_chunked.py).
 //
 // What bounds it on the H100: operations. One 256-channel 64x64 plane costs
 // 2 * 4096 * 256 * 2304 = 4.8 GFLOP per convolution against ~2 MB of bf16
@@ -62,8 +62,9 @@
 //
 // The backward replaces the two VJP Pallas kernels behind
 // residual_block_fused: _bwd_dx_kernel (dx) and _bwd_dw_kernel (dw1, dw2).
-// kernels/resblock.py recomputes the forward with the kernels above and
-// chains the instance-norm VJP of instance_norm.cu with two gradient
+// kernels/resblock.py starts from the residuals the forward kept (u, a, s
+// and the norms' statistics; the Pallas kernels recompute them) and chains
+// the instance-norm VJP of instance_norm.cu with two gradient
 // convolutions, as _rb_bwd does:
 //   cg_conv3x3_reflect_dgrad (here): the input gradient of
 //     conv3x3(rpad1(.), w) for a float32 output gradient g, with the

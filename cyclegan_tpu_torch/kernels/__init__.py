@@ -11,7 +11,7 @@ from cyclegan_tpu_torch.kernels.instance_norm import (  # noqa: F401
     instance_norm_act, instance_norm_act_bwd_plain, instance_norm_act_plain,
     instance_norm_act_reference)
 from cyclegan_tpu_torch.kernels.resblock import (  # noqa: F401
-    residual_block_bwd_plain, residual_block_fused, residual_block_plain,
+    residual_block_bwd_saved_plain, residual_block_fused, residual_block_plain,
     residual_block_reference)
 from cyclegan_tpu_torch.kernels.resblock_chunked import (  # noqa: F401
     residual_block_chunked, residual_block_chunked_bwd_plain, residual_block_chunked_fwd,

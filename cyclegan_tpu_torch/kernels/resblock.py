@@ -22,9 +22,10 @@ weights to float32 for the input gradient). ``dw`` is summed over the batch
 and cast to the weights' type; the bias gradients are exactly zero (a
 per-channel constant before an instance norm cancels). Under the trunk's
 ``remat`` the checkpoint drops the residuals and reruns the forward, which
-keeps them again: a block is recomputed once. The recompute route stays as
-functions (:func:`bwd_dx_cuda`, :func:`bwd_dx_plain`), the yardstick the
-on-card checks hold the saved route to.
+keeps them again: a block is recomputed once. The plain VJP
+(:func:`residual_block_bwd_saved_plain`) starts from residuals too: the
+on-card checks feed it the kernel forward's own, so both sides take one
+relu mask.
 
 :func:`residual_block_fused` is a ``torch.autograd.Function``. On a CUDA
 tensor it launches the hand-written kernels of ``csrc/resblock.cu`` (the
@@ -132,56 +133,14 @@ def conv3x3_reflect_wgrad_plain(inp: torch.Tensor, g: torch.Tensor) -> torch.Ten
     return torch.stack(rows)
 
 
-def bwd_dx_plain(x, dy, w1, b1, w2, b2, eps=1e-5, relu_mask=None):
-    """Plain version of :func:`bwd_dx_cuda`: the recompute, then ds, du and
-    dx = dy + dgrad(du, w1) in x's type. Returns ``(dx, a, ds, du)``.
-
-    ``relu_mask`` (bool, x's shape), if given, replaces the mask of relu
-    that the recompute's own u gives: du = IN_bwd(u, da * relu_mask; none).
-    The on-card checks pass the kernel path's mask (``a > 0`` of its
-    recompute), so that an element whose normalised u lies within the
-    convolutions' rounding of zero takes the same side in both; without it
-    the result is bitwise what the mask of this function's own u gives."""
-    u = _conv3x3_plain(x, w1, b1)
-    mean1, rstd1 = _in.instance_norm_stats_plain(u, eps)
-    a = _in.instance_norm_act_plain(u, None, eps, "relu", out_dtype=x.dtype)
-    s = _conv3x3_plain(a, w2, b2)
-    mean2, rstd2 = _in.instance_norm_stats_plain(s, eps)
-    ds = _in.instance_norm_act_bwd_plain(s, dy, mean2, rstd2, "none")
+def bwd_dx_saved_plain(x, dy, w1, w2, r: Residuals):
+    """Plain version of :func:`bwd_dx_saved_cuda`: ds, du and dx = dy +
+    dgrad(du, w1) in x's type from the residuals ``r``. Returns ``(dx, ds,
+    du)``."""
+    ds = _in.instance_norm_act_bwd_plain(r.s, dy, r.mean2, r.rstd2, "none")
     da = conv3x3_reflect_dgrad_plain(ds, w2)
-    if relu_mask is None:
-        du = _in.instance_norm_act_bwd_plain(u, da, mean1, rstd1, "relu")
-    else:
-        du = _in.instance_norm_act_bwd_plain(u, da * relu_mask, mean1, rstd1, "none")
-    dx = (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
-    return dx, a, ds, du
-
-
-def relu_mask_flips(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                    mask: torch.Tensor, eps: float = 1e-5,
-                    conv_tol: tuple[float, float] = (1e-4, 1e-4)) -> tuple[int, float]:
-    """Where ``mask`` (the kernel path's relu mask of the block's first
-    normalisation: ``a > 0`` of its recompute) differs from the plain
-    version's own: ``(flips, worst)``, the number of such elements and the
-    largest |uhat| / threshold among them (uhat the plain version's
-    normalised u; 0.0 without flips). The on-card checks hold the plain VJP
-    on ``mask`` (``relu_mask``) and these flips on their own.
-
-    The threshold of sample n, channel c: the kernel's u is within the
-    forward convolution's bar ``atol + rtol |u|`` of the plain u, and its
-    mean within that bar at the plane's largest |u|, so the two normalised
-    values differ by at most ``2 (atol + rtol max_hw |u|) rstd`` (rstd's own
-    rounding moves uhat by a relative ~1e-6, second order where |uhat| is
-    that small). Two values on other sides of zero are each within their
-    difference of zero, so every honest flip has |uhat| under it."""
-    u = _conv3x3_plain(x, w1, b1)
-    mean, rstd = _in.instance_norm_stats_plain(u, eps)
-    uhat = (u - mean[:, None, None]) * rstd[:, None, None]
-    atol, rtol = conv_tol
-    thr = 2 * (atol + rtol * u.abs().amax(dim=(1, 2), keepdim=True)) * rstd[:, None, None]
-    flipped = (uhat > 0) != mask
-    flips = int(flipped.sum())
-    return flips, float((uhat.abs() / thr)[flipped].max()) if flips else 0.0
+    du = _in.instance_norm_act_bwd_plain(r.u, da, r.mean1, r.rstd1, "relu")
+    return (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype), ds, du
 
 
 def bwd_dw_plain(x, a, ds, du):
@@ -189,27 +148,12 @@ def bwd_dw_plain(x, a, ds, du):
     return conv3x3_reflect_wgrad_plain(x, du), conv3x3_reflect_wgrad_plain(a, ds)
 
 
-def residual_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
-                             b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                             eps: float = 1e-5, relu_mask: torch.Tensor | None = None
-                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch VJP: ``(dx (x's type), dw1, dw2 (float32))``, the
-    recompute and the chain of the module docstring, step by step;
-    ``relu_mask`` as in :func:`bwd_dx_plain`."""
-    dx, a, ds, du = bwd_dx_plain(x, dy, w1, b1, w2, b2, eps, relu_mask)
-    return (dx, *bwd_dw_plain(x, a, ds, du))
-
-
 def residual_block_bwd_saved_plain(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                                    w2: torch.Tensor, r: Residuals
                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch VJP from the forward's residuals ``r``: ``(dx (x's
-    type), dw1, dw2 (float32))``, the chain of the module docstring with no
-    recompute; bitwise :func:`residual_block_bwd_plain` on the same inputs."""
-    ds = _in.instance_norm_act_bwd_plain(r.s, dy, r.mean2, r.rstd2, "none")
-    da = conv3x3_reflect_dgrad_plain(ds, w2)
-    du = _in.instance_norm_act_bwd_plain(r.u, da, r.mean1, r.rstd1, "relu")
-    dx = (dy.float() + conv3x3_reflect_dgrad_plain(du, w1)).to(x.dtype)
+    type), dw1, dw2 (float32))``, the chain of the module docstring."""
+    dx, ds, du = bwd_dx_saved_plain(x, dy, w1, w2, r)
     return (dx, *bwd_dw_plain(x, r.a, ds, du))
 
 
@@ -442,11 +386,10 @@ def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
                            out_dtype)
 
 
-def forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep=True, out=True):
+def forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep=True):
     """TPU kernel #3 (``_forward_pallas``) on the card, at a width the
     convolutions take: two convolutions, each followed by its norm.
-    Returns ``(y, Residuals)``: y with ``out`` (else None, the second norm
-    makes its statistics only), the residuals with ``keep`` (else None, and
+    Returns ``(y, Residuals)``, the residuals with ``keep`` (else None, and
     s overwrites u, which is dead once a exists)."""
     u = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     conv3x3_reflect(x, w1, b1, u)
@@ -454,8 +397,8 @@ def forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep=True, out=True):
     mean1, rstd1 = _in.launch(u, None, a, eps, "relu")
     s = torch.empty_like(u) if keep else u
     conv3x3_reflect(a, w2, b2, s)
-    y = torch.empty_like(a) if out else None
-    mean2, rstd2 = _in.launch(s, x if out else None, y, eps, "none")
+    y = torch.empty_like(a)
+    mean2, rstd2 = _in.launch(s, x, y, eps, "none")
     return y, Residuals(u, a, s, mean1, rstd1, mean2, rstd2) if keep else None
 
 
@@ -496,15 +439,6 @@ def bwd_dx_saved_cuda(x, dy, w1, w2, r: Residuals):
     dx = torch.empty_like(r.a)
     conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
     return dx, r.a, ds, du, (ds_parts, du_parts)
-
-
-def bwd_dx_cuda(x, dy, w1, b1, w2, b2, eps):
-    """The recompute route of TPU kernel #4, the JAX design: u, a, s and
-    their statistics computed again (no y), then :func:`bwd_dx_saved_cuda`.
-    The block's Function runs the same chain from the residuals its forward
-    kept; the on-card checks hold the two bitwise equal."""
-    r = forward_residuals_cuda(x, w1, b1, w2, b2, eps, out=False)[1]
-    return bwd_dx_saved_cuda(x, dy, w1, w2, r)
 
 
 def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):

@@ -108,10 +108,14 @@ def _rb_params(c, seed):
             0.05 * _x((3, 3, c, c), seed + 2), 0.01 * _x((c,), seed + 3))
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (1, 6, 5, 8)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (1, 6, 5, 8), (1, 2, 6, 8), (1, 6, 2, 8),
+                                   (1, 4, 10, 32)])
 def test_residual_block_vjp_matches_pallas(shape):
     """dx, dw1, dw2 against jax.grad of the Pallas kernel in interpret mode
-    (its backward runs _bwd_dx_kernel and _bwd_dw_kernel); bias grads 0."""
+    (its backward runs _bwd_dx_kernel, which recomputes u, a and s, and
+    _bwd_dw_kernel); bias grads 0. Planes of 2 rows and of 2 columns (the
+    reflect pad's edge: its fold lands on the plane's other row or column)
+    and a non-square plane of 32 channels, the kernels' channel multiple."""
     x = _x(shape, 10)
     w1, b1, w2, b2 = _rb_params(shape[-1], 11)
     dy = _x(shape, 15)
@@ -136,7 +140,8 @@ def test_residual_block_bwd_plain_bf16_types():
     x = torch.from_numpy(_x((1, 6, 6, 8), 20)).to(torch.bfloat16)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(torch.bfloat16) for a in _rb_params(8, 21)]
     dy = torch.from_numpy(_x((1, 6, 6, 8), 22)).to(torch.bfloat16)
-    dx, dw1, dw2 = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+    r = RB.residual_block_fwd_plain(x, w1, b1, w2, b2)[1]
+    dx, dw1, dw2 = RB.residual_block_bwd_saved_plain(x, dy, w1, w2, r)
     assert dx.dtype == torch.bfloat16 and dw1.dtype == dw2.dtype == torch.float32
     tw = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
     got = torch.autograd.grad(RB.residual_block_fused(*tw), tw, dy)

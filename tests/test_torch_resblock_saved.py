@@ -3,8 +3,10 @@
 On the CPU ``residual_block_fused`` runs its plain forward and VJP through
 the same ``autograd.Function`` as on the card. When a gradient is wanted,
 the forward keeps u, a, s and both norms' statistics, and the backward
-starts at ``ds``: it runs no forward convolution and is bitwise the
-recompute VJP (``residual_block_bwd_plain``, the JAX design). A forward
+starts at ``ds``: it runs no forward convolution and is bitwise the plain
+VJP (``residual_block_bwd_saved_plain``) of the plain forward's residuals.
+The JAX design recomputes them instead (``tests/test_torch_kernels_bwd.py``
+holds the Function against it). A forward
 without a gradient keeps nothing. Under the trunk's ``remat`` the
 checkpoint reruns each block's forward once in the backward, and the
 block's own backward recomputes nothing more. The kernels' route runs on
@@ -38,7 +40,8 @@ def _no_forward_conv(*_a, **_k):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 16, 16, 48)])
-def test_backward_from_saved_residuals_is_the_recompute_vjp(shape, dtype, monkeypatch):
+def test_backward_from_saved_residuals_is_the_plain_vjp_of_the_plain_forward(
+        shape, dtype, monkeypatch):
     x, w1, b1, w2, b2, dy = _block(shape, dtype)
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
     y = RB.residual_block_fused(*leaves)
@@ -46,7 +49,8 @@ def test_backward_from_saved_residuals_is_the_recompute_vjp(shape, dtype, monkey
     monkeypatch.setattr(RB, "_conv3x3_plain", _no_forward_conv)
     got = torch.autograd.grad(y, leaves, dy)
     monkeypatch.undo()
-    dx, dw1, dw2 = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+    r = RB.residual_block_fwd_plain(x, w1, b1, w2, b2)[1]
+    dx, dw1, dw2 = RB.residual_block_bwd_saved_plain(x, dy, w1, w2, r)
     assert got[0].dtype == dtype and torch.equal(got[0], dx)
     assert torch.equal(got[1], dw1.to(dtype)) and torch.equal(got[3], dw2.to(dtype))
     assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[4]) == 0

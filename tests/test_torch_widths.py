@@ -1,5 +1,4 @@
-"""Trunk widths that are no multiple of the convolution tiles, and the relu
-mask of the residual block's plain VJP.
+"""Trunk widths that are no multiple of the convolution tiles.
 
 On the card the fused and chunked residual blocks zero-fill a trunk of C
 channels up to ``resblock.padded_channels(C)`` and cut their results back
@@ -9,10 +8,6 @@ plain blocks at the true width (forward and VJP, within 1e-6 of each
 result's largest magnitude), and a
 generator whose trunk is 48 channels wide (ngf 12) matches the JAX one.
 ``tests/test_torch_cuda.py`` runs the kernels at C = 48 on the card.
-
-The plain VJP's ``relu_mask`` lets the on-card checks evaluate it on the
-kernel path's mask: with its own mask it is bitwise unchanged, and one
-flipped element moves du only in that element's (sample, channel).
 """
 
 import jax
@@ -23,7 +18,6 @@ import torch
 
 from cyclegan_tpu.models.generators import ResnetGenerator as JaxResnetGenerator
 from cyclegan_tpu_torch import weights
-from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
 from cyclegan_tpu_torch.kernels import resblock_chunked as RC
 from cyclegan_tpu_torch.models.generators import ResnetGenerator
@@ -81,11 +75,15 @@ def test_zero_filled_fused_block_forward_equals_true_width(c):
 
 @pytest.mark.parametrize("c", [48, 40])
 def test_zero_filled_fused_block_vjp_equals_true_width(c):
+    """The plain VJP from the residuals of the plain forward at the
+    zero-filled width, as the card's wrapper keeps them."""
     x, w1, b1, w2, b2, dy = _block(c, 20)
     cp = RB.padded_channels(c)
     xp, w1p, b1p, w2p, b2p, dyp = _fill(cp, x, w1, b1, w2, b2, dy)
-    dx, dw1, dw2 = RB.residual_block_bwd_plain(xp, dyp, w1p, b1p, w2p, b2p)
-    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
+    rp = RB.residual_block_fwd_plain(xp, w1p, b1p, w2p, b2p)[1]
+    dx, dw1, dw2 = RB.residual_block_bwd_saved_plain(xp, dyp, w1p, w2p, rp)
+    r = RB.residual_block_fwd_plain(x, w1, b1, w2, b2)[1]
+    ref = RB.residual_block_bwd_saved_plain(x, dy, w1, w2, r)
     assert not dx[..., c:].any()
     _close(dx[..., :c], ref[0])
     for got, want in zip((dw1, dw2), ref[1:]):
@@ -137,31 +135,3 @@ def test_generator_with_a_48_channel_trunk_matches_flax():
         got = tg(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
-
-def _own_mask(x, w1, b1):
-    u = RB._conv3x3_plain(x, w1, b1)
-    mean, rstd = IN.instance_norm_stats_plain(u)
-    return (u - mean[:, None, None]) * rstd[:, None, None] > 0
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plain_vjp_on_its_own_relu_mask_is_bitwise_unchanged(dtype):
-    x, w1, b1, w2, b2, dy = (t.to(dtype) for t in _block(32, 50))
-    mask = _own_mask(x, w1, b1)
-    got = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)
-    ref = RB.residual_block_bwd_plain(x, dy, w1, b1, w2, b2)
-    assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    _, a, _, _ = RB.bwd_dx_plain(x, dy, w1, b1, w2, b2)
-    assert torch.equal(a > 0, mask)  # the mask the on-card checks read
-
-
-def test_one_flipped_mask_element_moves_du_only_in_its_channel():
-    x, w1, b1, w2, b2, dy = _block(32, 60)
-    mask = _own_mask(x, w1, b1)
-    flipped = mask.clone()
-    n, i, j, c = 1, 3, 2, 7
-    flipped[n, i, j, c] = ~flipped[n, i, j, c]
-    du = RB.bwd_dx_plain(x, dy, w1, b1, w2, b2, relu_mask=mask)[3]
-    du_f = RB.bwd_dx_plain(x, dy, w1, b1, w2, b2, relu_mask=flipped)[3]
-    moved = (du != du_f).any(dim=(1, 2))
-    assert moved[n, c] and int(moved.sum()) == 1
