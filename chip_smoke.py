@@ -948,6 +948,7 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
     import torch
     import torch.nn.functional as F
 
+    from cyclegan_tpu_torch.kernels import _build
     from cyclegan_tpu_torch.kernels import resblock as RB
 
     out = []
@@ -968,10 +969,20 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
     # those residuals bitwise equal.
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
     y_fn = RB.residual_block_fused(*leaves)
+    launches, forms = _build.launches.copy(), _build.forms.copy()
     got = torch.autograd.grad(y_fn, leaves, dy)
+    # The backward's operands in the tensor cores' form: ds and du written
+    # as bf16 parts by the norm VJPs, x and a read through reflect indexing;
+    # no split but a float32 block's w1, w2, x and a.
+    staging = {"bf16_parts_launches": _build.launches["cg_bf16_parts"]
+               - launches["cg_bf16_parts"],
+               "operand_forms": {"/".join(k): v for k, v in (_build.forms - forms).items()}}
+    staged_ok = staging == {
+        "bf16_parts_launches": 0 if dtype == torch.bfloat16 else 4,
+        "operand_forms": {"in_bwd/parts": 2, "wgrad/reflect": 2}}
     ref = RB.residual_block_bwd_saved_plain(x, dy, w1, w2, r)
-    dxk, a, ds, du, g_parts = RB.bwd_dx_saved_cuda(x, dy, w1, w2, r)
-    again = (dxk, *RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts))
+    dxk, ds, du = RB.bwd_dx_saved_cuda(x, dy, w1, w2, r)
+    again = (dxk, *RB.bwd_dw_cuda(x, r.a, ds, du, dtype))
     torch.cuda.synchronize()
     checks = {n: compare_bwd("residual_block_bwd", o, p, dname)
               for n, o, p in zip(("dx", "dw1", "dw2"), (got[0], got[1], got[3]), ref)}
@@ -979,10 +990,11 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
     bitwise = all(torch.equal(a_, g_) for a_, g_ in zip(again, (got[0], got[1], got[3])))
     dw_check = _max_check({n: checks[n] for n in ("dw1", "dw2")})
     both = _max_check({**fwd, **checks})
-    fail_if(not (both["ok"] and bias_zero and bitwise and y_fn.grad_fn is not None),
+    fail_if(not (both["ok"] and bias_zero and bitwise and staged_ok
+                 and y_fn.grad_fn is not None),
             "residual_block_fused forward and VJP",
             {"phase": phase, "kernel": "residual_block_fused", "via": "autograd.Function",
-             "shape": list(shape), "dtype": dname, **both,
+             "shape": list(shape), "dtype": dname, **both, **staging,
              "bias_grads_exactly_zero": bias_zero, "second_call_bitwise_equal": bitwise,
              "reference": "plain forward; plain VJP from the kernel forward's residuals",
              **{f"{n}_{k}": r_[k] for n, r_ in {**fwd, **checks}.items()
@@ -1014,11 +1026,14 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
             "plain_ms": time_ms(lambda: RB.bwd_dx_saved_plain(x, dy, w1, w2, r), 3),
             "library_ms": time_ms(lambda: torch.autograd.grad(yl, xl, dyl,
                                                               retain_graph=True), 10)}
-    t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, a, ds, du, dtype, g_parts), 10),
-            "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, a, ds, du), 3),
+    # ds and du are the bf16 parts the norm VJPs wrote; the plain version
+    # takes their float32 sums.
+    ds32, du32 = (t.float().sum(0) for t in (ds, du))
+    t_dw = {"ms": time_ms(lambda: RB.bwd_dw_cuda(x, r.a, ds, du, dtype), 10),
+            "plain_ms": time_ms(lambda: RB.bwd_dw_plain(x, r.a, ds32, du32), 3),
             "library_ms": time_ms(lambda: torch.autograd.grad(yl, [W1, W2], dyl,
                                                               retain_graph=True), 10)}
-    f32_b = ds.numel() * 4
+    f32_b = x.numel() * 4  # a float32 cotangent, or its two bf16 parts
     # Work at the rate of the products the kernels issue: the gradient
     # convolutions' passes over the bf16 parts (old_work: the same gradients
     # at the float32 rate, the bound of their float32 FFMA predecessors).
@@ -1041,7 +1056,7 @@ def rb_case(dtype, shape, calls: int, randn, fail_if, phase: str = "kernels_trai
             rec.update(bf16_passes=passes, bound_ms_f32_rate=bound(nb, old_work)[0])
         fail_if(not res["ok"], name, rec)
         out.append(rec)
-    del x, dy, leaves, y, y_fn, got, dxk, a, ds, du, g_parts, again, xl, yl, r
+    del x, dy, leaves, y, y_fn, got, dxk, ds, du, ds32, du32, again, xl, yl, r
     return out
 
 
@@ -1294,9 +1309,10 @@ def kernels_grad_convs(randn, fail_if) -> list:
         xp = xp.permute(0, 2, 3, 1).contiguous()
         gl, dyl = g.to(torch.bfloat16).permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
         da, da_again = torch.empty(shape, device="cuda"), torch.empty(shape, device="cuda")
-        RB.conv3x3_reflect_dgrad(g, w, da)
-        RB.conv3x3_reflect_dgrad(g, w, da_again)
-        dw, dw_again = RB.conv3x3_reflect_wgrad(x, g), RB.conv3x3_reflect_wgrad(x, g)
+        gp = CD.bf16_parts(g, 2)  # as the norm VJP writes a cotangent
+        RB.conv3x3_reflect_dgrad(gp, w, da)
+        RB.conv3x3_reflect_dgrad(gp, w, da_again)
+        dw, dw_again = RB.conv3x3_reflect_wgrad(x, gp), RB.conv3x3_reflect_wgrad(x, gp)
         cd, cd_again = CD.conv_dw(xp, dy), CD.conv_dw(xp, dy)
         torch.cuda.synchronize()
         conv = 2.0 * b * shape[1] * shape[2] * 9 * c * c
@@ -1305,13 +1321,13 @@ def kernels_grad_convs(randn, fail_if) -> list:
         cases = (
             ("conv3x3_reflect_dgrad", compare_bwd(
                 "conv3x3_reflect_dgrad", da, RB.conv3x3_reflect_dgrad_plain(g, w), "bfloat16"),
-             torch.equal(da, da_again), lambda: RB.conv3x3_reflect_dgrad(g, w, da),
+             torch.equal(da, da_again), lambda: RB.conv3x3_reflect_dgrad(gp, w, da),
              lambda: RB.conv3x3_reflect_dgrad_plain(g, w),
              lambda: torch.nn.grad.conv2d_input(xpl.shape, wl, gl),
              2 * g.numel() * 4 + w.numel() * 2, grad_passes(w.dtype, g.dtype)),
             ("conv3x3_reflect_wgrad", compare_bwd(
                 "conv3x3_reflect_wgrad", dw, RB.conv3x3_reflect_wgrad_plain(x, g), "bfloat16"),
-             torch.equal(dw, dw_again), lambda: RB.conv3x3_reflect_wgrad(x, g),
+             torch.equal(dw, dw_again), lambda: RB.conv3x3_reflect_wgrad(x, gp),
              lambda: RB.conv3x3_reflect_wgrad_plain(x, g),
              lambda: torch.nn.grad.conv2d_weight(xpl, (c, c, 3, 3), gl),
              act_b + g.numel() * 4 + w.numel() * 4, grad_passes(x.dtype, g.dtype)),
@@ -1335,7 +1351,7 @@ def kernels_grad_convs(randn, fail_if) -> list:
                 rec.update(plan=list(plan), blocks=RB.dgrad_blocks(plan, *shape[:3], c))
             fail_if(not (res["ok"] and bitwise), name, rec)
             recs.append(rec)
-        del x, w, g, dy, xp, xpl, da, da_again, dw, dw_again, cd, cd_again
+        del x, w, g, gp, dy, xp, xpl, da, da_again, dw, dw_again, cd, cd_again
     torch.cuda.empty_cache()
     return recs
 
@@ -1738,15 +1754,17 @@ def launches_per_step(in_calls: int, rb: int, rc: int, dw: int, re_in: int = 0,
     C entries: each block's forward (fused or chunked) makes 2 convolutions
     and 2 norms; its backward reads the saved residuals: 2 norm VJPs, 2
     input and 2 weight gradients, and no convolution. The weight
-    gradients are cg_conv_dw, as path B's conv_dw is. cg_bf16_parts: both
-    backwards split ds and du once each, for an input and a weight gradient,
-    and reflect-pad the input of each weight gradient (4); bf16 conv_dw on
-    channels that are multiples of 8 needs none."""
+    gradients are cg_conv_dw, as path B's conv_dw is. cg_bf16_parts, on
+    bf16 activations: the chunked backward splits ds and du once each, for
+    an input and a weight gradient (2); the fused backward's norm VJPs write
+    them as bf16 parts, and both read the weight gradients' input through
+    reflect indexing (0); bf16 conv_dw on channels that are multiples of 8
+    needs none."""
     return {"cg_instance_norm_act": in_calls + re_in + 2 * rb + 2 * re_rb + 2 * re_rc,
             "cg_instance_norm_act_bwd": in_calls + 2 * rb,
             "cg_conv3x3_reflect": 2 * rb + 2 * rc + 2 * re_rb + 2 * re_rc,
             "cg_conv3x3_reflect_dgrad": 2 * rb + 2 * rc,
-            "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 4 * rb + 4 * rc,
+            "cg_conv_dw": dw + 2 * rb + 2 * rc, "cg_bf16_parts": 2 * rc,
             "cg_chunked_in_fwd": 2 * rc + 2 * re_rc, "cg_chunked_in_vjp": 2 * rc}
 
 

@@ -10,8 +10,9 @@
 // (ops/functional.py::conv2d_valid_dw_fused); the port does the same for the
 // --use_dropout trunk. The same kernel is the weight half of the residual
 // blocks' VJPs (cyclegan_tpu/kernels/resblock.py::_bwd_dw_kernel and the
-// chunked _backward_chunked): kernels/resblock.py reflect-pads their input
-// once (cg_bf16_parts) and calls it with k = 3.
+// chunked _backward_chunked): kernels/resblock.py calls it with k = 3 on
+// their unpadded input, which it reads through reflect indexing (REFLECT),
+// and on the bf16 parts of the cotangent that the norm VJP wrote.
 //
 // The GEMM: dw[(tap, ci), co] = sum over pixels q of
 //   xp[pixel q shifted by tap, ci] * dy[q, co],
@@ -78,7 +79,11 @@ constexpr int smem_bytes(int na, int nb) {
 // co], m = (ky*k + kx)*Cin + ci. xp_a = xp + a * xp_part, dy_b = dy + b *
 // dy_part; the passes are the (a, b) with a + b < max(NA, NB). Needs
 // Cin % 8 == 0, Cout % 8 == 0 and 16-byte aligned planes.
-template <int NA, int NB>
+// REFLECT (k = 3): xp is the unpadded (N, H, W, Cin) input, and A reads
+// xp[n, reflect1(i + ky - 1, H), reflect1(j + kx - 1, W), ci], the value a
+// reflect-padded copy holds at (n, i + ky, j + kx): the same bytes reach
+// shared memory, and no padded copy is made (the residual blocks' dw).
+template <int NA, int NB, bool REFLECT>
 __global__ void __launch_bounds__(THREADS, 1)
 wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict__ dy,
             size_t dy_part, float* __restrict__ part, int N, int H, int W, int Cin, int Cout,
@@ -104,6 +109,7 @@ wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict_
   const int tap = a_col_ok ? am / Cin : 0;
   const size_t a_col_off =
       ((size_t)(tap / k) * Wp + tap % k) * Cin + (a_col_ok ? am - tap * Cin : 0);
+  const int a_ky = tap / k, a_kx = tap % k, a_ci = a_col_ok ? am - tap * Cin : 0;  // REFLECT
   const int b_c = tid & 31;
   const bool b_col_ok = n0 + b_c * 8 < Cout;
 
@@ -117,7 +123,12 @@ wgrad_wgmma(const bf16* __restrict__ xp, size_t xp_part, const bf16* __restrict_
       const int qq = ok ? q : 0;
       const int n = qq / HW, rem = qq - n * HW;
       const int pi = rem / W, pj = rem - pi * W;
-      const size_t off = (((size_t)n * Hp + pi) * Wp + pj) * Cin + a_col_off;
+      size_t off;
+      if constexpr (REFLECT)
+        off = (((size_t)n * H + cg_reflect1(pi + a_ky - 1, H)) * W +
+               cg_reflect1(pj + a_kx - 1, W)) * Cin + a_ci;
+      else
+        off = (((size_t)n * Hp + pi) * Wp + pj) * Cin + a_col_off;
 #pragma unroll
       for (int p = 0; p < NA; ++p)
         cp_async16(a_smem + (stage * NA + p) * A_TILE + cg_swz(row, a_c, BLOCK_BYTES),
@@ -247,18 +258,19 @@ bf16_parts(const T* __restrict__ src, bf16* __restrict__ dst, int N, int H, int 
   }
 }
 
-template <int NA, int NB>
+template <int NA, int NB, bool REFLECT>
 cudaError_t launch_wgrad(const bf16* xp, const bf16* dy, float* part, int N, int H, int W,
                          int Cin, int Cout, int k, int splits, int kchunk, cudaStream_t s) {
   constexpr int smem = smem_bytes(NA, NB);
   static bool sized[CG_MAX_DEVICES] = {};
-  const cudaError_t e = cg_smem_limit(wgrad_wgmma<NA, NB>, smem, sized);
+  const cudaError_t e = cg_smem_limit(wgrad_wgmma<NA, NB, REFLECT>, smem, sized);
   if (e != cudaSuccess) return e;
-  const size_t xp_part = (size_t)N * (H + k - 1) * (W + k - 1) * Cin;
+  const size_t xp_part =
+      REFLECT ? (size_t)N * H * W * Cin : (size_t)N * (H + k - 1) * (W + k - 1) * Cin;
   const size_t dy_part = (size_t)N * H * W * Cout;
   dim3 grid((k * k * Cin + BM - 1) / BM, (Cout + BN - 1) / BN, splits);
-  wgrad_wgmma<NA, NB><<<grid, THREADS, smem, s>>>(xp, xp_part, dy, dy_part, part, N, H, W,
-                                                  Cin, Cout, k, kchunk);
+  wgrad_wgmma<NA, NB, REFLECT><<<grid, THREADS, smem, s>>>(xp, xp_part, dy, dy_part, part, N,
+                                                           H, W, Cin, Cout, k, kchunk);
   return cudaGetLastError();
 }
 
@@ -292,29 +304,36 @@ extern "C" int cg_bf16_parts(const void* src, void* dst, int N, int H, int W, in
 
 // xp: (na, N, H+k-1, W+k-1, Cin) and dy: (nb, N, H, W, Cout), the bf16
 // parts of the padded input and of the output gradient ((na, nb) is (1, 1),
-// (1, 2) or (3, 3));
+// (1, 2) or (3, 3)); with reflect 1 (k = 3, H, W >= 2, (na, nb) (1, 2) or
+// (3, 3)) xp is the unpadded (na, N, H, W, Cin), read through reflect
+// padding of 1;
 // dw: (k, k, Cin, Cout) of out_dtype (0 f32, 1 bf16), summed over the batch.
 // part: (splits, k*k*Cin, Cout) float32 scratch; chunk s covers pixels
 // [s*kchunk, (s+1)*kchunk) of N*H*W. Needs Cin % 8 == 0, Cout % 8 == 0 and
 // 16-byte aligned xp and dy. Returns the CUDA error code (0 on success).
 extern "C" int cg_conv_dw(const void* xp, const void* dy, void* dw, void* part, int N, int H,
                           int W, int Cin, int Cout, int k, int splits, int kchunk, int na,
-                          int nb, int out_dtype, void* stream) {
+                          int nb, int reflect, int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const bf16*>(xp);
   auto g = static_cast<const bf16*>(dy);
   auto p = static_cast<float*>(part);
   if (N <= 0 || H <= 0 || W <= 0 || k <= 0 || Cin % 8 != 0 || Cout % 8 != 0 || Cin <= 0 ||
       Cout <= 0 || splits <= 0 || kchunk <= 0 ||
-      (long long)splits * kchunk < (long long)N * H * W)
+      (long long)splits * kchunk < (long long)N * H * W || reflect < 0 || reflect > 1 ||
+      (reflect && (k != 3 || H < 2 || W < 2)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if (na == 1 && nb == 1)
-    e = launch_wgrad<1, 1>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
-  else if (na == 1 && nb == 2)
-    e = launch_wgrad<1, 2>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
-  else if (na == 3 && nb == 3)
-    e = launch_wgrad<3, 3>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  if (!reflect && na == 1 && nb == 1)
+    e = launch_wgrad<1, 1, false>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (!reflect && na == 1 && nb == 2)
+    e = launch_wgrad<1, 2, false>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (!reflect && na == 3 && nb == 3)
+    e = launch_wgrad<3, 3, false>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (reflect && na == 1 && nb == 2)
+    e = launch_wgrad<1, 2, true>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
+  else if (reflect && na == 3 && nb == 3)
+    e = launch_wgrad<3, 3, true>(x, g, p, N, H, W, Cin, Cout, k, splits, kchunk, s);
   else
     return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

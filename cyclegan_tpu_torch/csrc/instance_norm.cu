@@ -56,6 +56,9 @@
 // Input and output types are separate template parameters: the residual
 // block normalises its float32 convolution output into the bf16 activation
 // type with this same code, and feeds the VJP bf16 or float32 cotangents.
+// The VJP of its float32 convolution outputs can write dx as the two or
+// three bf16 parts that its gradient convolutions multiply (store_parts):
+// the bytes of a float32 dx, written once, and no split pass after it.
 
 #include <cooperative_groups.h>
 
@@ -611,14 +614,37 @@ __device__ __forceinline__ void bwd_merge(const float* __restrict__ part, float*
   }
 }
 
+// dx's element type: x's (P = 0), or bf16 for the P bf16 parts of a
+// float32 dx.
+template <typename TX, int P>
+using DxT = std::conditional_t<P == 0, TX, bf16>;
+
+// The P bf16 parts of V float32 values into P planes `plane` elements
+// apart: part 0 = bf16(v), each next part the bf16 rounding of what the
+// parts before it left, the split of conv_dw.cu's bf16_parts (whose
+// tensor-core operands these are), value for value.
+template <int V, int P>
+__device__ __forceinline__ void store_parts(bf16* __restrict__ p, size_t plane, const float* v) {
+  float rest[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) rest[j] = v[j];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    store_vec<bf16, V>(p + k * plane, rest);  // rounds each to bf16
+#pragma unroll
+    for (int j = 0; j < V; ++j) rest[j] -= __bfloat162float(__float2bfloat16_rn(rest[j]));
+  }
+}
+
 // Phase 3 of the VJP for one tile; stage(tile) puts the group's two means
 // (of g and of g * xhat) into sh as fwd_apply's stage does mean and rstd.
-template <typename TX, typename TDY, int V, typename Stage>
+// dx is written in x's type (P = 0) or as its P bf16 parts.
+template <typename TX, typename TDY, int V, int P, typename Stage>
 __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* __restrict__ dy,
                                           const float* __restrict__ mean,
-                                          const float* __restrict__ rstd, TX* __restrict__ dx,
-                                          const Plan& p, int vt, int act, const float* sh,
-                                          Stage&& stage) {
+                                          const float* __restrict__ rstd,
+                                          DxT<TX, P>* __restrict__ dx, const Plan& p, int vt,
+                                          int act, const float* sh, Stage&& stage) {
   constexpr int K = chunk_rows<TX, TDY, V>();
   const Tile<V> tl(p, vt);
   const bool live = tl.c0 < p.C;
@@ -661,17 +687,20 @@ __device__ __forceinline__ void bwd_apply(const TX* __restrict__ x, const TDY* _
         const float g = gv[j] * act_grad(xh, act);
         d[j] = rs[j] * (g - gmu[j] - xh * gxm[j]);
       }
-      store_vec<TX, V>(dx + tl.offset(p, r), d);
+      if constexpr (P == 0)
+        store_vec<TX, V>(dx + tl.offset(p, r), d);
+      else
+        store_parts<V, P>(dx + tl.offset(p, r), (size_t)p.N * p.HW * p.C, d);
     }
     if (base + tl.row_lanes * K < tl.r1) load(base + tl.row_lanes * K);
   }
 }
 
-template <typename TX, typename TDY, int V>
+template <typename TX, typename TDY, int V, int P>
 __global__ void __launch_bounds__(kThreads, 2)
 in_bwd(const TX* __restrict__ x, const TDY* __restrict__ dy, const float* __restrict__ mean,
-       const float* __restrict__ rstd, TX* __restrict__ dx, float* __restrict__ part, Plan p,
-       int act) {
+       const float* __restrict__ rstd, DxT<TX, P>* __restrict__ dx, float* __restrict__ part,
+       Plan p, int act) {
   __shared__ float sh[2 * V * kThreads];
   const int tiles = p.N * p.groups * p.row_tiles;
   const int mine = block_tiles(tiles);
@@ -684,7 +713,8 @@ in_bwd(const TX* __restrict__ x, const TDY* __restrict__ dy, const float* __rest
   int staged = -1;
   auto stage = [&](const Tile<V>& tl) { stage_stats<V>(gm, p, tl, sh, staged); };
   for (int k = mine - 1; k >= 0; --k)
-    bwd_apply<TX, TDY, V>(x, dy, mean, rstd, dx, p, blockIdx.x + k * gridDim.x, act, sh, stage);
+    bwd_apply<TX, TDY, V, P>(x, dy, mean, rstd, dx, p, blockIdx.x + k * gridDim.x, act, sh,
+                             stage);
 }
 
 // ------------------------------------------------------ slabs (spatial axis)
@@ -803,7 +833,7 @@ in_bwd_slab_apply(const T* __restrict__ x, const T* __restrict__ dy,
     __syncthreads();
   };
   const int tiles = p.N * p.groups * p.row_tiles;
-  bwd_apply<T, T, V>(x, dy, mean, rstd, dx, p, tiles - 1 - (int)blockIdx.x, act, sh, stage);
+  bwd_apply<T, T, V, 0>(x, dy, mean, rstd, dx, p, tiles - 1 - (int)blockIdx.x, act, sh, stage);
 }
 
 // ------------------------------------------------------------------- host
@@ -876,29 +906,41 @@ cudaError_t fwd_vec(int vec, const void* x, const void* skip, void* y, float* st
   return cudaErrorInvalidValue;
 }
 
-template <typename TX, typename TDY, int V>
+template <typename TX, typename TDY, int V, int P>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* mean, const float* rstd,
                        void* dx, float* part, const Plan& p, int act, cudaStream_t stream) {
   static int cache[CG_MAX_DEVICES] = {};
-  auto kernel = in_bwd<TX, TDY, V>;
+  auto kernel = in_bwd<TX, TDY, V, P>;
   int max_blocks = 0;
   cudaError_t e = coresident(kernel, cache, &max_blocks);
   if (e != cudaSuccess) return e;
   auto xp = static_cast<const TX*>(x);
   auto dyp = static_cast<const TDY*>(dy);
-  auto dxp = static_cast<TX*>(dx);
+  auto dxp = static_cast<DxT<TX, P>*>(dx);
   Plan plan = p;
   void* args[] = {&xp, &dyp, &mean, &rstd, &dxp, &part, &plan, &act};
   return cudaLaunchCooperativeKernel((const void*)kernel, grid_of(p, max_blocks), kThreads,
                                      args, 0, stream);
 }
 
+// dx_parts 0: dx in x's type; 2 or 3: dx as that many bf16 parts, of a
+// float32 x read 16 bytes a thread only.
 template <typename TX, typename TDY>
-cudaError_t bwd_vec(int vec, const void* x, const void* dy, const float* mean, const float* rstd,
-                    void* dx, float* part, const Plan& p, int act, cudaStream_t s) {
+cudaError_t bwd_vec(int vec, int dx_parts, const void* x, const void* dy, const float* mean,
+                    const float* rstd, void* dx, float* part, const Plan& p, int act,
+                    cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(TX);
-  if (vec == kVec) return launch_bwd<TX, TDY, kVec>(x, dy, mean, rstd, dx, part, p, act, s);
-  if (vec == 1) return launch_bwd<TX, TDY, 1>(x, dy, mean, rstd, dx, part, p, act, s);
+  if (dx_parts != 0) {
+    if constexpr (std::is_same_v<TX, float>) {
+      if (vec == kVec && dx_parts == 2)
+        return launch_bwd<TX, TDY, kVec, 2>(x, dy, mean, rstd, dx, part, p, act, s);
+      if (vec == kVec && dx_parts == 3)
+        return launch_bwd<TX, TDY, kVec, 3>(x, dy, mean, rstd, dx, part, p, act, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (vec == kVec) return launch_bwd<TX, TDY, kVec, 0>(x, dy, mean, rstd, dx, part, p, act, s);
+  if (vec == 1) return launch_bwd<TX, TDY, 1, 0>(x, dy, mean, rstd, dx, part, p, act, s);
   return cudaErrorInvalidValue;
 }
 
@@ -999,13 +1041,16 @@ extern "C" int cg_instance_norm_act(const void* x, const void* skip, void* y, vo
 
 // The VJP. x: (N, HW, C) of x_dtype (the forward's input); dy: (N, HW, C)
 // of dy_dtype; mean, rstd: (N, C) float32 from the forward; dx: (N, HW, C)
-// of x_dtype; part: scratch of 2 * N * C * (ceil(HW / rows) + 1) float32.
+// of x_dtype with dx_parts 0, else (dx_parts, N, HW, C) bf16, the 2 or 3
+// bf16 parts of dx that the gradient convolutions multiply (float32 x and
+// vec 4 only); part: scratch of 2 * N * C * (ceil(HW / rows) + 1) float32.
 // The plan is in_plan's for x. act: 0 none, 1 relu, 2 leaky(0.2). One
 // cooperative launch; returns its CUDA error code (0 on success).
 extern "C" int cg_instance_norm_act_bwd(const void* x, const void* dy, const void* mean,
                                         const void* rstd, void* dx, void* part, int N, int HW,
                                         int C, int rows, int vec, int lanes, int tiles, int act,
-                                        int x_dtype, int dy_dtype, void* stream) {
+                                        int x_dtype, int dy_dtype, int dx_parts,
+                                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto mu = static_cast<const float*>(mean), rs = static_cast<const float*>(rstd);
   auto pt = static_cast<float*>(part);
@@ -1013,13 +1058,13 @@ extern "C" int cg_instance_norm_act_bwd(const void* x, const void* dy, const voi
   if (!plan_ok(N, HW, C, rows, vec, lanes, tiles, &p) || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   if (x_dtype == CG_F32 && dy_dtype == CG_F32)
-    return (int)bwd_vec<float, float>(vec, x, dy, mu, rs, dx, pt, p, act, s);
+    return (int)bwd_vec<float, float>(vec, dx_parts, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_F32 && dy_dtype == CG_BF16)
-    return (int)bwd_vec<float, bf16>(vec, x, dy, mu, rs, dx, pt, p, act, s);
+    return (int)bwd_vec<float, bf16>(vec, dx_parts, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_BF16 && dy_dtype == CG_BF16)
-    return (int)bwd_vec<bf16, bf16>(vec, x, dy, mu, rs, dx, pt, p, act, s);
+    return (int)bwd_vec<bf16, bf16>(vec, dx_parts, x, dy, mu, rs, dx, pt, p, act, s);
   if (x_dtype == CG_BF16 && dy_dtype == CG_F32)
-    return (int)bwd_vec<bf16, float>(vec, x, dy, mu, rs, dx, pt, p, act, s);
+    return (int)bwd_vec<bf16, float>(vec, dx_parts, x, dy, mu, rs, dx, pt, p, act, s);
   return (int)cudaErrorInvalidValue;
 }
 

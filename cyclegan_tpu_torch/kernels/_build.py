@@ -42,7 +42,7 @@ SIGNATURES = {
     "instance_norm": {
         "cg_instance_norm_act": [_VOIDP] * 5 + [_INT] * 7 + [_FLOAT] + [_INT] * 3
         + [_VOIDP],
-        "cg_instance_norm_act_bwd": [_VOIDP] * 6 + [_INT] * 10 + [_VOIDP],
+        "cg_instance_norm_act_bwd": [_VOIDP] * 6 + [_INT] * 11 + [_VOIDP],
         "cg_instance_norm_partials": [_VOIDP] * 2 + [_INT] * 2 + [_VOIDP] + [_INT] * 8
         + [_VOIDP],
         "cg_instance_norm_slab_apply": [_VOIDP] * 5 + [_INT] * 8 + [_FLOAT] + [_INT] * 2
@@ -62,7 +62,7 @@ SIGNATURES = {
     },
     "conv_dw": {
         "cg_bf16_parts": [_VOIDP] * 2 + [_INT] * 7 + [_VOIDP],
-        "cg_conv_dw": [_VOIDP] * 4 + [_INT] * 11 + [_VOIDP],
+        "cg_conv_dw": [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP],
     },
 }
 
@@ -70,6 +70,12 @@ SIGNATURES = {
 # may make several entry calls; a test reads the delta of the entries the
 # route it holds calls).
 launches: collections.Counter = collections.Counter()
+# Calls by the form of the operand that sets a kernel's route: the norm VJP
+# (``("in_bwd", form)``) by its dx, written as ``"float32"``,
+# ``"bfloat16"`` or the ``"parts"`` the gradient convolutions multiply; the
+# weight gradient (``("wgrad", form)``) by its input, ``"padded"`` or read
+# through ``"reflect"`` indexing.
+forms: collections.Counter = collections.Counter()
 
 
 class KernelBuildError(RuntimeError):

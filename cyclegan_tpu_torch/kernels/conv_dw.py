@@ -20,8 +20,10 @@ the parts with ``a + b < max(na, nb)`` are summed in float32
 (:func:`passes`). A float32 cotangent against bf16 values takes two parts,
 float32 against float32 three each, which keeps the products exact to
 float32 rounding (:func:`parts`). The residual blocks' weight gradients
-(``kernels.resblock.conv3x3_reflect_wgrad``) run the same kernel on their
-reflect-padded input through :func:`launch_wgrad`.
+(``kernels.resblock.conv3x3_reflect_wgrad``) run the same kernel through
+:func:`launch_wgrad` on their unpadded input, which it reads through
+reflect indexing, and on the cotangent's bf16 parts as the norm VJP wrote
+them.
 """
 
 from __future__ import annotations
@@ -148,28 +150,54 @@ def bf16_parts(t: torch.Tensor, parts: int, pad: int = 0) -> torch.Tensor:
     return out
 
 
+# The (input, output gradient) parts the kernel takes, by the input's form:
+# padded (conv_dw's, and the bf16 parts of a padded copy), or unpadded and
+# read through reflect padding (the residual blocks').
+WGRAD_PARTS = {"padded": ((1, 1), (1, 2), (3, 3)), "reflect": ((1, 2), (3, 3))}
+
+
+def wgrad_form(xp_shape: tuple[int, ...], dims: tuple[int, ...], k: int) -> str:
+    """The form of the weight gradient's input, from its plane: ``"padded"``
+    ((H+k-1, W+k-1)) or ``"reflect"`` ((H, W), k = 3: the kernel reads it
+    through reflect padding of 1). Raises ValueError on any other plane."""
+    _, h, w_, _, _ = dims
+    plane = tuple(xp_shape[-3:-1])
+    if plane == (h + k - 1, w_ + k - 1):
+        return "padded"
+    if plane == (h, w_) and k == 3 and h >= 2 and w_ >= 2:
+        return "reflect"
+    raise ValueError(f"conv_dw: input plane {plane} is neither ({h}, {w_}) padded for a "
+                     f"{k}x{k} VALID convolution nor an unpadded one to reflect-pad by 1")
+
+
 def launch_wgrad(xp: torch.Tensor, na: int, dy: torch.Tensor, nb: int,
                  dims: tuple[int, ...], k: int,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """CUDA kernel: dw (k, k, Cin, Cout) of ``out_dtype`` from ``na`` bf16
-    parts of the padded input ``xp`` ((N, H+k-1, W+k-1, Cin) each) and
-    ``nb`` of the output gradient ``dy`` ((N, H, W, Cout) each), stored part
-    after part; (na, nb) is (1, 1), (1, 2) or (3, 3); ``dims`` = (N, H, W,
-    Cin, Cout). Split-K partials in scratch, added in a fixed order. The
-    caller has checked the tensors and that Cin and Cout are multiples of
-    8 (:func:`bf16_parts` pads them to that)."""
+    parts of the input ``xp`` and ``nb`` of the output gradient ``dy``
+    ((N, H, W, Cout) each), stored part after part; ``dims`` = (N, H, W,
+    Cin, Cout). ``xp`` is padded ((N, H+k-1, W+k-1, Cin) each) or, with k =
+    3, unpadded ((N, H, W, Cin) each; the kernel reads it through reflect
+    padding of 1): :func:`wgrad_form` tells them apart by shape, and
+    :data:`WGRAD_PARTS` gives the (na, nb) of each; counted by form in
+    ``_build.forms``. Split-K partials in scratch, added in a fixed order.
+    The caller has checked the tensors and that Cin and Cout are multiples
+    of 8 (:func:`bf16_parts` pads them to that)."""
     n, h, w_, cin, cout = dims
-    if (na, nb) not in ((1, 1), (1, 2), (3, 3)) or \
+    form = wgrad_form(xp.shape, dims, k)
+    if (na, nb) not in WGRAD_PARTS[form] or \
             xp.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
-        raise ValueError(f"conv_dw: ({na}, {nb}) parts of {xp.dtype}, {dy.dtype}")
+        raise ValueError(f"conv_dw: ({na}, {nb}) parts of {xp.dtype}, {dy.dtype}, "
+                         f"{form} input")
     out = torch.empty((k, k, cin, cout), dtype=out_dtype, device=xp.device)
     splits, kchunk = _wgrad_split(_wgrad_tiles(k * k * cin, cout), n * h * w_,
                                   F32_CHUNK if na == 3 else None)
     stream = _build.stream_ptr(xp)
     part = _build.scratch_ptr(4 * splits * k * k * cin * cout, xp, stream)
     _build.call("conv_dw", "cg_conv_dw", xp.data_ptr(), dy.data_ptr(), out.data_ptr(), part,
-                n, h, w_, cin, cout, k, splits, kchunk, na, nb,
+                n, h, w_, cin, cout, k, splits, kchunk, na, nb, int(form == "reflect"),
                 _build.DTYPE_CODES[out_dtype], stream)
+    _build.forms["wgrad", form] += 1
     return out
 
 

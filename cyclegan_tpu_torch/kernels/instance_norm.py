@@ -190,19 +190,38 @@ def launch(x: torch.Tensor, skip: torch.Tensor | None, out: torch.Tensor | None,
     return stats[0], stats[1]
 
 
+def dx_parts(x: torch.Tensor, dx: torch.Tensor) -> int:
+    """How the VJP writes ``dx`` for ``x``: 0 in x's type (``dx`` of x's
+    shape and type), or as the 2 or 3 bf16 parts of a float32 dx that the
+    gradient convolutions multiply (``dx`` a ``(parts, *x.shape)`` bf16
+    buffer; x float32 with C a multiple of 4, read 16 bytes a thread).
+    Raises ValueError on any other ``dx``."""
+    if dx.shape == x.shape and dx.dtype == x.dtype:
+        return 0
+    parts = dx.shape[0] if dx.dim() == x.dim() + 1 else 0
+    if parts not in (2, 3) or dx.shape[1:] != x.shape or dx.dtype != torch.bfloat16 \
+            or x.dtype != torch.float32 or x.shape[-1] % 4:
+        raise ValueError(f"instance_norm_act_bwd: dx {tuple(dx.shape)} {dx.dtype} is neither "
+                         f"x's shape and type nor the 2 or 3 bf16 parts of a float32 x "
+                         f"{tuple(x.shape)} {x.dtype} with C % 4 == 0")
+    return parts
+
+
 def launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                dx: torch.Tensor, act: str) -> None:
     """Run the CUDA VJP, one launch: contiguous NHWC ``x`` and ``dy``
     (float32 or bf16 each), the forward's (N, C) float32 ``mean``/``rstd``
-    -> ``dx`` (x's type). Allocates nothing; the partial sums go to the
-    stream's scratch."""
+    -> ``dx``: x's type, or the bf16 parts of a float32 dx
+    (:func:`dx_parts`), counted by form in ``_build.forms``. Allocates
+    nothing; the partial sums go to the stream's scratch."""
     n, h, w, c = x.shape
     hw = h * w
     plan = in_plan(hw, c, x.element_size())
     _check("instance_norm_act_bwd", plan.vec, x, dy, dx)
     _check("instance_norm_act_bwd", 1, x, mean, rstd)
-    if dy.shape != x.shape or dx.shape != x.shape or dx.dtype != x.dtype:
-        raise ValueError("instance_norm_act_bwd: dy/dx must match x's shape, dx x's dtype")
+    if dy.shape != x.shape:
+        raise ValueError("instance_norm_act_bwd: dy must match x's shape")
+    parts = dx_parts(x, dx)
     if mean.shape != (n, c) or rstd.shape != (n, c) or mean.dtype != torch.float32 \
             or rstd.dtype != torch.float32:
         raise ValueError("instance_norm_act_bwd: mean/rstd must be (N, C) float32")
@@ -211,7 +230,9 @@ def launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torc
     _build.call("instance_norm", "cg_instance_norm_act_bwd",
                 x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                 dx.data_ptr(), part, n, hw, c, plan.rows, plan.vec, plan.lanes, plan.tiles,
-                ACTS[act], _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype], stream)
+                ACTS[act], _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype], parts,
+                stream)
+    _build.forms["in_bwd", "parts" if parts else str(dx.dtype).split(".")[1]] += 1
 
 
 def _fwd_cuda(x, skip, eps, act):

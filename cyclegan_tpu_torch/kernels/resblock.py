@@ -18,9 +18,11 @@ b2)`` and recomputes them), and the backward starts at ``ds``::
     dw2 = wgrad(a, ds)               dw1 = wgrad(x, du)
 
 with float32 cotangents and accumulation (the Pallas kernels cast the
-weights to float32 for the input gradient). ``dw`` is summed over the batch
-and cast to the weights' type; the bias gradients are exactly zero (a
-per-channel constant before an instance norm cancels). Under the trunk's
+weights to float32 for the input gradient; on the card the norm VJPs write
+ds and du straight into the bf16 parts that the gradient convolutions
+multiply). ``dw`` is summed over the batch and cast to the weights' type;
+the bias gradients are exactly zero (a per-channel constant before an
+instance norm cancels). Under the trunk's
 ``remat`` the checkpoint drops the residuals and reruns the forward, which
 keeps them again: a block is recomputed once. The plain VJP
 (:func:`residual_block_bwd_saved_plain`) starts from residuals too: the
@@ -30,9 +32,10 @@ relu mask.
 :func:`residual_block_fused` is a ``torch.autograd.Function``. On a CUDA
 tensor it launches the hand-written kernels of ``csrc/resblock.cu`` (the
 convolution and its input gradient), ``csrc/conv_dw.cu`` (the weight
-gradient, and the split of each float32 cotangent into the bf16 parts that
-the tensor cores multiply) and ``csrc/instance_norm.cu``, or raises;
-on a CPU tensor it runs the plain versions through the same Function.
+gradient, which reads x and a through reflect indexing) and
+``csrc/instance_norm.cu`` (whose VJP writes ds and du as the bf16 parts
+that the tensor cores multiply), or raises; on a CPU tensor it runs the
+plain versions through the same Function.
 """
 
 from __future__ import annotations
@@ -264,18 +267,15 @@ def _check_grad_shapes(name: str, h: int, w_: int, cin: int, cout: int) -> None:
                          f"got Cin={cin}, Cout={cout}")
 
 
-def _check_g_parts(name: str, g: torch.Tensor, g_parts: torch.Tensor | None,
-                   parts: int) -> torch.Tensor:
-    """The ``parts`` bf16 parts of the float32 cotangent ``g``: ``g_parts``
-    when the caller split it already (one split serves a cotangent's input
-    and weight gradient), else split now."""
-    if g_parts is None:
-        return CD.bf16_parts(g, parts)
-    if g_parts.shape != (parts, *g.shape) or g_parts.dtype != torch.bfloat16:
+def _check_g_parts(name: str, g_parts: torch.Tensor, shape: tuple[int, ...],
+                   parts: int) -> None:
+    """``g_parts`` must be the ``parts`` bf16 parts of a float32 cotangent
+    of ``shape`` (N, H, W, Cout): ``(parts, *shape)`` bf16, as the norm VJP
+    writes them (``instance_norm.launch_bwd`` into a parts buffer) or
+    ``conv_dw.bf16_parts`` splits them."""
+    if tuple(g_parts.shape) != (parts, *shape) or g_parts.dtype != torch.bfloat16:
         raise ValueError(f"{name}: g_parts {tuple(g_parts.shape)} {g_parts.dtype} are not "
-                         f"the {parts} bf16 parts of g {tuple(g.shape)}")
-    _build.check_same_device(name, g, g_parts)
-    return g_parts
+                         f"the {parts} bf16 parts of a float32 cotangent {tuple(shape)}")
 
 
 # The input gradient's tiles (csrc/resblock.cu, dgrad_mma<NG, NW, WGMMA, WM,
@@ -328,62 +328,60 @@ def dgrad_plan(n: int, h: int, w: int, cin: int, cout: int) -> tuple[bool, int, 
     return full[0] if full else max(fits, key=blocks.get)
 
 
-def conv3x3_reflect_dgrad(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
-                          add: torch.Tensor | None = None,
-                          g_parts: torch.Tensor | None = None) -> None:
+def conv3x3_reflect_dgrad(g_parts: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                          add: torch.Tensor | None = None) -> None:
     """CUDA kernel: ``out`` (N, H, W, Cin; float32 or bf16) = the input
-    gradient of conv3x3(rpad1(.), w) for the float32 output gradient ``g``
-    (N, H, W, Cout), reflect fold included, plus ``add`` (out's type). The
-    tensor cores multiply the bf16 parts of ``g`` (``g_parts``, if the
-    caller has them: ``CD.parts(g.dtype, w.dtype)`` of them) with those of
-    ``w``, on the tile of :func:`dgrad_plan` (a float32 weight's three
-    parts on :data:`DGRAD_SYNC`), counted in :data:`dgrad_tiles`."""
-    n, h, w_, cout = g.shape
+    gradient of conv3x3(rpad1(.), w) for a float32 output gradient (N, H,
+    W, Cout) given as its bf16 parts ``g_parts`` (``CD.parts(float32,
+    w.dtype)`` of them, :func:`_check_g_parts`), reflect fold included, plus
+    ``add`` (out's type). The tensor cores multiply them with the parts of
+    ``w`` on the tile of :func:`dgrad_plan` (a float32 weight's three parts
+    on :data:`DGRAD_SYNC`), counted in :data:`dgrad_tiles`."""
+    if g_parts.dim() != 5:
+        raise ValueError(f"conv3x3_reflect_dgrad: g_parts {tuple(g_parts.shape)} are not "
+                         f"the bf16 parts of an (N, H, W, Cout) cotangent")
+    _, n, h, w_, cout = g_parts.shape
     cin = w.shape[2]
     plan = dgrad_plan(n, h, w_, cin, cout)  # the shape checks
-    if g.dtype != torch.float32:
-        raise TypeError("conv3x3_reflect_dgrad: g must be float32")
+    ng, nw = CD.parts(torch.float32, w.dtype), CD.parts(w.dtype, torch.float32)
+    _check_g_parts("conv3x3_reflect_dgrad", g_parts, (n, h, w_, cout), ng)
     if w.shape != (3, 3, cin, cout) or out.shape != (n, h, w_, cin):
         raise ValueError(f"conv3x3_reflect_dgrad: w {tuple(w.shape)} / out "
-                         f"{tuple(out.shape)} do not fit g {tuple(g.shape)}")
+                         f"{tuple(out.shape)} do not fit g_parts {tuple(g_parts.shape)}")
     if add is not None and (add.shape != out.shape or add.dtype != out.dtype):
         raise ValueError("conv3x3_reflect_dgrad: add must match out")
-    _build.check_same_device("conv3x3_reflect_dgrad", g, w, out,
+    _build.check_same_device("conv3x3_reflect_dgrad", g_parts, w, out,
                              *([add] if add is not None else []))
-    ng, nw = CD.parts(g.dtype, w.dtype), CD.parts(w.dtype, g.dtype)
     if (ng, nw) != (2, 1):
         plan = DGRAD_SYNC
-    gp = _check_g_parts("conv3x3_reflect_dgrad", g, g_parts, ng)
     wp = w if nw == 1 else CD.bf16_parts(w.reshape(1, 9, cin, cout), nw)
-    stream = _build.stream_ptr(g)
-    dpad = _build.scratch_ptr(4 * n * (h + 2) * (w_ + 2) * cin, g, stream)
+    stream = _build.stream_ptr(g_parts)
+    dpad = _build.scratch_ptr(4 * n * (h + 2) * (w_ + 2) * cin, g_parts, stream)
     _build.call("resblock", "cg_conv3x3_reflect_dgrad",
-                gp.data_ptr(), wp.data_ptr(), None if add is None else add.data_ptr(),
+                g_parts.data_ptr(), wp.data_ptr(), None if add is None else add.data_ptr(),
                 out.data_ptr(), dpad, n, h, w_, cin, cout, ng, nw, *plan,
                 _build.DTYPE_CODES[out.dtype], stream)
     dgrad_tiles[plan] += 1
 
 
-def conv3x3_reflect_wgrad(inp: torch.Tensor, g: torch.Tensor,
-                          out_dtype: torch.dtype = torch.float32,
-                          g_parts: torch.Tensor | None = None) -> torch.Tensor:
+def conv3x3_reflect_wgrad(inp: torch.Tensor, g_parts: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """CUDA kernel: the weight gradient (3, 3, Cin, Cout) of ``out_dtype``
-    of conv3x3(rpad1(inp), w) for the float32 output gradient ``g``, summed
-    over the batch: ``inp`` reflect-padded once into its bf16 part(s), then
-    the VALID weight gradient of ``kernels.conv_dw`` (split-K partials added
-    in a fixed order). ``g_parts``: the ``CD.parts(g.dtype, inp.dtype)``
-    bf16 parts of ``g``, if the caller has them."""
+    of conv3x3(rpad1(inp), w) for a float32 output gradient given as its
+    bf16 parts ``g_parts`` (``CD.parts(float32, inp.dtype)`` of them),
+    summed over the batch: the VALID weight gradient of ``kernels.conv_dw``
+    on the unpadded ``inp``, which the kernel reads through reflect
+    indexing (split-K partials added in a fixed order). A bf16 ``inp`` is
+    read as it is; a float32 one is split into its three bf16 parts
+    first."""
     n, h, w_, cin = inp.shape
-    cout = g.shape[-1]
+    cout = g_parts.shape[-1]
     _check_grad_shapes("conv3x3_reflect_wgrad", h, w_, cin, cout)
-    if g.dtype != torch.float32 or g.shape != (n, h, w_, cout):
-        raise ValueError(f"conv3x3_reflect_wgrad: g must be float32 (N, H, W, Cout), "
-                         f"got {g.dtype} {tuple(g.shape)}")
-    _build.check_same_device("conv3x3_reflect_wgrad", inp, g)
-    ng, na = CD.parts(g.dtype, inp.dtype), CD.parts(inp.dtype, g.dtype)
-    gp = _check_g_parts("conv3x3_reflect_wgrad", g, g_parts, ng)
-    return CD.launch_wgrad(CD.bf16_parts(inp, na, pad=1), na, gp, ng, (n, h, w_, cin, cout), 3,
-                           out_dtype)
+    ng, na = CD.parts(torch.float32, inp.dtype), CD.parts(inp.dtype, torch.float32)
+    _check_g_parts("conv3x3_reflect_wgrad", g_parts, (n, h, w_, cout), ng)
+    _build.check_same_device("conv3x3_reflect_wgrad", inp, g_parts)
+    return CD.launch_wgrad(inp if na == 1 else CD.bf16_parts(inp, na), na, g_parts, ng,
+                           (n, h, w_, cin, cout), 3, out_dtype)
 
 
 def forward_residuals_cuda(x, w1, b1, w2, b2, eps, keep=True):
@@ -421,43 +419,39 @@ def _fwd_cuda(x, w1, b1, w2, b2, eps, keep):
 
 def bwd_dx_saved_cuda(x, dy, w1, w2, r: Residuals):
     """TPU kernel #4 (``_bwd_dx_kernel``) on the card from the forward's
-    residuals ``r``: ds, du and dx = dy + dgrad(du, w1). Returns ``(dx, a,
-    ds, du, g_parts)``, ``g_parts`` the bf16 parts of ds and du (one split
-    serves a cotangent's input and weight gradient); all but dx feed
-    :func:`bwd_dw_cuda`. Writes no residual: a second backward of the same
-    graph reads them again."""
-    f32 = dict(dtype=torch.float32, device=x.device)
-    ds = torch.empty(x.shape, **f32)
+    residuals ``r``: ds, du and dx = dy + dgrad(du, w1). Returns ``(dx, ds,
+    du)``, ds and du as the bf16 parts the norm VJPs write them in (two for
+    bf16 x, three for float32), which serve each cotangent's input and
+    weight gradient (:func:`bwd_dw_cuda`): no float32 ds or du, and no
+    split pass. Writes no residual: a second backward of the same graph
+    reads them again."""
+    parts = (CD.parts(torch.float32, x.dtype), *x.shape)
+    ds = torch.empty(parts, dtype=torch.bfloat16, device=x.device)
     _in.launch_bwd(r.s, dy, r.mean2, r.rstd2, ds, "none")
-    ng = CD.parts(torch.float32, x.dtype)
-    ds_parts = CD.bf16_parts(ds, ng)
-    da = torch.empty(x.shape, **f32)
-    conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
-    du = torch.empty(x.shape, **f32)
+    da = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    conv3x3_reflect_dgrad(ds, w2, da)
+    du = torch.empty_like(ds)
     _in.launch_bwd(r.u, da, r.mean1, r.rstd1, du, "relu")
-    du_parts = CD.bf16_parts(du, ng)
     dx = torch.empty_like(r.a)
-    conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
-    return dx, r.a, ds, du, (ds_parts, du_parts)
+    conv3x3_reflect_dgrad(du, w1, dx, add=dy)
+    return dx, ds, du
 
 
-def bwd_dw_cuda(x, a, ds, du, w_dtype, g_parts):
+def bwd_dw_cuda(x, a, ds, du, w_dtype):
     """TPU kernel #5 (``_bwd_dw_kernel``) on the card: dw1 = wgrad(x, du)
     and dw2 = wgrad(a, ds), summed over the batch, in the weights' type;
-    ``g_parts`` = (ds, du) in bf16 parts, from :func:`bwd_dx_saved_cuda`."""
-    ds_parts, du_parts = g_parts
-    dw = (conv3x3_reflect_wgrad(x, du, w_dtype, g_parts=du_parts),
-          conv3x3_reflect_wgrad(a, ds, w_dtype, g_parts=ds_parts))
-    return dw
+    ds and du in the bf16 parts of :func:`bwd_dx_saved_cuda`, x and a read
+    through reflect indexing."""
+    return (conv3x3_reflect_wgrad(x, du, w_dtype), conv3x3_reflect_wgrad(a, ds, w_dtype))
 
 
 def _bwd_cuda(dy, x, w1, w2, *res):
     """``(dx, dw1, dw2)`` from :func:`_fwd_cuda`'s ``saved``; a narrow
     trunk's dy is zero-filled to the saved width and the results cut back."""
     c, cp = dy.shape[-1], x.shape[-1]
-    dx, a, ds, du, g_parts = bwd_dx_saved_cuda(x, zero_fill(dy, cp) if cp != c else dy,
-                                               w1, w2, Residuals(*res))
-    dw1, dw2 = bwd_dw_cuda(x, a, ds, du, w1.dtype, g_parts)
+    r = Residuals(*res)
+    dx, ds, du = bwd_dx_saved_cuda(x, zero_fill(dy, cp) if cp != c else dy, w1, w2, r)
+    dw1, dw2 = bwd_dw_cuda(x, r.a, ds, du, w1.dtype)
     if cp != c:
         return dx[..., :c].contiguous(), dw1[:, :, :c, :c], dw2[:, :, :c, :c]
     return dx, dw1, dw2

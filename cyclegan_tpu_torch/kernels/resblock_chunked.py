@@ -269,12 +269,12 @@ def _bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc):
     in_vjp(dy, s, stats, ds, hc, 2)
     parts = CD.parts(torch.float32, x.dtype)
     ds_parts = CD.bf16_parts(ds, parts)   # one split feeds both gradients of ds
-    RB.conv3x3_reflect_dgrad(ds, w2, da, g_parts=ds_parts)
+    RB.conv3x3_reflect_dgrad(ds_parts, w2, da)
     in_vjp(da, vhat, stats, du, hc, 1, dv=dv, a=a)
     du_parts = CD.bf16_parts(du, parts)
-    RB.conv3x3_reflect_dgrad(du, w1, dx, add=dy, g_parts=du_parts)
-    dw1 = RB.conv3x3_reflect_wgrad(x, du, w1.dtype, g_parts=du_parts)
-    dw2 = RB.conv3x3_reflect_wgrad(a, ds, w2.dtype, g_parts=ds_parts)
+    RB.conv3x3_reflect_dgrad(du_parts, w1, dx, add=dy)
+    dw1 = RB.conv3x3_reflect_wgrad(x, du_parts, w1.dtype)
+    dw2 = RB.conv3x3_reflect_wgrad(a, ds_parts, w2.dtype)
     return dx, dw1, dw2
 
 

@@ -335,8 +335,10 @@ def built_and_launched():
     kernels itself (nvcc at first use), the profiler sessions of the
     one-launch tests came back with no device kernel at all. A bf16 fused
     and a chunked block, forward and backward, launch every kernel: the
-    instance norm's forward and VJP, the forward convolution, the input and
-    weight gradients, the bf16 split and the chunked norms."""
+    instance norm's forward and VJP (the fused block's writing its dx in
+    bf16 parts), the forward convolution, the input and weight gradients
+    (the fused block's reading its input through reflect indexing), the
+    chunked block's bf16 split and the chunked norms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     _build.build_all()
@@ -471,16 +473,17 @@ def test_conv3x3_grads_match_plain(card, shape, cout, dtype, out_dtype):
     w = (0.05 * torch.randn((3, 3, cin, cout), device="cuda", generator=card)).to(dtype)
     g = torch.randn(shape[:3] + (cout,), device="cuda", generator=card)
     add = torch.randn(shape, device="cuda", generator=card).to(out_dtype)
+    gp = CD.bf16_parts(g, CD.parts(torch.float32, dtype))
     dx, again = (torch.empty(shape, device="cuda", dtype=out_dtype) for _ in range(2))
     before = RB.dgrad_tiles.copy()
-    RB.conv3x3_reflect_dgrad(g, w, dx, add=add)
-    RB.conv3x3_reflect_dgrad(g, w, again, add=add)
-    dw = RB.conv3x3_reflect_wgrad(x, g, out_dtype)
+    RB.conv3x3_reflect_dgrad(gp, w, dx, add=add)
+    RB.conv3x3_reflect_dgrad(gp, w, again, add=add)
+    dw = RB.conv3x3_reflect_wgrad(x, gp, out_dtype)
     torch.cuda.synchronize()
     _close(dx, add.float() + RB.conv3x3_reflect_dgrad_plain(g, w), BWD_TOL[out_dtype])
     _close(dw, RB.conv3x3_reflect_wgrad_plain(x, g), BWD_TOL[out_dtype])
     assert torch.equal(dx, again)
-    assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, g, out_dtype))  # fixed order
+    assert torch.equal(dw, RB.conv3x3_reflect_wgrad(x, gp, out_dtype))  # fixed order
     tile = RB.dgrad_plan(*shape, cout) if dtype == torch.bfloat16 else RB.DGRAD_SYNC
     assert RB.dgrad_tiles - before == {tile: 2}
 
@@ -494,10 +497,16 @@ def test_gradient_wrappers_raise_on_shapes_the_tiles_refuse(card):
                    torch.zeros((1, 4, 24, 4), device="cuda").transpose(2, 3))
     with pytest.raises(ValueError, match="Cin % 32"):
         RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 36), device="cuda"),
-                                 torch.zeros((1, 4, 4, 32), device="cuda"))
+                                 torch.zeros((3, 1, 4, 4, 32), device="cuda",
+                                             dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="Cout % 32"):
-        RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48), device="cuda"),
+        RB.conv3x3_reflect_dgrad(torch.zeros((3, 1, 4, 4, 48), device="cuda",
+                                             dtype=torch.bfloat16),
                                  torch.zeros((3, 3, 32, 48), device="cuda"),
+                                 torch.zeros((1, 4, 4, 32), device="cuda"))
+    with pytest.raises(ValueError, match="g_parts"):
+        RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 32), device="cuda"),
+                                 torch.zeros((3, 3, 32, 32), device="cuda"),
                                  torch.zeros((1, 4, 4, 32), device="cuda"))
     assert dict(_build.launches) == before
 
@@ -542,12 +551,130 @@ def test_residual_block_bwd_matches_plain(card, shape, dtype):
     assert y.grad_fn is not None
     got = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
-    # One VJP: the dx chain's 2 input gradients (#4), 2 weight gradients (#5).
+    # One VJP: the dx chain's 2 input gradients (#4), 2 weight gradients (#5);
+    # no operand split into bf16 parts but a float32 block's w1, w2, x, a.
     assert _delta(before, "cg_conv3x3_reflect_dgrad", "cg_conv_dw") == (2, 2)
+    assert _delta(before, "cg_bf16_parts") == (0 if dtype == torch.bfloat16 else 4,)
     # The forward's 2 convolutions and 2 norms, and none in the backward: it
     # starts from the residuals the forward kept.
     assert _delta(before, "cg_conv3x3_reflect", "cg_instance_norm_act") == (2, 2)
     _hold_fused_block(x, w1, b1, w2, b2, dy, y, got, dtype)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("dy_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (16, 64, 64, 256), (3, 13, 7, 64)])
+def test_norm_vjp_parts_are_the_split_of_its_float32_dx(card, shape, act, dy_dtype, parts):
+    """The norm VJP of a float32 x written as bf16 parts (the fused block's
+    ds and du: two parts for a bf16 block, three for a float32 one) is
+    bitwise cg_bf16_parts's split of the same VJP written in float32, at
+    the trunk's 8 and 16 rows and on a small non-square plane: the same
+    d values, rounded as the split rounds them. One kernel, in_bwd."""
+    x = torch.randn(shape, device="cuda", generator=card) * 3 + 1
+    dy = torch.randn(shape, device="cuda", generator=card).to(dy_dtype)
+    mean, rstd = IN.instance_norm_stats_plain(x)
+    dx = torch.empty_like(x)
+    IN.launch_bwd(x, dy, mean, rstd, dx, act)
+    dxp = torch.empty((parts, *shape), device="cuda", dtype=torch.bfloat16)
+    launches, forms = _build.launches.copy(), _build.forms.copy()
+    IN.launch_bwd(x, dy, mean, rstd, dxp, act)
+    torch.cuda.synchronize()
+    assert _delta(launches, "cg_instance_norm_act_bwd", "cg_bf16_parts") == (1, 0)
+    assert _build.forms - forms == {("in_bwd", "parts"): 1}
+    assert torch.equal(_bits(dxp), _bits(CD.bf16_parts(dx, parts)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cout", [((1, 64, 64, 256), 256), ((2, 64, 64, 256), 256),
+                                        ((8, 64, 64, 256), 256), ((16, 64, 64, 256), 256),
+                                        ((3, 13, 7, 64), 96)])
+def test_wgrad_reflect_read_is_the_padded_copy_bitwise(card, shape, cout, dtype):
+    """The weight gradient reading its unpadded input through reflect
+    indexing (wgrad_wgmma<1, 2> on bf16 x, <3, 3> on a float32 x's parts)
+    is bitwise the same kernel on the reflect-padded copy that
+    cg_bf16_parts makes: at 1, 2, 8 and 16 rows of the trunk shape, and on
+    an H != W plane of 273 pixels, no multiple of the 32-pixel step."""
+    x = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    g = torch.randn(shape[:3] + (cout,), device="cuda", generator=card)
+    na, ng = CD.parts(dtype, torch.float32), CD.parts(torch.float32, dtype)
+    gp, dims = CD.bf16_parts(g, ng), (*shape, cout)
+    forms = _build.forms.copy()
+    reflect = CD.launch_wgrad(x if na == 1 else CD.bf16_parts(x, na), na, gp, ng, dims, 3)
+    padded = CD.launch_wgrad(CD.bf16_parts(x, na, pad=1), na, gp, ng, dims, 3)
+    torch.cuda.synchronize()
+    assert _build.forms - forms == {("wgrad", "reflect"): 1, ("wgrad", "padded"): 1}
+    assert torch.equal(_bits(reflect), _bits(padded))
+
+
+def _staged_block_bwd(x, dy, w1, w2, r):
+    """The fused block's backward with its operands staged through
+    cg_bf16_parts: the norm VJPs write float32 ds and du, each split into
+    its bf16 parts, and x and a reflect-padded into copies for the weight
+    gradients; the same kernels otherwise."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ng, na = CD.parts(torch.float32, x.dtype), CD.parts(x.dtype, torch.float32)
+    ds, da, du = (torch.empty(x.shape, **f32) for _ in range(3))
+    IN.launch_bwd(r.s, dy, r.mean2, r.rstd2, ds, "none")
+    ds_p = CD.bf16_parts(ds, ng)
+    RB.conv3x3_reflect_dgrad(ds_p, w2, da)
+    IN.launch_bwd(r.u, da, r.mean1, r.rstd1, du, "relu")
+    du_p = CD.bf16_parts(du, ng)
+    dx = torch.empty_like(r.a)
+    RB.conv3x3_reflect_dgrad(du_p, w1, dx, add=dy)
+    dims = (*x.shape, w1.shape[-1])
+    return (dx, *(CD.launch_wgrad(CD.bf16_parts(t, na, pad=1), na, g, ng, dims, 3, w1.dtype)
+                  for t, g in ((x, du_p), (r.a, ds_p))))
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 64, 64, 256), torch.bfloat16),
+                                         ((8, 64, 64, 256), torch.bfloat16),
+                                         ((1, 9, 13, 32), torch.bfloat16),
+                                         ((1, 9, 13, 32), torch.float32)])
+def test_fused_block_backward_stages_no_operand_and_matches_the_staged_route(card, shape,
+                                                                            dtype):
+    """The fused block's backward (dx, dw1, dw2) is bitwise the staged
+    route's from the same residuals; it makes 2 parts-writing norm VJPs and
+    2 reflect reads, and splits nothing into bf16 parts but a float32
+    block's w1, w2, x and a, which no tensor core takes as float32."""
+    c = shape[-1]
+    x, dy = (torch.randn(shape, device="cuda", generator=card).to(dtype) for _ in range(2))
+    w1, w2 = [(0.05 * torch.randn((3, 3, c, c), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    b1, b2 = [(0.01 * torch.randn((c,), device="cuda", generator=card)).to(dtype)
+              for _ in range(2)]
+    _, saved = RB._fwd_cuda(x, w1, b1, w2, b2, 1e-5, True)
+    launches, forms = _build.launches.copy(), _build.forms.copy()
+    got = RB._bwd_cuda(dy, *saved)
+    torch.cuda.synchronize()
+    assert _delta(launches, "cg_bf16_parts") == (0 if dtype == torch.bfloat16 else 4,)
+    assert _build.forms - forms == {("in_bwd", "parts"): 2, ("wgrad", "reflect"): 2}
+    ref = _staged_block_bwd(x, dy, w1, w2, RB.Residuals(*saved[3:]))
+    torch.cuda.synchronize()
+    for name, g_, r_ in zip(("dx", "dw1", "dw2"), got, ref):
+        assert torch.equal(_bits(g_), _bits(r_)), name
+
+
+def test_fused_block_backward_kernels_are_in_bwd_and_wgrad_wgmma(card, built_and_launched):
+    """On the device: the fused block's parts-writing norm VJP is one
+    kernel, in_bwd, and its reflect-reading weight gradient is wgrad_wgmma
+    and its fixed-order reduction, dw_reduce: no bf16_parts."""
+    shape = (2, 16, 16, 64)
+    x = torch.randn(shape, device="cuda", generator=card) * 3 + 1
+    a = torch.randn(shape, device="cuda", generator=card).bfloat16()
+    mean, rstd = IN.instance_norm_stats_plain(x)
+    dxp = torch.empty((2, *shape), device="cuda", dtype=torch.bfloat16)
+    IN.launch_bwd(x, a, mean, rstd, dxp, "relu")
+    RB.conv3x3_reflect_wgrad(a, dxp)
+    torch.cuda.synchronize()
+    vjp = _device_kernels(lambda: IN.launch_bwd(x, a, mean, rstd, dxp, "relu"))
+    wgrad = _device_kernels(lambda: RB.conv3x3_reflect_wgrad(a, dxp))
+    assert len(vjp) == 1 and "in_bwd" in vjp[0], vjp
+    assert len(wgrad) == 2 and "wgrad_wgmma" in wgrad[0] and "dw_reduce" in wgrad[1], wgrad
 
 
 @pytest.mark.parametrize("rows", [8, 16])
@@ -736,9 +863,9 @@ def test_chunked_norms_are_one_launch_and_allocate_only_outputs(card, dtype,
     """Each normalisation call is one kernel and allocates nothing; the
     block's forward allocates its outputs and the convolutions' float32
     output, its VJP its outputs and what a convolution reads (ds, da, du,
-    dv, a, the cotangents' bf16 parts, each weight gradient's padded input
-    parts; float32 weights also split into parts for the input
-    gradients): no partials, no means."""
+    dv, a, the cotangents' bf16 parts; float32 weights also split into
+    parts for the input gradients, a float32 x and a into parts for the
+    weight gradients, which read them unpadded): no partials, no means."""
     shape, hc = (2, 16, 16, 64), 4
     calls, _, _ = _chunked_norm_calls(card, shape, hc, dtype)
     for f in calls:  # builds
@@ -759,7 +886,7 @@ def test_chunked_norms_are_one_launch_and_allocate_only_outputs(card, dtype,
     torch.cuda.synchronize()
     assert _allocations(lambda: RC._fwd_cuda(x, w1, b, w2, b, 1e-5, hc)) == 6
     assert _allocations(lambda: RC._bwd_cuda(x, dy, vhat, s, stats, w1, w2, hc)) == \
-        (12 if dtype == torch.bfloat16 else 14)
+        (10 if dtype == torch.bfloat16 else 14)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

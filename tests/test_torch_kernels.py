@@ -8,6 +8,9 @@ checks them there at small shapes, and ``chip_smoke.py`` at the main
 path's shapes.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -261,8 +264,8 @@ def test_dgrad_plan_raises_on_shapes_the_kernel_refuses(monkeypatch, n, h, w, ci
         RB.dgrad_plan(n, h, w, cin, cout)
     if n * h * w < 2 ** 20:
         with pytest.raises(ValueError, match=match):
-            RB.conv3x3_reflect_dgrad(torch.zeros((n, h, w, cout)), torch.zeros((3, 3, cin, cout)),
-                                     torch.zeros((n, h, w, cin)))
+            RB.conv3x3_reflect_dgrad(torch.zeros((3, n, h, w, cout), dtype=torch.bfloat16),
+                                     torch.zeros((3, 3, cin, cout)), torch.zeros((n, h, w, cin)))
     assert calls == []
 
 
@@ -276,12 +279,13 @@ def test_dgrad_wrapper_launches_the_planned_tile(monkeypatch, w_dtype):
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(_build, "scratch_ptr", lambda nbytes, t, s: 16)
     n, h, w, c = 2, 8, 9, 64
-    g, out = torch.zeros((n, h, w, c)), torch.zeros((n, h, w, c))
+    bf16 = w_dtype == torch.bfloat16
+    g_parts = torch.zeros((2 if bf16 else 3, n, h, w, c), dtype=torch.bfloat16)
+    out = torch.zeros((n, h, w, c))
     wt = torch.zeros((3, 3, c, c), dtype=w_dtype)
     before = RB.dgrad_tiles.copy()
-    RB.conv3x3_reflect_dgrad(g, wt, out)
+    RB.conv3x3_reflect_dgrad(g_parts, wt, out)
     (args,) = [args for fn, args in calls if fn == "cg_conv3x3_reflect_dgrad"]
-    bf16 = w_dtype == torch.bfloat16
     tile = RB.dgrad_plan(n, h, w, c, c) if bf16 else RB.DGRAD_SYNC
     assert len(args) == len(_build.SIGNATURES["resblock"]["cg_conv3x3_reflect_dgrad"])
     assert args[5:16] == (n, h, w, c, c, 2 if bf16 else 3, 1 if bf16 else 3, *tile)
@@ -298,3 +302,24 @@ def test_conv_plan_takes_every_channel_count(cin, cout):
     plan = RB.conv_plan(1, 5, 7, cin, cout)
     assert plan in RB.CONV_TILES and RB.conv_blocks(plan, 1, 5, 7, cout) >= 1
     assert RB.conv_tile(plan, cin)[0] <= 227 * 1024
+
+
+def _c_entries(name: str) -> dict:
+    """{entry: [ctypes type of each parameter]} of the ``extern "C"``
+    entries of ``csrc/<name>.cu``, read from the source: pointers as
+    c_void_p, ``int`` as c_int, ``float`` as c_float."""
+    src = (_build.SRC_DIR / f"{name}.cu").read_text()
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    out = {}
+    for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        out[fn] = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+                   for p in params.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_declared_signatures_match_the_c_entries(name):
+    """The argtypes ``_build`` gives each C entry are the parameters the
+    source declares, one for one: a count or type that differs would pass
+    an argument in the wrong place without any error."""
+    assert _c_entries(name) == _build.SIGNATURES[name]

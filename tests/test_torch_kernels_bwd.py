@@ -24,6 +24,21 @@ from cyclegan_tpu_torch.kernels import instance_norm as IN
 from cyclegan_tpu_torch.kernels import resblock as RB
 
 
+def _bf(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _parts(parts, shape):
+    """A zero buffer of ``parts`` bf16 parts of a tensor of ``shape``."""
+    return _bf((parts, *shape))
+
+
+def _in_bwd_into(x, dx):
+    """The norm VJP of ``x`` (zero cotangent and statistics) into ``dx``."""
+    n, c = x.shape[0], x.shape[-1]
+    IN.launch_bwd(x, torch.zeros_like(x), torch.zeros((n, c)), torch.zeros((n, c)), dx, "none")
+
+
 def _x(shape, seed, scale=1.0, shift=0.0):
     rng = np.random.default_rng(seed)
     return (scale * rng.standard_normal(shape) + shift).astype(np.float32)
@@ -170,11 +185,13 @@ def test_dgrad_and_wgrad_plain_match_torch_autograd(hw):
 def test_backward_kernels_reject_shapes_they_do_not_take():
     """The CUDA gradient wrappers raise on what the kernels do not take,
     before any build or launch."""
-    g = torch.zeros((1, 4, 4, 16))
+    g_parts = torch.zeros((3, 1, 4, 4, 16), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Cout % 32"):
-        RB.conv3x3_reflect_dgrad(g, torch.zeros((3, 3, 32, 16)), torch.zeros((1, 4, 4, 32)))
+        RB.conv3x3_reflect_dgrad(g_parts, torch.zeros((3, 3, 32, 16)),
+                                 torch.zeros((1, 4, 4, 32)))
     with pytest.raises(ValueError, match="H, W >= 2"):
-        RB.conv3x3_reflect_wgrad(torch.zeros((1, 1, 4, 32)), torch.zeros((1, 1, 4, 32)))
+        RB.conv3x3_reflect_wgrad(torch.zeros((1, 1, 4, 32)),
+                                 torch.zeros((3, 1, 1, 4, 32), dtype=torch.bfloat16))
 
 
 # (tiles, pixels): the trunk's 2304 x 256 weight gradient at batch 2 and 1
@@ -226,20 +243,158 @@ def test_wgrad_split_fills_the_card_at_the_trunk_shape(k):
                              torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 1,
                              (1, 4, 4, 8, 8), 3), "parts"),
     # the input gradient: a 32-deep step inside one tap, parts of g.
-    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 48)), torch.zeros((3, 3, 32, 48)),
+    (lambda: RB.conv3x3_reflect_dgrad(_parts(2, (1, 4, 4, 48)), torch.zeros((3, 3, 32, 48)),
                                       torch.zeros((1, 4, 4, 32))), "Cout % 32"),
-    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 32)), torch.zeros((3, 3, 32, 32)),
-                                      torch.zeros((1, 4, 4, 32)),
-                                      g_parts=torch.zeros((1, 1, 4, 4, 32))), "g_parts"),
+    (lambda: RB.conv3x3_reflect_dgrad(_parts(1, (1, 4, 4, 32)), torch.zeros((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 4, 32))), "g_parts"),
     # the weight gradient of the blocks: Cin % 32, as their other kernels.
-    (lambda: RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 36)), torch.zeros((1, 4, 4, 32))),
+    (lambda: RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 36)), _parts(3, (1, 4, 4, 32))),
      "Cin % 32"),
+    # the cotangent only as its bf16 parts: a float32 cotangent itself, parts
+    # of another type, count (two against bf16 operands, three against
+    # float32) or shape are refused.
+    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((1, 4, 4, 32)), _bf((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 4, 32))), "g_parts"),
+    (lambda: RB.conv3x3_reflect_dgrad(torch.zeros((2, 1, 4, 4, 32)), _bf((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 4, 32))), "g_parts"),
+    (lambda: RB.conv3x3_reflect_dgrad(_parts(3, (1, 4, 4, 32)), _bf((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 4, 32))), "g_parts"),
+    (lambda: RB.conv3x3_reflect_dgrad(_parts(2, (1, 4, 4, 32)), _bf((3, 3, 32, 32)),
+                                      torch.zeros((1, 4, 5, 32))), "do not fit"),
+    (lambda: RB.conv3x3_reflect_wgrad(_bf((1, 4, 4, 32)), torch.zeros((1, 4, 4, 32))),
+     "g_parts"),
+    (lambda: RB.conv3x3_reflect_wgrad(_bf((1, 4, 4, 32)), torch.zeros((2, 1, 4, 4, 32))),
+     "g_parts"),
+    (lambda: RB.conv3x3_reflect_wgrad(_bf((1, 4, 4, 32)), _parts(3, (1, 4, 4, 32))), "g_parts"),
+    (lambda: RB.conv3x3_reflect_wgrad(torch.zeros((1, 4, 4, 32)), _parts(2, (1, 4, 4, 32))),
+     "g_parts"),
+    (lambda: RB.conv3x3_reflect_wgrad(_bf((2, 4, 4, 32)), _parts(2, (1, 4, 4, 32))), "g_parts"),
+    # the weight gradient's input: padded or unpadded by its plane, and the
+    # parts each form takes.
+    (lambda: CD.launch_wgrad(_parts(1, (1, 5, 5, 8)), 1, _parts(2, (1, 4, 4, 8)), 2,
+                             (1, 4, 4, 8, 8), 3), "neither"),
+    (lambda: CD.launch_wgrad(_parts(1, (1, 4, 4, 8)), 1, _parts(1, (1, 4, 4, 8)), 1,
+                             (1, 4, 4, 8, 8), 3), "reflect input"),
+    (lambda: CD.launch_wgrad(_parts(1, (1, 4, 4, 8)), 1, _parts(2, (1, 4, 4, 8)), 2,
+                             (1, 4, 4, 8, 8), 5), "neither"),
+    # the norm VJP's dx: x's shape and type, or 2 or 3 bf16 parts of a
+    # float32 dx of x's shape.
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 32)), _parts(1, (1, 4, 4, 32))), "neither"),
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 32)), _parts(4, (1, 4, 4, 32))), "neither"),
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 32)), torch.zeros((2, 1, 4, 4, 32))), "neither"),
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 32)), _parts(2, (1, 4, 5, 32))), "neither"),
+    (lambda: _in_bwd_into(_bf((1, 4, 4, 32)), _parts(2, (1, 4, 4, 32))), "neither"),
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 6)), _parts(2, (1, 4, 4, 6))), "neither"),
+    (lambda: _in_bwd_into(torch.zeros((1, 4, 4, 32)), torch.zeros((1, 4, 4, 32),
+                                                                  dtype=torch.bfloat16)),
+     "neither"),
 ])
 def test_gradient_wrappers_refuse_shapes_the_tiles_do_not_take(call, match):
     """The CUDA gradient wrappers raise on what the tensor-core kernels do
     not take, before any build or launch: no fallback."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+class _Recorder:
+    """Stands in for the C entries on the CPU: records each call's entry
+    and arguments, launches nothing."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(_build, "call", lambda lib, fn, *args: self.calls.append((fn, args)))
+        monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+        monkeypatch.setattr(_build, "scratch_ptr", lambda nbytes, t, s: 16)
+
+    def entries(self) -> list:
+        return [fn for fn, _ in self.calls]
+
+
+# cg_conv_dw's arguments: (xp, dy, dw, part, N, H, W, Cin, Cout, k, splits,
+# kchunk, na, nb, reflect, out_dtype, stream); cg_instance_norm_act_bwd's:
+# (x, dy, mean, rstd, dx, part, N, HW, C, rows, vec, lanes, tiles, act,
+# x_dtype, dy_dtype, dx_parts, stream).
+DW_REFLECT, IN_DX_PARTS = 14, 16
+
+
+@pytest.mark.parametrize("xp_shape,na,nb,form", [
+    ((1, 6, 7, 8), 1, 1, "padded"),             # conv_dw's bf16 input as it is
+    ((1, 1, 6, 7, 8), 1, 2, "padded"),          # a padded copy's one part
+    ((3, 1, 6, 7, 8), 3, 3, "padded"),
+    ((1, 4, 5, 8), 1, 2, "reflect"),            # the blocks' bf16 input
+    ((3, 1, 4, 5, 8), 3, 3, "reflect"),         # a float32 input's parts
+])
+def test_wgrad_tells_a_padded_input_from_an_unpadded_one_by_shape(monkeypatch, xp_shape, na,
+                                                                   nb, form):
+    """launch_wgrad reads the form of its input from its plane, (H+2, W+2)
+    padded or (H, W) unpadded, hands the C entry the matching reflect flag
+    with the argument count the entry declares, and counts the call by
+    form."""
+    rec = _Recorder(monkeypatch)
+    before = _build.forms.copy()
+    dw = CD.launch_wgrad(_parts(1, xp_shape)[0], na, _parts(nb, (1, 4, 5, 8)), nb,
+                         (1, 4, 5, 8, 8), 3)
+    assert CD.wgrad_form(xp_shape, (1, 4, 5, 8, 8), 3) == form
+    ((fn, args),) = rec.calls
+    assert fn == "cg_conv_dw" and dw.shape == (3, 3, 8, 8)
+    assert len(args) == len(_build.SIGNATURES["conv_dw"]["cg_conv_dw"])
+    assert args[12:15] == (na, nb, int(form == "reflect"))
+    assert _build.forms - before == {("wgrad", form): 1}
+
+
+@pytest.mark.parametrize("x_dtype,dx_dtype,dx_lead,want", [
+    (torch.float32, torch.float32, (), 0), (torch.bfloat16, torch.bfloat16, (), 0),
+    (torch.float32, torch.bfloat16, (2,), 2), (torch.float32, torch.bfloat16, (3,), 3),
+])
+def test_norm_vjp_takes_dx_in_x_type_or_as_bf16_parts(monkeypatch, x_dtype, dx_dtype, dx_lead,
+                                                       want):
+    """The norm VJP writes dx in x's type or as the 2 or 3 bf16 parts of a
+    float32 dx: the part count goes to the C entry (0 for x's type), and
+    the call is counted by dx's form."""
+    rec = _Recorder(monkeypatch)
+    x = torch.zeros((2, 4, 6, 32), dtype=x_dtype)
+    dx = torch.zeros(dx_lead + x.shape, dtype=dx_dtype)
+    before = _build.forms.copy()
+    assert IN.dx_parts(x, dx) == want
+    _in_bwd_into(x, dx)
+    ((fn, args),) = rec.calls
+    assert fn == "cg_instance_norm_act_bwd"
+    assert len(args) == len(_build.SIGNATURES["instance_norm"]["cg_instance_norm_act_bwd"])
+    assert args[IN_DX_PARTS] == want
+    form = "parts" if want else str(x_dtype).split(".")[1]
+    assert _build.forms - before == {("in_bwd", form): 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_block_backward_stages_no_operand(monkeypatch, dtype):
+    """The fused block's backward on the C entries (recorded, not run): the
+    norm VJPs write ds and du as their bf16 parts (two for bf16 x, three
+    for float32), which both gradients of each read, and both weight
+    gradients read x and a unpadded, through reflect indexing. A bf16 block
+    splits nothing (no cg_bf16_parts); a float32 one splits w1, w2, x and a
+    into their three parts, which no tensor core takes as float32."""
+    rec = _Recorder(monkeypatch)
+    n, h, w, c = 1, 4, 5, 32
+    x, dy = torch.zeros((n, h, w, c), dtype=dtype), torch.zeros((n, h, w, c), dtype=dtype)
+    w1, w2 = torch.zeros((3, 3, c, c), dtype=dtype), torch.zeros((3, 3, c, c), dtype=dtype)
+    f32 = torch.zeros((n, h, w, c))
+    r = RB.Residuals(f32, x.clone(), f32.clone(), *(torch.zeros((n, c)) for _ in range(4)))
+    before = _build.forms.copy()
+    dx, ds, du = RB.bwd_dx_saved_cuda(x, dy, w1, w2, r)
+    dw1, dw2 = RB.bwd_dw_cuda(x, r.a, ds, du, dtype)
+    parts = 2 if dtype == torch.bfloat16 else 3
+    assert ds.shape == du.shape == (parts, n, h, w, c) and ds.dtype == torch.bfloat16
+    assert dx.shape == x.shape and dw1.shape == dw2.shape == (3, 3, c, c)
+    split = [] if dtype == torch.bfloat16 else ["cg_bf16_parts"]
+    assert rec.entries() == (["cg_instance_norm_act_bwd", *split, "cg_conv3x3_reflect_dgrad"]
+                             * 2 + [*split, "cg_conv_dw"] * 2)
+    calls = dict(rec.calls[:2 + len(split)])  # the first VJP and input gradient
+    assert calls["cg_instance_norm_act_bwd"][IN_DX_PARTS] == parts
+    assert calls["cg_conv3x3_reflect_dgrad"][0] == ds.data_ptr()
+    dws = [args for fn, args in rec.calls if fn == "cg_conv_dw"]
+    assert [args[DW_REFLECT] for args in dws] == [1, 1]
+    assert [args[1] for args in dws] == [du.data_ptr(), ds.data_ptr()]
+    assert _build.forms - before == {("in_bwd", "parts"): 2, ("wgrad", "reflect"): 2}
 
 
 # bf16 parts of each float32 operand, the products (a, b) with a + b <

@@ -40,6 +40,7 @@ Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -105,6 +106,14 @@ def child(checkout: str, out_path: str, seeds: int) -> None:
           flush=True)
 
 
+def _cotangent(RB, CD, g):
+    """The float32 cotangent ``g`` as a checkout's gradient convolutions
+    take it: ``g`` itself where their first parameter is ``g`` (the older
+    wrappers, which split it), else its two bf16 parts."""
+    first = next(iter(inspect.signature(RB.conv3x3_reflect_dgrad).parameters))
+    return g if first == "g" else CD.bf16_parts(g, 2)
+
+
 def kernel_outputs() -> dict:
     """The default path's and path B's kernels on seeded bf16 inputs at
     train shapes, by name: instance norm forward (and its statistics) and
@@ -130,15 +139,15 @@ def kernel_outputs() -> dict:
     g = torch.randn(shape, device="cuda", generator=torch.Generator(device="cuda")
                     .manual_seed(12))
     da = torch.empty(shape, device="cuda")
-    RB.conv3x3_reflect_dgrad(g, w2, da)
+    RB.conv3x3_reflect_dgrad(_cotangent(RB, CD, g), w2, da)
     out["conv3x3_reflect_dgrad"] = da
     for b in (8, 16):  # the train cells' rows
         gb = torch.randn((b,) + shape[1:], device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(12 + b))
         db = torch.empty_like(gb)
-        RB.conv3x3_reflect_dgrad(gb, w2, db)
+        RB.conv3x3_reflect_dgrad(_cotangent(RB, CD, gb), w2, db)
         out[f"conv3x3_reflect_dgrad{tuple(gb.shape)}"] = db
-    out["conv3x3_reflect_wgrad"] = RB.conv3x3_reflect_wgrad(x, g)
+    out["conv3x3_reflect_wgrad"] = RB.conv3x3_reflect_wgrad(x, _cotangent(RB, CD, g))
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     out["conv_dw"] = CD.conv_dw(xp.permute(0, 2, 3, 1).contiguous(), dy)
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
